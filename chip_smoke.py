@@ -6,26 +6,52 @@
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
 1. card and environment (``nvidia-smi`` name and power limit, versions);
-2. builds ``src/repro_torch/kernels/csrc/sim_step.cu`` with nvcc for
-   sm_90a and prints the build seconds and the ``-Xptxas -v`` report;
-3. kernel against its plain torch version on the card: a mixed batch of
-   4,096 cells with every static flag, Philox draws, several chunks --
-   every ``_State`` field must be bitwise equal;
+2. builds ``src/repro_torch/kernels/csrc/sim_step.cu`` and ``ssd_scan.cu``
+   with nvcc for sm_90a (one nvcc per source, started together) and prints
+   the build seconds and the ``-Xptxas -v`` reports;
+3. sim_step kernel against its plain torch version on the card: a mixed
+   batch of 4,096 cells with every static flag, Philox draws, several
+   chunks -- every ``_State`` field must be bitwise equal;
 4. across devices: parity draws, kernel on the card against the plain
    version on the CPU -- counts exact, floats within 1e-9 relative;
+S1. ssd_scan kernel against its plain torch version on the card at the
+   serving shape (b 8, s 1024, h 24, p 64, n 128, Q 256, bf16 x/B/C) with
+   a zero and a random initial state, and at s < Q and s = Q: y within
+   1e-2 (one bf16 rounding of y after float32 sums in another order), the
+   final state within 1e-4;
+S2. across devices: the mamba2 SMOKE config in float32, prefill and four
+   teacher-forced decode steps, kernel on the card against the plain
+   version on the CPU -- logits and caches within 1e-4; at a 32-token
+   prompt (two chunks) and a 40-token one (zero-padded to three chunks
+   for the kernel);
 5. main path: the paper's Fig. 4 grids (4 seeds, 12 h of work, k = 16)
    through ``compare_grid`` -- at least 16 of the 18 static rows must show
    relative runtime > 100% and every oracle gap must lie in [0.95, 1.05];
 6. main path: the fleet grid, 10,000 class-pooled gossip cells of
    k = 1,000,000 peers, through ``run_cells(step="fused")`` -- every cell
-   must complete.  The kernel launches of phases 5 and 6 are the main
-   path's count; the comparisons below launch outside it;
-7. each kernel variant the main path ran, against the plain step on the
-   card at its shapes: the Fig. 4 batches through ``run_cells`` with
-   ``step="fused"`` and ``step="scan"`` (every ``BatchResult`` field
-   equal), and the fleet batch one chunk bitwise on every ``_State``
-   field and end to end through the scan path; the fleet kernel is timed
-   by CUDA events beside its plain version;
+   must complete.  The sim_step launches of phases 5 and 6 are that
+   path's count;
+S3. main path: ``repro_torch.serve`` on the full mamba2-130m (24 layers,
+   d_model 768, bf16, the port's seeded init): ``greedy_generate`` of 32
+   tokens after a 1024-token prompt, batch 8 -- 24 ssd_scan launches (one
+   per layer); then prefill seconds and decode tokens/s through the step
+   factories, peak device memory, and the prefill seconds of the plain
+   ``ssd_chunked`` path (``use_flash_kernel=False``) on the same input;
+S4. the same parameters and prompt with ``use_flash_kernel=False`` (the
+   plain ``ssd_chunked`` path on the card): last-position prefill logits
+   and four teacher-forced decode steps' logits.  bf16: elementwise within
+   5e-2 + 5e-2|b|, widened only where two plain implementations (the
+   kernel's plain version against ``ssd_chunked``, the bf16 noise floor
+   measured in the same run) cross it, to at most 1.2x their gap; relative
+   RMS within 5e-2.  The same parameters in float32 within 1e-4
+   elementwise;
+7. each sim_step variant the main path ran, against the plain step on
+   the card at its shapes (every ``BatchResult`` / ``_State`` field
+   equal); the fleet kernel timed by CUDA events beside its plain version;
+S5. ``torch.profiler`` over one warm prefill and five decode steps:
+   device time by kernel, launches per step, the device's idle share;
+S6. the ssd_scan kernel timed by CUDA events at the serving shape beside
+   its plain version, and its bound;
 8. a ``kernels`` JSON line (launches on the main path, error, times,
    bound), the card's name and power limit, and the final result line.
 
@@ -44,9 +70,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks used for the bound (no tensor cores in play).
+# H100 SXM data-sheet peaks used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12      # bf16 tensor cores, dense
 # FP64 operations of one step of one class-pooled adaptive gossip cell
 # (the fleet grid's path: constant hazard, no store, no shock), counted
 # from csrc/sim_step.cu with every arithmetic operation, comparison-select
@@ -192,18 +220,26 @@ def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.monotonic()
-    build.build(["sim_step"])
+    build.build(["sim_step", "ssd_scan"])
     build.load("sim_step")
+    build.load("ssd_scan")
     log = build.BUILD_LOG["sim_step"]
     REPORT["build_seconds"] = time.monotonic() - t0
     REPORT["ptxas"] = log["ptxas"]
     REPORT["ptxas_table"] = ptxas_table(log["ptxas"])
-    print(f"[2] built sim_step.cu in {REPORT['build_seconds']:.1f} s; "
+    REPORT["ssd_build_seconds"] = build.BUILD_LOG["ssd_scan"]["seconds"]
+    REPORT["ssd_ptxas"] = build.BUILD_LOG["ssd_scan"]["ptxas"]
+    print(f"[2] built sim_step.cu and ssd_scan.cu in "
+          f"{REPORT['build_seconds']:.1f} s (ssd_scan.cu "
+          f"{REPORT['ssd_build_seconds']:.1f} s); sim_step "
           f"(store, het, shock, pm) -> registers, spill-store bytes:",
           flush=True)
     for row in REPORT["ptxas_table"]:
         print(f"    {row[:4]} -> {row[4]} registers, {row[5]} bytes spilled",
               flush=True)
+    for line in REPORT["ssd_ptxas"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"    ssd_scan: {line.strip()}", flush=True)
 
 
 def _state_diff(a, b):
@@ -508,25 +544,449 @@ def phase_fleet_measure(run: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# mamba2 serving slice: the SSD kernel and the serve path
+# --------------------------------------------------------------------------- #
+
+ARCH = "mamba2-130m"
+SERVE_SHAPE = dict(b=8, s=1024, h=24, p=64, n=128, chunk=256)
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_FORCED = 8, 1024, 32, 4
+SSD_Y_TOL = 1e-2       # bf16 y: one rounding (2^-8 relative) + f32 reorder
+SSD_F32_TOL = 1e-4     # float32 y and the final state: f32 sums reordered
+LOGIT_TOL = 5e-2       # bf16 logits (tests/test_models_smoke.py's bound)
+NOISE_FACTOR = 1.2     # bf16 logits may exceed LOGIT_TOL elementwise only
+                       # where two plain paths do, by at most this factor
+
+
+def ssd_inputs(b, s, h, p, n, dtype, seed, with_init, **_):
+    """x, dt, A, B, C, initial state on the card, made as
+    tests/test_kernels.py makes them, from a seeded generator."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = normal(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, h)) * 0.1
+    A = -torch.exp(normal(h) * 0.3)
+    B = (normal(b, s, n) * 0.5).to(dtype)
+    C = (normal(b, s, n) * 0.5).to(dtype)
+    init = normal(b, h, p, n) if with_init else None
+    return x, dt, A, B, C, init
+
+
+def _gap(a, b, tol: float) -> dict:
+    """How far a lies from b, in float32: max |a - b|, its largest ratio to
+    tol + tol |b| (within tolerance when <= 1), the relative RMS gap, and
+    whether a is finite."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    return dict(max_abs=float(d.max()),
+                max_ratio=float((d / (tol + tol * b.abs())).max()),
+                rel_rms=float(d.square().mean().sqrt()
+                              / b.square().mean().sqrt()),
+                finite=bool(a.isfinite().all()))
+
+
+def _ok(g: dict) -> bool:
+    return g["finite"] and g["max_ratio"] <= 1.0
+
+
+def phase_ssd_kernel_vs_plain() -> float:
+    """The ssd_scan kernel against its plain version on the card."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+
+    sh = SERVE_SHAPE
+    cases = [("serve, zero state", dict(sh), False),
+             ("serve, random state", dict(sh), True),
+             ("s < Q", dict(sh, s=128), True),
+             ("s = Q", dict(sh, s=256), False)]
+    worst, rows = 0.0, []
+    for i, (name, shape, with_init) in enumerate(cases):
+        x, dt, A, B, C, init = ssd_inputs(dtype=torch.bfloat16, seed=100 + i,
+                                          with_init=with_init, **shape)
+        y, st = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=shape["chunk"],
+                                  initial_state=init)
+        y_p, st_p = ssd_scan.ssd_scan_plain(x, dt, A, B, C,
+                                            chunk=shape["chunk"],
+                                            initial_state=init)
+        torch.cuda.synchronize()
+        gy, gs = _gap(y, y_p, SSD_Y_TOL), _gap(st, st_p, SSD_F32_TOL)
+        ey, es = gy["max_abs"], gs["max_abs"]
+        worst = max(worst, ey, es)
+        rows.append(dict(case=name, shape=shape, y=gy, state=gs,
+                         ok=_ok(gy) and _ok(gs)))
+        print(f"[S1] ssd_scan kernel vs plain on the card, {name} "
+              f"{shape}: max |dy| {ey:.3g} (tol {SSD_Y_TOL}), max |dstate| "
+              f"{es:.3g} (tol {SSD_F32_TOL})", flush=True)
+    REPORT["ssd_kernel_vs_plain"] = rows
+    if not all(r["ok"] for r in rows):
+        fail("ssd_scan kernel differs from its plain version")
+    return worst
+
+
+def _serve_run(model, cfg, prompt, forced):
+    """Prefill + teacher-forced decode steps: the last-position logits of
+    each and the caches."""
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + forced.shape[1])
+    srv = make_serve_step(cfg)
+    logits, cache = pre(model, {"tokens": prompt})
+    out = [logits[:, -1]]
+    first_cache = cache
+    for k in range(forced.shape[1]):
+        logits, cache = srv(model, cache, {"tokens": forced[:, k:k + 1]})
+        out.append(logits[:, -1])
+    return out, first_cache
+
+
+def phase_serve_card_vs_cpu() -> dict:
+    """The SMOKE config in float32 with the kernel on: the card against the
+    plain version on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config(ARCH).replace(param_dtype="float32",
+                                         compute_dtype="float32",
+                                         use_flash_kernel=True)
+    g = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (2, 44), generator=g)
+    models = {dev: init_params(0, cfg, device=dev) for dev in ("cuda", "cpu")}
+    gaps = []
+    for n in (32, 40):            # 40 is off the chunk grid: padded
+        res = {dev: _serve_run(m, cfg, toks[:, :n].to(dev),
+                               toks[:, n:n + 4].to(dev))
+               for dev, m in models.items()}
+        pairs = list(zip(res["cuda"][0], res["cpu"][0])) + [
+            (res["cuda"][1]["ssm"][k], res["cpu"][1]["ssm"][k])
+            for k in ("state", "conv")]
+        gaps += [_gap(a.cpu(), b, SSD_F32_TOL) for a, b in pairs]
+    errs = [g["max_abs"] for g in gaps]
+    ok = all(_ok(g) for g in gaps)
+    REPORT["serve_card_vs_cpu"] = dict(max_abs_err=max(errs), errs=errs)
+    print(f"[S2] mamba2 SMOKE float32, kernel on the card vs plain on the "
+          f"CPU, prompts of 32 and 40 tokens: prefill + 4 decode logits and "
+          f"caches, max |d| "
+          f"{max(errs):.3g} (tol {SSD_F32_TOL})", flush=True)
+    if not ok:
+        fail("mamba2 SMOKE: card and CPU disagree")
+    return REPORT["serve_card_vs_cpu"]
+
+
+def serve_setup():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(ARCH)
+    assert cfg.use_flash_kernel
+    t0 = time.monotonic()
+    model = init_params(0, cfg, device="cuda")
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=g).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[S3] mamba2-130m: {n_params:,} parameters from the port's seeded "
+          f"init in {time.monotonic() - t0:.1f} s", flush=True)
+    return cfg, model, prompt
+
+
+def phase_serve(cfg, model, prompt) -> dict:
+    """Main path: greedy_generate on the full config (the kernel path)."""
+    import torch
+
+    from repro_torch.serve import greedy_generate
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = greedy_generate(model, cfg, prompt, SERVE_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    mem = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_TOKENS) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        fail(f"greedy_generate gave {tuple(out.shape)} tokens out of range")
+    return dict(tokens=out, wall=wall, mem=mem)
+
+
+def phase_serve_measure(cfg, model, prompt, run) -> dict:
+    """Prefill seconds and decode tokens/s through the step factories (warm),
+    then the plain ssd_chunked path on the same parameters and prompt."""
+    import torch
+
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    pre = make_prefill_step(cfg, max_seq=SERVE_PROMPT + SERVE_TOKENS)
+    srv = make_serve_step(cfg)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, cache = pre(model, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(SERVE_TOKENS - 1):
+        logits, cache = srv(model, cache, {"tokens": tok})
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    dec = time.monotonic() - t0
+    tok_s = SERVE_BATCH * (SERVE_TOKENS - 1) / dec
+    # the plain ssd_chunked path's prefill on the same input, warmed once
+    plain_pre = make_prefill_step(cfg.replace(use_flash_kernel=False),
+                                  max_seq=SERVE_PROMPT + SERVE_TOKENS)
+    plain_times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        plain_pre(model, {"tokens": prompt})
+        torch.cuda.synchronize()
+        plain_times.append(time.monotonic() - t0)
+    plain_times = plain_times[1:]
+    out = dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, tokens=SERVE_TOKENS,
+               greedy_wall_s=run["wall"], peak_bytes=run["mem"],
+               prefill_s=times, plain_prefill_s=plain_times, decode_s=dec,
+               decode_tok_s=tok_s)
+    print(f"[S3] serve mamba2-130m, batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, {SERVE_TOKENS} greedy tokens: greedy_generate "
+          f"{run['wall']:.3f} s (first call), prefill "
+          f"{', '.join(f'{t:.4f}' for t in times)} s (warm), decode "
+          f"{SERVE_TOKENS - 1} steps in {dec:.3f} s = {tok_s:.1f} tok/s, "
+          f"peak {run['mem'] / 2**30:.2f} GiB; plain ssd_chunked path "
+          f"prefill {', '.join(f'{t:.4f}' for t in plain_times)} s (warm)",
+          flush=True)
+    REPORT["serve"] = out
+    return out
+
+
+def phase_serve_vs_plain(cfg, model, prompt, run) -> dict:
+    """Kernel path against the plain ssd_chunked path on the card: the
+    last-position prefill logits and SERVE_FORCED teacher-forced decode
+    steps' logits, same parameters, prompt and forced tokens.
+
+    bf16 (the serving config): held elementwise at LOGIT_TOL + LOGIT_TOL
+    |b|, as tests/test_models_smoke.py holds bf16 logits.  On a 24-layer
+    bf16 stack two plain implementations of the same SSD (the kernel's
+    plain version and ssd_chunked) can already cross that bound, so the
+    run measures their gap, the noise floor, on the same input: the
+    kernel path may exceed the bound only where the floor does, and by at
+    most NOISE_FACTOR times the floor's ratio.  Its relative RMS gap is
+    held at LOGIT_TOL.  float32 at full width (the same seeded
+    parameters): held elementwise at SSD_F32_TOL.
+    """
+    import torch
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.models import init_params
+
+    forced = run["tokens"][:, :SERVE_FORCED]
+    plain_cfg = cfg.replace(use_flash_kernel=False)
+    k_out, k_cache = _serve_run(model, cfg, prompt, forced)
+    p_out, p_cache = _serve_run(model, plain_cfg, prompt, forced)
+    # a second plain implementation in the kernel's place: its plain version
+    with mock.patch.object(ops, "ssd_scan", ssd_scan.ssd_scan_plain):
+        q_out, _ = _serve_run(model, cfg, prompt, forced)
+    k, p, q = (torch.stack(o) for o in (k_out, p_out, q_out))
+    bf16, floor = _gap(k, p, LOGIT_TOL), _gap(q, p, LOGIT_TOL)
+    bf16["limit_ratio"] = max(1.0, NOISE_FACTOR * floor["max_ratio"])
+    bf16["argmax_agree"] = float((k.argmax(-1) == p.argmax(-1)).float().mean())
+    st_err = float((k_cache["ssm"]["state"] - p_cache["ssm"]["state"]
+                    ).abs().max())
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model32 = init_params(0, cfg32, device="cuda")
+    k32, _ = _serve_run(model32, cfg32, prompt, forced)
+    p32, _ = _serve_run(model32, cfg32.replace(use_flash_kernel=False),
+                        prompt, forced)
+    f32 = _gap(torch.stack(k32), torch.stack(p32), SSD_F32_TOL)
+    del model32
+    out = dict(bf16=bf16, bf16_plain_vs_plain=floor, bf16_state_err=st_err,
+               f32=f32)
+    REPORT["serve_vs_plain"] = out
+    print(f"[S4] mamba2-130m kernel path vs plain ssd_chunked path on the "
+          f"card, prefill + {SERVE_FORCED} teacher-forced decode logits: "
+          f"bf16 rel RMS {bf16['rel_rms']:.4g} (tol {LOGIT_TOL}), max |d| "
+          f"{bf16['max_abs']:.4g} = {bf16['max_ratio']:.3f} x "
+          f"({LOGIT_TOL} + {LOGIT_TOL}|b|) (limit "
+          f"{bf16['limit_ratio']:.3f} x), argmax agree "
+          f"{bf16['argmax_agree']:.3f}, max |dstate| {st_err:.3g}; noise "
+          f"floor (kernel's plain version vs ssd_chunked): rel RMS "
+          f"{floor['rel_rms']:.4g}, max |d| {floor['max_abs']:.4g} = "
+          f"{floor['max_ratio']:.3f} x; float32 at full width: max |d| "
+          f"{f32['max_abs']:.3g} = {f32['max_ratio']:.4f} x ({SSD_F32_TOL} "
+          f"+ {SSD_F32_TOL}|b|)", flush=True)
+    if not (bf16["finite"] and bf16["max_ratio"] <= bf16["limit_ratio"]
+            and bf16["rel_rms"] <= LOGIT_TOL and _ok(f32)):
+        fail("mamba2-130m: kernel path and plain path disagree")
+    return out
+
+
+def _kernel_rows(prof) -> list:
+    """(name, device microseconds, count) of each kernel a profile saw.
+    Only the device's own rows: an operator's row repeats the time of the
+    kernels it launched."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((e.key, float(us), e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_serve_profile(cfg, model, prompt, serve: dict) -> dict:
+    """Where the serving time goes: ``torch.profiler`` over one warm
+    prefill and 5 decode steps; device time by kernel, kernels per step,
+    and the device's idle share against the unprofiled host-clock times of
+    S3 (kernels run one at a time on the one stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    pre = make_prefill_step(cfg, max_seq=SERVE_PROMPT + SERVE_TOKENS)
+    srv = make_serve_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    with profile(activities=acts) as prof:
+        logits, cache = pre(model, {"tokens": prompt})
+        torch.cuda.synchronize()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    rows = _kernel_rows(prof)
+    total = sum(r[1] for r in rows)
+    ssd = sum(r[1] for r in rows if "ssd_scan_kernel" in r[0])
+    top = rows[:8]
+    out["prefill"] = dict(device_ms=total / 1e3, ssd_scan_ms=ssd / 1e3,
+                          kernels=sum(r[2] for r in rows), top=top)
+    steps = 5
+    with profile(activities=acts) as prof:
+        for _ in range(steps):
+            logits, cache = srv(model, cache, {"tokens": tok})
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    total_d = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
+    out["decode"] = dict(device_ms_per_step=total_d / 1e3 / steps,
+                         kernels_per_step=launches / steps,
+                         top=rows[:5])
+    if total <= 0 or total_d <= 0:
+        out["note"] = "the profiler recorded no device time: not measured"
+        print(f"[S5] serve profile: {out['note']}", flush=True)
+    else:
+        pre_wall = min(serve["prefill_s"])
+        dec_wall = serve["decode_s"] / (SERVE_TOKENS - 1)
+        out["prefill"]["idle_share"] = 1.0 - total / 1e6 / pre_wall
+        out["decode"]["idle_share"] = (1.0 - total_d / 1e6 / steps
+                                       / dec_wall)
+        print(f"[S5] serve profile: prefill device time {total / 1e3:.2f} ms "
+              f"(ssd_scan {ssd / 1e3:.2f} ms = {ssd / total:.1%}), idle "
+              f"share against {pre_wall:.4f} s unprofiled "
+              f"{out['prefill']['idle_share']:.1%}; decode device time "
+              f"{total_d / 1e3 / steps:.2f} ms/step, "
+              f"{launches / steps:.0f} kernels/step, idle share against "
+              f"{dec_wall * 1e3:.2f} ms/step unprofiled "
+              f"{out['decode']['idle_share']:.1%}", flush=True)
+        for name, us, n in top:
+            print(f"    prefill {us / 1e3:8.3f} ms  {n:5d} x  {name[:70]}",
+                  flush=True)
+        for name, us, n in out["decode"]["top"]:
+            print(f"    decode  {us / 1e3 / steps:8.3f} ms/step  "
+                  f"{n / steps:5.0f} x  {name[:60]}", flush=True)
+    REPORT["serve_profile"] = out
+    return out
+
+
+def ssd_work(b, s, h, p, n, chunk, x_bytes, with_init):
+    """Bytes the scan must move (each input read once, each output written
+    once) and its float operations: C B^T once per (batch, chunk) on the
+    i >= j half (bf16 operands), and per head the masked scores times
+    dt x, C state^T and (dt x decay)^T B (float32 operands)."""
+    nc = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    ops_bf16 = 2 * b * nc * tri * n
+    ops_f32 = 2 * b * h * nc * (tri * p + 2 * chunk * p * n)
+    nbytes = (x_bytes * (2 * b * s * h * p + 2 * b * s * n)
+              + 4 * (b * s * h + h) + 4 * b * h * p * n * (2 if with_init
+                                                           else 1))
+    return nbytes, ops_bf16, ops_f32
+
+
+def phase_ssd_measure() -> dict:
+    """The kernel and its plain version timed at the serving shape."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+
+    sh = SERVE_SHAPE
+    x, dt, A, B, C, init = ssd_inputs(dtype=torch.bfloat16, seed=200,
+                                      with_init=True, **sh)
+
+    def kern():
+        return ssd_scan.ssd_scan(x, dt, A, B, C, chunk=sh["chunk"],
+                                 initial_state=init)
+
+    def plain():
+        return ssd_scan.ssd_scan_plain(x, dt, A, B, C, chunk=sh["chunk"],
+                                       initial_state=init)
+
+    ms = cuda_ms(kern, reps=20)
+    plain_ms = cuda_ms(plain, reps=3)
+    nbytes, ops_bf16, ops_f32 = ssd_work(x_bytes=2, with_init=True, **sh)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops_bf16 / BF16_TC_OPS_PER_S, ops_f32 / FP32_OPS_PER_S) * 1e3
+    out = dict(shape=sh, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+               ops_bf16=ops_bf16, ops_f32=ops_f32, bound_bytes_ms=t_bytes,
+               bound_ops_ms=t_ops,
+               bound_all_bf16_tc_ms=(ops_bf16 + ops_f32) / BF16_TC_OPS_PER_S
+               * 1e3)
+    REPORT["ssd_measure"] = out
+    print(f"[S6] ssd_scan at {sh}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+          f"ms; bound max({t_bytes:.4f} ms bytes ({nbytes:,} B), "
+          f"{t_ops:.4f} ms operations ({ops_f32:,} f32 + {ops_bf16:,} bf16 "
+          f"flop)); all operations on bf16 tensor cores would take "
+          f"{out['bound_all_bf16_tc_ms']:.4f} ms", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # float32 products in full float32 on the card (the references' setting)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     quick = "--quick" in sys.argv[1:]
     phase_env()
     phase_build()
-    from repro_torch.kernels import sim_step
+    from repro_torch.kernels import sim_step, ssd_scan
 
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
                                   64 if quick else 128)
     phase_across_devices()
+    ssd_worst = phase_ssd_kernel_vs_plain()
+    phase_serve_card_vs_cpu()
     if quick:
         _dump()
         print(json.dumps({"quick": True}))
         return 0
-    sim_step.LAUNCHES = 0          # the main path starts here
+    sim_step.LAUNCHES = 0          # the engine's main path starts here
     phase_fig4()
     fleet_run = phase_fleet(10_000)
     launches = sim_step.LAUNCHES   # ... and ends here
@@ -535,11 +995,28 @@ def main() -> int:
           f"{launches} sim_step launches", flush=True)
     if launches < 1:
         fail("the main path launched no sim_step kernel")
+    cfg, model, prompt = serve_setup()
+    ssd_scan.LAUNCHES = 0          # the serving main path starts here
+    serve_run = phase_serve(cfg, model, prompt)
+    ssd_launches = ssd_scan.LAUNCHES   # ... and ends here
+    REPORT["serve_main_path_launches"] = ssd_launches
+    print(f"[S3] serving main path (greedy_generate, one prefill of "
+          f"{cfg.n_layers} layers): {ssd_launches} ssd_scan launches",
+          flush=True)
+    if ssd_launches != cfg.n_layers:
+        fail(f"the serving main path launched ssd_scan {ssd_launches} "
+             f"times, expected {cfg.n_layers} (one per layer)")
+    phase_serve_measure(cfg, model, prompt, serve_run)
+    logits_vs_plain = phase_serve_vs_plain(cfg, model, prompt, serve_run)
+    phase_serve_profile(cfg, model, prompt, REPORT["serve"])
+    del model
     # Held against the plain step: each variant the main path ran, at its
     # shapes (the checks fail the run on any mismatch).
     phase_fig4_vs_plain()
     fleet = phase_fleet_measure(fleet_run)
+    ssd = phase_ssd_measure()
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
+    ssd_bound = max(ssd["bound_bytes_ms"], ssd["bound_ops_ms"])
     kernels = {"kernels": [{
         "name": "sim_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sim_step.cu",
@@ -550,6 +1027,22 @@ def main() -> int:
         "plain_ms": fleet["plain_ms_per_chunk"], "bound_ms": bound,
         "bound_by": ("bytes" if fleet["bound_bytes_ms"]
                      >= fleet["bound_ops_ms"] else "operations"),
+        "library_ms": None}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:33",
+        "launches": ssd_launches, "max_abs_err": ssd_worst,
+        "tolerance": {"y_bf16": SSD_Y_TOL, "state": SSD_F32_TOL},
+        "logits_vs_plain_path": {
+            "bf16_rel_rms": logits_vs_plain["bf16"]["rel_rms"],
+            "bf16_max_abs": logits_vs_plain["bf16"]["max_abs"],
+            "bf16_max_ratio": logits_vs_plain["bf16"]["max_ratio"],
+            "bf16_floor_max_ratio":
+                logits_vs_plain["bf16_plain_vs_plain"]["max_ratio"],
+            "f32_max_abs": logits_vs_plain["f32"]["max_abs"]},
+        "ms": ssd["ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd_bound,
+        "bound_by": ("bytes" if ssd["bound_bytes_ms"]
+                     >= ssd["bound_ops_ms"] else "operations"),
         "library_ms": None}]}
     REPORT["kernels"] = kernels
     _dump()

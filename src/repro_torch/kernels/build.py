@@ -3,14 +3,17 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``_build/`` next to this file (listed in ``.gitignore``):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -shared -Xcompiler -fPIC -Xptxas -v [EXTRA_FLAGS[name]]
+         -o _build/<name>-<hash>.so
 
-``-fmad=false`` keeps every multiply and add separately rounded, as
-PyTorch's elementwise kernels round them, so a kernel can equal its plain
-PyTorch version bit for bit.  The file name carries a hash of the source
-and the flags, so an edited source is rebuilt.  ``BUILD_LOG[name]`` keeps
-the build seconds and the ``-Xptxas -v`` report (registers, spills).
+``sim_step`` adds ``-fmad=false``: it keeps every multiply and add
+separately rounded, as PyTorch's elementwise kernels round them, so that
+kernel can equal its plain PyTorch version bit for bit.  ``ssd_scan`` is
+held to a stated tolerance instead and keeps nvcc's default fused
+multiply-adds.  The file name carries a hash of the source and the flags,
+so an edited source is rebuilt.  ``BUILD_LOG[name]`` keeps the build
+seconds and the ``-Xptxas -v`` report (registers, spills).
 """
 from __future__ import annotations
 
@@ -21,12 +24,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"sim_step": ("-fmad=false",)}
 
 BUILD_LOG: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -43,9 +47,14 @@ def nvcc() -> str:
     return found
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
@@ -61,7 +70,7 @@ def build(names: Sequence[str]) -> None:
                                         "path": str(out)})
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, out, tmp, time.monotonic(),
                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)))

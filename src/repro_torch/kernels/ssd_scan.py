@@ -1,0 +1,192 @@
+"""Mamba2 SSD chunked scan (forward): the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py:33``
+(``_ssd_kernel``, entry ``ssd_scan`` at ``:79``), whose grid ``(b, h, nc)``
+carries the ``(p, n)`` float32 state in VMEM across a sequential chunk
+axis and computes each chunk in the quadratic "dual" form:
+
+    y_intra = ((C B^T) o L) (dt x),  L[i, j] = exp(cum_i - cum_j), i >= j
+    y_inter = (C e^{cum}) state^T
+    state   = state e^{cum_Q} + (dt x e^{cum_Q - cum})^T B
+
+The CUDA version (``csrc/ssd_scan.cu``) runs one block per (batch, head)
+and loops over the chunks inside the block, the state in shared memory.
+The (Q, Q) score tile does not fit in shared memory at Q = 256, so the
+chunk is cut into 64 x 64 tiles and only the tiles at or below the
+diagonal are computed; the masked triangle is never exponentiated.
+
+What bounds it on an H100: at the serving shape (b 8, s 1024, h 24, p 64,
+n 128, Q 256) its least work is ~10 GFLOP, almost all with a float32
+operand, against ~68 MB to move; at the float32 rate (67 TFLOP/s) against
+3.35 TB/s the operations set the bound (~0.15 ms).  The first version
+runs its products on the float32 SIMT units from shared memory, without
+tensor cores or TMA; PERF.md holds its measured time.
+
+Contract: equal to :func:`ssd_scan_plain` (float32 sums in another order,
+one rounding of y to x's type) within the tolerance the callers state.
+
+``ssd_scan`` launches the kernel for CUDA tensors (or raises) and runs
+``ssd_scan_plain`` for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+LAUNCHES = 0
+MAX_P = 64      # head_dim the kernel takes
+MAX_N = 128     # d_state the kernel takes
+MAX_SMEM = 232_448   # bytes of shared memory one block may use on Hopper
+
+
+def _chunk(s: int, chunk: int) -> int:
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} % chunk {chunk} != 0 (the SSD kernel "
+                         f"does not pad)")
+    return chunk
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
+                   initial_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's chunk math in torch ops, chunk after chunk.
+
+    x (b, s, h, p), dt (b, s, h), A (h,), B/C (b, s, n), initial state
+    (b, h, p, n).  Returns y (b, s, h, p) in x's dtype and the final state
+    (b, h, p, n) in float32.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    Q = _chunk(s, chunk)
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    Af = A.float()
+    state = (torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for t0 in range(0, s, Q):
+        xc, dtc = xf[:, t0:t0 + Q], dtf[:, t0:t0 + Q]      # (b,Q,h,p), (b,Q,h)
+        Bc, Cc = Bf[:, t0:t0 + Q], Cf[:, t0:t0 + Q]        # (b,Q,n)
+        cum = torch.cumsum(dtc * Af, dim=1)                # (b,Q,h)
+        ch = cum.transpose(1, 2)                           # (b,h,Q)
+        L = torch.where(tri, torch.exp(ch[..., :, None] - ch[..., None, :]),
+                        0.0)                               # (b,h,Q,Q)
+        scores = Cc @ Bc.transpose(1, 2)                   # (b,Q,Q)
+        dtx = xc * dtc[..., None]                          # (b,Q,h,p)
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores[:, None] * L, dtx)
+        y_inter = (torch.einsum("bin,bhpn->bihp", Cc, state)
+                   * torch.exp(cum)[..., None])
+        ys.append(y_intra + y_inter)
+        decay_to_end = torch.exp(cum[:, -1:] - cum)[..., None]   # (b,Q,h,1)
+        contrib = torch.einsum("bjhp,bjn->bhpn", dtx * decay_to_end, Bc)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + contrib
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def _check(x, dt, A, B, C, initial_state, Q: int) -> None:
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    dev = x.device
+    named = dict(x=x, dt=dt, A=A, B=B, C=C)
+    if initial_state is not None:
+        named["initial_state"] = initial_state
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"B and C must have x's dtype {x.dtype}, got "
+                         f"{B.dtype} and {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"dt and A must be float32, got {dt.dtype} and "
+                         f"{A.dtype}")
+    if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,):
+        raise ValueError(f"dt must be {(b, s, h)} and A {(h,)}, got "
+                         f"{tuple(dt.shape)} and {tuple(A.shape)}")
+    if B.dim() != 3 or tuple(B.shape[:2]) != (b, s) or C.shape != B.shape:
+        raise ValueError(f"B and C must be ({b}, {s}, n), got "
+                         f"{tuple(B.shape)} and {tuple(C.shape)}")
+    if p > MAX_P or n > MAX_N:
+        raise ValueError(f"the kernel takes head_dim <= {MAX_P} and "
+                         f"d_state <= {MAX_N}, got {p} and {n}")
+    # Batch and sequence strides are free; the inner axes must be dense.
+    if x.stride(3) != 1 or (h > 1 and x.stride(2) != p):
+        raise ValueError(f"x must have dense (h, p) axes, strides "
+                         f"{x.stride()}")
+    if dt.stride(2) != 1:
+        raise ValueError(f"dt must have a dense h axis, strides {dt.stride()}")
+    if B.stride(2) != 1 or C.stride(2) != 1:
+        raise ValueError("B and C must have a dense n axis")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    if initial_state is not None and (
+            initial_state.dtype != torch.float32
+            or tuple(initial_state.shape) != (b, h, p, n)
+            or not initial_state.is_contiguous()):
+        raise ValueError(f"initial_state must be a contiguous float32 "
+                         f"{(b, h, p, n)}")
+    smem = _lib().ssd_scan_smem_bytes(p, n, Q)
+    if smem > MAX_SMEM:
+        raise ValueError(f"chunk {Q} needs {smem} bytes of shared memory, "
+                         f"more than the {MAX_SMEM} one block may use")
+
+
+def _lib():
+    from repro_torch.kernels import build
+
+    lib = build.load("ssd_scan")
+    if not getattr(lib, "_typed", False):
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ssd_scan_launch.argtypes = [P] * 8 + [I] * 7 + [LL] * 8 + [P]
+        lib.ssd_scan_launch.restype = I
+        lib.ssd_scan_error_string.argtypes = [I]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        lib.ssd_scan_smem_bytes.argtypes = [I, I, I]
+        lib.ssd_scan_smem_bytes.restype = LL
+        lib._typed = True
+    return lib
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (b, s, h, p); dt (b, s, h); A (h,); B, C (b, s, n).
+
+    Returns (y (b, s, h, p) in x's dtype, final state (b, h, p, n) float32).
+    ``chunk = min(chunk, s)`` must divide s.  CUDA tensors: one launch of
+    the CUDA kernel (raises if it cannot be built or launched, or if the
+    operands are not what it takes).  CPU tensors: :func:`ssd_scan_plain`.
+    """
+    global LAUNCHES
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    Q = _chunk(s, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, chunk=Q,
+                              initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got {x.device}")
+    _check(x, dt, A, B, C, initial_state, Q)
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(),
+        initial_state.data_ptr() if initial_state is not None else None,
+        y.data_ptr(), final.data_ptr(), int(x.dtype == torch.bfloat16),
+        b, s, h, p, n, Q, x.stride(0), x.stride(1), dt.stride(0),
+        dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: "
+                           f"{lib.ssd_scan_error_string(rc).decode()}")
+    LAUNCHES += 1
+    return y, final

@@ -1,0 +1,61 @@
+"""Serving step factories: batched prefill + decode over a static cache
+(the port of ``repro/serve/step.py``).
+
+``make_serve_step`` builds one decode step: one new token per sequence
+against the state cache.  The steps run eagerly under
+``torch.inference_mode``; there is no ``jit`` to build.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import (Mamba2LM, decode_step, forward,
+                                      init_cache, prefill)
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: int,
+                      cache_dtype=torch.bfloat16) -> Callable:
+    """(params, batch) -> (last_logits, cache).  batch: {'tokens': (B, S)}."""
+
+    @torch.inference_mode()
+    def prefill_step(params: Mamba2LM, batch: Dict[str, torch.Tensor]):
+        tokens = batch["tokens"]
+        cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
+                           device=tokens.device)
+        logits, cache, _ = forward(params, batch, cfg, cache=cache,
+                                   last_only=True)
+        return logits, cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """(params, cache, batch) -> (logits, new_cache): one decode step."""
+
+    @torch.inference_mode()
+    def serve_step(params: Mamba2LM, cache, batch: Dict[str, torch.Tensor]):
+        logits, new_cache, _ = forward(params, batch, cfg, cache=cache)
+        return logits, new_cache
+
+    return serve_step
+
+
+@torch.inference_mode()
+def greedy_generate(params: Mamba2LM, cfg: ModelConfig, prompt: torch.Tensor,
+                    n_steps: int, max_seq: Optional[int] = None,
+                    frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Simple greedy decoding loop: (B, S) prompt -> (B, n_steps) tokens."""
+    if frames is not None:
+        raise NotImplementedError("frames (the encdec family) are not "
+                                  "ported yet (ROADMAP Queue 1)")
+    B, S = prompt.shape
+    max_seq = max_seq or (S + n_steps)
+    logits, cache = prefill(params, prompt, cfg, max_seq)
+    out = [torch.argmax(logits[:, -1], dim=-1)]
+    for _ in range(n_steps - 1):
+        logits, cache = decode_step(params, cache, out[-1][:, None], cfg)
+        out.append(torch.argmax(logits[:, -1], dim=-1))
+    return torch.stack(out, dim=1)

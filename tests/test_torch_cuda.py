@@ -1,4 +1,4 @@
-"""The CUDA sim-step kernel against its plain torch version, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card.
 
 Marked ``cuda``: it skips without a CUDA device (decided inside the test,
 so every xdist worker collects the same tests).  Imports only torch and
@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import sim_step as TK
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.p2p import StoreSpec
 from repro_torch.sim import (CellSpec, PeerClass, PeerClassMix, PolicyConfig,
                              ShockSpec, scenario)
@@ -122,3 +123,74 @@ def test_main_path_variants_equal_plain_version_on_card(variant, flags):
             assert bool(same.all()), name
         s = a
     assert bool(s.finished.any())
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, seed, with_init):
+    """x, dt, A, B, C, initial state on the card, made as
+    tests/test_kernels.py makes them, from a seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = normal(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, h)) * 0.1
+    A = -torch.exp(normal(h) * 0.3)
+    B = (normal(b, s, n) * 0.5).to(dtype)
+    C = (normal(b, s, n) * 0.5).to(dtype)
+    init = normal(b, h, p, n) if with_init else None
+    return x, dt, A, B, C, init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", [
+    (2, 64, 3, 64, 128, 256, torch.bfloat16),     # s < Q: one short chunk
+    (2, 512, 4, 64, 128, 256, torch.bfloat16),    # two full chunks
+    (1, 96, 2, 16, 16, 32, torch.float32),        # small head, ragged tile
+])
+def test_ssd_kernel_matches_plain_version_on_card(b, s, h, p, n, chunk,
+                                                  dtype, with_init):
+    """y within 1e-2 (bf16: one rounding of y, 2^-8 relative, after float32
+    sums in another order) or 1e-4 (float32), the final state within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    x, dt, A, B, C, init = _ssd_inputs(b, s, h, p, n, dtype, 21, with_init)
+    before = SSD.LAUNCHES
+    y, st = SSD.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init)
+    y_p, st_p = SSD.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                   initial_state=init)
+    torch.cuda.synchronize()
+    assert SSD.LAUNCHES == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_strided_slices_and_refuses_bad_operands():
+    """The model hands the kernel slices of the conv output: the batch and
+    sequence strides are free, the inner axes dense.  What it cannot take
+    raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    b, s, h, p, n = 2, 128, 4, 64, 128
+    x, dt, A, B, C, _ = _ssd_inputs(b, s, h, p, n, torch.bfloat16, 22, False)
+    wide = torch.cat([x.reshape(b, s, h * p), B, C], dim=-1)
+    xs = wide[..., :h * p].reshape(b, s, h, p)
+    Bs, Cs = wide[..., h * p:h * p + n], wide[..., h * p + n:]
+    assert not xs.is_contiguous() and not Bs.is_contiguous()
+    y, st = SSD.ssd_scan(xs, dt, A, Bs, Cs, chunk=64)
+    y_c, st_c = SSD.ssd_scan(x, dt, A, B, C, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_c) and torch.equal(st, st_c)
+    before = SSD.LAUNCHES
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x, dt.double(), A, B, C, chunk=64)
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     B, C, chunk=64)
+    with pytest.raises(ValueError):
+        SSD.ssd_scan(x, dt, A, B, C, chunk=48)      # 128 % 48 != 0
+    assert SSD.LAUNCHES == before
