@@ -1,14 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full run (one card, ~minutes)
-    python3 chip_smoke.py --quick    # build + kernel checks at a small size
+    python3 chip_smoke.py --quick    # build + kernel checks (to T2)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
 1. card and environment (``nvidia-smi`` name and power limit, versions);
-2. builds ``src/repro_torch/kernels/csrc/sim_step.cu`` and ``ssd_scan.cu``
-   with nvcc for sm_90a (one nvcc per source, started together) and prints
-   the build seconds and the ``-Xptxas -v`` reports;
+2. builds ``src/repro_torch/kernels/csrc/sim_step.cu``, ``ssd_scan.cu``
+   and ``ckpt_quant.cu`` with nvcc for sm_90a (one nvcc per source,
+   started together) and prints the build seconds and the ``-Xptxas -v``
+   reports;
 3. sim_step kernel against its plain torch version on the card: a mixed
    batch of 4,096 cells with every static flag, Philox draws, several
    chunks -- every ``_State`` field must be bitwise equal;
@@ -52,6 +53,33 @@ S5. ``torch.profiler`` over one warm prefill and five decode steps:
    device time by kernel, launches per step, the device's idle share;
 S6. the ssd_scan kernel timed by CUDA events at the serving shape beside
    its plain version, and its bound;
+T1. the ckpt_quant kernels (quantize_blocks, dequantize_blocks) against
+   their plain versions on the card, bitwise (0 mismatching codes, scales
+   and float32/bf16 values): at mamba2-130m's embedding leaf (38,615,040
+   float32, 75,420 blocks of 512) and an in_proj leaf (2,574,336, 5,028
+   blocks), and at the edge cases (zero block, exact .5 ties, values near
+   the float32 range, 1, 3 and 257 blocks, blocks of 32, 96 and 4096,
+   float32 and bf16 in, a misaligned input);
+T2. across devices, mamba2 SMOKE float32: compress_grads on the same
+   gradients for three error-feedback steps, card against CPU, bitwise;
+   one train step from the same weights: loss within 1e-5 relative,
+   gradients within 1e-4 max|g| + 1e-6, the AdamW update of the same
+   gradients within 1e-5 relative + 1e-6;
+T3. main path: ``repro_torch.launch.train``'s code path on the full
+   mamba2-130m (bf16, remat 'full', ssd_chunked), SyntheticLM batch 8 x
+   1024 in 2 microbatches, the adaptive policy, 8 steps, checkpoints into
+   ``.smoke_ckpt/`` with one neighbour replica (removed afterwards); an
+   injector seed with one restart; >= 1 checkpoint, finite losses, the mean
+   of the last 3 below the first; then compress_grads three times on the
+   trained model's gradients, the error state carried: every |new_err|
+   within its block's scale / 2 (1 + 2^-15), and one quantize and two
+   dequantize launches per leaf (218 and 436 a call);
+T4. training numbers: warm step seconds and tokens/s, peak memory, V
+   (blocking snapshot) and write seconds, a timed restore of the newest
+   image (T_d), the controller's interval, compress_grads seconds, a
+   profiler pass over one train step (device time by kernel, idle share);
+   each quant kernel by CUDA events at the embedding leaf beside its plain
+   version, its bytes bound and, for dequantize, torch.dequantize;
 8. a ``kernels`` JSON line (launches on the main path, error, times,
    bound), the card's name and power limit, and the final result line.
 
@@ -62,6 +90,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -220,26 +249,31 @@ def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.monotonic()
-    build.build(["sim_step", "ssd_scan"])
-    build.load("sim_step")
-    build.load("ssd_scan")
+    names = ["sim_step", "ssd_scan", "ckpt_quant"]
+    build.build(names)
+    for name in names:
+        build.load(name)
     log = build.BUILD_LOG["sim_step"]
     REPORT["build_seconds"] = time.monotonic() - t0
     REPORT["ptxas"] = log["ptxas"]
     REPORT["ptxas_table"] = ptxas_table(log["ptxas"])
     REPORT["ssd_build_seconds"] = build.BUILD_LOG["ssd_scan"]["seconds"]
     REPORT["ssd_ptxas"] = build.BUILD_LOG["ssd_scan"]["ptxas"]
-    print(f"[2] built sim_step.cu and ssd_scan.cu in "
+    REPORT["quant_build_seconds"] = build.BUILD_LOG["ckpt_quant"]["seconds"]
+    REPORT["quant_ptxas"] = build.BUILD_LOG["ckpt_quant"]["ptxas"]
+    print(f"[2] built sim_step.cu, ssd_scan.cu and ckpt_quant.cu in "
           f"{REPORT['build_seconds']:.1f} s (ssd_scan.cu "
-          f"{REPORT['ssd_build_seconds']:.1f} s); sim_step "
+          f"{REPORT['ssd_build_seconds']:.1f} s, ckpt_quant.cu "
+          f"{REPORT['quant_build_seconds']:.1f} s); sim_step "
           f"(store, het, shock, pm) -> registers, spill-store bytes:",
           flush=True)
     for row in REPORT["ptxas_table"]:
         print(f"    {row[:4]} -> {row[4]} registers, {row[5]} bytes spilled",
               flush=True)
-    for line in REPORT["ssd_ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ssd_scan: {line.strip()}", flush=True)
+    for name, key in (("ssd_scan", "ssd_ptxas"), ("ckpt_quant", "quant_ptxas")):
+        for line in REPORT[key].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"    {name}: {line.strip()}", flush=True)
 
 
 def _state_diff(a, b):
@@ -963,6 +997,470 @@ def phase_ssd_measure() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# mamba2 training slice: the ckpt_quant kernels and the fault-tolerant trainer
+# --------------------------------------------------------------------------- #
+
+QBLOCK = 512
+EMBED_LEAF = 50_280 * 768      # 38,615,040 elements: 75,420 blocks of 512
+IN_PROJ_LEAF = 768 * 3_352     # 2,574,336 elements: 5,028 blocks
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 8
+# The injector, picked on the CPU (its numpy streams are the same on the
+# card): 64 nodes of MTBF 32,000 s at 60 virtual seconds a step, and fixed
+# virtual overheads (V 5 s, T_d 12 s, the trainer tests' values) so that
+# the clock, and with it every decision, does not hang on measured times.
+# With seed 6 the adaptive policy commits 6 images; the one failure comes
+# after the commit of step 4 and one step past it, so the run rolls back
+# to step 4's image (restored in the loop, 1 wasted step) and restarts.
+TRAIN_NODES, TRAIN_MTBF, TRAIN_STEP_S, TRAIN_INJECTOR_SEED = (
+    64, 32000.0, 60.0, 6)
+TRAIN_V, TRAIN_TD = 5.0, 12.0
+# Error feedback: |new_err| <= scale / 2 (1 + 2^-15) in every block.  In
+# exact arithmetic the residual is at most half a step; in float32, x /
+# scale (|x / scale| <= 127.5) carries up to 2^-17 of a step before the
+# rounding to an integer, q * scale and x - deq up to 2^-17 and 2^-25 more,
+# so (0.5 + 2^-16 + 2^-25) steps in all.  The CPU rehearsal measured
+# 1 + 4.4e-6, above 1 + 2^-20; the JAX package computes the same bits.
+EF_SLACK = 1.0 + 2.0 ** -15
+STEP_TOL = 1e-5                # T2: loss and master, card vs CPU, float32
+# T2: elements whose nonzero CPU gradient is below ADAM_TINY_GRAD (Adam's
+# step g / (|g| + eps) turns their float32 noise into a visible fraction of
+# lr) are held to ADAM_TINY_STEP lr instead, and must be under 1% of the
+# parameters: tests/test_torch_train.py's rule for three steps.
+ADAM_TINY_GRAD, ADAM_TINY_STEP = 1e-6, 0.05
+
+
+def quant_edge_cases():
+    """(name, float64 values, block): the edge cases of the ckpt_quant
+    kernels' contract, made from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    ties = rng.integers(-127, 127, 512) + 0.5
+    ties[0] = 127.0                       # scale exactly 1.0: exact ties
+    nonfinite = rng.standard_normal(3 * 512)
+    nonfinite[[5, 512 + 7, 512 + 9, 1025, 1026]] = [np.nan, np.inf, -np.inf,
+                                                    np.inf, np.nan]
+    return [
+        ("zero block", np.zeros(2 * 512), 512),
+        ("ties", ties, 512),
+        ("extremes", rng.uniform(-3e38, 3e38, 512), 512),
+        ("single block", rng.standard_normal(512), 512),
+        ("3 blocks", rng.standard_normal(3 * 512) * 1e-20, 512),
+        ("257 blocks", rng.standard_normal(257 * 512) * 50.0, 512),
+        ("block 32", rng.standard_normal(7 * 32), 32),
+        ("block 96", rng.standard_normal(5 * 96), 96),
+        ("block 4096", rng.standard_normal(3 * 4096), 4096),
+        ("nan and inf", nonfinite, 512),
+    ]
+
+
+def _differ(a, b):
+    """(elements that differ, largest |a - b| over the finite pairs): a NaN
+    matches a NaN, an inf the same inf."""
+    nan = a.isnan() & b.isnan()
+    same = (a == b) | nan
+    fin = a.isfinite() & b.isfinite()
+    d = (a.double() - b.double()).abs()[fin]
+    return int((~same).sum()), float(d.max()) if d.numel() else 0.0
+
+
+def _quant_vs_plain(x, block: int):
+    """Mismatching elements of the kernels against their plain versions
+    (codes, scales, float32 and bf16 dequantized values) and the largest
+    absolute difference."""
+    import torch
+
+    from repro_torch.kernels import ckpt_quant as Q
+
+    q, s = Q.quantize_blocks(x, block)
+    qp, sp = Q.quantize_blocks_plain(x, block)
+    mism, err = {}, 0.0
+    for name, a, b in (("codes", q, qp), ("scales", s, sp)):
+        mism[name], e = _differ(a, b)
+        err = max(err, e)
+    for out in (torch.float32, torch.bfloat16):
+        d = Q.dequantize_blocks(q, s, block, out)
+        dp = Q.dequantize_blocks_plain(q, s, block, out)
+        mism[f"dequant_{str(out)[6:]}"], e = _differ(d, dp)
+        err = max(err, e)
+    torch.cuda.synchronize()
+    return mism, err
+
+
+def phase_quant_kernel_vs_plain() -> float:
+    """T1: the ckpt_quant kernels against their plain versions on the card,
+    bitwise, at the full-width leaves and the edge cases."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(300)
+    rows = []
+    for name, n in (("embedding leaf", EMBED_LEAF), ("in_proj leaf",
+                                                     IN_PROJ_LEAF)):
+        mag = torch.pow(10.0, torch.empty(n // QBLOCK, device="cuda")
+                        .uniform_(-6.0, 1.0, generator=g))
+        x = torch.randn(n, generator=g, device="cuda") * mag.repeat_interleave(
+            QBLOCK)
+        mism, err = _quant_vs_plain(x, QBLOCK)
+        rows.append(dict(case=name, dtype="float32", n=n, block=QBLOCK,
+                         mismatches=mism, max_abs_err=err))
+    for name, values, block in quant_edge_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.as_tensor(values, dtype=torch.float32).to(dtype).cuda()
+            for tag, xin in (("", x), (", misaligned",
+                                       torch.cat([x[:1], x])[1:])):
+                mism, err = _quant_vs_plain(xin, block)
+                rows.append(dict(case=name + tag, dtype=str(dtype)[6:],
+                                 n=xin.numel(), block=block,
+                                 mismatches=mism, max_abs_err=err))
+    bad = [r for r in rows if any(r["mismatches"].values())]
+    worst = max(r["max_abs_err"] for r in rows)
+    REPORT["quant_kernel_vs_plain"] = rows
+    for r in rows[:2]:
+        print(f"[T1] ckpt_quant kernels vs plain on the card, {r['case']} "
+              f"({r['n']:,} float32, {r['n'] // QBLOCK:,} blocks): "
+              f"mismatches {r['mismatches']}", flush=True)
+    print(f"[T1] edge cases ({len(rows) - 2} runs: zero block, .5 ties, "
+          f"extremes, 1, 3 and 257 blocks, blocks of 32, 96 and 4096, NaN and "
+          f"inf, float32 "
+          f"and bf16 in, aligned and misaligned, float32 and bf16 out): "
+          f"{len(bad)} with mismatches; max |kernel - plain| {worst}",
+          flush=True)
+    if bad:
+        fail(f"ckpt_quant kernels differ from their plain versions: {bad}")
+    return worst
+
+
+def _train_smoke_cfg():
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(ARCH).replace(param_dtype="float32",
+                                          compute_dtype="float32")
+
+
+def phase_train_card_vs_cpu() -> dict:
+    """T2: compress_grads on the same SMOKE gradients (the CPU's, carried to
+    the card), card kernels against the CPU's plain versions for three
+    error-feedback steps: bitwise.  Then one SMOKE float32 train step from
+    the same seeded weights on each device, checked part by part: the loss
+    within STEP_TOL relative; each leaf's gradient within 1e-4 max|g| +
+    1e-6 (the CPU tests' bound); the AdamW update of the same gradients on
+    each device, master within STEP_TOL relative + 1e-6; and the whole
+    step's master within STEP_TOL relative + 1e-6, except the elements of
+    a tiny gradient (ADAM_TINY_GRAD, under 1% of them), held to
+    ADAM_TINY_STEP lr."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train.compress import compress_grads, init_error_feedback
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (compute_grads, init_train_state,
+                                        make_train_step)
+
+    cfg = _train_smoke_cfg()
+    states = {dev: init_train_state(0, cfg, dev) for dev in ("cuda", "cpu")}
+    states["cuda"].load_tree(states["cpu"].tree())     # the same weights
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=4, seed=2)).batch_at(0)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    g_cpu, _ = compute_grads(states["cpu"].params, tb, cfg)
+    g_own, _ = compute_grads(states["cuda"].params,
+                             {k: v.cuda() for k, v in tb.items()}, cfg)
+    g_gpu = {k: v.cuda() for k, v in g_cpu.items()}
+    e_cpu, e_gpu = init_error_feedback(g_cpu), init_error_feedback(g_gpu)
+    comp_mism = 0
+    for _ in range(3):
+        o_cpu, e_cpu = compress_grads(g_cpu, e_cpu)
+        o_gpu, e_gpu = compress_grads(g_gpu, e_gpu)
+        comp_mism += sum(int((o_gpu[k].cpu() != o_cpu[k]).sum())
+                         + int((e_gpu[k].cpu() != e_cpu[k]).sum())
+                         for k in g_cpu)
+    grad_ratio = max(float(((g_own[k].cpu() - g).abs()
+                            / (1e-4 * g.abs().max() + 1e-6)).max())
+                     for k, g in g_cpu.items())
+    opt = AdamWConfig(lr=1e-3)
+    upd = {dev: adamw_update(opt, g, states[dev].opt)[0]
+           for dev, g in (("cuda", g_gpu), ("cpu", g_cpu))}
+    opt_ratio = max(float(((upd["cuda"][k].cpu() - w).abs()
+                           / (STEP_TOL * w.abs() + 1e-6)).max())
+                    for k, w in upd["cpu"].items())
+    out = {dev: make_train_step(cfg, opt, constant(1.0))(states[dev], batch)
+           for dev in states}
+    loss = {dev: float(m["loss"]) for dev, (_, m) in out.items()}
+    loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    beyond, n_tiny, tiny_max, worst = 0, 0, 0.0, []
+    for k, w in out["cpu"][0].opt.master.items():
+        d = (out["cuda"][0].opt.master[k].cpu() - w).abs()
+        tiny = (g_cpu[k].abs() < ADAM_TINY_GRAD) & (g_cpu[k] != 0)
+        bad = (d > STEP_TOL * w.abs() + 1e-6) & ~tiny
+        beyond += int(bad.sum())
+        n_tiny += int(tiny.sum())
+        if tiny.any():
+            tiny_max = max(tiny_max, float(d[tiny].max()))
+        worst += [(float(d.reshape(-1)[i]), k, float(g_cpu[k].reshape(-1)[i]),
+                   float(g_own[k].reshape(-1)[i].cpu()))
+                  for i in bad.reshape(-1).nonzero()[:4, 0].tolist()]
+    n_params = sum(t.numel() for t in g_cpu.values())
+    res = dict(compress_mismatches=comp_mism, loss_cuda=loss["cuda"],
+               loss_cpu=loss["cpu"], loss_rel_err=loss_rel,
+               grad_max_ratio=grad_ratio, adamw_max_ratio=opt_ratio,
+               step_master_beyond_tol=beyond, step_master_tiny=n_tiny,
+               step_master_tiny_max_abs=tiny_max,
+               step_master_worst=sorted(worst, reverse=True)[:8],
+               n_params=n_params)
+    REPORT["train_card_vs_cpu"] = res
+    print(f"[T2] mamba2 SMOKE float32, card vs CPU: compress_grads x3 on the "
+          f"same gradients {comp_mism} mismatching elements; one train step: "
+          f"loss {loss['cuda']:.7f} vs {loss['cpu']:.7f} (rel "
+          f"{loss_rel:.3g}, tol {STEP_TOL}), gradients {grad_ratio:.3f} x "
+          f"(1e-4 max|g| + 1e-6), AdamW on the same gradients {opt_ratio:.3f}"
+          f" x ({STEP_TOL}|b| + 1e-6); whole step's master: {beyond} of "
+          f"{n_params:,} elements beyond {STEP_TOL}|b| + 1e-6, {n_tiny} of "
+          f"a gradient below {ADAM_TINY_GRAD} within {tiny_max:.3g} (limit "
+          f"{ADAM_TINY_STEP * opt.lr:.3g})", flush=True)
+    if (comp_mism or loss_rel > STEP_TOL or grad_ratio > 1.0
+            or opt_ratio > 1.0 or beyond or n_tiny >= 1e-2 * n_params
+            or tiny_max > ADAM_TINY_STEP * opt.lr):
+        fail(f"mamba2 SMOKE training: card and CPU disagree (worst master "
+             f"elements: |d|, leaf, CPU and card gradient: "
+             f"{res['step_master_worst']})")
+    return res
+
+
+def train_argv(ckpt_dir: str) -> list:
+    """The command line of the training main path."""
+    return ["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--ckpt-dir",
+            ckpt_dir, "--replicas", "1", "--policy", "adaptive", "--mtbf",
+            str(TRAIN_MTBF), "--nodes", str(TRAIN_NODES), "--step-seconds",
+            str(TRAIN_STEP_S), "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO),
+            "--injector-seed", str(TRAIN_INJECTOR_SEED), "--keep", "1",
+            "--virtual-ckpt-overhead", str(TRAIN_V), "--virtual-restore-time",
+            str(TRAIN_TD)]
+
+
+def phase_train(ckpt_dir: str) -> dict:
+    """T3 (main path): ``repro_torch.launch.train`` on mamba2-130m (bf16,
+    remat 'full', the SSD through ssd_chunked), the adaptive policy, 8
+    steps of batch 8 x 1024 in 2 microbatches, one neighbour replica; then
+    compress_grads on the trained model's gradients (three batches),
+    carrying the error state."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import ckpt_quant as Q
+    from repro_torch.launch import train as launch
+    from repro_torch.train.compress import compress_grads, init_error_feedback
+    from repro_torch.train.step import _to_device, compute_grads
+
+    args = launch.parser().parse_args(train_argv(ckpt_dir))
+    trainer, ckpt = launch.build(args)
+    cfg = trainer.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        report = trainer.run(n_steps=args.steps)
+    finally:
+        ckpt.close()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    mem = torch.cuda.max_memory_allocated()
+    print(f"[T3] {launch.summary(report)}", flush=True)
+    losses = report.losses
+    restored = trainer.restored_steps
+    print(f"[T3] in-run restores returned the images of steps {restored}; "
+          f"{report.wasted_steps} steps wasted", flush=True)
+    if not (report.steps_completed == TRAIN_STEPS and report.n_checkpoints >= 1
+            and report.n_restarts >= 1 and report.wasted_steps >= 1
+            and any(s is not None and s >= 1 for s in restored)):
+        fail(f"training main path: no rollback to a committed image: "
+             f"{report}, restores {restored}")
+    if not (all(math.isfinite(v) for v in losses)
+            and sum(losses[-3:]) / 3 < losses[0]):
+        fail(f"training main path: losses {losses}")
+    # compress_grads on the trained model's gradients, error state carried
+    state = trainer.state
+    err = init_error_feedback(dict(state.params.named_parameters()))
+    per_call, secs, ef_ratio = [], [], 0.0
+    for i in range(3):
+        batch = _to_device(trainer.data.batch_at(TRAIN_STEPS + i),
+                           state.opt.step.device)
+        grads, _ = compute_grads(state.params, batch, cfg)
+        before = dict(Q.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        _, new_err = compress_grads(grads, err, block=QBLOCK)
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t1)
+        per_call.append({k: Q.LAUNCHES[k] - before[k] for k in before})
+        # error feedback: |g + err - deq| <= scale / 2 in every block
+        for k, g in grads.items():
+            flat = (g.float() + err[k]).reshape(-1)
+            pad = -flat.numel() % QBLOCK
+            amax = torch.nn.functional.pad(flat, (0, pad)).reshape(
+                -1, QBLOCK).abs().amax(1)
+            scale = torch.where(amax > 0, amax * Q._inv127(amax),
+                                torch.ones_like(amax))
+            e = torch.nn.functional.pad(new_err[k].reshape(-1), (0, pad))
+            ratio = (e.reshape(-1, QBLOCK).abs().amax(1) / (scale / 2)).max()
+            ef_ratio = max(ef_ratio, float(ratio))
+        err = new_err
+        del grads
+    n_leaves = len(err)
+    out = dict(report=report.__dict__, restored_steps=restored, wall_s=wall,
+               peak_bytes=mem, timings=trainer.timings, compress_seconds=secs,
+               compress_launches=per_call, n_leaves=n_leaves,
+               error_feedback_max_ratio=ef_ratio, trainer=trainer)
+    print(f"[T3] training main path: {report.steps_completed} steps, "
+          f"{report.n_failures} failures, {report.n_checkpoints} checkpoints, "
+          f"{report.n_restarts} restarts in {wall:.1f} s; losses "
+          f"{[round(v, 4) for v in losses]}; compress_grads x3 over "
+          f"{n_leaves} leaves: launches per call {per_call}, error feedback "
+          f"max |err| / (scale/2) {ef_ratio:.7f} (limit {EF_SLACK})",
+          flush=True)
+    want = {"quantize_blocks": n_leaves, "dequantize_blocks": 2 * n_leaves}
+    if any(c != want for c in per_call):
+        fail(f"compress_grads launched {per_call} per call, expected {want}")
+    if ef_ratio > EF_SLACK:
+        fail(f"error feedback invariant broken: {ef_ratio}")
+    return out
+
+
+def phase_train_measure(run: dict) -> dict:
+    """T4: the training main path's numbers: warm step seconds and tokens/s,
+    peak memory, V (blocking) and write seconds, a timed restore of the
+    newest image (T_d), the controller's interval, compress_grads seconds;
+    then torch.profiler over one train step (device time by kernel, idle
+    share)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = run.pop("trainer")
+    tm = trainer.timings
+    warm = tm["step"][1:] or tm["step"]
+    step_s = statistics.median(warm)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    state = trainer.state
+    t0 = time.monotonic()
+    restored = trainer.ckpt.restore_latest(state.tree())
+    if restored is None:
+        fail("no committed checkpoint to restore")
+    state.load_tree(restored[1])
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    del restored
+    image_bytes = sum(t.numel() * t.element_size()
+                      for t in state.tree().values())
+    batch = trainer.data.batch_at(0)
+    trainer.train_step(state, batch)          # warm, outside the profile
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    unprof = time.monotonic() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    total = sum(r[1] for r in rows)
+    prof_out = dict(device_ms=total / 1e3, kernels=sum(r[2] for r in rows),
+                    top=rows[:10], unprofiled_step_s=unprof)
+    if total > 0:
+        prof_out["idle_share"] = 1.0 - total / 1e6 / unprof
+    out = dict(run, warm_step_s=warm, median_step_s=step_s, tokens_per_s=tok_s,
+               image_bytes=image_bytes, restore_s=restore_s,
+               controller_interval=run["report"]["controller_interval"],
+               profile=prof_out)
+    REPORT["train"] = out
+    print(f"[T4] train mamba2-130m, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{TRAIN_MICRO} microbatches, bf16, remat full: warm step "
+          f"{', '.join(f'{t:.4f}' for t in warm)} s (median {step_s:.4f} s = "
+          f"{tok_s:,.0f} tokens/s; first {tm['step'][0]:.3f} s), peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"[T4] checkpoint image {image_bytes / 1e9:.3f} GB: V (blocking "
+          f"snapshot) {', '.join(f'{t:.3f}' for t in tm['save_blocking'])} s, "
+          f"write + replica {', '.join(f'{t:.3f}' for t in tm['write'])} s, "
+          f"restore of the newest image (T_d) {restore_s:.3f} s; in-run "
+          f"restores {', '.join(f'{t:.3f}' for t in tm['restore'])} s; "
+          f"controller interval {out['controller_interval']:.1f} virtual s; "
+          f"compress_grads {', '.join(f'{t:.4f}' for t in run['compress_seconds'])} s",
+          flush=True)
+    if total > 0:
+        print(f"[T4] train step profile: device time {total / 1e3:.2f} ms "
+              f"against {unprof:.4f} s unprofiled, {prof_out['kernels']} "
+              f"kernels, idle share {prof_out['idle_share']:.1%}", flush=True)
+        for name, us, n in rows[:10]:
+            print(f"    {us / 1e3:8.3f} ms  {n:5d} x  {name[:70]}", flush=True)
+    else:
+        print("[T4] train step profile: the profiler recorded no device "
+              "time: not measured", flush=True)
+    return out
+
+
+def quant_work(n: int, block: int, in_bytes: int, out_bytes: int) -> int:
+    """Bytes one pass must move: the input read once, the output written
+    once (codes are 1 byte, scales 4 bytes a block)."""
+    return n * in_bytes + n * out_bytes + 4 * (n // block)
+
+
+def phase_quant_measure() -> dict:
+    """T4: the quant kernels timed by CUDA events at the embedding leaf
+    (float32 in and out), beside their plain versions, their bytes bounds
+    and, for dequantize, torch.dequantize of a per-channel qint8 tensor
+    (the one PyTorch call computing the same function; quantize has none:
+    torch.quantize_per_channel needs the scales given)."""
+    import torch
+
+    from repro_torch.kernels import ckpt_quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(301)
+    x = torch.randn(EMBED_LEAF, generator=g, device="cuda") * 0.01
+    q, s = Q.quantize_blocks(x, QBLOCK)
+    ms_q = cuda_ms(lambda: Q.quantize_blocks(x, QBLOCK), reps=20)
+    ms_d = cuda_ms(lambda: Q.dequantize_blocks(q, s, QBLOCK), reps=20)
+    plain_q = cuda_ms(lambda: Q.quantize_blocks_plain(x, QBLOCK), reps=5)
+    plain_d = cuda_ms(lambda: Q.dequantize_blocks_plain(q, s, QBLOCK), reps=5)
+    b_q = quant_work(EMBED_LEAF, QBLOCK, 4, 1)
+    b_d = quant_work(EMBED_LEAF, QBLOCK, 1, 4)
+    lib_d, lib_note, lib_equal = None, None, None
+    try:
+        qt = torch._make_per_channel_quantized_tensor(
+            q.reshape(-1, QBLOCK), s.double(),
+            torch.zeros_like(s, dtype=torch.int64), 0)
+        lib_equal = bool(torch.equal(torch.dequantize(qt).reshape(-1),
+                                     Q.dequantize_blocks(q, s, QBLOCK)))
+        lib_d = cuda_ms(lambda: torch.dequantize(qt), reps=20)
+    except Exception as e:          # noqa: BLE001 - recorded, not hidden
+        lib_note = f"{type(e).__name__}: {e}"[:300]
+    out = dict(n=EMBED_LEAF, blocks=EMBED_LEAF // QBLOCK,
+               quantize=dict(ms=ms_q, plain_ms=plain_q, bytes=b_q,
+                             bound_ms=b_q / HBM_BYTES_PER_S * 1e3,
+                             library_ms=None,
+                             library_note="none: torch.quantize_per_channel "
+                                          "needs the scales given"),
+               dequantize=dict(ms=ms_d, plain_ms=plain_d, bytes=b_d,
+                               bound_ms=b_d / HBM_BYTES_PER_S * 1e3,
+                               library_ms=lib_d, library_note=lib_note,
+                               library_equals_kernel=lib_equal))
+    REPORT["quant_measure"] = out
+    for name in ("quantize", "dequantize"):
+        r = out[name]
+        print(f"[T4] {name}_blocks at the embedding leaf ({EMBED_LEAF:,} "
+              f"float32, {EMBED_LEAF // QBLOCK:,} blocks): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bytes']:,} B at 3.35 TB/s); "
+              f"library {r['library_ms'] if r['library_ms'] is not None else 'none'}"
+              f"{'' if r.get('library_note') is None else ' (' + r['library_note'] + ')'}"
+              f"{'' if r.get('library_equals_kernel') is None else ', equals the kernel: ' + str(r['library_equals_kernel'])}",
+              flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -975,13 +1473,15 @@ def main() -> int:
     quick = "--quick" in sys.argv[1:]
     phase_env()
     phase_build()
-    from repro_torch.kernels import sim_step, ssd_scan
+    from repro_torch.kernels import ckpt_quant, sim_step, ssd_scan
 
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
                                   64 if quick else 128)
     phase_across_devices()
     ssd_worst = phase_ssd_kernel_vs_plain()
     phase_serve_card_vs_cpu()
+    quant_worst = phase_quant_kernel_vs_plain()
+    phase_train_card_vs_cpu()
     if quick:
         _dump()
         print(json.dumps({"quick": True}))
@@ -1015,6 +1515,26 @@ def main() -> int:
     phase_fig4_vs_plain()
     fleet = phase_fleet_measure(fleet_run)
     ssd = phase_ssd_measure()
+    # The training main path: counts to 0 just before, read just after.
+    ckpt_root = ROOT / ".smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    for k in ckpt_quant.LAUNCHES:
+        ckpt_quant.LAUNCHES[k] = 0
+    sim_step.LAUNCHES = ssd_scan.LAUNCHES = 0
+    try:
+        train_run = phase_train(str(ckpt_root / "run"))
+        quant_launches = dict(ckpt_quant.LAUNCHES)
+        other = dict(sim_step=sim_step.LAUNCHES, ssd_scan=ssd_scan.LAUNCHES)
+        REPORT["train_main_path_launches"] = dict(quant_launches, **other)
+        print(f"[T3] training main path: launches {quant_launches} (3 "
+              f"compress_grads calls over {train_run['n_leaves']} leaves), "
+              f"{other} (training runs ssd_chunked)", flush=True)
+        if min(quant_launches.values()) < 1:
+            fail("the training main path launched no ckpt_quant kernel")
+        phase_train_measure(train_run)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    quant = phase_quant_measure()
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
     ssd_bound = max(ssd["bound_bytes_ms"], ssd["bound_ops_ms"])
     kernels = {"kernels": [{
@@ -1043,7 +1563,20 @@ def main() -> int:
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd_bound,
         "bound_by": ("bytes" if ssd["bound_bytes_ms"]
                      >= ssd["bound_ops_ms"] else "operations"),
-        "library_ms": None}]}
+        "library_ms": None}] + [{
+        "name": f"{name}_blocks", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ckpt_quant.cu",
+        "replaces": replaces,
+        "launches": quant_launches[f"{name}_blocks"],
+        "launches_per_compress_grads": train_run["compress_launches"][0][
+            f"{name}_blocks"],
+        "max_abs_err": quant_worst, "bitwise": True,
+        "ms": quant[name]["ms"], "plain_ms": quant[name]["plain_ms"],
+        "bound_ms": quant[name]["bound_ms"], "bound_by": "bytes",
+        "library_ms": quant[name]["library_ms"]}
+        for name, replaces in (
+            ("quantize", "src/repro/kernels/ckpt_quant.py:28"),
+            ("dequantize", "src/repro/kernels/ckpt_quant.py:37"))]}
     REPORT["kernels"] = kernels
     _dump()
     print(json.dumps(kernels))

@@ -1,0 +1,4 @@
+"""Synthetic data pipeline of the port (numpy, as in ``repro.data``)."""
+from repro_torch.data.synthetic import DataConfig, Prefetcher, SyntheticLM
+
+__all__ = ["DataConfig", "Prefetcher", "SyntheticLM"]

@@ -11,7 +11,8 @@ first use into ``_build/`` next to this file (listed in ``.gitignore``):
 separately rounded, as PyTorch's elementwise kernels round them, so that
 kernel can equal its plain PyTorch version bit for bit.  ``ssd_scan`` is
 held to a stated tolerance instead and keeps nvcc's default fused
-multiply-adds.  The file name carries a hash of the source and the flags,
+multiply-adds.  ``ckpt_quant`` rounds every operation on its own by its
+intrinsics (``__fdiv_rn``, ``__fmul_rn``, ``rintf``) and needs no flag.  The file name carries a hash of the source and the flags,
 so an edited source is rebuilt.  ``BUILD_LOG[name]`` keeps the build
 seconds and the ``-Xptxas -v`` report (registers, spills).
 """

@@ -3,8 +3,7 @@
 
 Each wrapper launches the hand-written CUDA kernel for CUDA tensors and
 runs the kernel's plain torch version for CPU tensors.  The
-``flash_attention`` and ``quantize_blocks`` entries wait for their slices
-(ROADMAP Queue 2).
+``flash_attention`` entry waits for its slice (ROADMAP Queue 2).
 """
 from __future__ import annotations
 
@@ -12,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ckpt_quant as _q
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -22,3 +22,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD: x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n)."""
     return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk,
                          initial_state=initial_state)
+
+
+def quantize_blocks(x: torch.Tensor, *, block: int = 512
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat x (N,) -> (int8 codes (N,), float32 scales (N/block,))."""
+    return _q.quantize_blocks(x, block)
+
+
+def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor, *,
+                      block: int = 512,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 codes (N,) + float32 scales (N/block,) -> (N,) in ``dtype``."""
+    return _q.dequantize_blocks(q, scales, block, dtype)

@@ -1,6 +1,6 @@
 """Plain-torch oracles for the port's kernels (the port of
-``repro/kernels/ref.py``; the entries of kernels not ported yet wait for
-their slices)."""
+``repro/kernels/ref.py``; the entry of the kernel not ported yet waits
+for its slice)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -30,3 +30,25 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * dA + dBx
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def quantize_blocks_ref(x: torch.Tensor, block: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-block symmetric int8 quantization of a flat float array.
+
+    x: (N,) with N % block == 0.  Returns (q int8 (N,), scales f32
+    (N/block,)).  The scale is ``amax / 127`` by true division (the
+    kernels multiply by float32(1/127) instead; within 1 ulp).
+    """
+    xb = x.float().reshape(-1, block)
+    amax = xb.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / amax.new_tensor(127.0),
+                        torch.ones_like(amax))
+    q = torch.round(xb / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q.reshape(-1), scale
+
+
+def dequantize_blocks_ref(q: torch.Tensor, scale: torch.Tensor, block: int,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    qb = q.reshape(-1, block).float()
+    return (qb * scale[:, None]).reshape(-1).to(dtype)

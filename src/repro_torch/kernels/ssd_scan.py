@@ -27,6 +27,9 @@ one rounding of y to x's type) within the tolerance the callers state.
 
 ``ssd_scan`` launches the kernel for CUDA tensors (or raises) and runs
 ``ssd_scan_plain`` for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+The kernel has no backward: on CUDA tensors under autograd (grad enabled
+and an input that requires grad) ``ssd_scan`` raises rather than return
+outputs that no gradient flows through.
 """
 from __future__ import annotations
 
@@ -172,6 +175,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                               initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, initial_state)):
+        raise RuntimeError(
+            "the SSD kernel has no backward (neither in the JAX package nor "
+            "in the port): its outputs would carry no gradient to x, dt, A, "
+            "B or C.  Training runs ssd_chunked (use_flash_kernel=False); "
+            "call the kernel under torch.no_grad or torch.inference_mode")
     _check(x, dt, A, B, C, initial_state, Q)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)

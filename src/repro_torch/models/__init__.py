@@ -6,8 +6,9 @@ from repro_torch.models.model import (
     from_reference,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 
 __all__ = ["Mamba2LM", "decode_step", "forward", "from_reference",
-           "init_cache", "init_params", "prefill"]
+           "init_cache", "init_params", "loss_fn", "prefill"]

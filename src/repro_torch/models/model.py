@@ -4,11 +4,16 @@ ssm family (the Mamba2 stack, attention-free).
 The port of ``repro/models/model.py`` for ``family == "ssm"``.  The stack
 is an ``nn.Module`` (:class:`Mamba2LM`: embedding, a ``ModuleList`` of
 blocks looped in Python, final norm); the JAX version's ``lax.scan`` over
-stacked parameters and its remat have no counterpart here.  The dense,
+stacked parameters has no counterpart here.  Its remat does: with
+``cfg.remat == "full"`` each block runs under
+``torch.utils.checkpoint.checkpoint`` when autograd records the forward
+(training); ``"dots"`` raises.  :func:`loss_fn` is the training loss.  The dense,
 moe, hybrid and encdec families wait for later slices (ROADMAP Queue 1)
 and raise.
 
-Parameter names follow the JAX pytree: ``embed.tok``,
+Parameters are built frozen (``requires_grad=False``), as serving wants
+them; the training entry points (``repro_torch.train.step``) turn
+``requires_grad`` on.  Parameter names follow the JAX pytree: ``embed.tok``,
 ``blocks.<i>.norm.scale``, ``blocks.<i>.mixer.<name>``,
 ``final_norm.scale``; :func:`from_reference` carries the JAX package's
 ``init_params`` pytree (as numpy arrays, layer-stacked ``(L, ...)``
@@ -27,6 +32,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -121,11 +127,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return {"ssm": st, "index": 0}
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether each block is recomputed in the backward (the JAX package's
+    ``_maybe_remat``): only when autograd records the forward."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return False
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the matrix products) is not ported yet "
+            "(ROADMAP Queue 1 item 9); use 'full' or 'none'")
+    return True
+
+
 def _ssm_stack(params: Mamba2LM, x, cfg: ModelConfig, *, ssm_cache=None,
                use_kernel=False):
     if ssm_cache is None:
+        remat = _remat(cfg)
         for bp in params.blocks:
-            x, _ = bp(x, use_kernel=use_kernel)
+            if remat:
+                x, _ = checkpoint(bp, x, use_kernel=use_kernel,
+                                  use_reentrant=False)
+            else:
+                x, _ = bp(x, use_kernel=use_kernel)
         return x, None
     new = {k: [] for k in ssm_cache}
     for i, bp in enumerate(params.blocks):
@@ -164,6 +190,23 @@ def forward(params: Mamba2LM, batch: Mapping[str, torch.Tensor],
     x = L.apply_norm(params.final_norm, x, cfg)
     logits = L.logits_from_hidden(params.embed, x, cfg)
     return logits, new_cache, {}
+
+
+def loss_fn(params: Mamba2LM, batch: Mapping[str, torch.Tensor],
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy.  batch['labels'] (B, S); entries < 0 are
+    ignored.  Returns (loss, {'loss', 'ce'})."""
+    logits, _, _ = forward(params, batch, cfg)
+    labels = batch["labels"]
+    valid = labels >= 0
+    labels_safe = labels.clamp(min=0).long()
+    # logsumexp form: no second (B, S, V) log-softmax buffer
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = lse - gold
+    denom = valid.sum().clamp(min=1)
+    ce = torch.where(valid, nll, 0.0).sum() / denom
+    return ce, {"loss": ce, "ce": ce}
 
 
 def prefill(params: Mamba2LM, tokens: torch.Tensor, cfg: ModelConfig,

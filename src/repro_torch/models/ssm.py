@@ -134,7 +134,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     li = cum[:, :, :, None, :]                         # (b,nc,Q,1,h)
     lj = cum[:, :, None, :, :]                         # (b,nc,1,Q,h)
     mask = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
-    L = torch.where(mask[None, None, :, :, None], torch.exp(li - lj), 0.0)
+    # Mask before the exp: above the diagonal cum_i - cum_j > 0 can pass
+    # ~88 and exp overflows to inf there, and the backward of exp would then
+    # multiply the masked zero gradient by inf (NaN).  exp(-inf) = 0, so
+    # the forward is bit for bit what masking after the exp gives.
+    L = torch.exp(torch.where(mask[None, None, :, :, None], li - lj,
+                              float("-inf")))
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     M = scores[..., None] * L * dtc[:, :, None, :, :]  # (b,nc,Q,Q,h)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xc)

@@ -1,0 +1,189 @@
+"""train_step factory: microbatched gradient accumulation + AdamW (the port
+of ``repro/train/step.py``).
+
+The returned step has the signature ``(TrainState, batch) -> (TrainState,
+metrics)``.  It runs eagerly: the forward and backward of
+:func:`repro_torch.models.model.loss_fn` per microbatch, float32
+accumulation of the gradients, then :func:`adamw_update`.  The working
+parameters (an ``nn.Module``, ``requires_grad``) and the optimizer state
+are updated in place and returned; a caller that needs the old state keeps
+a :meth:`TrainState.clone`.
+
+Training runs the SSD through ``ssd_chunked``: the CUDA SSD kernel has no
+backward, in the JAX package or here, so a config with
+``use_flash_kernel=True`` is refused.  ``grad_constraint`` and
+``zero1_grads_in_scan`` (the ZeRO-1 sharding of the gradients) wait for
+ROADMAP Queue 1 item 6 and raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.train.optimizer import (
+    AdamWConfig,
+    AdamWState,
+    adamw_update,
+    global_norm,
+    init_adamw,
+    params_from_master,
+)
+
+_OPT_PARTS = ("master", "m", "v")
+
+
+class TrainState(NamedTuple):
+    params: M.Mamba2LM   # param_dtype (bf16) working copy, requires grad
+    opt: AdamWState      # fp32 master + moments
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        """The state as one flat mapping (the checkpoint layout):
+        ``params/<name>``, ``opt/step``, ``opt/{master,m,v}/<name>``."""
+        out = {f"params/{k}": p for k, p in self.params.named_parameters()}
+        out["opt/step"] = self.opt.step
+        for part in _OPT_PARTS:
+            out.update({f"opt/{part}/{k}": t
+                        for k, t in getattr(self.opt, part).items()})
+        return out
+
+    @torch.no_grad()
+    def load_tree(self, tree: Mapping[str, torch.Tensor]) -> "TrainState":
+        """Copy a :meth:`tree` mapping into this state in place."""
+        for k, t in self.tree().items():
+            t.copy_(tree[k])
+        return self
+
+    def clone(self) -> "TrainState":
+        """A copy that shares no storage with this state."""
+        params = M.Mamba2LM(self.params.cfg)        # on the meta device
+        params.load_state_dict({k: p.detach().clone() for k, p
+                                in self.params.named_parameters()},
+                               strict=True, assign=True)
+        params.requires_grad_(True)
+        parts = {p: {k: t.clone() for k, t in getattr(self.opt, p).items()}
+                 for p in _OPT_PARTS}
+        return TrainState(params, AdamWState(step=self.opt.step.clone(),
+                                             **parts))
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """Refuse a config that training cannot run faithfully."""
+    if cfg.use_flash_kernel:
+        raise ValueError(
+            "training needs use_flash_kernel=False: the SSD kernel has no "
+            "backward (in the JAX package or in the port), so training runs "
+            "ssd_chunked; pass dataclasses.replace(cfg, "
+            "use_flash_kernel=False)")
+
+
+def _named(params: M.Mamba2LM) -> Dict[str, torch.Tensor]:
+    return dict(params.named_parameters())
+
+
+def init_train_state(seed: int, cfg: ModelConfig, device=None) -> TrainState:
+    """The port's seeded init (:func:`repro_torch.models.init_params`) with
+    trainable parameters, and a fresh AdamW state."""
+    params = M.init_params(seed, cfg, device=device).requires_grad_(True)
+    return TrainState(params=params, opt=init_adamw(_named(params)))
+
+
+def from_reference(state_np: Any, cfg: ModelConfig, device=None) -> TrainState:
+    """The port's state holding a JAX ``TrainState`` given as numpy arrays
+    (``params`` the ``init_params`` pytree; ``opt`` an ``AdamWState`` with
+    ``step`` and the ``master``/``m``/``v`` pytrees), the layer-stacked
+    leaves split per layer through ``models.model.reference_state``'s
+    naming."""
+    params_np, opt = state_np[0], state_np[1]
+    params = M.from_reference(params_np, cfg, device).requires_grad_(True)
+    dev = next(params.parameters()).device
+    parts = {}
+    for part in _OPT_PARTS:
+        flat = M.reference_state(getattr(opt, part), cfg)
+        parts[part] = {k: torch.from_numpy(np.array(a, dtype=np.float32))
+                       .to(dev) for k, a in flat.items()}
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(params, AdamWState(step=step, **parts))
+
+
+def _zero_metrics(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("loss", "ce")}
+
+
+def _to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                               else v).to(device=device, dtype=torch.long)
+            for k, v in batch.items()}
+
+
+def compute_grads(params: M.Mamba2LM, batch: Mapping[str, torch.Tensor],
+                  cfg: ModelConfig
+                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Gradients of :func:`loss_fn` by name (in the parameters' dtypes) and
+    its metrics; leaves no ``.grad`` on the parameters."""
+    params.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, metrics = M.loss_fn(params, batch, cfg)
+        loss.backward()
+    grads = {k: p.grad for k, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    schedule: Callable[[torch.Tensor], torch.Tensor],
+    *,
+    n_microbatches: int = 1,
+    grad_constraint: Optional[Callable] = None,
+    zero1_grads_in_scan: bool = False,
+) -> Callable[[TrainState, Mapping[str, Any]],
+              Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Build the train step.  ``batch``: ``{'tokens', 'labels'}`` (B, S)
+    integer arrays or tensors, moved to the parameters' device."""
+    require_trainable(cfg)
+    if grad_constraint is not None or zero1_grads_in_scan:
+        raise NotImplementedError(
+            "grad_constraint / zero1_grads_in_scan (ZeRO-1 sharding of the "
+            "gradients) are not ported yet (ROADMAP Queue 1 item 6)")
+
+    def train_step(state: TrainState, batch: Mapping[str, Any]):
+        dev = state.opt.step.device
+        batch = _to_device(batch, dev)
+        if n_microbatches > 1:
+            b = batch["tokens"].shape[0]
+            if b % n_microbatches:
+                raise ValueError(f"batch {b} % n_microbatches "
+                                 f"{n_microbatches} != 0")
+            mb = b // n_microbatches
+            g_sum = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for k, p in state.params.named_parameters()}
+            m_sum = _zero_metrics(dev)
+            for i in range(n_microbatches):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                grads, metrics = compute_grads(state.params, micro, cfg)
+                for k, g in grads.items():
+                    g_sum[k] += g.float()
+                m_sum = {k: m_sum[k] + metrics[k] for k in m_sum}
+            n = torch.tensor(float(n_microbatches), device=dev)
+            grads = {k: g / n for k, g in g_sum.items()}
+            metrics = {k: v / n for k, v in m_sum.items()}
+        else:
+            grads, metrics = compute_grads(state.params, batch, cfg)
+
+        lr_scale = schedule(state.opt.step)
+        master, new_opt = adamw_update(opt_cfg, grads, state.opt, lr_scale)
+        params_from_master(master, _named(state.params))
+        metrics = dict(metrics)
+        metrics["grad_norm"] = global_norm(grads)
+        metrics["lr_scale"] = torch.as_tensor(lr_scale, dtype=torch.float32)
+        metrics["step"] = new_opt.step.float()
+        return TrainState(params=state.params, opt=new_opt), metrics
+
+    return train_step

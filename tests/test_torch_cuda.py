@@ -194,3 +194,88 @@ def test_ssd_kernel_reads_strided_slices_and_refuses_bad_operands():
     with pytest.raises(ValueError):
         SSD.ssd_scan(x, dt, A, B, C, chunk=48)      # 128 % 48 != 0
     assert SSD.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_autograd():
+    """Before the repair the kernel path under autograd returned y and the
+    final state with no grad_fn (the outputs are filled through ctypes), so
+    x, dt, B and C got zero gradient from the scan and nothing said so.
+    Now the wrapper raises; under no_grad it still launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    x, dt, A, B, C, _ = _ssd_inputs(1, 64, 2, 64, 128, torch.bfloat16, 23,
+                                    False)
+    with torch.no_grad():
+        y, st = SSD.ssd_scan(x, dt, A, B, C, chunk=64)
+    assert y.grad_fn is None and st.grad_fn is None   # what training saw
+    x.requires_grad_(True)
+    before = SSD.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        SSD.ssd_scan(x, dt, A, B, C, chunk=64)
+    assert SSD.LAUNCHES == before
+    with torch.no_grad():
+        SSD.ssd_scan(x, dt, A, B, C, chunk=64)
+    assert SSD.LAUNCHES == before + 1
+
+
+def _quant_cases():
+    """(name, float32 values, block): the edge cases of the kernels'
+    contract.  Made on the CPU from a numpy seed, moved to the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    ties = rng.integers(-127, 127, 512) + 0.5
+    ties[0] = 127.0                                    # scale exactly 1.0
+    ext = rng.uniform(-3e38, 3e38, 512)
+    nonfinite = rng.standard_normal(3 * 512)
+    nonfinite[[5, 512 + 7, 512 + 9, 1025, 1026]] = [np.nan, np.inf, -np.inf,
+                                                    np.inf, np.nan]
+    return [
+        ("zero block", np.zeros(2 * 512), 512),
+        ("ties", ties, 512),
+        ("extremes", ext, 512),
+        ("single block", rng.standard_normal(512), 512),
+        ("3 blocks", rng.standard_normal(3 * 512) * 1e-20, 512),
+        ("257 blocks", rng.standard_normal(257 * 512) * 50.0, 512),
+        ("block 32", rng.standard_normal(7 * 32), 32),
+        ("block 96", rng.standard_normal(5 * 96), 96),
+        ("block 4096", rng.standard_normal(3 * 4096), 4096),
+        ("nan and inf", nonfinite, 512),
+    ]
+
+
+def _equal(a, b) -> bool:
+    """Equal values, a NaN equal to a NaN (the bits of a NaN may differ)."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_kernels_equal_plain_versions_bitwise_on_card(dtype):
+    """Codes, scales and dequantized values (float32 and bfloat16 out): 0
+    mismatching elements, on every edge case and on a misaligned input
+    (the scalar-load path).  A block holding a NaN or an inf gives what the
+    plain version gives (scale 1.0 or inf, NaN quotients coded 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import ckpt_quant as Q
+
+    for name, values, block in _quant_cases():
+        x = torch.as_tensor(values, dtype=torch.float32).to(dtype).cuda()
+        for xin in (x, torch.cat([x[:1], x])[1:]):     # aligned, misaligned
+            before = dict(Q.LAUNCHES)
+            q, s = Q.quantize_blocks(xin, block)
+            qp, sp = Q.quantize_blocks_plain(xin, block)
+            torch.cuda.synchronize()
+            assert torch.equal(q, qp), name
+            assert torch.equal(s, sp), name
+            for out in (torch.float32, torch.bfloat16):
+                d = Q.dequantize_blocks(q, s, block, out)
+                assert _equal(d, Q.dequantize_blocks_plain(q, s, block,
+                                                           out)), name
+            assert Q.LAUNCHES["quantize_blocks"] == \
+                before["quantize_blocks"] + 1
+            assert Q.LAUNCHES["dequantize_blocks"] == \
+                before["dequantize_blocks"] + 2
