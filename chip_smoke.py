@@ -1,15 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full run (one card, ~minutes)
-    python3 chip_smoke.py --quick    # build + kernel checks (to T2)
+    python3 chip_smoke.py --quick    # build + kernel checks (to A2)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
 1. card and environment (``nvidia-smi`` name and power limit, versions);
-2. builds ``src/repro_torch/kernels/csrc/sim_step.cu``, ``ssd_scan.cu``
-   and ``ckpt_quant.cu`` with nvcc for sm_90a (one nvcc per source,
-   started together) and prints the build seconds and the ``-Xptxas -v``
-   reports;
+2. builds ``src/repro_torch/kernels/csrc/sim_step.cu``, ``ssd_scan.cu``,
+   ``ckpt_quant.cu`` and ``flash_attention.cu`` with nvcc for sm_90a (one
+   nvcc per source, started together) and prints the build seconds and
+   the ``-Xptxas -v`` reports;
 3. sim_step kernel against its plain torch version on the card: a mixed
    batch of 4,096 cells with every static flag, Philox draws, several
    chunks -- every ``_State`` field must be bitwise equal;
@@ -80,6 +80,37 @@ T4. training numbers: warm step seconds and tokens/s, peak memory, V
    profiler pass over one train step (device time by kernel, idle share);
    each quant kernel by CUDA events at the embedding leaf beside its plain
    version, its bytes bound and, for dequantize, torch.dequantize;
+A1. the flash_attention kernel against its plain torch version on the
+   card: kernel_bench's shapes, tests/test_kernels.py's four shapes in
+   float32 and bf16, softcap 50 with and without the causal mask, Sq < Skv,
+   Sq > Skv (the rows that see no key must be exactly 0), lengths off the
+   64-row grid, head_dim 16 and 32, olmo-1b's prefill shape (128, 1, 1024,
+   128) and a GQA serving shape (16, 12, 1024, 128), bf16 -- within 2e-5
+   (float32) and 2e-2 (bf16), rtol = atol;
+A2. across devices: the olmo SMOKE config in float32 (float32 KV cache)
+   with the kernel on, prefill and 8 teacher-forced decode steps, kernel on
+   the card against the plain version on the CPU -- logits and caches
+   within 1e-4; at 24- and 40-token prompts;
+A3. main path: ``repro_torch.serve`` on the full olmo-1b (16 layers,
+   d_model 2048, bf16, the port's seeded init, timed):
+   ``greedy_generate`` of 32 tokens after a 1024-token prompt, batch 8 --
+   exactly 16 flash_attention launches (one per layer, prefill only); then
+   prefill seconds and decode tokens/s through the step factories, peak
+   device memory, and the plain path's prefill (``use_flash_kernel=False``,
+   ``_attention_core``) on the same input;
+A4. the same parameters and prompt with the knob off: last-position
+   prefill logits and four teacher-forced decode steps' logits, held as
+   S4 holds them (bf16: 5e-2 + 5e-2|b|, widened only where two plain
+   implementations -- ``_attention_core`` and ``flash_attention_plain`` in
+   the kernel's place -- cross it in the same run, to at most 1.2x their
+   gap; relative RMS within 5e-2); float32 (the bf16 weights cast on the
+   card, float32 KV cache) within 1e-4 elementwise;
+A5. ``torch.profiler`` over one warm olmo-1b prefill and five decode steps:
+   device time by kernel, launches per step, the device's idle share;
+A6. the flash_attention kernel timed by CUDA events at olmo-1b's prefill
+   shape and at the GQA shape, beside its plain version,
+   ``scaled_dot_product_attention`` (the library yardstick; whether it
+   equals the kernel within A1's tolerance) and its bound;
 8. a ``kernels`` JSON line (launches on the main path, error, times,
    bound), the card's name and power limit, and the final result line.
 
@@ -249,7 +280,7 @@ def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.monotonic()
-    names = ["sim_step", "ssd_scan", "ckpt_quant"]
+    names = list(build.SOURCES)
     build.build(names)
     for name in names:
         build.load(name)
@@ -261,16 +292,21 @@ def phase_build() -> None:
     REPORT["ssd_ptxas"] = build.BUILD_LOG["ssd_scan"]["ptxas"]
     REPORT["quant_build_seconds"] = build.BUILD_LOG["ckpt_quant"]["seconds"]
     REPORT["quant_ptxas"] = build.BUILD_LOG["ckpt_quant"]["ptxas"]
-    print(f"[2] built sim_step.cu, ssd_scan.cu and ckpt_quant.cu in "
-          f"{REPORT['build_seconds']:.1f} s (ssd_scan.cu "
+    REPORT["flash_build_seconds"] = \
+        build.BUILD_LOG["flash_attention"]["seconds"]
+    REPORT["flash_ptxas"] = build.BUILD_LOG["flash_attention"]["ptxas"]
+    print(f"[2] built sim_step.cu, ssd_scan.cu, ckpt_quant.cu and "
+          f"flash_attention.cu in {REPORT['build_seconds']:.1f} s (ssd_scan.cu "
           f"{REPORT['ssd_build_seconds']:.1f} s, ckpt_quant.cu "
-          f"{REPORT['quant_build_seconds']:.1f} s); sim_step "
+          f"{REPORT['quant_build_seconds']:.1f} s, flash_attention.cu "
+          f"{REPORT['flash_build_seconds']:.1f} s); sim_step "
           f"(store, het, shock, pm) -> registers, spill-store bytes:",
           flush=True)
     for row in REPORT["ptxas_table"]:
         print(f"    {row[:4]} -> {row[4]} registers, {row[5]} bytes spilled",
               flush=True)
-    for name, key in (("ssd_scan", "ssd_ptxas"), ("ckpt_quant", "quant_ptxas")):
+    for name, key in (("ssd_scan", "ssd_ptxas"), ("ckpt_quant", "quant_ptxas"),
+                      ("flash_attention", "flash_ptxas")):
         for line in REPORT[key].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {name}: {line.strip()}", flush=True)
@@ -663,12 +699,16 @@ def phase_ssd_kernel_vs_plain() -> float:
     return worst
 
 
-def _serve_run(model, cfg, prompt, forced):
+def _serve_run(model, cfg, prompt, forced, cache_dtype=None):
     """Prefill + teacher-forced decode steps: the last-position logits of
-    each and the caches."""
+    each and the caches (the KV cache, where there is one, in
+    ``cache_dtype``, default bf16)."""
+    import torch
+
     from repro_torch.serve.step import make_prefill_step, make_serve_step
 
-    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + forced.shape[1])
+    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + forced.shape[1],
+                            cache_dtype=cache_dtype or torch.bfloat16)
     srv = make_serve_step(cfg)
     logits, cache = pre(model, {"tokens": prompt})
     out = [logits[:, -1]]
@@ -734,32 +774,39 @@ def serve_setup():
     return cfg, model, prompt
 
 
-def phase_serve(cfg, model, prompt) -> dict:
-    """Main path: greedy_generate on the full config (the kernel path)."""
+def phase_serve(cfg, model, prompt, n_tokens: int) -> dict:
+    """A serving main path: greedy_generate on the full config (the
+    kernel path)."""
     import torch
 
     from repro_torch.serve import greedy_generate
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    out = greedy_generate(model, cfg, prompt, SERVE_TOKENS)
+    out = greedy_generate(model, cfg, prompt, n_tokens)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     mem = torch.cuda.max_memory_allocated()
-    if tuple(out.shape) != (SERVE_BATCH, SERVE_TOKENS) or not bool(
+    if tuple(out.shape) != (prompt.shape[0], n_tokens) or not bool(
             ((out >= 0) & (out < cfg.vocab)).all()):
-        fail(f"greedy_generate gave {tuple(out.shape)} tokens out of range")
+        fail(f"{cfg.name} greedy_generate gave {tuple(out.shape)} tokens "
+             f"out of range")
     return dict(tokens=out, wall=wall, mem=mem)
 
 
-def phase_serve_measure(cfg, model, prompt, run) -> dict:
+def phase_serve_measure(tag: str, cfg, model, prompt, run, n_tokens: int,
+                        plain_path: str) -> dict:
     """Prefill seconds and decode tokens/s through the step factories (warm),
-    then the plain ssd_chunked path on the same parameters and prompt."""
+    then the plain path's prefill (``use_flash_kernel=False``: mamba2's
+    ssd_chunked, the dense family's _attention_core) on the same
+    parameters and prompt."""
     import torch
 
     from repro_torch.serve.step import make_prefill_step, make_serve_step
 
-    pre = make_prefill_step(cfg, max_seq=SERVE_PROMPT + SERVE_TOKENS)
+    batch, n_prompt = prompt.shape
+    max_seq = n_prompt + n_tokens
+    pre = make_prefill_step(cfg, max_seq=max_seq)
     srv = make_serve_step(cfg)
     times = []
     for _ in range(3):
@@ -771,15 +818,16 @@ def phase_serve_measure(cfg, model, prompt, run) -> dict:
     tok = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _ in range(SERVE_TOKENS - 1):
+    for _ in range(n_tokens - 1):
         logits, cache = srv(model, cache, {"tokens": tok})
         tok = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
     dec = time.monotonic() - t0
-    tok_s = SERVE_BATCH * (SERVE_TOKENS - 1) / dec
-    # the plain ssd_chunked path's prefill on the same input, warmed once
+    tok_s = batch * (n_tokens - 1) / dec
+    del cache
+    # the plain path's prefill on the same input, warmed once
     plain_pre = make_prefill_step(cfg.replace(use_flash_kernel=False),
-                                  max_seq=SERVE_PROMPT + SERVE_TOKENS)
+                                  max_seq=max_seq)
     plain_times = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -788,19 +836,18 @@ def phase_serve_measure(cfg, model, prompt, run) -> dict:
         torch.cuda.synchronize()
         plain_times.append(time.monotonic() - t0)
     plain_times = plain_times[1:]
-    out = dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, tokens=SERVE_TOKENS,
+    out = dict(batch=batch, prompt=n_prompt, tokens=n_tokens,
                greedy_wall_s=run["wall"], peak_bytes=run["mem"],
                prefill_s=times, plain_prefill_s=plain_times, decode_s=dec,
                decode_tok_s=tok_s)
-    print(f"[S3] serve mamba2-130m, batch {SERVE_BATCH}, prompt "
-          f"{SERVE_PROMPT}, {SERVE_TOKENS} greedy tokens: greedy_generate "
-          f"{run['wall']:.3f} s (first call), prefill "
-          f"{', '.join(f'{t:.4f}' for t in times)} s (warm), decode "
-          f"{SERVE_TOKENS - 1} steps in {dec:.3f} s = {tok_s:.1f} tok/s, "
-          f"peak {run['mem'] / 2**30:.2f} GiB; plain ssd_chunked path "
-          f"prefill {', '.join(f'{t:.4f}' for t in plain_times)} s (warm)",
+    print(f"[{tag}] serve {cfg.name}, batch {batch}, prompt {n_prompt}, "
+          f"{n_tokens} greedy tokens: greedy_generate {run['wall']:.3f} s "
+          f"(first call), prefill {', '.join(f'{t:.4f}' for t in times)} s "
+          f"(warm), decode {n_tokens - 1} steps in {dec:.3f} s = "
+          f"{tok_s:.1f} tok/s, peak {run['mem'] / 2**30:.2f} GiB; plain "
+          f"{plain_path} path prefill "
+          f"{', '.join(f'{t:.4f}' for t in plain_times)} s (warm)",
           flush=True)
-    REPORT["serve"] = out
     return out
 
 
@@ -883,17 +930,19 @@ def _kernel_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def phase_serve_profile(cfg, model, prompt, serve: dict) -> dict:
+def phase_serve_profile(tag: str, cfg, model, prompt, serve: dict,
+                        n_tokens: int, kernel: str) -> dict:
     """Where the serving time goes: ``torch.profiler`` over one warm
-    prefill and 5 decode steps; device time by kernel, kernels per step,
-    and the device's idle share against the unprofiled host-clock times of
-    S3 (kernels run one at a time on the one stream)."""
+    prefill and 5 decode steps; device time by kernel (``kernel``'s share
+    of the prefill), kernels per step, and the device's idle share against
+    the unprofiled host-clock times of ``serve`` (kernels run one at a
+    time on the one stream)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.step import make_prefill_step, make_serve_step
 
-    pre = make_prefill_step(cfg, max_seq=SERVE_PROMPT + SERVE_TOKENS)
+    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + n_tokens)
     srv = make_serve_step(cfg)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
@@ -903,9 +952,10 @@ def phase_serve_profile(cfg, model, prompt, serve: dict) -> dict:
     tok = logits[:, -1].argmax(-1)[:, None]
     rows = _kernel_rows(prof)
     total = sum(r[1] for r in rows)
-    ssd = sum(r[1] for r in rows if "ssd_scan_kernel" in r[0])
+    mine = sum(r[1] for r in rows if f"{kernel}_kernel" in r[0])
     top = rows[:8]
-    out["prefill"] = dict(device_ms=total / 1e3, ssd_scan_ms=ssd / 1e3,
+    out["prefill"] = dict(device_ms=total / 1e3, kernel=kernel,
+                          kernel_ms=mine / 1e3,
                           kernels=sum(r[2] for r in rows), top=top)
     steps = 5
     with profile(activities=acts) as prof:
@@ -917,19 +967,20 @@ def phase_serve_profile(cfg, model, prompt, serve: dict) -> dict:
     launches = sum(r[2] for r in rows)
     out["decode"] = dict(device_ms_per_step=total_d / 1e3 / steps,
                          kernels_per_step=launches / steps,
-                         top=rows[:5])
+                         top=rows[:6])
     if total <= 0 or total_d <= 0:
         out["note"] = "the profiler recorded no device time: not measured"
-        print(f"[S5] serve profile: {out['note']}", flush=True)
+        print(f"[{tag}] {cfg.name} serve profile: {out['note']}", flush=True)
     else:
         pre_wall = min(serve["prefill_s"])
-        dec_wall = serve["decode_s"] / (SERVE_TOKENS - 1)
+        dec_wall = serve["decode_s"] / (n_tokens - 1)
         out["prefill"]["idle_share"] = 1.0 - total / 1e6 / pre_wall
         out["decode"]["idle_share"] = (1.0 - total_d / 1e6 / steps
                                        / dec_wall)
-        print(f"[S5] serve profile: prefill device time {total / 1e3:.2f} ms "
-              f"(ssd_scan {ssd / 1e3:.2f} ms = {ssd / total:.1%}), idle "
-              f"share against {pre_wall:.4f} s unprofiled "
+        print(f"[{tag}] {cfg.name} serve profile: prefill device time "
+              f"{total / 1e3:.2f} ms ({kernel} {mine / 1e3:.2f} ms = "
+              f"{mine / total:.1%}), {out['prefill']['kernels']} kernels, "
+              f"idle share against {pre_wall:.4f} s unprofiled "
               f"{out['prefill']['idle_share']:.1%}; decode device time "
               f"{total_d / 1e3 / steps:.2f} ms/step, "
               f"{launches / steps:.0f} kernels/step, idle share against "
@@ -941,7 +992,6 @@ def phase_serve_profile(cfg, model, prompt, serve: dict) -> dict:
         for name, us, n in out["decode"]["top"]:
             print(f"    decode  {us / 1e3 / steps:8.3f} ms/step  "
                   f"{n / steps:5.0f} x  {name[:60]}", flush=True)
-    REPORT["serve_profile"] = out
     return out
 
 
@@ -994,6 +1044,278 @@ def phase_ssd_measure() -> dict:
           f"{t_ops:.4f} ms operations ({ops_f32:,} f32 + {ops_bf16:,} bf16 "
           f"flop)); all operations on bf16 tensor cores would take "
           f"{out['bound_all_bf16_tc_ms']:.4f} ms", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# olmo-1b serving slice: the flash-attention kernel and the dense serve path
+# --------------------------------------------------------------------------- #
+
+OLMO = "olmo-1b"
+OLMO_BATCH, OLMO_PROMPT, OLMO_TOKENS, OLMO_FORCED = 8, 1024, 32, 4
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py's
+OLMO_F32_TOL = 1e-4    # float32 logits and caches (card vs CPU, A4 float32)
+# (BG, R, Sq, Skv, D) of the timed shapes: olmo-1b's prefill at batch 8
+# (16 heads, kv 16) and starcoder2-3b's 24 heads over kv 2 at batch 8
+FLASH_OLMO_SHAPE = (128, 1, 1024, 1024, 128)
+FLASH_GQA_SHAPE = (16, 12, 1024, 1024, 128)
+
+
+def flash_inputs(bg, r, sq, skv, d, dtype, seed):
+    """q, k, v standard normals on the card from a seeded generator."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((bg, r, sq, d), (bg, skv, d), (bg, skv, d))]
+
+
+def flash_work(bg, r, sq, skv, d, elt_bytes, causal=True):
+    """Bytes the attention must move (q, k, v read once, o written once)
+    and its operations: 4 d per visible (query, key) pair (q k^T and
+    p v), the pairs this mask leaves."""
+    rows = []
+    for i in range(sq):
+        rows.append(min(max(i + skv - sq + 1, 0), skv) if causal else skv)
+    pairs = bg * r * sum(rows)
+    nbytes = elt_bytes * (2 * bg * r * sq * d + 2 * bg * skv * d)
+    return nbytes, 4 * d * pairs
+
+
+def phase_flash_kernel_vs_plain() -> float:
+    """A1: the flash_attention kernel against its plain version on the
+    card, at every listed shape; rows that see no key exactly 0."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("kernel_bench", (1, 2, 256, 256, 64), f32, True, None),
+             ("kernel_bench", (1, 4, 512, 512, 128), f32, True, None)]
+    for shape in ((2, 1, 128, 128, 64), (1, 4, 256, 256, 128),
+                  (2, 2, 128, 384, 64), (1, 1, 512, 512, 128)):
+        cases += [("test_kernels", shape, dt, True, None) for dt in (f32, bf16)]
+    cases += [("softcap 50, causal", (1, 2, 128, 128, 64), f32, True, 50.0),
+              ("softcap 50, no mask", (1, 2, 128, 128, 64), f32, False, 50.0),
+              ("Sq < Skv, off grid", (2, 2, 100, 300, 64), bf16, True, None),
+              ("Sq > Skv, zero rows", (1, 2, 200, 72, 64), f32, True, None),
+              ("Sq > Skv, zero rows", (2, 1, 32, 16, 16), bf16, True, None),
+              ("off grid", (3, 2, 1000, 1000, 128), bf16, True, None),
+              ("D 16", (4, 4, 40, 40, 16), f32, True, None),
+              ("D 16", (4, 4, 24, 24, 16), bf16, True, 50.0),
+              ("D 32", (2, 3, 70, 70, 32), f32, True, None),
+              ("olmo-1b prefill", FLASH_OLMO_SHAPE, bf16, True, None),
+              ("GQA serving", FLASH_GQA_SHAPE, bf16, True, None)]
+    worst, rows = 0.0, []
+    for i, (name, (bg, r, sq, skv, d), dt, causal, cap) in enumerate(cases):
+        q, k, v = flash_inputs(bg, r, sq, skv, d, dt, 400 + i)
+        kw = dict(scale=d ** -0.5, causal=causal, softcap=cap)
+        out = FA.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dt).split(".")[-1]]
+        g = _gap(out, want, tol)
+        dead = max(sq - skv, 0) if causal else 0
+        g["zero_rows"] = dead
+        g["zero_rows_exact"] = bool((out[:, :, :dead] == 0).all()) and bool(
+            (want[:, :, :dead] == 0).all())
+        ok = _ok(g) and g["zero_rows_exact"] and out.dtype == dt
+        worst = max(worst, g["max_abs"])
+        rows.append(dict(case=name, shape=(bg, r, sq, skv, d),
+                         dtype=str(dt), causal=causal, softcap=cap, tol=tol,
+                         ok=ok, **g))
+        print(f"[A1] flash_attention kernel vs plain, {name} {(bg, r, sq, skv, d)} "
+              f"{str(dt).split('.')[-1]}{'' if causal else ', no mask'}"
+              f"{'' if cap is None else f', softcap {cap}'}: max |d| "
+              f"{g['max_abs']:.3g} = {g['max_ratio']:.3f} x ({tol} + "
+              f"{tol}|b|){f', {dead} zero rows exact' if dead else ''}",
+              flush=True)
+    REPORT["flash_kernel_vs_plain"] = rows
+    if not all(r["ok"] for r in rows):
+        fail("flash_attention kernel differs from its plain version")
+    return worst
+
+
+def phase_olmo_card_vs_cpu() -> dict:
+    """A2: the olmo SMOKE config in float32 with the kernel on, the card
+    against the plain version on the CPU (float32 KV caches on both)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config(OLMO).replace(param_dtype="float32",
+                                         compute_dtype="float32",
+                                         use_flash_kernel=True)
+    g = torch.Generator().manual_seed(8)
+    toks = torch.randint(0, cfg.vocab, (2, 48), generator=g)
+    models = {dev: init_params(0, cfg, device=dev) for dev in ("cuda", "cpu")}
+    gaps, launches = [], FA.LAUNCHES
+    for n in (24, 40):
+        res = {dev: _serve_run(m, cfg, toks[:, :n].to(dev),
+                               toks[:, n:n + 8].to(dev),
+                               cache_dtype=torch.float32)
+               for dev, m in models.items()}
+        pairs = list(zip(res["cuda"][0], res["cpu"][0])) + [
+            (res["cuda"][1]["kv"][k], res["cpu"][1]["kv"][k])
+            for k in ("k", "v")]
+        gaps += [_gap(a.cpu(), b, OLMO_F32_TOL) for a, b in pairs]
+    launches = FA.LAUNCHES - launches
+    errs = [g["max_abs"] for g in gaps]
+    ok = all(_ok(g) for g in gaps) and launches == 2 * cfg.n_layers
+    REPORT["olmo_card_vs_cpu"] = dict(max_abs_err=max(errs), errs=errs,
+                                      kernel_launches=launches)
+    print(f"[A2] olmo SMOKE float32, kernel on the card ({launches} launches) "
+          f"vs plain on the CPU, prompts of 24 and 40 tokens: prefill + 8 "
+          f"decode logits and KV caches, max |d| {max(errs):.3g} (tol "
+          f"{OLMO_F32_TOL})", flush=True)
+    if not ok:
+        fail("olmo SMOKE: card and CPU disagree (or the kernel did not run)")
+    return REPORT["olmo_card_vs_cpu"]
+
+
+def olmo_setup():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(OLMO)
+    assert cfg.use_flash_kernel
+    t0 = time.monotonic()
+    model = init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_PROMPT),
+                           generator=g).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    REPORT["olmo_init"] = dict(params=n_params, seconds=init_s)
+    print(f"[A3] olmo-1b: {n_params:,} parameters from the port's seeded init "
+          f"(CPU generator, moved to the card) in {init_s:.1f} s", flush=True)
+    return cfg, model, prompt
+
+
+def phase_olmo_vs_plain(cfg, model, prompt, run) -> dict:
+    """A4: the kernel path against the plain path (``_attention_core``) on
+    the card, prefill + OLMO_FORCED teacher-forced decode logits, held as
+    S4 holds the SSD path: bf16 within LOGIT_TOL + LOGIT_TOL |b| except
+    where the same run's floor -- ``flash_attention_plain`` in the kernel's
+    place against ``_attention_core``, two plain implementations that
+    differ in where they round (float32 against bf16 scores and
+    probabilities) -- crosses it, by at most NOISE_FACTOR times the
+    floor's ratio; relative RMS within LOGIT_TOL.  float32: the bf16
+    weights cast on the card, float32 KV caches, elementwise within
+    OLMO_F32_TOL."""
+    import torch
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    forced = run["tokens"][:, :OLMO_FORCED]
+    plain_cfg = cfg.replace(use_flash_kernel=False)
+    k_out, _ = _serve_run(model, cfg, prompt, forced)
+    p_out, _ = _serve_run(model, plain_cfg, prompt, forced)
+    with mock.patch.object(ops, "flash_attention", FA.flash_attention_plain):
+        q_out, _ = _serve_run(model, cfg, prompt, forced)
+    k, p, q = (torch.stack(o) for o in (k_out, p_out, q_out))
+    bf16, floor = _gap(k, p, LOGIT_TOL), _gap(q, p, LOGIT_TOL)
+    bf16["limit_ratio"] = max(1.0, NOISE_FACTOR * floor["max_ratio"])
+    bf16["argmax_agree"] = float((k.argmax(-1) == p.argmax(-1)).float().mean())
+    del k_out, p_out, q_out
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model32 = M.DenseLM(cfg32)                     # on the meta device
+    model32.load_state_dict({n: t.float() for n, t in
+                             model.named_parameters()}, assign=True)
+    k32, _ = _serve_run(model32, cfg32, prompt, forced,
+                        cache_dtype=torch.float32)
+    p32, _ = _serve_run(model32, cfg32.replace(use_flash_kernel=False),
+                        prompt, forced, cache_dtype=torch.float32)
+    f32 = _gap(torch.stack(k32), torch.stack(p32), OLMO_F32_TOL)
+    del model32, k32, p32
+    torch.cuda.empty_cache()
+    out = dict(bf16=bf16, bf16_plain_vs_plain=floor, f32=f32)
+    REPORT["olmo_vs_plain"] = out
+    print(f"[A4] olmo-1b kernel path vs plain _attention_core path on the "
+          f"card, prefill + {OLMO_FORCED} teacher-forced decode logits: bf16 "
+          f"rel RMS {bf16['rel_rms']:.4g} (tol {LOGIT_TOL}), max |d| "
+          f"{bf16['max_abs']:.4g} = {bf16['max_ratio']:.3f} x ({LOGIT_TOL} + "
+          f"{LOGIT_TOL}|b|) (limit {bf16['limit_ratio']:.3f} x), argmax agree "
+          f"{bf16['argmax_agree']:.3f}; noise floor (flash_attention_plain vs "
+          f"_attention_core): rel RMS {floor['rel_rms']:.4g}, max |d| "
+          f"{floor['max_abs']:.4g} = {floor['max_ratio']:.3f} x; float32 at "
+          f"full width: max |d| {f32['max_abs']:.3g} = "
+          f"{f32['max_ratio']:.4f} x ({OLMO_F32_TOL} + {OLMO_F32_TOL}|b|)",
+          flush=True)
+    if not (bf16["finite"] and bf16["max_ratio"] <= bf16["limit_ratio"]
+            and bf16["rel_rms"] <= LOGIT_TOL and _ok(f32)):
+        fail("olmo-1b: kernel path and plain path disagree")
+    return out
+
+
+def _sdpa(q, k, v, scale):
+    """One PyTorch call computing the same attention (the library
+    yardstick; never used by the port): q (BG, R, S, D) against k, v as
+    (BG, 1, S, D), causal (top-left equals bottom-right at Sq = Skv)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k[:, None], v[:, None],
+                                          is_causal=True, scale=scale,
+                                          enable_gqa=q.shape[1] > 1)
+
+
+def phase_flash_measure() -> dict:
+    """A6: the kernel, its plain version and SDPA timed by CUDA events at
+    olmo-1b's prefill shape and at the GQA shape, and the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    for name, shape in (("olmo-1b prefill", FLASH_OLMO_SHAPE),
+                        ("GQA serving", FLASH_GQA_SHAPE)):
+        bg, r, sq, skv, d = shape
+        assert sq == skv
+        q, k, v = flash_inputs(bg, r, sq, skv, d, torch.bfloat16, 500)
+        scale = d ** -0.5
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, scale=scale), 10)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                            scale=scale), 3)
+        lib_ms, lib_note, lib_gap = None, None, None
+        try:
+            lib = _sdpa(q, k, v, scale)
+            lib_gap = _gap(lib, FA.flash_attention(q, k, v, scale=scale),
+                           FLASH_TOL["bfloat16"])
+            lib_ms = cuda_ms(lambda: _sdpa(q, k, v, scale), 10)
+        except Exception as e:          # noqa: BLE001 - recorded, not hidden
+            lib_note = f"{type(e).__name__}: {e}"[:300]
+        nbytes, flops = flash_work(bg, r, sq, skv, d, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+        row = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library_note=lib_note,
+                   library_equals_kernel=None if lib_gap is None
+                   else _ok(lib_gap), library_gap=lib_gap, bytes=nbytes,
+                   flops=flops, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   f32_simt_bound_ms=flops / FP32_OPS_PER_S * 1e3)
+        out[name] = row
+        if lib_ms is None:
+            lib_txt = f"none ({lib_note})"
+        else:
+            lib_txt = (f"{lib_ms:.4f} ms (equals the kernel within 2e-2: "
+                       f"{_ok(lib_gap)}, max |d| {lib_gap['max_abs']:.3g})")
+        print(f"[A6] flash_attention at {name} {shape} bf16: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_txt}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{nbytes:,} B at 3.35 TB/s = {t_bytes:.4f} ms, {flops:,} flop "
+              f"at the bf16 tensor rate = {t_ops:.4f} ms); at the float32 "
+              f"SIMT rate {row['f32_simt_bound_ms']:.4f} ms", flush=True)
+    REPORT["flash_measure"] = out
     return out
 
 
@@ -1473,7 +1795,8 @@ def main() -> int:
     quick = "--quick" in sys.argv[1:]
     phase_env()
     phase_build()
-    from repro_torch.kernels import ckpt_quant, sim_step, ssd_scan
+    from repro_torch.kernels import (ckpt_quant, flash_attention, sim_step,
+                                     ssd_scan)
 
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
                                   64 if quick else 128)
@@ -1482,6 +1805,8 @@ def main() -> int:
     phase_serve_card_vs_cpu()
     quant_worst = phase_quant_kernel_vs_plain()
     phase_train_card_vs_cpu()
+    flash_worst = phase_flash_kernel_vs_plain()
+    phase_olmo_card_vs_cpu()
     if quick:
         _dump()
         print(json.dumps({"quick": True}))
@@ -1497,7 +1822,7 @@ def main() -> int:
         fail("the main path launched no sim_step kernel")
     cfg, model, prompt = serve_setup()
     ssd_scan.LAUNCHES = 0          # the serving main path starts here
-    serve_run = phase_serve(cfg, model, prompt)
+    serve_run = phase_serve(cfg, model, prompt, SERVE_TOKENS)
     ssd_launches = ssd_scan.LAUNCHES   # ... and ends here
     REPORT["serve_main_path_launches"] = ssd_launches
     print(f"[S3] serving main path (greedy_generate, one prefill of "
@@ -1506,25 +1831,52 @@ def main() -> int:
     if ssd_launches != cfg.n_layers:
         fail(f"the serving main path launched ssd_scan {ssd_launches} "
              f"times, expected {cfg.n_layers} (one per layer)")
-    phase_serve_measure(cfg, model, prompt, serve_run)
+    REPORT["serve"] = phase_serve_measure("S3", cfg, model, prompt,
+                                          serve_run, SERVE_TOKENS,
+                                          "ssd_chunked")
     logits_vs_plain = phase_serve_vs_plain(cfg, model, prompt, serve_run)
-    phase_serve_profile(cfg, model, prompt, REPORT["serve"])
+    REPORT["serve_profile"] = phase_serve_profile(
+        "S5", cfg, model, prompt, REPORT["serve"], SERVE_TOKENS, "ssd_scan")
     del model
+    torch.cuda.empty_cache()
+    cfg, model, prompt = olmo_setup()
+    flash_attention.LAUNCHES = 0   # the dense serving main path starts here
+    olmo_run = phase_serve(cfg, model, prompt, OLMO_TOKENS)
+    flash_launches = flash_attention.LAUNCHES   # ... and ends here
+    REPORT["olmo_main_path_launches"] = flash_launches
+    print(f"[A3] dense serving main path (greedy_generate on olmo-1b, one "
+          f"prefill of {cfg.n_layers} layers and {OLMO_TOKENS - 1} decode "
+          f"steps): {flash_launches} flash_attention launches", flush=True)
+    if flash_launches != cfg.n_layers:
+        fail(f"the dense serving main path launched flash_attention "
+             f"{flash_launches} times, expected {cfg.n_layers} (one per "
+             f"layer, prefill only)")
+    REPORT["olmo_serve"] = phase_serve_measure("A3", cfg, model, prompt,
+                                               olmo_run, OLMO_TOKENS,
+                                               "_attention_core")
+    olmo_vs_plain = phase_olmo_vs_plain(cfg, model, prompt, olmo_run)
+    REPORT["olmo_profile"] = phase_serve_profile(
+        "A5", cfg, model, prompt, REPORT["olmo_serve"], OLMO_TOKENS,
+        "flash_attention")
+    del model, olmo_run
+    torch.cuda.empty_cache()
     # Held against the plain step: each variant the main path ran, at its
     # shapes (the checks fail the run on any mismatch).
     phase_fig4_vs_plain()
     fleet = phase_fleet_measure(fleet_run)
     ssd = phase_ssd_measure()
+    flash = phase_flash_measure()
     # The training main path: counts to 0 just before, read just after.
     ckpt_root = ROOT / ".smoke_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
     for k in ckpt_quant.LAUNCHES:
         ckpt_quant.LAUNCHES[k] = 0
-    sim_step.LAUNCHES = ssd_scan.LAUNCHES = 0
+    sim_step.LAUNCHES = ssd_scan.LAUNCHES = flash_attention.LAUNCHES = 0
     try:
         train_run = phase_train(str(ckpt_root / "run"))
         quant_launches = dict(ckpt_quant.LAUNCHES)
-        other = dict(sim_step=sim_step.LAUNCHES, ssd_scan=ssd_scan.LAUNCHES)
+        other = dict(sim_step=sim_step.LAUNCHES, ssd_scan=ssd_scan.LAUNCHES,
+                     flash_attention=flash_attention.LAUNCHES)
         REPORT["train_main_path_launches"] = dict(quant_launches, **other)
         print(f"[T3] training main path: launches {quant_launches} (3 "
               f"compress_grads calls over {train_run['n_leaves']} leaves), "
@@ -1576,7 +1928,28 @@ def main() -> int:
         "library_ms": quant[name]["library_ms"]}
         for name, replaces in (
             ("quantize", "src/repro/kernels/ckpt_quant.py:28"),
-            ("dequantize", "src/repro/kernels/ckpt_quant.py:37"))]}
+            ("dequantize", "src/repro/kernels/ckpt_quant.py:37"))] + [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:37",
+        "launches": flash_launches, "max_abs_err": flash_worst,
+        "tolerance": FLASH_TOL,
+        "logits_vs_plain_path": {
+            "bf16_rel_rms": olmo_vs_plain["bf16"]["rel_rms"],
+            "bf16_max_abs": olmo_vs_plain["bf16"]["max_abs"],
+            "bf16_max_ratio": olmo_vs_plain["bf16"]["max_ratio"],
+            "bf16_floor_max_ratio":
+                olmo_vs_plain["bf16_plain_vs_plain"]["max_ratio"],
+            "f32_max_abs": olmo_vs_plain["f32"]["max_abs"]},
+        "shape": FLASH_OLMO_SHAPE,
+        "ms": flash["olmo-1b prefill"]["ms"],
+        "plain_ms": flash["olmo-1b prefill"]["plain_ms"],
+        "bound_ms": flash["olmo-1b prefill"]["bound_ms"],
+        "bound_by": flash["olmo-1b prefill"]["bound_by"],
+        "f32_simt_bound_ms": flash["olmo-1b prefill"]["f32_simt_bound_ms"],
+        "library_ms": flash["olmo-1b prefill"]["library_ms"],
+        "gqa_shape": {k: flash["GQA serving"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "library_ms")}}]}
     REPORT["kernels"] = kernels
     _dump()
     print(json.dumps(kernels))

@@ -1,7 +1,8 @@
 """Architecture registry of the port: the configs ported so far.
 
-Only ``mamba2-130m`` (the ssm family) is ported; the other architectures
-of ``repro.configs`` are listed in ROADMAP Queue 1 and raise here.
+Ported: ``mamba2-130m`` (the ssm family) and ``olmo-1b`` (the dense
+family); the other architectures of ``repro.configs`` are listed in
+ROADMAP Queue 1 and raise here.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.configs.base import (
 
 _ARCH_MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

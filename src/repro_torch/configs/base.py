@@ -92,7 +92,8 @@ class ModelConfig:
     # remat: 'none' | 'full' | 'dots'
     remat: str = "full"
     # perf knobs (hillclimbing)
-    # the hand-written kernel: for the ssm family, the CUDA SSD chunked scan
+    # the hand-written kernel: for the ssm family the CUDA SSD chunked scan,
+    # for the dense family the CUDA flash attention of the prefill
     use_flash_kernel: bool = False
     seq_shard_activations: bool = False    # sequence-parallel residual stream
     kv_cache_quant: bool = False           # int8 KV cache (+f32 per-token scales)

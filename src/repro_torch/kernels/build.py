@@ -12,8 +12,10 @@ separately rounded, as PyTorch's elementwise kernels round them, so that
 kernel can equal its plain PyTorch version bit for bit.  ``ssd_scan`` is
 held to a stated tolerance instead and keeps nvcc's default fused
 multiply-adds.  ``ckpt_quant`` rounds every operation on its own by its
-intrinsics (``__fdiv_rn``, ``__fmul_rn``, ``rintf``) and needs no flag.  The file name carries a hash of the source and the flags,
-so an edited source is rebuilt.  ``BUILD_LOG[name]`` keeps the build
+intrinsics (``__fdiv_rn``, ``__fmul_rn``, ``rintf``) and needs no flag.
+``flash_attention`` is held to a stated tolerance and keeps the default
+flags.  ``SOURCES`` lists every source.  The file name carries a hash of
+the source and the flags, so an edited source is rebuilt.  ``BUILD_LOG[name]`` keeps the build
 seconds and the ``-Xptxas -v`` report (registers, spills).
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"sim_step": ("-fmad=false",)}
+SOURCES = ("sim_step", "ssd_scan", "ckpt_quant", "flash_attention")
 
 BUILD_LOG: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}

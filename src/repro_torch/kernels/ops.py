@@ -2,8 +2,7 @@
 ``repro/kernels/ops.py``).
 
 Each wrapper launches the hand-written CUDA kernel for CUDA tensors and
-runs the kernel's plain torch version for CPU tensors.  The
-``flash_attention`` entry waits for its slice (ROADMAP Queue 2).
+runs the kernel's plain torch version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -12,7 +11,22 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ckpt_quant as _q
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True,
+                    softcap: Optional[float] = None, block_q: int = 128,
+                    block_kv: int = 128) -> torch.Tensor:
+    """GQA flash attention: q (BG, R, Sq, D), k/v (BG, Skv, D).
+
+    ``block_q`` and ``block_kv`` (the Pallas kernel's VMEM tiling) are
+    accepted for the JAX signature and do not enter: the CUDA kernel's
+    tiles are 64 x 64 and the result does not depend on them."""
+    del block_q, block_kv
+    return _fa.flash_attention(q, k, v, scale=scale, causal=causal,
+                               softcap=softcap)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

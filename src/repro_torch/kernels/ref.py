@@ -1,11 +1,34 @@
 """Plain-torch oracles for the port's kernels (the port of
-``repro/kernels/ref.py``; the entry of the kernel not ported yet waits
-for its slice)."""
+``repro/kernels/ref.py``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool = True,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """Reference attention.
+
+    q: (B, R, Sq, D) query groups; k, v: (B, Sk, D).  (GQA is expressed by
+    folding kv-head groups into B and query-heads-per-group into R.)  As
+    the JAX oracle does, a row that sees no key (Sq > Sk, causal) gets the
+    softmax of its all -1e30 scores, the mean of v; the kernels give 0
+    there (ROADMAP Queue 3).
+    """
+    s = torch.einsum("brsd,btd->brst", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    if causal:
+        Sq, Sk = q.shape[2], k.shape[1]
+        # bottom-right aligned causal mask (decode-style when Sq < Sk)
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        mask = torch.arange(Sk, device=q.device)[None, :] <= qpos
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("brst,btd->brsd", p, v.float()).to(q.dtype)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -18,7 +18,8 @@ is removed at the end; with it, replicas go to ``DIR_rep0``, ... beside it.
 Training runs the SSD through ``ssd_chunked``, as the JAX package trains
 mamba2: the CUDA SSD kernel has no backward, so a config with
 ``use_flash_kernel=True`` (the port's serving ``CONFIG``) is trained with
-the knob off, and the entry point says so.
+the knob off, and the entry point says so.  Training is ported for the
+ssm family only: a dense ``--arch`` (olmo-1b) is refused, naming ROADMAP.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.runtime import (
     TrainerReport,
 )
 from repro_torch.sim.network import constant_mtbf
+from repro_torch.train.step import require_trainable_family
 
 
 def parser() -> argparse.ArgumentParser:
@@ -79,7 +81,9 @@ def parser() -> argparse.ArgumentParser:
 
 
 def training_config(cfg: ModelConfig) -> ModelConfig:
-    """The config training runs: the SSD kernel off (it has no backward)."""
+    """The config training runs: the SSD kernel off (it has no backward).
+    Families other than ssm are refused."""
+    require_trainable_family(cfg)
     if cfg.use_flash_kernel:
         print("use_flash_kernel=False: training runs ssd_chunked (the SSD "
               "kernel has no backward)")

@@ -1,5 +1,7 @@
-"""Model library of the port (the ssm family: mamba2)."""
+"""Model library of the port (the ssm family: mamba2; the dense family:
+olmo)."""
 from repro_torch.models.model import (
+    DenseLM,
     Mamba2LM,
     decode_step,
     forward,
@@ -10,5 +12,5 @@ from repro_torch.models.model import (
     prefill,
 )
 
-__all__ = ["Mamba2LM", "decode_step", "forward", "from_reference",
+__all__ = ["DenseLM", "Mamba2LM", "decode_step", "forward", "from_reference",
            "init_cache", "init_params", "loss_fn", "prefill"]

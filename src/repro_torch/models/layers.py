@@ -1,27 +1,34 @@
 """Layer library of the port: the parts of ``repro/models/layers.py`` that
-the ssm family uses (rmsnorm, tied embedding and unembedding, bfloat16
-and float32).
+the ported families use -- rmsnorm and the non-parametric LayerNorm,
+standard RoPE, GQA attention over a serving cache, the MLPs, tied
+embedding and unembedding, in bfloat16 and float32.
 
 Conventions, as in the JAX package: parameters are mappings of name to
 tensor (``nn.ParameterDict`` inside the modules), ``init_*`` functions
 build them and the ``apply`` logic is plain functions; compute runs in
-``cfg.compute_dtype`` and norm statistics in float32.  Initialisation
-draws from an explicit CPU ``torch.Generator``, so a seed gives the same
-weights on every device.  Attention, RoPE and the MLPs wait for a later
-slice (ROADMAP Queue 1).
+``cfg.compute_dtype``, norm statistics and the softmax in float32.
+Initialisation draws from an explicit CPU ``torch.Generator``, so a seed
+gives the same weights on every device; ``gen=None`` gives uninitialised
+tensors on the meta device (shapes and dtypes only).  The other norms,
+partial RoPE and M-RoPE, the int8 KV cache, an untied unembedding and the
+logit softcap wait for the slices that need them (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
 Params = Mapping[str, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+NEG_INF = -1e30
+NORMS = ("rmsnorm", "nonparametric")
+ACTS = ("silu_gated", "gelu_gated", "gelu")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -32,24 +39,39 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """The ssm family's layer options are the only ones ported; the other
-    norms, an untied unembedding and the logit softcap wait for the slices
-    that need them (ROADMAP Queue 1)."""
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} is not ported yet (ROADMAP Queue 1)")
+    """Raise for a layer option the port does not have yet: the norms
+    other than rmsnorm and the non-parametric LayerNorm, an untied
+    unembedding, the logit softcap, partial RoPE and M-RoPE, the int8 KV
+    cache and the modality frontends (ROADMAP Queue 1)."""
+    def missing(what: str):
+        return NotImplementedError(
+            f"{what} is not ported yet (ROADMAP Queue 1)")
+
+    if cfg.norm not in NORMS:
+        raise missing(f"norm {cfg.norm!r}")
     if not cfg.tie_embeddings:
-        raise NotImplementedError(
-            "untied embeddings are not ported yet (ROADMAP Queue 1)")
+        raise missing("an untied unembedding")
     if cfg.logit_softcap is not None:
-        raise NotImplementedError(
-            "logit softcap is not ported yet (ROADMAP Queue 1)")
+        raise missing("the logit softcap")
+    rope = cfg.attention.rope
+    if rope is not None and (rope.partial_pct != 1.0
+                             or rope.mrope_sections is not None):
+        raise missing("partial RoPE and M-RoPE")
+    if cfg.kv_cache_quant:
+        raise missing("the int8 KV cache (kv_cache_quant)")
+    if cfg.frontend != "none":
+        raise missing(f"frontend {cfg.frontend!r}")
+    if cfg.act not in ACTS:
+        raise ValueError(f"unknown act {cfg.act!r}")
 
 
-def truncated_normal_init(gen: torch.Generator, shape, scale: float,
+def truncated_normal_init(gen: Optional[torch.Generator], shape, scale: float,
                           dtype: torch.dtype) -> torch.Tensor:
     """Normal draws truncated to [-2, 2], times ``scale``, cast to ``dtype``
-    (inverse CDF of uniforms from ``gen``, in float32 on the CPU)."""
+    (inverse CDF of uniforms from ``gen``, in float32 on the CPU).  ``gen``
+    None: an uninitialised tensor on the meta device."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = lo + (1.0 - 2.0 * lo) * torch.rand(shape, generator=gen,
                                            dtype=torch.float32)
@@ -61,24 +83,270 @@ def truncated_normal_init(gen: torch.Generator, shape, scale: float,
 # Norms
 # --------------------------------------------------------------------------- #
 
-def init_norm(gen: torch.Generator, cfg: ModelConfig,
+def init_norm(gen: Optional[torch.Generator], cfg: ModelConfig,
               dim: int) -> Dict[str, torch.Tensor]:
     check_ported(cfg)
+    if cfg.norm == "nonparametric":
+        return {}
     return {"scale": torch.ones(dim, dtype=_dtype(cfg.param_dtype))}
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+    if cfg.norm == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+    elif cfg.norm == "nonparametric":
+        # OLMo: LayerNorm without affine parameters
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
+    else:
+        raise NotImplementedError(
+            f"norm {cfg.norm!r} is not ported yet (ROADMAP Queue 1)")
     return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Rotary embeddings (standard RoPE)
+# --------------------------------------------------------------------------- #
+
+def _rope_freqs(head_dim_rot: int, theta: float,
+                device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim_rot, 2,
+                                         dtype=torch.float32, device=device)
+                            / head_dim_rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               partial_pct: float = 1.0,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """Rotate ``x`` (B, H, S, D) by ``positions`` (B or 1, S): interleaved
+    pairs (``x[..., 0::2]``, ``x[..., 1::2]``) as in the JAX package,
+    angles in float32."""
+    if partial_pct != 1.0 or mrope_sections is not None:
+        raise NotImplementedError(
+            "partial RoPE and M-RoPE are not ported yet (ROADMAP Queue 1)")
+    B, H, S, D = x.shape
+    d_rot = D - D % 2
+    if d_rot == 0:
+        return x
+    if positions.dim() == 3:
+        positions = positions[:, 0]
+    freqs = _rope_freqs(d_rot, theta, x.device)                  # (d_rot/2,)
+    angles = positions[:, None, :, None].float() * freqs         # (B,1,S,d/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., 0:d_rot:2].float(), x[..., 1:d_rot:2].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rotated = torch.stack([r1, r2], dim=-1).reshape(
+        *r1.shape[:3], d_rot).to(x.dtype)
+    return torch.cat([rotated, x[..., d_rot:]], dim=-1) if d_rot < D \
+        else rotated
+
+
+# --------------------------------------------------------------------------- #
+# Attention (GQA, softcap, sliding window, decode cache)
+# --------------------------------------------------------------------------- #
+
+def init_attention(gen: Optional[torch.Generator],
+                   cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    a = cfg.attention
+    dt = _dtype(cfg.param_dtype)
+    d = cfg.d_model
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(a.n_heads * a.head_dim)
+    return {
+        "wq": truncated_normal_init(gen, (d, a.n_heads, a.head_dim), s_in, dt),
+        "wk": truncated_normal_init(gen, (d, a.n_kv_heads, a.head_dim), s_in,
+                                    dt),
+        "wv": truncated_normal_init(gen, (d, a.n_kv_heads, a.head_dim), s_in,
+                                    dt),
+        "wo": truncated_normal_init(gen, (a.n_heads, a.head_dim, d), s_out,
+                                    dt),
+    }
+
+
+def _attn_mask(q_pos: torch.Tensor, kv_len: int, *, causal: bool,
+               sliding_window: Optional[int], local_flag: bool,
+               kv_valid_len: Optional[int]) -> torch.Tensor:
+    """Boolean (q_len, kv_len) mask: True = attend.  ``q_pos`` are absolute
+    query positions; ``kv_valid_len`` masks not-yet-written cache slots."""
+    q = q_pos[:, None]
+    k_pos = torch.arange(kv_len, device=q_pos.device)[None, :]
+    mask = (k_pos <= q) if causal else torch.ones(
+        q.shape[0], kv_len, dtype=torch.bool, device=q_pos.device)
+    if sliding_window is not None and local_flag:
+        mask = mask & (k_pos > q - sliding_window)
+    if kv_valid_len is not None:
+        mask = mask & (k_pos < kv_valid_len)
+    return mask
+
+
+def _attention_core(qg, k, v, *, scale, softcap, causal, sliding_window,
+                    local_flag, q_offset, kv_valid, q_chunk: int, cdt):
+    """Softmax attention, chunked over queries (the JAX package's plain
+    path).  qg: (B, G, R, S, hd); k, v: (B, G, Sk, hd).  Scores are
+    multiplied in the compute dtype, then scaled and soft-maxed in
+    float32; the probabilities are cast back to the compute dtype before
+    the product with v."""
+    S = qg.shape[3]
+    Sk = k.shape[2]
+
+    def chunk(qc, q_pos):
+        s = torch.einsum("bgrsk,bgtk->bgrst", qc, k).float() * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        m = _attn_mask(q_pos, Sk, causal=causal, sliding_window=sliding_window,
+                       local_flag=local_flag, kv_valid_len=kv_valid)
+        s = torch.where(m, s, NEG_INF)
+        probs = torch.softmax(s, dim=-1).to(cdt)
+        return torch.einsum("bgrst,bgtk->bgrsk", probs, v)
+
+    pos = torch.arange(S, device=qg.device) + q_offset
+    if S <= q_chunk or S % q_chunk:
+        return chunk(qg, pos)
+    return torch.cat([chunk(qg[..., c:c + q_chunk, :], pos[c:c + q_chunk])
+                      for c in range(0, S, q_chunk)], dim=3)
+
+
+def flash_route(cfg: ModelConfig, *, causal: bool, q_offset: int, seq: int,
+                layer_is_local: bool) -> bool:
+    """Whether the attention of a call runs through the flash kernel: the
+    knob is on, the mask is causal, the queries start at position 0 (a
+    prefill, or a forward without a cache) and no sliding window is
+    narrower than the prompt.  Everything else (decode, a prefill behind
+    earlier tokens) runs :func:`_attention_core`."""
+    a = cfg.attention
+    narrow = (a.sliding_window is not None and layer_is_local
+              and a.sliding_window < seq)
+    return bool(cfg.use_flash_kernel and causal and q_offset == 0
+                and not narrow)
+
+
+def multi_head_attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    layer_is_local: bool = False,
+    causal: bool = True,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_index: Optional[int] = None,
+    layer_index: Optional[int] = None,
+    q_chunk: int = 512,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """GQA attention over (B, S, D) input.
+
+    With ``cache`` (dict with 'k', 'v') this is a serving step: the new K/V
+    are written at ``cache_index`` and attention runs over the whole
+    (masked) cache.  ``layer_index`` selects the layer slice of a stacked
+    (L, B, G, max_seq, hd) cache.  Unlike the JAX package, which returns
+    updated copies, the port writes into the given cache tensors in place
+    and returns the same dict.
+
+    With ``cfg.use_flash_kernel`` and :func:`flash_route` true, the
+    attention runs through ``kernels.ops.flash_attention`` on the prompt's
+    own K and V (as read back through the cache's dtype): over them it is
+    the attention ``_attention_core`` computes over the whole cache with
+    the slots past the prompt masked.  The kernel's causal mask is
+    bottom-right aligned, so it is never given the longer cache buffer.
+    """
+    from repro_torch.kernels import ops
+
+    a = cfg.attention
+    B, S, _ = x.shape
+    G, hd = a.n_kv_heads, a.head_dim
+    rep = a.n_heads // G
+    cdt = _dtype(cfg.compute_dtype)
+    xc = x.to(cdt)
+    d = xc.shape[-1]
+
+    def proj(w, n):
+        return (xc @ w.to(cdt).reshape(d, n * hd)).reshape(
+            B, S, n, hd).transpose(1, 2)
+
+    q, k, v = proj(p["wq"], a.n_heads), proj(p["wk"], G), proj(p["wv"], G)
+    if a.rope is not None:
+        q = apply_rope(q, positions, a.rope.theta, a.rope.partial_pct,
+                       a.rope.mrope_sections)
+        k = apply_rope(k, positions, a.rope.theta, a.rope.partial_pct,
+                       a.rope.mrope_sections)
+
+    q_offset, kv_valid = 0, None
+    k_own, v_own = k, v
+    k_all, v_all = k, v
+    if cache is not None:
+        if "k_scale" in cache:
+            raise NotImplementedError(
+                "the int8 KV cache is not ported yet (ROADMAP Queue 1)")
+        idx = int(cache_index or 0)
+        ck, cv = cache["k"], cache["v"]
+        if layer_index is not None:
+            ck, cv = ck[layer_index], cv[layer_index]
+        ck[:, :, idx:idx + S] = k.to(ck.dtype)
+        cv[:, :, idx:idx + S] = v.to(cv.dtype)
+        k_own, v_own = k.to(ck.dtype).to(cdt), v.to(cv.dtype).to(cdt)
+        k_all, v_all = ck.to(cdt), cv.to(cdt)
+        q_offset, kv_valid = idx, idx + S
+
+    scale = a.query_scale if a.query_scale is not None else \
+        1.0 / math.sqrt(hd)
+    if flash_route(cfg, causal=causal, q_offset=q_offset, seq=S,
+                   layer_is_local=layer_is_local):
+        ctx = ops.flash_attention(
+            q.reshape(B * G, rep, S, hd), k_own.reshape(B * G, S, hd),
+            v_own.reshape(B * G, S, hd), scale=scale, causal=True,
+            softcap=a.softcap)
+    else:
+        ctx = _attention_core(
+            q.reshape(B, G, rep, S, hd), k_all, v_all, scale=scale,
+            softcap=a.softcap, causal=causal,
+            sliding_window=a.sliding_window, local_flag=layer_is_local,
+            q_offset=q_offset, kv_valid=kv_valid, q_chunk=q_chunk, cdt=cdt)
+    ctx = ctx.reshape(B, a.n_heads, S, hd)
+    out = torch.einsum("bhsk,hkd->bsd", ctx, p["wo"].to(cdt))
+    return out.to(x.dtype), cache
+
+
+# --------------------------------------------------------------------------- #
+# MLP
+# --------------------------------------------------------------------------- #
+
+def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig,
+             d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    dt = _dtype(cfg.param_dtype)
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
+    p = {"w_up": truncated_normal_init(gen, (d, f), 1.0 / math.sqrt(d), dt),
+         "w_down": truncated_normal_init(gen, (f, d), 1.0 / math.sqrt(f), dt)}
+    if cfg.act.endswith("gated"):
+        p["w_gate"] = truncated_normal_init(gen, (d, f), 1.0 / math.sqrt(d),
+                                            dt)
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cdt = _dtype(cfg.compute_dtype)
+    xc = x.to(cdt)
+    up = xc @ p["w_up"].to(cdt)
+    if cfg.act == "silu_gated":
+        h = F.silu(xc @ p["w_gate"].to(cdt)) * up
+    elif cfg.act == "gelu_gated":
+        h = F.gelu(xc @ p["w_gate"].to(cdt), approximate="tanh") * up
+    elif cfg.act == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(f"unknown act {cfg.act!r}")
+    return (h @ p["w_down"].to(cdt)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
 # Embedding / unembedding
 # --------------------------------------------------------------------------- #
 
-def init_embedding(gen: torch.Generator,
+def init_embedding(gen: Optional[torch.Generator],
                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     check_ported(cfg)
     return {"tok": truncated_normal_init(gen, (cfg.vocab, cfg.d_model), 0.02,
@@ -88,11 +356,12 @@ def init_embedding(gen: torch.Generator,
 def embed_tokens(p: Params, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     x = p["tok"][tokens].to(_dtype(cfg.compute_dtype))
-    # gemma-style embedding scaling for tied embeddings under an rmsnorm, in
-    # the compute dtype (sqrt(d_model) rounded to it first, as the JAX
-    # package does)
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                            device=x.device)
+    if cfg.norm.startswith("rmsnorm") and cfg.tie_embeddings:
+        # gemma-style embedding scaling for tied embeddings, in the compute
+        # dtype (sqrt(d_model) rounded to it first, as the JAX package does)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def logits_from_hidden(p: Params, x: torch.Tensor,

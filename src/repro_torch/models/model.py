@@ -1,33 +1,39 @@
 """Model assembly of the port: init / forward / prefill / decode for the
-ssm family (the Mamba2 stack, attention-free).
+ssm family (the Mamba2 stack, attention-free) and the dense family (the
+pre-norm transformer: GQA attention + MLP).
 
-The port of ``repro/models/model.py`` for ``family == "ssm"``.  The stack
-is an ``nn.Module`` (:class:`Mamba2LM`: embedding, a ``ModuleList`` of
-blocks looped in Python, final norm); the JAX version's ``lax.scan`` over
-stacked parameters has no counterpart here.  Its remat does: with
-``cfg.remat == "full"`` each block runs under
-``torch.utils.checkpoint.checkpoint`` when autograd records the forward
-(training); ``"dots"`` raises.  :func:`loss_fn` is the training loss.  The dense,
-moe, hybrid and encdec families wait for later slices (ROADMAP Queue 1)
-and raise.
+The port of ``repro/models/model.py`` for ``family`` ``"ssm"`` and
+``"dense"``.  Each stack is an ``nn.Module`` (:class:`Mamba2LM`,
+:class:`DenseLM`: embedding, a ``ModuleList`` of blocks looped in Python,
+final norm); the JAX version's ``lax.scan`` over stacked parameters has no
+counterpart here.  Its remat does: with ``cfg.remat == "full"`` each block
+runs under ``torch.utils.checkpoint.checkpoint`` when autograd records the
+forward (training); ``"dots"`` raises.  :func:`loss_fn` is the training
+loss.  The moe, hybrid and encdec families wait for later slices (ROADMAP
+Queue 1) and raise.
 
 Parameters are built frozen (``requires_grad=False``), as serving wants
 them; the training entry points (``repro_torch.train.step``) turn
-``requires_grad`` on.  Parameter names follow the JAX pytree: ``embed.tok``,
-``blocks.<i>.norm.scale``, ``blocks.<i>.mixer.<name>``,
-``final_norm.scale``; :func:`from_reference` carries the JAX package's
-``init_params`` pytree (as numpy arrays, layer-stacked ``(L, ...)``
-leaves under ``blocks``) across dtype for dtype.
+``requires_grad`` on.  Parameter names follow the JAX pytree:
+``embed.tok``, ``blocks.<i>.norm.scale``, ``blocks.<i>.mixer.<name>``
+(ssm), ``blocks.<i>.attn.wq``, ``blocks.<i>.mlp.w_up``, ... (dense; the
+non-parametric norms hold no leaves), ``final_norm.scale``;
+:func:`from_reference` carries the JAX package's ``init_params`` pytree
+(as numpy arrays, layer-stacked ``(L, ...)`` leaves under ``blocks``)
+across dtype for dtype.
 
-The serving cache mirrors the JAX one: ``{"ssm": {"state": (L, B, h, p,
-n), "conv": (L, B, W-1, conv_dim)}, "index": int}``; the SSM state and
-conv carry are float32 whatever ``cache_dtype`` prefill is given, as in
-the JAX package.  Entry points run on CUDA unless given ``device="cpu"``.
+The serving caches mirror the JAX ones.  ssm: ``{"ssm": {"state": (L, B,
+h, p, n), "conv": (L, B, W-1, conv_dim)}, "index": int}``; the SSM state
+and conv carry are float32 whatever ``cache_dtype`` prefill is given, as
+in the JAX package.  dense: ``{"kv": {"k", "v": (L, B, G, max_seq, hd)},
+"index": int}`` in ``cache_dtype``, written in place layer by layer (the
+JAX decode path's ``layer_index`` form).  Entry points run on CUDA unless
+given ``device="cpu"``.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -42,11 +48,14 @@ from repro_torch.models import ssm as SSM
 Cache = Dict[str, Any]
 
 
-def _require_ssm(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
+FAMILIES = ("ssm", "dense")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet; only "
-            f"'ssm' is (the others are in ROADMAP Queue 1)")
+            f"{FAMILIES} are (the others are in ROADMAP Queue 1)")
     L.check_ported(cfg)
 
 
@@ -79,30 +88,71 @@ class Mamba2LM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        _require_ssm(cfg)
+        _require_ported(cfg)
         self.cfg = cfg
         dev = device if gen is not None else "meta"
-        if gen is not None:
-            embed = L.init_embedding(gen, cfg)
-        else:
-            embed = {"tok": torch.empty(cfg.vocab, cfg.d_model, device="meta",
-                                        dtype=L._dtype(cfg.param_dtype))}
-        self.embed = _norm(embed, dev)
+        self.embed = _norm(L.init_embedding(gen, cfg), dev)
         self.blocks = nn.ModuleList(Mamba2Block(cfg, gen, device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
 
 
+class DenseBlock(nn.Module):
+    """Pre-norm transformer block's parameters: attention and MLP, each
+    behind a norm (plus gemma2's post-block norms when
+    ``cfg.post_block_norm``); run by :func:`_apply_dense_block` under the
+    caller's config."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        dev = device if gen is not None else "meta"
+        d = cfg.d_model
+        self.attn_norm = _norm(L.init_norm(gen, cfg, d), dev)
+        self.attn = _norm(L.init_attention(gen, cfg), dev)
+        self.mlp_norm = _norm(L.init_norm(gen, cfg, d), dev)
+        self.mlp = _norm(L.init_mlp(gen, cfg), dev)
+        if cfg.post_block_norm:
+            self.post_attn_norm = _norm(L.init_norm(gen, cfg, d), dev)
+            self.post_mlp_norm = _norm(L.init_norm(gen, cfg, d), dev)
+
+
+class DenseLM(nn.Module):
+    """The dense language model's parameters: embedding, blocks, final
+    norm (run by :func:`forward`).  ``gen`` None builds it on the meta
+    device, to be loaded (:func:`from_reference`)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        _require_ported(cfg)
+        self.cfg = cfg
+        dev = device if gen is not None else "meta"
+        self.embed = _norm(L.init_embedding(gen, cfg), dev)
+        self.blocks = nn.ModuleList(DenseBlock(cfg, gen, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
+
+
+LM = Union[Mamba2LM, DenseLM]
+
+
+def model_class(cfg: ModelConfig) -> Type[nn.Module]:
+    """The module class of ``cfg``'s family."""
+    _require_ported(cfg)
+    return Mamba2LM if cfg.family == "ssm" else DenseLM
+
+
 def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
-                device=None) -> Mamba2LM:
+                device=None) -> LM:
     """Randomly initialised model from a seed or a CPU ``torch.Generator``
     (draws on the CPU, so a seed gives the same weights on every device),
     moved to ``device`` (default CUDA)."""
-    _require_ssm(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     if isinstance(gen, int):
         gen = torch.Generator().manual_seed(gen)
-    return Mamba2LM(cfg, gen, dev)
+    return model_class(cfg)(cfg, gen, dev)
 
 
 # --------------------------------------------------------------------------- #
@@ -116,12 +166,38 @@ def _apply_ssm_block(bp: Mamba2Block, x, cfg: ModelConfig, *, cache=None,
     return x + mix, new_cache
 
 
+def _apply_dense_block(bp: DenseBlock, x, cfg: ModelConfig, *, positions,
+                       layer_is_local: bool, cache=None, cache_index=None,
+                       layer_index=None):
+    h = L.apply_norm(bp.attn_norm, x, cfg)
+    attn_out, new_cache = L.multi_head_attention(
+        bp.attn, h, cfg, positions=positions, layer_is_local=layer_is_local,
+        cache=cache, cache_index=cache_index, layer_index=layer_index)
+    if cfg.post_block_norm:
+        attn_out = L.apply_norm(bp.post_attn_norm, attn_out, cfg)
+    x = x + attn_out
+    h = L.apply_norm(bp.mlp_norm, x, cfg)
+    ffn_out = L.apply_mlp(bp.mlp, h, cfg)
+    if cfg.post_block_norm:
+        ffn_out = L.apply_norm(bp.post_mlp_norm, ffn_out, cfg)
+    return x + ffn_out, new_cache
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Cache:
-    """Serving cache for the ssm family.  ``max_seq`` and ``dtype`` do not
-    enter it: the SSM cache has no sequence axis and is float32."""
-    _require_ssm(cfg)
-    one = SSM.init_ssm_cache(cfg, batch, device=resolve_device(device))
+    """Serving cache for the ported families.  ssm: ``max_seq`` and
+    ``dtype`` do not enter it (the SSM cache has no sequence axis and is
+    float32).  dense: zeroed K and V of (L, B, G, max_seq, hd) in
+    ``dtype``."""
+    _require_ported(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "dense":
+        a = cfg.attention
+        shape = (cfg.n_layers, batch, a.n_kv_heads, max_seq, a.head_dim)
+        return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=dtype, device=dev)},
+                "index": 0}
+    one = SSM.init_ssm_cache(cfg, batch, device=dev)
     st = {k: v[None].repeat(cfg.n_layers, *([1] * v.dim()))
           for k, v in one.items()}
     return {"ssm": st, "index": 0}
@@ -140,6 +216,31 @@ def _remat(cfg: ModelConfig) -> bool:
             "remat='dots' (save only the matrix products) is not ported yet "
             "(ROADMAP Queue 1 item 9); use 'full' or 'none'")
     return True
+
+
+def _layer_is_local_static(cfg: ModelConfig, i: int) -> bool:
+    if cfg.attention.pattern == "alternating":
+        return i % 2 == 0  # local on even layers (gemma2)
+    return cfg.attention.pattern == "local"
+
+
+def _dense_stack(params: DenseLM, x, cfg: ModelConfig, *, positions,
+                 kv_cache=None, cache_index=None):
+    """The dense block stack, a Python loop over the blocks.  With a cache
+    (prefill and decode alike) each layer writes its slice of the stacked
+    (L, B, G, max_seq, hd) buffers in place."""
+    remat = kv_cache is None and _remat(cfg)
+    for i, bp in enumerate(params.blocks):
+        kw = dict(positions=positions,
+                  layer_is_local=_layer_is_local_static(cfg, i))
+        if remat:
+            x, _ = checkpoint(_apply_dense_block, bp, x, cfg,
+                              use_reentrant=False, **kw)
+        else:
+            x, kv_cache = _apply_dense_block(
+                bp, x, cfg, cache=kv_cache, cache_index=cache_index,
+                layer_index=None if kv_cache is None else i, **kw)
+    return x, kv_cache
 
 
 def _ssm_stack(params: Mamba2LM, x, cfg: ModelConfig, *, ssm_cache=None,
@@ -166,25 +267,40 @@ def _ssm_stack(params: Mamba2LM, x, cfg: ModelConfig, *, ssm_cache=None,
 # Public API
 # --------------------------------------------------------------------------- #
 
-def forward(params: Mamba2LM, batch: Mapping[str, torch.Tensor],
+def forward(params: LM, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig, *, cache: Optional[Cache] = None,
             last_only: bool = False
             ) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
     """Compute logits (float32).
 
-    batch: {'tokens': (B, S) integer}.  With ``cache`` the call is a
-    serving step; ``last_only`` computes logits for the final position
-    only (prefill -- avoids a (B, S, V) tensor).
+    batch: {'tokens': (B, S) integer; dense: optional 'positions' (B, S)}.
+    With ``cache`` the call is a serving step writing at
+    ``cache['index']``; ``last_only`` computes logits for the final
+    position only (prefill -- avoids a (B, S, V) tensor).
     """
-    _require_ssm(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(params.embed, tokens, cfg)
-    ssm_c = cache["ssm"] if cache is not None else None
-    x, new_ssm = _ssm_stack(params, x, cfg, ssm_cache=ssm_c,
-                            use_kernel=cfg.use_flash_kernel)
     new_cache = None
-    if cache is not None:
-        new_cache = {"ssm": new_ssm, "index": cache["index"] + tokens.shape[1]}
+    if cfg.family == "dense":
+        cache_index = int(cache["index"]) if cache is not None else 0
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device
+                                     )[None, :] + cache_index
+        kv = cache["kv"] if cache is not None else None
+        x, new_kv = _dense_stack(params, x, cfg, positions=positions,
+                                 kv_cache=kv, cache_index=cache_index)
+        if cache is not None:
+            new_cache = {"kv": new_kv,
+                         "index": cache_index + tokens.shape[1]}
+    else:
+        ssm_c = cache["ssm"] if cache is not None else None
+        x, new_ssm = _ssm_stack(params, x, cfg, ssm_cache=ssm_c,
+                                use_kernel=cfg.use_flash_kernel)
+        if cache is not None:
+            new_cache = {"ssm": new_ssm,
+                         "index": cache["index"] + tokens.shape[1]}
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(params.final_norm, x, cfg)
@@ -192,7 +308,7 @@ def forward(params: Mamba2LM, batch: Mapping[str, torch.Tensor],
     return logits, new_cache, {}
 
 
-def loss_fn(params: Mamba2LM, batch: Mapping[str, torch.Tensor],
+def loss_fn(params: LM, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy.  batch['labels'] (B, S); entries < 0 are
     ignored.  Returns (loss, {'loss', 'ce'})."""
@@ -209,7 +325,7 @@ def loss_fn(params: Mamba2LM, batch: Mapping[str, torch.Tensor],
     return ce, {"loss": ce, "ce": ce}
 
 
-def prefill(params: Mamba2LM, tokens: torch.Tensor, cfg: ModelConfig,
+def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
             max_seq: int, *, cache_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt through the model, returning (last_logits, cache)."""
@@ -220,7 +336,7 @@ def prefill(params: Mamba2LM, tokens: torch.Tensor, cfg: ModelConfig,
     return logits, cache
 
 
-def decode_step(params: Mamba2LM, cache: Cache, tokens: torch.Tensor,
+def decode_step(params: LM, cache: Cache, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
     """One serving step: tokens (B, 1) -> (logits (B,1,V), new cache)."""
     logits, new_cache, _ = forward(params, {"tokens": tokens}, cfg,
@@ -245,25 +361,25 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 def reference_state(params_np: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The JAX ``init_params`` pytree flattened to the port's parameter
-    names (layer-stacked leaves split per layer)."""
-    _require_ssm(cfg)
-    out = {"embed.tok": params_np["embed"]["tok"],
-           "final_norm.scale": params_np["final_norm"]["scale"]}
-    blocks = params_np["blocks"]
-    for i in range(cfg.n_layers):
-        out[f"blocks.{i}.norm.scale"] = blocks["norm"]["scale"][i]
-        for k, v in blocks["mixer"].items():
-            out[f"blocks.{i}.mixer.{k}"] = v[i]
+    names (layer-stacked leaves split per layer; a non-parametric norm's
+    empty dict gives no name)."""
+    _require_ported(cfg)
+    out = {f"{part}.{k}": v for part in ("embed", "final_norm")
+           for k, v in params_np[part].items()}
+    for part, leaves in params_np["blocks"].items():
+        for k, v in leaves.items():
+            for i in range(cfg.n_layers):
+                out[f"blocks.{i}.{part}.{k}"] = v[i]
     return out
 
 
 def from_reference(params_np: Mapping[str, Any], cfg: ModelConfig,
-                   device=None) -> Mamba2LM:
+                   device=None) -> LM:
     """The port's model holding the JAX package's parameters (the
     ``init_params`` pytree as numpy arrays), dtype for dtype, on
     ``device`` (default CUDA; ``"meta"`` checks shapes and dtypes only)."""
     dev = resolve_device(device)
-    model = Mamba2LM(cfg)                       # on the meta device
+    model = model_class(cfg)(cfg)               # on the meta device
     want = dict(model.named_parameters())
     got = reference_state(params_np, cfg)
     if set(got) != set(want):

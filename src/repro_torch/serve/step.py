@@ -2,8 +2,12 @@
 (the port of ``repro/serve/step.py``).
 
 ``make_serve_step`` builds one decode step: one new token per sequence
-against the state cache.  The steps run eagerly under
-``torch.inference_mode``; there is no ``jit`` to build.
+against the cache (the SSM state, or the dense family's KV cache, which
+is written in place).  The steps run eagerly under
+``torch.inference_mode``; there is no ``jit`` to build.  A dense cache
+made by these steps is an inference tensor: continue it with these steps
+(or under ``torch.inference_mode``), since PyTorch refuses an in-place
+write to an inference tensor outside that mode.
 """
 from __future__ import annotations
 
@@ -12,8 +16,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import (Mamba2LM, decode_step, forward,
-                                      init_cache, prefill)
+from repro_torch.models.model import (LM, decode_step, forward, init_cache,
+                                      prefill)
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int,
@@ -21,7 +25,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int,
     """(params, batch) -> (last_logits, cache).  batch: {'tokens': (B, S)}."""
 
     @torch.inference_mode()
-    def prefill_step(params: Mamba2LM, batch: Dict[str, torch.Tensor]):
+    def prefill_step(params: LM, batch: Dict[str, torch.Tensor]):
         tokens = batch["tokens"]
         cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                            device=tokens.device)
@@ -36,7 +40,7 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     """(params, cache, batch) -> (logits, new_cache): one decode step."""
 
     @torch.inference_mode()
-    def serve_step(params: Mamba2LM, cache, batch: Dict[str, torch.Tensor]):
+    def serve_step(params: LM, cache, batch: Dict[str, torch.Tensor]):
         logits, new_cache, _ = forward(params, batch, cfg, cache=cache)
         return logits, new_cache
 
@@ -44,7 +48,7 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
 
 
 @torch.inference_mode()
-def greedy_generate(params: Mamba2LM, cfg: ModelConfig, prompt: torch.Tensor,
+def greedy_generate(params: LM, cfg: ModelConfig, prompt: torch.Tensor,
                     n_steps: int, max_seq: Optional[int] = None,
                     frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Simple greedy decoding loop: (B, S) prompt -> (B, n_steps) tokens."""

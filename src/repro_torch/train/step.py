@@ -70,8 +70,18 @@ class TrainState(NamedTuple):
                                              **parts))
 
 
+def require_trainable_family(cfg: ModelConfig) -> None:
+    """Training is ported for the ssm family only."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet (dense "
+            f"training and a flash-attention backward are in ROADMAP Queue "
+            f"1); the port trains the ssm family")
+
+
 def require_trainable(cfg: ModelConfig) -> None:
     """Refuse a config that training cannot run faithfully."""
+    require_trainable_family(cfg)
     if cfg.use_flash_kernel:
         raise ValueError(
             "training needs use_flash_kernel=False: the SSD kernel has no "
@@ -87,6 +97,7 @@ def _named(params: M.Mamba2LM) -> Dict[str, torch.Tensor]:
 def init_train_state(seed: int, cfg: ModelConfig, device=None) -> TrainState:
     """The port's seeded init (:func:`repro_torch.models.init_params`) with
     trainable parameters, and a fresh AdamW state."""
+    require_trainable_family(cfg)
     params = M.init_params(seed, cfg, device=device).requires_grad_(True)
     return TrainState(params=params, opt=init_adamw(_named(params)))
 
@@ -97,6 +108,7 @@ def from_reference(state_np: Any, cfg: ModelConfig, device=None) -> TrainState:
     ``step`` and the ``master``/``m``/``v`` pytrees), the layer-stacked
     leaves split per layer through ``models.model.reference_state``'s
     naming."""
+    require_trainable_family(cfg)
     params_np, opt = state_np[0], state_np[1]
     params = M.from_reference(params_np, cfg, device).requires_grad_(True)
     dev = next(params.parameters()).device

@@ -279,3 +279,90 @@ def test_quant_kernels_equal_plain_versions_bitwise_on_card(dtype):
                 before["quantize_blocks"] + 1
             assert Q.LAUNCHES["dequantize_blocks"] == \
                 before["dequantize_blocks"] + 2
+
+
+def _flash_inputs(bg, r, sq, skv, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((bg, r, sq, d), (bg, skv, d), (bg, skv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bg,r,sq,skv,d,causal,softcap", [
+    (2, 1, 128, 128, 64, True, None),
+    (1, 4, 256, 256, 128, True, None),     # GQA
+    (2, 2, 128, 384, 64, True, None),      # Sq < Skv
+    (1, 2, 128, 128, 64, False, 50.0),     # softcap, no mask
+    (2, 3, 40, 100, 16, True, 50.0),       # off the tile grid, D 16
+    (2, 1, 24, 24, 32, True, None),
+])
+def test_flash_kernel_matches_plain_version_on_card(bg, r, sq, skv, d,
+                                                    causal, softcap, dtype):
+    """Within tests/test_kernels.py's tolerances (float32 2e-5, bfloat16
+    2e-2: one rounding of the output after float32 sums in another
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(bg, r, sq, skv, d, dtype, 41)
+    before = FA.LAUNCHES
+    out = FA.flash_attention(q, k, v, scale=d ** -0.5, causal=causal,
+                             softcap=softcap)
+    want = FA.flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal,
+                                    softcap=softcap)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_zero_rows_and_strided_operands():
+    """Sq > Skv, causal: the rows that see no key are exactly 0, as in the
+    plain version.  Strided views (a transposed projection, a slice of a
+    longer buffer) give the output of their contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(1, 2, 200, 72, 64, torch.float32, 42)
+    out = FA.flash_attention(q, k, v, scale=0.125)
+    want = FA.flash_attention_plain(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert bool((out[:, :, :128] == 0).all())
+    assert bool((want[:, :, :128] == 0).all())
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    q, k, v = _flash_inputs(3, 2, 64, 96, 128, torch.bfloat16, 43)
+    qs = q.transpose(0, 1).contiguous().transpose(0, 1)
+    buf = torch.cat([k, v], dim=-1)
+    ks, vs = buf[..., :128], buf[..., 128:]
+    assert not qs.is_contiguous() and not ks.is_contiguous()
+    torch.testing.assert_close(FA.flash_attention(qs, ks, vs, scale=0.1),
+                               FA.flash_attention(q, k, v, scale=0.1),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_autograd_and_bad_operands():
+    """The kernel has no backward: under autograd the wrapper raises rather
+    than return an output no gradient flows through; under no_grad it
+    launches.  Operands it does not take raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(2, 1, 64, 64, 64, torch.bfloat16, 44)
+    q.requires_grad_(True)
+    before = FA.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q, k, v, scale=0.125)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q.detach()[..., :48], k[..., :48], v[..., :48],
+                           scale=0.125)
+    assert FA.LAUNCHES == before
+    with torch.no_grad():
+        out = FA.flash_attention(q, k, v, scale=0.125)
+    assert out.grad_fn is None and FA.LAUNCHES == before + 1

@@ -204,12 +204,12 @@ def test_configs_match_reference_but_for_the_kernel_knob():
         assert r == t
         assert (kr, kt) == ((False, True) if get == "get_config"
                             else (False, False))
-    assert T_cfg.ARCH_IDS == (ARCH,)
+    assert T_cfg.ARCH_IDS == (ARCH, "olmo-1b")
     with pytest.raises(KeyError, match="ROADMAP Queue 1"):
         T_cfg.get_config("gemma2-27b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T_models.init_params(0, T_cfg.get_smoke_config(ARCH).replace(
-            family="dense"), device="cpu")
+            family="moe"), device="cpu")
 
 
 def test_entry_points_default_to_cuda():
