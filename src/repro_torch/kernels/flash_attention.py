@@ -9,28 +9,43 @@ Sq, D), k and v (BG, Skv, D), the kv groups folded into BG and the R query
 heads of a group sharing one kv head.  The causal mask is bottom-right
 aligned: key j is visible to query i iff ``j <= i + Skv - Sq``.
 
-The CUDA version (``csrc/flash_attention.cu``) runs one block of 256
-threads per (bg, r, 64-row q block) and loops over 64-key tiles up to the
-block's last visible key, the q and k tiles transposed in shared memory as
-float32, the products on the float32 SIMT units.  It takes float32 and
-bfloat16, any Sq and Skv (the Pallas kernel asks for block multiples, a
-tiling constraint), and head_dim 16, 32, 64 or 128.  A query row that sees
-no key (Sq > Skv under the causal mask) gives 0, as the Pallas kernel gives
-it where such rows fill whole q blocks; the JAX oracle
-``ref.flash_attention_ref`` gives the mean of v there instead (ROADMAP
-Queue 3).
+The CUDA source (``csrc/flash_attention.cu``) holds two kernels, and
+:func:`route` picks one from the dtype and head_dim alone:
+
+* ``"wgmma"`` -- bfloat16 with head_dim 64 or 128 (olmo-1b's prefill and
+  every dense serving config): a tensor-core kernel for Hopper.  One block
+  per (bg, r, 128 query rows): a producer warp loads the q tile once and
+  K/V tiles of 128 keys into a two-stage ring by TMA (128-byte swizzle,
+  mbarrier completion); two consumer warpgroups of 64 rows each run
+  ``S = q k^T`` as ``wgmma`` from shared memory, the online softmax on the
+  accumulator registers, and ``O += P V`` with P rounded to bfloat16 in
+  registers as wgmma's A operand (the TPU's default-precision float32 dot
+  rounds that operand the same way); m, l (from the unrounded p) and O
+  stay float32.
+* ``"simt"`` -- float32, and head_dim 16 or 32: the first port of the
+  kernel, one block of 256 threads per (bg, r, 64-row q block), products
+  on the float32 SIMT units from shared memory.  The float32 parity paths
+  run it.
+
+Both take any Sq and Skv and read q, k and v through their strides (unit
+stride along D, every other stride a multiple of 16 bytes, else ``_rows``
+copies first).  A query row that sees no key (Sq > Skv under the causal
+mask) gives 0, as the Pallas kernel gives it where such rows fill whole q
+blocks; the JAX oracle ``ref.flash_attention_ref`` gives the mean of v
+there instead (ROADMAP Queue 3).
 
 What bounds it on an H100: at olmo-1b's prefill shape (BG 128, R 1, Sq =
 Skv = 1024, D 128, bf16) the causal work is 34.4 GFLOP and q, k, v and o
 are 134 MB, so the least time is ~0.040 ms, set by the bytes at 3.35 TB/s
-(the operations take 0.035 ms at the bf16 tensor-core rate).  Keeping the
-TPU kernel's float32 products, the float32 SIMT rate (67 TFLOP/s) bounds
-this kernel at ~0.51 ms.  Tensor cores (``wgmma``), TMA and a split-KV
-decode form are later work; PERF.md holds the measured time.
+(the operations take 0.035 ms at the bf16 tensor-core rate).  The SIMT
+kernel is bound at ~0.51 ms by the float32 rate; the tensor-core kernel
+by its unhidden softmax between the two products.  PERF.md holds the
+measured times; a split-KV decode form and a backward are later work.
 
-``flash_attention`` launches the kernel for CUDA tensors (or raises) and
-runs ``flash_attention_plain`` for CPU tensors.  ``LAUNCHES`` counts kernel
-launches.  The kernel has no backward (neither has the Pallas kernel): on
+``flash_attention`` launches the routed kernel for CUDA tensors (or
+raises) and runs ``flash_attention_plain`` for CPU tensors.  ``LAUNCHES``
+counts kernel launches, ``LAUNCHES_BY_ROUTE`` the launches of each
+kernel.  The kernel has no backward (neither has the Pallas kernel): on
 CUDA tensors under autograd ``flash_attention`` raises rather than return
 an output that no gradient flows through.
 """
@@ -41,9 +56,21 @@ from typing import Optional
 
 import torch
 
-LAUNCHES = 0
+LAUNCHES = 0                                # launches of either kernel
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
 HEAD_DIMS = (16, 32, 64, 128)   # head_dim the kernel takes
+TC_HEAD_DIMS = (64, 128)        # head_dim the tensor-core kernel takes
 NEG_INF = -1e30
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a call of this dtype and head_dim takes: ``"wgmma"``
+    (the tensor-core kernel: bfloat16 with head_dim 64 or 128) or
+    ``"simt"`` (the float32 SIMT kernel: float32, and head_dim 16 or
+    32)."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def _visible(sq: int, skv: int, device) -> torch.Tensor:
@@ -102,11 +129,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be positive, got {softcap}")
 
 
+def _strides(t: torch.Tensor) -> tuple:
+    """``t``'s strides, with the stride of each axis of size 1 (which torch
+    leaves arbitrary) replaced by that of a contiguous layout."""
+    out, inner = [], 1
+    for size, st in zip(reversed(t.shape), reversed(t.stride())):
+        out.append(inner if size == 1 else st)
+        inner *= size
+    return tuple(reversed(out))
+
+
 def _rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it in place (unit stride along
-    D, every row 16-byte aligned), else a contiguous copy."""
-    rows_aligned = all(st % 4 == 0 for st in t.stride()[:-1])
-    if t.stride(-1) == 1 and rows_aligned and t.data_ptr() % 16 == 0:
+    """``t`` itself when the kernels can read it in place (unit stride
+    along D, every row and batch stride a multiple of 16 bytes -- the
+    SIMT kernel's 16-byte loads and TMA's rule -- and a 16-byte aligned
+    base), else a contiguous copy."""
+    st = _strides(t)
+    aligned = all(x * t.element_size() % 16 == 0 for x in st[:-1])
+    if st[-1] == 1 and aligned and t.data_ptr() % 16 == 0:
         return t
     return t.contiguous()
 
@@ -125,6 +165,9 @@ def _lib():
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_smem_bytes.argtypes = [I]
         lib.flash_attention_smem_bytes.restype = LL
+        lib.flash_attention_tc_launch.argtypes = (
+            [P] * 4 + [I] * 5 + [LL] * 7 + [F, I, F, P])
+        lib.flash_attention_tc_launch.restype = I
         lib._typed = True
     return lib
 
@@ -137,9 +180,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA tensors: one launch of the CUDA kernel (raises if it cannot be
     built or launched, or if the operands are not what it takes; operands
     it cannot read in place are copied contiguous first).  CPU tensors:
-    :func:`flash_attention_plain`.
+    :func:`flash_attention_plain`.  :func:`route` names the kernel.
     """
-    global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      softcap=softcap)
@@ -154,19 +196,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "torch.inference_mode, or run the plain attention "
             "(use_flash_kernel=False)")
     _check(q, k, v, softcap)
+    return _launch(q, k, v, route(q.dtype, q.shape[-1]), scale=scale,
+                   causal=causal, softcap=softcap)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, how: str, *,
+            scale: float, causal: bool,
+            softcap: Optional[float]) -> torch.Tensor:
+    """One launch of the kernel ``how`` names on checked CUDA operands.
+    :func:`flash_attention` passes :func:`route`'s choice; ``chip_smoke.py``
+    also times the SIMT kernel at the shapes the tensor-core kernel
+    serves."""
+    global LAUNCHES
     q, k, v = _rows(q), _rows(k), _rows(v)
     BG, R, Sq, D = q.shape
     o = torch.empty((BG, R, Sq, D), dtype=q.dtype, device=q.device)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), BG, R, Sq, k.shape[1], D,
-        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(scale), int(bool(causal)),
-        float(softcap) if softcap is not None else 0.0, stream)
+    (q_bg, q_r, q_s, _), (k_bg, k_s, _), (v_bg, v_s, _) = (
+        _strides(q), _strides(k), _strides(v))
+    common = (BG, R, Sq, k.shape[1], D, q_bg, q_r, q_s, k_bg, k_s, v_bg,
+              v_s, float(scale), int(bool(causal)),
+              float(softcap) if softcap is not None else 0.0, stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if how == "wgmma":
+        rc = lib.flash_attention_tc_launch(*ptrs, *common)
+    else:
+        rc = lib.flash_attention_launch(
+            *ptrs, int(q.dtype == torch.bfloat16), *common)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention kernel ({how}) launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[how] += 1
     return o

@@ -22,8 +22,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA flash attention: q (BG, R, Sq, D), k/v (BG, Skv, D).
 
     ``block_q`` and ``block_kv`` (the Pallas kernel's VMEM tiling) are
-    accepted for the JAX signature and do not enter: the CUDA kernel's
-    tiles are 64 x 64 and the result does not depend on them."""
+    accepted for the JAX signature and do not enter: the CUDA kernels
+    tile by their own sizes and the result does not depend on them."""
     del block_q, block_kv
     return _fa.flash_attention(q, k, v, scale=scale, causal=causal,
                                softcap=softcap)

@@ -9,24 +9,45 @@ axis and computes each chunk in the quadratic "dual" form:
     y_inter = (C e^{cum}) state^T
     state   = state e^{cum_Q} + (dt x e^{cum_Q - cum})^T B
 
-The CUDA version (``csrc/ssd_scan.cu``) runs one block per (batch, head)
-and loops over the chunks inside the block, the state in shared memory.
-The (Q, Q) score tile does not fit in shared memory at Q = 256, so the
-chunk is cut into 64 x 64 tiles and only the tiles at or below the
-diagonal are computed; the masked triangle is never exponentiated.
+The CUDA source (``csrc/ssd_scan.cu``) holds two implementations, and
+:func:`route` picks one from the dtype and shapes alone:
+
+* ``"mma"`` -- bfloat16 x / B / C, head_dim a multiple of 16 up to 64,
+  d_state 64 or 128, chunk a multiple of 64 up to 256 (mamba2-130m's
+  serving prefill): three tensor-core kernels, as Mamba2's GPU kernels
+  split the work.  (1) Per (chunk, head, batch): the chunk's cumulative
+  decay by a block scan and its local state ``(dt x e^{cum_Q - cum})^T
+  B``.  (2) Per (batch, head): the state entering each chunk,
+  ``state_c = state_{c-1} e^{cum_Q} + local_{c-1}``, and the final state.
+  (3) Per (64-row tile, chunk, batch): ``G = C B^T`` once, shared by all
+  heads, then per head ``y = (G o L o dt) x + e^{cum} C state_in^T``, the
+  heads in two streams of 4 warps so that one's loads run under the
+  other's products.
+  Products run as ``mma.sync`` bf16 with float32 accumulation; C B^T is
+  exact, and each float32 operand (the masked scores, the decay-weighted
+  x, the state) is split into three bf16 parts, hi + mid + lo, and issued
+  as three products (~2^-25 relative error where one bf16 rounding gives
+  2^-9; two parts, ~2^-17, were measured too coarse for S4's 24-layer
+  logits check).  Each call is three CUDA launches; ``LAUNCHES`` counts
+  calls.
+* ``"simt"`` -- float32, and the shapes above it does not take: the first
+  port of the kernel, one block per (batch, head) looping over the chunks
+  with the state in shared memory, 64 x 64 score tiles at or below the
+  diagonal, products on the float32 SIMT units.
 
 What bounds it on an H100: at the serving shape (b 8, s 1024, h 24, p 64,
-n 128, Q 256) its least work is ~10 GFLOP, almost all with a float32
-operand, against ~68 MB to move; at the float32 rate (67 TFLOP/s) against
-3.35 TB/s the operations set the bound (~0.15 ms).  The first version
-runs its products on the float32 SIMT units from shared memory, without
-tensor cores or TMA; PERF.md holds its measured time.
+n 128, Q 256) the work is ~10 GFLOP (0.27 bf16, 9.67 with a float32
+operand) against ~68 MB to move; with every operation counted once at
+the bf16 tensor rate the bytes set the bound (0.0203 ms at 3.35 TB/s).
+The SIMT kernel's own bound is the float32 rate (~0.14 ms).  PERF.md
+holds the measured times.
 
 Contract: equal to :func:`ssd_scan_plain` (float32 sums in another order,
 one rounding of y to x's type) within the tolerance the callers state.
 
-``ssd_scan`` launches the kernel for CUDA tensors (or raises) and runs
-``ssd_scan_plain`` for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+``ssd_scan`` launches the routed kernel(s) for CUDA tensors (or raises)
+and runs ``ssd_scan_plain`` for CPU tensors.  ``LAUNCHES`` counts calls
+that launched, ``LAUNCHES_BY_ROUTE`` those of each route.
 The kernel has no backward: on CUDA tensors under autograd (grad enabled
 and an input that requires grad) ``ssd_scan`` raises rather than return
 outputs that no gradient flows through.
@@ -38,10 +59,27 @@ from typing import Optional, Tuple
 
 import torch
 
-LAUNCHES = 0
+LAUNCHES = 0                             # calls that launched a kernel
+LAUNCHES_BY_ROUTE = {"mma": 0, "simt": 0}
 MAX_P = 64      # head_dim the kernel takes
 MAX_N = 128     # d_state the kernel takes
 MAX_SMEM = 232_448   # bytes of shared memory one block may use on Hopper
+TC_N = (64, 128)     # d_state the tensor-core kernels take
+TC_ROW_TILE = 64     # the chunk is a multiple of this ...
+TC_MAX_Q = 256       # ... up to this
+
+
+def route(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """Which kernel a call takes, from the dtype of x / B / C, head_dim p,
+    d_state n and the chunk length actually used (``min(chunk, s)``):
+    ``"mma"`` (the tensor-core kernels: bfloat16, p a multiple of 16 up to
+    64, n 64 or 128, chunk a multiple of 64 up to 256) or ``"simt"`` (the
+    float32 SIMT kernel: everything else it takes)."""
+    if (dtype == torch.bfloat16 and p % 16 == 0 and p <= MAX_P
+            and n in TC_N and chunk % TC_ROW_TILE == 0
+            and chunk <= TC_MAX_Q):
+        return "mma"
+    return "simt"
 
 
 def _chunk(s: int, chunk: int) -> int:
@@ -139,6 +177,15 @@ def _check(x, dt, A, B, C, initial_state, Q: int) -> None:
                          f"more than the {MAX_SMEM} one block may use")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the tensor-core kernels can copy its rows in
+    16-byte pieces (batch and sequence strides multiples of 8 elements, a
+    16-byte aligned base), else a contiguous copy."""
+    if all(st % 8 == 0 for st in t.stride()[:2]) and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous()
+
+
 def _lib():
     from repro_torch.kernels import build
 
@@ -151,6 +198,8 @@ def _lib():
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib.ssd_scan_smem_bytes.argtypes = [I, I, I]
         lib.ssd_scan_smem_bytes.restype = LL
+        lib.ssd_scan_tc_launch.argtypes = [P] * 11 + [I] * 6 + [LL] * 8 + [P]
+        lib.ssd_scan_tc_launch.restype = I
         lib._typed = True
     return lib
 
@@ -165,8 +214,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``chunk = min(chunk, s)`` must divide s.  CUDA tensors: one launch of
     the CUDA kernel (raises if it cannot be built or launched, or if the
     operands are not what it takes).  CPU tensors: :func:`ssd_scan_plain`.
+    :func:`route` names the kernel.
     """
-    global LAUNCHES
     b, s, h, p = x.shape
     n = B.shape[-1]
     Q = _chunk(s, chunk)
@@ -184,20 +233,46 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "B or C.  Training runs ssd_chunked (use_flash_kernel=False); "
             "call the kernel under torch.no_grad or torch.inference_mode")
     _check(x, dt, A, B, C, initial_state, Q)
+    return _launch(x, dt, A, B, C, initial_state, Q, route(x.dtype, p, n, Q))
+
+
+def _launch(x, dt, A, B, C, initial_state, Q: int, how: str
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of the kernel(s) ``how`` names on checked CUDA operands.
+    :func:`ssd_scan` passes :func:`route`'s choice; ``chip_smoke.py`` also
+    times the SIMT kernel at the shapes the tensor-core kernels serve."""
+    global LAUNCHES
+    b, s, h, p = x.shape
+    n = B.shape[-1]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(),
-        initial_state.data_ptr() if initial_state is not None else None,
-        y.data_ptr(), final.data_ptr(), int(x.dtype == torch.bfloat16),
-        b, s, h, p, n, Q, x.stride(0), x.stride(1), dt.stride(0),
-        dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-        stream)
+    init_ptr = initial_state.data_ptr() if initial_state is not None else None
+    if how == "mma":
+        x, B, C = _aligned(x), _aligned(B), _aligned(C)
+        nc = s // Q
+        f32 = dict(dtype=torch.float32, device=x.device)
+        cum = torch.empty((b, nc, h, Q), **f32)
+        sloc = torch.empty((b, nc, h, p, n), **f32)
+        state_in = torch.empty((b, nc, h, p, n), **f32)
+        rc = lib.ssd_scan_tc_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), init_ptr, y.data_ptr(), final.data_ptr(),
+            cum.data_ptr(), sloc.data_ptr(), state_in.data_ptr(), b, s, h,
+            p, n, Q, x.stride(0), x.stride(1),
+            dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
+            C.stride(0), C.stride(1), stream)
+    else:
+        rc = lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), init_ptr, y.data_ptr(), final.data_ptr(),
+            int(x.dtype == torch.bfloat16), b, s, h, p, n, Q, x.stride(0),
+            x.stride(1), dt.stride(0), dt.stride(1), B.stride(0),
+            B.stride(1), C.stride(0), C.stride(1), stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: "
+        raise RuntimeError(f"ssd_scan kernel ({how}) launch failed: "
                            f"{lib.ssd_scan_error_string(rc).decode()}")
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[how] += 1
     return y, final

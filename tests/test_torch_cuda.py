@@ -147,25 +147,37 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed, with_init):
 @pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", [
     (2, 64, 3, 64, 128, 256, torch.bfloat16),     # s < Q: one short chunk
     (2, 512, 4, 64, 128, 256, torch.bfloat16),    # two full chunks
+    (2, 384, 3, 32, 64, 128, torch.bfloat16),     # three chunks, p 32, n 64
     (1, 96, 2, 16, 16, 32, torch.float32),        # small head, ragged tile
 ])
 def test_ssd_kernel_matches_plain_version_on_card(b, s, h, p, n, chunk,
                                                   dtype, with_init):
     """y within 1e-2 (bf16: one rounding of y, 2^-8 relative, after float32
-    sums in another order) or 1e-4 (float32), the final state within 1e-4."""
+    sums in another order) or 1e-4 (float32), the final state within 1e-4.
+    bf16 at these shapes takes the tensor-core kernels; the SIMT kernel is
+    held to the same bounds on the same inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card; see README)")
     x, dt, A, B, C, init = _ssd_inputs(b, s, h, p, n, dtype, 21, with_init)
-    before = SSD.LAUNCHES
+    Q = min(chunk, s)
+    how = SSD.route(dtype, p, n, Q)
+    assert how == ("mma" if dtype == torch.bfloat16 else "simt")
+    before, by_route = SSD.LAUNCHES, dict(SSD.LAUNCHES_BY_ROUTE)
     y, st = SSD.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init)
     y_p, st_p = SSD.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                                    initial_state=init)
     torch.cuda.synchronize()
     assert SSD.LAUNCHES == before + 1
+    assert SSD.LAUNCHES_BY_ROUTE[how] == by_route[how] + 1
     assert y.dtype == dtype and st.dtype == torch.float32
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(y.float(), y_p.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)
+    outs = [(y, st)]
+    if how != "simt":
+        outs.append(SSD._launch(x, dt, A, B, C, init, Q, "simt"))
+    for y, st in outs:
+        torch.testing.assert_close(y.float(), y_p.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -296,24 +308,38 @@ def _flash_inputs(bg, r, sq, skv, d, dtype, seed):
     (1, 2, 128, 128, 64, False, 50.0),     # softcap, no mask
     (2, 3, 40, 100, 16, True, 50.0),       # off the tile grid, D 16
     (2, 1, 24, 24, 32, True, None),
+    (3, 2, 1000, 1000, 128, True, None),   # off the 128-row grid
+    (2, 2, 100, 300, 64, True, None),      # Sq < Skv, off grid
+    (1, 2, 200, 72, 128, True, 50.0),      # Sq > Skv: rows with no key
+    (1, 2, 130, 130, 64, False, None),     # no mask, one row past a tile
 ])
 def test_flash_kernel_matches_plain_version_on_card(bg, r, sq, skv, d,
                                                     causal, softcap, dtype):
     """Within tests/test_kernels.py's tolerances (float32 2e-5, bfloat16
     2e-2: one rounding of the output after float32 sums in another
-    order)."""
+    order; the tensor-core route rounds p to bfloat16 before p v, as the
+    TPU's default-precision dot does, and stays inside the same bound).
+    bfloat16 at head_dim 64 and 128 takes the tensor-core kernel, the
+    rest the SIMT kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card; see README)")
     from repro_torch.kernels import flash_attention as FA
 
     q, k, v = _flash_inputs(bg, r, sq, skv, d, dtype, 41)
     before = FA.LAUNCHES
+    by_route = dict(FA.LAUNCHES_BY_ROUTE)
     out = FA.flash_attention(q, k, v, scale=d ** -0.5, causal=causal,
                              softcap=softcap)
     want = FA.flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal,
                                     softcap=softcap)
     torch.cuda.synchronize()
     assert FA.LAUNCHES == before + 1
+    how = FA.route(dtype, d)
+    assert how == ("wgmma" if dtype == torch.bfloat16 and d >= 64
+                   else "simt")
+    assert FA.LAUNCHES_BY_ROUTE[how] == by_route[how] + 1
+    dead = max(sq - skv, 0) if causal else 0
+    assert bool((out[:, :, :dead] == 0).all())
     assert out.dtype == dtype and out.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
@@ -343,6 +369,16 @@ def test_flash_kernel_zero_rows_and_strided_operands():
     torch.testing.assert_close(FA.flash_attention(qs, ks, vs, scale=0.1),
                                FA.flash_attention(q, k, v, scale=0.1),
                                rtol=0, atol=0)
+    # the tensor-core route reads the same views through its tensor maps
+    for d in (64, 128):
+        q, k, v = _flash_inputs(3, 2, 200, 260, d, torch.bfloat16, 45)
+        qs = q.transpose(0, 1).contiguous().transpose(0, 1)
+        buf = torch.cat([k, v], dim=-1)
+        ks, vs = buf[..., :d], buf[..., d:]
+        assert FA.route(qs.dtype, d) == "wgmma"
+        torch.testing.assert_close(FA.flash_attention(qs, ks, vs, scale=0.1),
+                                   FA.flash_attention(q, k, v, scale=0.1),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.cuda

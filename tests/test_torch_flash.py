@@ -182,3 +182,128 @@ def test_kernel_operand_checks(change, match):
         TK._check(q, k, k, change.get("softcap"))
     TK._check(torch.zeros(2, 1, 24, 16), torch.zeros(2, 24, 16),
               torch.zeros(2, 24, 16), None)
+
+
+# --------------------------------------------------------------------------- #
+# The tensor-core kernel's rounding design (bf16, head_dim 64 and 128)
+# --------------------------------------------------------------------------- #
+
+def _tc_model(q, k, v, *, scale, causal=True, softcap=None, keys=128):
+    """The arithmetic of the wgmma kernel in torch ops: q k^T of bf16
+    values summed in float32 (exact products), the online softmax over
+    tiles of ``keys`` keys (m from -1e30, float32 l of the unrounded p), p
+    rounded to bf16 before p v (the TPU's default-precision dot rounds the
+    same operand), float32 accumulation, division by 1 where l = 0, one
+    rounding of the output to bf16."""
+    BG, R, Sq, D = q.shape
+    Skv = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((BG, R, Sq, 1), TK.NEG_INF)
+    l = torch.zeros((BG, R, Sq, 1))
+    acc = torch.zeros((BG, R, Sq, D))
+    vis_all = TK._visible(Sq, Skv, q.device) if causal else torch.ones(
+        Sq, Skv, dtype=torch.bool)
+    for k0 in range(0, Skv, keys):
+        s = torch.einsum("brsd,btd->brst", qf, kf[:, k0:k0 + keys]) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(vis_all[:, k0:k0 + keys], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        pb = p.to(torch.bfloat16).float()
+        acc = acc * corr + torch.einsum("brst,btd->brsd", pb,
+                                        vf[:, k0:k0 + keys])
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bg,r,sq,skv,d,causal,softcap,block", [
+    (2, 1, 128, 128, 64, True, None, 128),   # tests/test_kernels.py's shapes
+    (1, 4, 256, 256, 128, True, None, 128),
+    (2, 2, 128, 384, 64, True, None, 128),
+    (1, 1, 512, 512, 128, True, None, 128),
+    (1, 1, 1000, 1000, 64, True, None, 200),  # off the 128-row grid
+    (1, 2, 100, 300, 128, True, None, 100),   # Sq < Skv, off grid
+    (1, 2, 200, 72, 64, True, None, 8),       # Sq > Skv: rows with no key
+    (1, 2, 128, 128, 64, True, 50.0, 128),    # softcap
+    (1, 2, 128, 128, 128, False, 50.0, 128),  # softcap, no mask
+])
+def test_tensor_core_rounding_design_matches_tpu_kernel(bg, r, sq, skv, d,
+                                                        causal, softcap,
+                                                        block):
+    """The wgmma route's arithmetic (bf16 p before p v) stays within the
+    bf16 bound of the TPU kernel in interpret mode (``block``: its tiling,
+    which must divide the lengths; at Sq > Skv the rows with no key fill
+    whole q blocks, where the TPU kernel gives 0) and of the port's plain
+    version; rows that see no key are exactly 0."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(bg, r, sq, skv, d, jnp.bfloat16, 7)
+    scale = d ** -0.5
+    kw = dict(scale=scale, causal=causal, softcap=softcap)
+    got = _tc_model(tq, tk, tv, **kw)
+    assert TK.route(tq.dtype, d) == "wgmma"
+    _close(got, R_ops.flash_attention(jq, jk, jv, interpret=True,
+                                      block_q=block, block_kv=block, **kw),
+           BF16_TOL)
+    _close(got, TK.flash_attention_plain(tq, tk, tv, **kw).float(), BF16_TOL)
+    dead = max(sq - skv, 0) if causal else 0
+    assert bool((got[:, :, :dead] == 0).all())
+    assert not bool((got[:, :, dead:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "wgmma"),        # olmo-1b and the dense configs
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 16, "simt"),
+    (torch.float32, 128, "simt"),          # the float32 parity paths
+    (torch.float32, 64, "simt"),
+    (torch.float32, 16, "simt"),
+])
+def test_route_names_the_kernel_by_dtype_and_head_dim(dtype, d, want):
+    assert TK.route(dtype, d) == want
+
+
+def test_olmo_prefill_takes_the_tensor_core_route():
+    """olmo-1b's serving config (bf16 compute, head_dim 128) reaches the
+    tensor-core kernel; its float32 SMOKE parity runs stay on SIMT."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = get_config("olmo-1b")
+    assert cfg.use_flash_kernel
+    dt = getattr(torch, cfg.compute_dtype)
+    assert TK.route(dt, cfg.attention.head_dim) == "wgmma"
+    smoke = get_smoke_config("olmo-1b")
+    assert TK.route(torch.float32, smoke.attention.head_dim) == "simt"
+
+
+def test_strides_of_unit_axes_are_normalised():
+    """A size-1 axis may carry any stride in torch; the tensor maps take the
+    contiguous one, and the alignment rule ignores the arbitrary one."""
+    t = torch.zeros(4, 1, 24, 64).as_strided((4, 1, 24, 64),
+                                             (24 * 64, 3, 64, 1))
+    assert TK._strides(t) == (24 * 64, 24 * 64, 64, 1)
+    assert TK._rows(t) is t
+    odd = torch.zeros(3, 24, 72)[..., :64]           # rows 144 B apart
+    assert TK._rows(odd) is odd
+    odd_bf16 = torch.zeros(3, 24, 68, dtype=torch.bfloat16)[..., :64]
+    assert TK._rows(odd_bf16).is_contiguous()        # 136 B: copied
+
+
+def test_cuda_source_declares_the_wrapper_limits():
+    """The C entries refuse what the wrapper does not route to them, and
+    the bf16 kernel is built from wgmma and TMA."""
+    from pathlib import Path
+
+    cu = (Path(TK.__file__).resolve().parent / "csrc"
+          / "flash_attention.cu").read_text()
+    for d in TK.HEAD_DIMS:
+        assert f"case {d}:" in cu
+    for d in TK.TC_HEAD_DIMS:
+        assert f"if (D == {d})" in cu
+    assert "constexpr int kTcKeys = 128;" in cu
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in cu
+    assert "cp.async.bulk.tensor" in cu and "mbarrier.try_wait" in cu
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in cu
+    assert cu.count("cudaGetLastError()") >= 2

@@ -164,3 +164,152 @@ def test_cuda_source_declares_the_wrapper_limits():
     assert f"constexpr int kMaxP = {TK.MAX_P};" in cu
     assert f"constexpr int kMaxN = {TK.MAX_N};" in cu
     assert "cudaGetLastError()" in cu
+
+
+# --------------------------------------------------------------------------- #
+# The tensor-core kernels' design (bf16 x / B / C)
+# --------------------------------------------------------------------------- #
+
+def _parts(a: torch.Tensor):
+    """A float32 operand as the three bf16 operands the kernels issue:
+    hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid)."""
+    hi = a.to(torch.bfloat16).float()
+    mid = (a - hi).to(torch.bfloat16).float()
+    return hi, mid, (a - hi - mid).to(torch.bfloat16).float()
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a float32, b of bf16 values: one product per part."""
+    hi, mid, lo = _parts(a)
+    return hi @ b + mid @ b + lo @ b
+
+
+def _tc_model(x, dt, A, B, C, *, chunk, initial_state=None):
+    """The three passes of the tensor-core route in torch ops: per chunk
+    the cumulative decay and the local state (dt x e^{cum_Q - cum})^T B
+    with the decay-weighted x split in three bf16 parts; the state passed
+    from chunk to chunk in float32; then y = (G o L o dt) x + e^{cum} C
+    state_in^T with G = C B^T (bf16 operands, exact in float32), the
+    masked scores and the state split in three parts."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = s // chunk
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    state = (torch.zeros(b, h, p, n) if initial_state is None
+             else initial_state.clone())
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, Bc, Cc = xf[:, sl], Bf[:, sl], Cf[:, sl]      # (b,Q,h,p), (b,Q,n)
+        cum = torch.cumsum(dt[:, sl] * A, dim=1)            # (b,Q,h)
+        w = dt[:, sl] * torch.exp(cum[:, -1:] - cum)        # (b,Q,h)
+        wx = (xc * w[..., None]).permute(0, 2, 3, 1)        # (b,h,p,Q)
+        local = _split_mm(wx, Bc[:, None])                  # (b,h,p,n)
+        G = Cc @ Bc.transpose(1, 2)                         # (b,Q,Q)
+        ch = cum.transpose(1, 2)                            # (b,h,Q)
+        L = torch.exp(torch.where(tri, ch[..., :, None] - ch[..., None, :],
+                                  0.0))
+        M = torch.where(tri, G[:, None] * L * dt[:, sl].transpose(1, 2)[
+            :, :, None, :], 0.0)                            # (b,h,Q,Q)
+        y_intra = _split_mm(M, xc.permute(0, 2, 1, 3))      # (b,h,Q,p)
+        y_inter = sum(Cc[:, None] @ part.transpose(-1, -2)
+                      for part in _parts(state))            # (b,h,Q,p)
+        y_inter = y_inter * torch.exp(ch)[..., None]
+        ys.append((y_intra + y_inter).permute(0, 2, 1, 3))
+        state = state * torch.exp(cum[:, -1])[..., None, None] + local
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 256, 1, 64, 128, 64),      # tests/test_kernels.py's bf16 shape
+    (1, 512, 2, 64, 128, 256),     # two chunks at mamba2-130m's widths
+    (2, 128, 3, 32, 64, 128),
+    (1, 192, 2, 16, 64, 64),
+])
+def test_tensor_core_design_matches_tpu_kernel_and_oracle(b, s, h, p, n,
+                                                          chunk, with_init):
+    """The chunk-parallel design with three-part splits holds y at 1e-2 (one
+    bf16 rounding) and the final state at 1e-4 against the TPU kernel in
+    interpret mode and the sequential oracle, as S1 holds the kernel."""
+    (jx, jdt, jA, jB, jC, jinit), (tx, tdt, tA, tB, tC, tinit) = _inputs(
+        b, s, h, p, n, jnp.bfloat16, 11, with_init)
+    assert TK.route(tx.dtype, p, n, chunk) == "mma"
+    y, st = _tc_model(tx, tdt, tA, tB, tC, chunk=chunk,
+                      initial_state=tinit)
+    assert y.dtype == torch.bfloat16
+    y_k, st_k = R_ops.ssd_scan(jx, jdt, jA, jB, jC, chunk=chunk,
+                               initial_state=jinit, interpret=True)
+    y_r, st_r = R_ref.ssd_scan_ref(jx, jdt, jA, jB, jC, initial_state=jinit)
+    for want_y, want_st in ((y_k, st_k), (y_r, st_r)):
+        _close(y, want_y, 1e-2)
+        _close(st, want_st, 1e-4)
+
+
+def test_one_bf16_rounding_of_the_state_would_break_its_bound():
+    """Why the float32 operands are split: with the state product's
+    operand rounded once to bf16 (2^-9 relative) the final state leaves
+    the 1e-4 bound that the three-part split (~2^-25) keeps."""
+    _, (tx, tdt, tA, tB, tC, _) = _inputs(1, 512, 2, 64, 128, jnp.bfloat16,
+                                          12, False)
+    want = TK.ssd_scan_plain(tx, tdt, tA, tB, tC, chunk=256)[1]
+    split = _tc_model(tx, tdt, tA, tB, tC, chunk=256)[1]
+    rounded = torch.zeros_like(want)
+    for c in range(2):
+        sl = slice(c * 256, (c + 1) * 256)
+        cum = torch.cumsum(tdt[:, sl] * tA, dim=1)
+        w = tdt[:, sl] * torch.exp(cum[:, -1:] - cum)
+        wx = (tx[:, sl].float() * w[..., None]).permute(0, 2, 3, 1)
+        local = wx.to(torch.bfloat16).float() @ tB[:, None, sl].float()
+        rounded = rounded * torch.exp(cum[:, -1])[..., None, None] + local
+    bound = 1e-4 + 1e-4 * want.abs()
+    assert bool(((split - want).abs() <= bound).all())
+    assert not bool(((rounded - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype,p,n,chunk,want", [
+    (torch.bfloat16, 64, 128, 256, "mma"),     # mamba2-130m serving
+    (torch.bfloat16, 64, 128, 128, "mma"),     # a prompt shorter than Q
+    (torch.bfloat16, 32, 64, 64, "mma"),
+    (torch.bfloat16, 64, 128, 512, "simt"),    # chunk past 256
+    (torch.bfloat16, 64, 128, 96, "simt"),     # chunk off the 64 grid
+    (torch.bfloat16, 128, 128, 256, "simt"),   # p > 64
+    (torch.bfloat16, 24, 128, 256, "simt"),    # p not a multiple of 16
+    (torch.bfloat16, 64, 32, 256, "simt"),     # n not 64 or 128
+    (torch.float32, 64, 128, 256, "simt"),     # the float32 parity paths
+    (torch.float32, 16, 16, 32, "simt"),
+])
+def test_route_names_the_kernel(dtype, p, n, chunk, want):
+    assert TK.route(dtype, p, n, chunk) == want
+
+
+def test_mamba2_serving_takes_the_tensor_core_route():
+    """mamba2-130m's serving config reaches the tensor-core kernels; its
+    float32 SMOKE parity runs stay on SIMT."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = get_config("mamba2-130m")
+    assert cfg.use_flash_kernel
+    s = cfg.ssm
+    dt = getattr(torch, cfg.compute_dtype)
+    assert TK.route(dt, s.head_dim, s.d_state, s.chunk) == "mma"
+    smoke = get_smoke_config("mamba2-130m").ssm
+    assert TK.route(torch.float32, smoke.head_dim, smoke.d_state,
+                    smoke.chunk) == "simt"
+
+
+def test_cuda_source_declares_the_tensor_core_limits():
+    """The tensor-core C entry refuses what ``route`` does not send it, and
+    its products run on the tensor cores from cp.async-loaded tiles."""
+    from pathlib import Path
+
+    cu = (Path(TK.__file__).resolve().parent / "csrc"
+          / "ssd_scan.cu").read_text()
+    assert f"constexpr int kMaxQ = {TK.TC_MAX_Q};" in cu
+    assert f"constexpr int kRowTile = {TK.TC_ROW_TILE};" in cu
+    for n in TK.TC_N:
+        assert f"if (N == {n})" in cu
+    assert "P % 16 != 0" in cu
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in cu
+    assert "cp.async.cg.shared.global" in cu and "ldmatrix" in cu
