@@ -9,12 +9,20 @@ Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 2. builds ``src/repro_torch/kernels/csrc/sim_step.cu``, ``ssd_scan.cu``,
    ``ckpt_quant.cu`` and ``flash_attention.cu`` with nvcc for sm_90a (one
    nvcc per source, started together) and prints the build seconds and
-   the ``-Xptxas -v`` reports;
-3. sim_step kernel against its plain torch version on the card: a mixed
-   batch of 4,096 cells with every static flag, Philox draws, several
-   chunks -- every ``_State`` field must be bitwise equal;
-4. across devices: parity draws, kernel on the card against the plain
-   version on the CPU -- counts exact, floats within 1e-9 relative;
+   the ``-Xptxas -v`` reports: registers, stack and spill bytes of each of
+   sim_step's 32 kernels (16 flag variants x 2 draw routes); the main
+   path's variants (0000: Fig. 4, 0001: the fleet grid) must not spill;
+3. sim_step against its plain torch version on the card: the kernel's own
+   Philox generator against ``PhiloxDraws.at`` (every row, step0 0, 256
+   and 2**32 - 3, seeds >= 2**32 and negative), then a mixed batch of
+   4,096 cells with every static flag through both routes -- draws made in
+   the kernel and pre-generated draws -- against the plain step fed
+   ``PhiloxDraws.next``, several chunks from step 0 and again from just
+   below 2**32 with seeds >= 2**32: every ``_State`` field and the steps
+   per warp bitwise equal;
+4. across devices: parity draws (the pre-generated route), kernel on the
+   card against the plain version on the CPU -- counts exact, floats
+   within 1e-9 relative;
 S1. both ssd_scan kernels -- the tensor-core kernels (the route of bf16
    at these shapes) and the SIMT kernel -- against their plain torch
    version on the card at the serving shape (b 8, s 1024, h 24, p 64,
@@ -53,7 +61,18 @@ S4. the same parameters and prompt with ``use_flash_kernel=False`` (the
    elementwise;
 7. each sim_step variant the main path ran, against the plain step on
    the card at its shapes (every ``BatchResult`` / ``_State`` field
-   equal); the fleet kernel timed by CUDA events beside its plain version;
+   equal, both routes at the fleet chunk); one 256-step chunk timed by
+   CUDA events at the Fig. 4 batches (B = 216) and the fleet batch: the
+   in-kernel route, the pre-generated route, and the kernel's generator
+   on its own (``philox_draws``) followed by the pre-generated route,
+   beside the plain version and the bound (bytes: parameters, state and
+   seeds; operations: the step's and Box-Muller's FP64 instructions at
+   the FP64 instruction rate, Philox's 32-bit integer operations at the
+   INT32 rate; the pre-generated route's bound beside it); run_cells'
+   host stages;
+   ``torch.profiler`` over one warm fleet ``run_cells`` (device time by
+   kernel, idle share, and no ``PhiloxDraws`` draws: none of its calls and
+   none of its torch kernels);
 S5. ``torch.profiler`` over one warm prefill and five decode steps:
    device time by kernel, launches per step, the device's idle share;
 S6. both ssd_scan kernels timed by CUDA events at the serving shape (in
@@ -147,7 +166,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data-sheet peaks used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
-FP64_OPS_PER_S = 34e12
+# FP64 instructions: the data sheet's 34 TFLOP/s counts an FMA as two
+# operations, and sim_step.cu is built with -fmad=false (no FMA), so its
+# FP64 work runs at most one instruction per FP64 lane and clock: 64 lanes
+# per SM (Hopper architecture white paper) x 132 SMs x the 1.98 GHz boost
+# clock.
+FP64_OPS_PER_S = 64 * 132 * 1.98e9
+# 32-bit integer operations: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12      # bf16 tensor cores, dense
 # FP64 operations of one step of one class-pooled adaptive gossip cell
@@ -157,6 +183,25 @@ BF16_TC_OPS_PER_S = 989e12      # bf16 tensor cores, dense
 # 4-iteration Lambert W 74), _apply without the estimator 121, pooled
 # estimator 12, class-pooled update 241 (the 16-term Poisson unroll 88).
 OPS_PER_FLEET_CELL_STEP = 104 + 121 + 12 + 241
+# The in-kernel draws of one class-pooled cell-step (csrc/sim_step.cu,
+# philox_draws<true>), counted the same way, at the fewest instructions
+# that do the work.  32-bit integer: four Philox4x32-10 calls of 10 rounds,
+# 4 a round -- each of the two products is one wide multiply giving both
+# its high and low words, and each ``hi ^ c ^ k`` one three-input logic
+# operation; the key schedule is the same every step of a cell and not
+# counted -- the counter's two words and its add, and 7 uniforms'
+# shift-shift-add.  FP64: the 7 uniforms' conversion and scale, and the
+# two Box-Muller pairs (negation, log1p, scale, sqrt, 2 pi b, cos,
+# product; the pm pair's sin and second product).  A math-library call
+# counts as one operation, so the FP64 count is a lower bound.
+PHILOX_INT_OPS_PER_PM_STEP = 4 * 10 * 4 + 3 + 7 * 3
+BOX_MULLER_OPS_PER_PM_STEP = 7 * 2 + 7 + 9
+# The main path's kernel variants, as (store, het, shock, pm): the Fig. 4
+# grids run 0000, the fleet grid 0001.
+MAIN_PATH_VARIANTS = ("0000", "0001")
+# sim_step launches of the main path: 256-step chunks of Fig. 4 static (6)
+# and dynamic (8) and of the fleet grid (1).
+MAIN_PATH_SIM_STEP_LAUNCHES = 15
 
 REPORT: dict = {}
 
@@ -273,21 +318,27 @@ def phase_env() -> None:
 
 
 def ptxas_table(log: str) -> list:
-    """(store, het, shock, pm, registers, spill-store bytes) per kernel
-    instantiation, from nvcc's ``-Xptxas -v`` report."""
-    rows, flags, spill = [], None, None
+    """(variant as store-het-shock-pm bits, route, registers, stack bytes,
+    spill-store bytes, spill-load bytes) per sim_step kernel instantiation,
+    from nvcc's ``-Xptxas -v`` report: route "philox" for
+    ``sim_step_philox_kernel``, "pregenerated" for ``sim_step_kernel``."""
+    rows, cur, frame = [], None, None
     for line in log.splitlines():
-        m = re.search(r"sim_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"sim_step_(philox_)?kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                      line)
         if m:
-            flags, spill = tuple(int(g) for g in m.groups()), None
+            cur = ("".join(m.groups()[1:]),
+                   "philox" if m.group(1) else "pregenerated")
+            frame = None
             continue
-        sp = re.search(r"(\d+) bytes spill stores", line)
-        if flags is not None and spill is None and sp:
-            spill = int(sp.group(1))
+        sp = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", line)
+        if cur is not None and frame is None and sp:
+            frame = tuple(int(g) for g in sp.groups())
         r = re.search(r"Used (\d+) registers", line)
-        if flags is not None and r:
-            rows.append(flags + (int(r.group(1)), spill))
-            flags = None
+        if cur is not None and r:
+            rows.append(cur + (int(r.group(1)),) + (frame or (0, 0, 0)))
+            cur = None
     return rows
 
 
@@ -314,12 +365,23 @@ def phase_build() -> None:
           f"flash_attention.cu in {REPORT['build_seconds']:.1f} s (ssd_scan.cu "
           f"{REPORT['ssd_build_seconds']:.1f} s, ckpt_quant.cu "
           f"{REPORT['quant_build_seconds']:.1f} s, flash_attention.cu "
-          f"{REPORT['flash_build_seconds']:.1f} s); sim_step "
-          f"(store, het, shock, pm) -> registers, spill-store bytes:",
-          flush=True)
-    for row in REPORT["ptxas_table"]:
-        print(f"    {row[:4]} -> {row[4]} registers, {row[5]} bytes spilled",
+          f"{REPORT['flash_build_seconds']:.1f} s); sim_step.cu in "
+          f"{log['seconds']:.1f} s; its kernels, variant (store, het, "
+          f"shock, pm) and route -> registers, stack frame, spill "
+          f"stores/loads:", flush=True)
+    for var, route, regs, stack, st, ld in REPORT["ptxas_table"]:
+        print(f"    {var} {route:12s} -> {regs} registers, {stack} B stack, "
+              f"{st} B spill stores, {ld} B spill loads", flush=True)
+    if log["ptxas"] == "(cached)":
+        print("    (sim_step.cu was built before this run: no ptxas report)",
               flush=True)
+    elif len(REPORT["ptxas_table"]) != 32:
+        fail(f"expected 32 sim_step kernels in the ptxas report, found "
+             f"{len(REPORT['ptxas_table'])}")
+    spilled = [r for r in REPORT["ptxas_table"]
+               if r[0] in MAIN_PATH_VARIANTS and (r[4] or r[5])]
+    if spilled:
+        fail(f"main-path sim_step variants spill registers: {spilled}")
     for name, key in (("ssd_scan", "ssd_ptxas"), ("ckpt_quant", "quant_ptxas"),
                       ("flash_attention", "flash_ptxas")):
         for line in REPORT[key].splitlines():
@@ -345,7 +407,26 @@ def _state_diff(a, b):
     return out, worst
 
 
+def _philox_chunk(s, p, src, n: int, **kw):
+    """One launch of the in-kernel route on ``src``'s next ``n`` steps, on
+    the packed operands: the new state and the steps taken per warp."""
+    import torch
+
+    from repro_torch.kernels import sim_step
+
+    state = sim_step.pack_state(s)
+    taken = torch.zeros(-(-s.t.shape[0] // sim_step.WARP), dtype=torch.int32,
+                        device=state.device)
+    sim_step.launch_philox(sim_step.pack_params(p), state, src.seeds,
+                           src.skip(n), n, taken, **kw)
+    return sim_step.unpack_state(state), taken
+
+
 def phase_kernel_vs_plain(n_cells: int, chunks: int, chunk: int) -> float:
+    """Phase 3: the in-kernel generator against PhiloxDraws, then both routes
+    of the kernel against the plain step fed PhiloxDraws.next, on a mixed
+    batch with every static flag -- from step 0, and from just below 2**32
+    with seeds >= 2**32 (the counter's and the key's high words)."""
     import torch
 
     from repro_torch.kernels import sim_step
@@ -353,33 +434,60 @@ def phase_kernel_vs_plain(n_cells: int, chunks: int, chunk: int) -> float:
     from repro_torch.sim.draws import PhiloxDraws
 
     cells = mixed_cells(n_cells)
+    gen_seeds = [c.seed for c in cells[:500]] + [
+        2**32 + 7, 2**40 + 3, -1, -2**40, 2**63 - 1]
+    gen = {}
+    for any_pm in (False, True):
+        src = PhiloxDraws(gen_seeds, any_pm, "cuda")
+        for step0 in (0, 256, 2**32 - 3):
+            d = sim_step.philox_draws(src, step0, 8)
+            want = src.at(step0, 8)
+            gen[f"pm={int(any_pm)} step0={step0}"] = [
+                int((d[:, r] != want[:, r]).sum()) for r in range(d.shape[1])]
+    torch.cuda.synchronize()
+    print(f"[3] in-kernel Philox draws vs PhiloxDraws.at, mismatches per row "
+          f"(u, z, u2[, u_pm, z_pm0, z_pm1]): {gen}", flush=True)
     p_np = engine._pack(cells)
     flags = engine.batch_flags(cells, p_np)
     assert all(flags.values()), flags
     p = engine.from_reference(p_np, device="cuda")
-    s = engine._init_state(p, 1)
-    src = PhiloxDraws([c.seed for c in cells], True, "cuda")
-    total, worst = {}, 0.0
-    for _ in range(chunks):
-        d = src.next(chunk)
-        a, ta = sim_step.fused_chunk(s, p, d, macro_threshold=0.05, **flags)
-        b, tb = sim_step.fused_chunk_ref(s, p, d, macro_threshold=0.05,
-                                         **flags)
-        torch.cuda.synchronize()
-        diff, w = _state_diff(a, b)
-        worst = max(worst, w)
-        for k, v in diff.items():
-            total[k] = total.get(k, 0) + v
-        total["steps_taken"] = total.get("steps_taken", 0) + int(
-            (ta != tb).sum())
-        s = a
-    fin = int(s.finished.sum())
+    total, worst, runs = {}, 0.0, []
+    for step0, off in ((0, 0), (2**32 - (chunks * chunk) // 2, 2**32 + 11)):
+        seeds = [c.seed + off for c in cells]
+        s = engine._init_state(p, 1)
+        src_k = PhiloxDraws(seeds, True, "cuda")
+        src_r = PhiloxDraws(seeds, True, "cuda")
+        src_k.step = src_r.step = step0
+        for _ in range(chunks):
+            d = src_r.next(chunk)
+            b, tb = sim_step.fused_chunk_ref(s, p, d, macro_threshold=0.05,
+                                             **flags)
+            for route, (a, ta) in (
+                    ("philox", _philox_chunk(s, p, src_k, chunk,
+                                             macro_threshold=0.05, **flags)),
+                    ("pregenerated", sim_step.fused_chunk(
+                        s, p, d, macro_threshold=0.05, **flags))):
+                torch.cuda.synchronize()
+                diff, w = _state_diff(a, b)
+                worst = max(worst, w)
+                diff["steps_taken"] = int((ta != tb).sum())
+                for k, v in diff.items():
+                    key = f"{route}.{k}"
+                    total[key] = total.get(key, 0) + v
+            s = b
+        runs.append(dict(step0=step0, seed_offset=off,
+                         finished=int(s.finished.sum())))
     REPORT["kernel_vs_plain"] = dict(cells=n_cells, chunks=chunks,
-                                     chunk=chunk, mismatches=total,
-                                     max_abs_err=worst, finished=fin)
+                                     chunk=chunk, runs=runs,
+                                     generator_mismatches=gen,
+                                     mismatches=total, max_abs_err=worst)
     print(f"[3] kernel vs plain on the card: {n_cells} cells, {chunks} x "
-          f"{chunk} steps, {fin} finished; mismatches per field: "
-          f"{total}; max |err| {worst}", flush=True)
+          f"{chunk} steps from step 0 and from {runs[1]['step0']} (seeds + "
+          f"{runs[1]['seed_offset']}), {[r['finished'] for r in runs]} "
+          f"finished; mismatches per route and field: {total}; max |err| "
+          f"{worst}", flush=True)
+    if any(any(v) for v in gen.values()):
+        fail("the in-kernel generator differs from PhiloxDraws")
     if any(total.values()):
         fail("kernel differs from the plain torch step")
     return worst
@@ -468,9 +576,66 @@ def _flag_key(flags: dict) -> str:
         "any_store", "any_het", "any_shock", "any_pm"))
 
 
+def chunk_times(cells, reps: int = 20) -> dict:
+    """One 256-step chunk of ``cells`` from the initial state, by CUDA
+    events (mean of ``reps`` launches after one warm-up, the state reset
+    before each), in turns: the Philox route, the pre-generated route, the
+    kernel's generator on its own writing the chunk's draws followed by the
+    pre-generated route on them, and the Philox route again."""
+    import torch
+
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import engine
+    from repro_torch.sim.draws import PhiloxDraws
+
+    p_np = engine._pack(cells)
+    flags = engine.batch_flags(cells, p_np)
+    p = engine.from_reference(p_np, device="cuda")
+    s0 = engine._init_state(p, 1)
+    src = PhiloxDraws([c.seed for c in cells], flags["any_pm"], "cuda")
+    n = engine.DEFAULT_CHUNK
+    d = src.at(0, n)
+    params = sim_step.pack_params(p)
+    st0 = sim_step.pack_state(s0)
+    st = st0.clone()
+    taken = torch.zeros(-(-len(cells) // sim_step.WARP), dtype=torch.int32,
+                        device="cuda")
+    kw = dict(macro_threshold=0.05, **flags)
+
+    def timed(fn) -> float:
+        total = 0.0
+        for i in range(reps + 1):
+            st.copy_(st0)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            if i:
+                total += a.elapsed_time(b)
+        return total / reps
+
+    def philox():
+        sim_step.launch_philox(params, st, src.seeds, 0, n, taken, **kw)
+
+    def generated_then_pregenerated():
+        sim_step.launch(params, st, sim_step.philox_draws(src, 0, n), taken,
+                        **kw)
+
+    out = {"philox_ms": [timed(philox)]}
+    out["pregenerated_ms"] = timed(
+        lambda: sim_step.launch(params, st, d, taken, **kw))
+    out["generated_then_pregenerated_ms"] = timed(generated_then_pregenerated)
+    out["philox_ms"].append(timed(philox))
+    out["steps_per_warp_max"] = int(taken.max())
+    out["variant"] = _flag_key(flags)
+    return out
+
+
 def phase_fig4_vs_plain() -> None:
     """The Fig. 4 batches (216 cells each) through run_cells with the kernel
-    and with the plain step on the card: every BatchResult field equal."""
+    and with the plain step on the card: every BatchResult field equal;
+    then the kernel's time a chunk at that batch (both routes)."""
     from repro_torch.sim import engine, run_cells
     from repro_torch.sim.experiments import (fig4_dynamic_entries,
                                              fig4_static_entries, grid_cells)
@@ -491,6 +656,16 @@ def phase_fig4_vs_plain() -> None:
               f"{a.n_steps} steps; mismatches per field {diff}", flush=True)
         if any(diff.values()):
             fail(f"{name}: kernel and plain step disagree")
+        t = chunk_times(cells)
+        REPORT[name]["kernel"] = t
+        print(f"[7] {name} kernel a 256-step chunk at B = {len(cells)} "
+              f"(steps/warp max {t['steps_per_warp_max']}): in-kernel "
+              f"Philox {t['philox_ms'][0]:.4f} / {t['philox_ms'][1]:.4f} ms, "
+              f"pre-generated {t['pregenerated_ms']:.4f} ms, the generator "
+              f"on its own then pre-generated "
+              f"{t['generated_then_pregenerated_ms']:.4f} ms; compare_grid "
+              f"{REPORT[name]['seconds']:.3f} s",
+              flush=True)
 
 
 def fleet_cells(B: int):
@@ -523,12 +698,20 @@ def phase_fleet(B: int) -> dict:
     return dict(cells=cells, res=res, wall=wall, mem=mem)
 
 
+# Kernel names of the torch operations PhiloxDraws runs (reported only: a
+# name can match other kernels).
+PHILOX_OP_KERNELS = re.compile(r"(cos|sin|log1p|xor|shift|Xor|Shift)")
+
+
 def phase_fleet_measure(run: dict) -> dict:
     """The fleet batch stage by stage on the host clock (where the time of
-    run_cells goes), the kernel against the plain step on one chunk (bitwise,
-    then timed by CUDA events), the bound, and the plain scan path end to
-    end (every BatchResult field equal to the kernel's)."""
+    run_cells goes), both routes against the plain step on one chunk
+    (bitwise), the routes timed by CUDA events beside the plain step, the
+    bound of each route, a profile of one warm run_cells (device time by
+    kernel, idle share; no PhiloxDraws draws), and the plain scan path end
+    to end (every BatchResult field equal to the kernel's)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import sim_step
     from repro_torch.sim import engine, run_cells
@@ -536,6 +719,8 @@ def phase_fleet_measure(run: dict) -> dict:
 
     cells, res, wall, mem = run["cells"], run["res"], run["wall"], run["mem"]
     B = len(cells)
+    # run_cells' stages on the Philox route (no draws stage: the kernel
+    # draws), host clock.
     stages = {}
     t = time.monotonic()
     p_np = engine._pack(cells)
@@ -547,59 +732,113 @@ def phase_fleet_measure(run: dict) -> dict:
     torch.cuda.synchronize()
     stages["to_device_s"] = time.monotonic() - t
     t = time.monotonic()
-    d = PhiloxDraws([c.seed for c in cells], flags["any_pm"], "cuda").next(256)
+    s_run, steps = sim_step.run_chunks(
+        s0, p, PhiloxDraws([c.seed for c in cells], flags["any_pm"], "cuda"),
+        chunk=engine.DEFAULT_CHUNK, max_steps=400_000, macro_threshold=0.05,
+        **flags)
     torch.cuda.synchronize()
-    stages["draws_s"] = time.monotonic() - t
-    kw = dict(macro_threshold=0.05, **flags)
+    stages["run_chunks_s"] = time.monotonic() - t
     t = time.monotonic()
-    s1, taken1 = sim_step.fused_chunk(s0, p, d, **kw)
-    torch.cuda.synchronize()
-    stages["fused_chunk_s"] = time.monotonic() - t
-    t = time.monotonic()
-    engine._result(s1, p_np, 256)
+    engine._result(s_run, p_np, steps)
     stages["result_s"] = time.monotonic() - t
-    # The plain step on the same chunk: bitwise equal to the kernel, and
-    # its count of the cell-steps this data needs sets the bound.
+    # One chunk: both routes against the plain step, bitwise; the plain
+    # step's count of the cell-steps this data needs sets the bound.
+    kw = dict(macro_threshold=0.05, **flags)
+    n = engine.DEFAULT_CHUNK
+    src = PhiloxDraws([c.seed for c in cells], flags["any_pm"], "cuda")
+    d = src.at(0, n)
     cell_steps = torch.zeros(B, dtype=torch.int64, device="cuda")
     s2, taken2 = sim_step.fused_chunk_ref(s0, p, d, cell_steps=cell_steps,
                                           **kw)
-    torch.cuda.synchronize()
-    chunk_diff, worst = _state_diff(s1, s2)
-    chunk_diff["steps_taken"] = int((taken1 != taken2).sum())
+    chunk_diff, worst = {}, 0.0
+    for route, (s1, taken1) in (
+            ("philox", _philox_chunk(s0, p, src, n, **kw)),
+            ("pregenerated", sim_step.fused_chunk(s0, p, d, **kw))):
+        torch.cuda.synchronize()
+        diff, w = _state_diff(s1, s2)
+        worst = max(worst, w)
+        diff["steps_taken"] = int((taken1 != taken2).sum())
+        chunk_diff[route] = diff
     key = _flag_key(flags)
     print(f"[7] fleet chunk, kernel vs plain step on the card: variant "
-          f"(store, het, shock, pm) {key}; mismatches per field "
+          f"(store, het, shock, pm) {key}; mismatches per route and field "
           f"{chunk_diff}", flush=True)
-    if any(chunk_diff.values()):
+    if any(any(v.values()) for v in chunk_diff.values()):
         fail("fleet chunk: kernel and plain step disagree")
-    params = sim_step.pack_params(p)
-    st0 = sim_step.pack_state(s0)
-    st = st0.clone()
-    taken = torch.zeros(-(-B // sim_step.WARP), dtype=torch.int32,
-                        device="cuda")
-    reps, total = 20, 0.0
-    for i in range(reps + 1):
-        st.copy_(st0)
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        sim_step.launch(params, st, d, taken, **kw)
-        b.record()
-        torch.cuda.synchronize()
-        if i:  # the first launch warms up
-            total += a.elapsed_time(b)
-    ms = total / reps
-    wrapper_ms = cuda_ms(lambda: sim_step.fused_chunk(s0, p, d, **kw), reps=5)
+    times = chunk_times(cells)
+    ms = sum(times["philox_ms"]) / 2
+    pre_ms = times["pregenerated_ms"]
+    gen_pre_ms = times["generated_then_pregenerated_ms"]
+    wrapper_ms = cuda_ms(lambda: _philox_chunk(
+        s0, p, PhiloxDraws(src.seeds.tolist(), flags["any_pm"], "cuda"), n,
+        **kw), reps=5)
     plain_ms = cuda_ms(lambda: sim_step.fused_chunk_ref(s0, p, d, **kw))
     active = int(cell_steps.sum())
     L = p.trace_t.shape[1]
     n_draw = d.shape[1]
-    bytes_moved = 8 * (active * n_draw
-                       + B * (len(sim_step.PARAM_ROWS)
-                              + 4 * len(sim_step.TAB4) + 2 + 2 * L)
-                       + 2 * B * len(sim_step.STATE_ROWS))
-    ops = active * OPS_PER_FLEET_CELL_STEP
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP64_OPS_PER_S * 1e3
+    param_state_bytes = 8 * (B * (len(sim_step.PARAM_ROWS)
+                                  + 4 * len(sim_step.TAB4) + 2 + 2 * L)
+                             + 2 * B * len(sim_step.STATE_ROWS))
+    bytes_philox = param_state_bytes + 8 * B          # + the seeds
+    bytes_pre = param_state_bytes + 8 * active * n_draw
+    fp64_ops = active * (OPS_PER_FLEET_CELL_STEP + BOX_MULLER_OPS_PER_PM_STEP)
+    int_ops = active * PHILOX_INT_OPS_PER_PM_STEP
+    t_bytes = bytes_philox / HBM_BYTES_PER_S * 1e3
+    t_fp64 = fp64_ops / FP64_OPS_PER_S * 1e3
+    t_int = int_ops / INT32_OPS_PER_S * 1e3
+    t_ops = max(t_fp64, t_int)
+    pre_bytes_ms = bytes_pre / HBM_BYTES_PER_S * 1e3
+    pre_ops_ms = active * OPS_PER_FLEET_CELL_STEP / FP64_OPS_PER_S * 1e3
+    # A warm run_cells under the profiler: device time by kernel, idle
+    # share against the unprofiled warm run's host-clock time, and no
+    # PhiloxDraws draws (their torch kernels and their calls).
+    calls = {"at": 0, "keys": 0}
+    at_fn, keys_fn = PhiloxDraws.at, PhiloxDraws.keys
+
+    def counted_at(self, step0, k):
+        calls["at"] += 1
+        return at_fn(self, step0, k)
+
+    def counted_keys(self):
+        calls["keys"] += 1
+        return keys_fn(self)
+
+    warm = []
+    PhiloxDraws.at, PhiloxDraws.keys = counted_at, counted_keys
+    try:
+        for _ in range(2):
+            t = time.monotonic()
+            run_cells(cells)
+            torch.cuda.synchronize()
+            warm.append(time.monotonic() - t)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_cells(cells)
+            torch.cuda.synchronize()
+    finally:
+        PhiloxDraws.at, PhiloxDraws.keys = at_fn, keys_fn
+    rows = _kernel_rows(prof)
+    dev_us = sum(r[1] for r in rows)
+    kern_us = sum(r[1] for r in rows if "sim_step" in r[0])
+    draw_kernels = [r[0][:80] for r in rows if PHILOX_OP_KERNELS.search(r[0])]
+    profile_out = dict(warm_wall_s=warm, device_ms=dev_us / 1e3,
+                       sim_step_ms=kern_us / 1e3,
+                       kernels=sum(r[2] for r in rows), top=rows[:8],
+                       philox_calls=calls, philox_op_kernels=draw_kernels)
+    if dev_us > 0:
+        profile_out["idle_share"] = 1.0 - dev_us / 1e6 / min(warm)
+    print(f"[7] fleet run_cells profile: warm runs {warm} s, device time "
+          f"{dev_us / 1e3:.3f} ms in {profile_out['kernels']} kernels "
+          f"(sim_step {kern_us / 1e3:.3f} ms), idle share "
+          f"{profile_out.get('idle_share', 'not measured')}; "
+          f"PhiloxDraws draws and key derivations (each launches its torch "
+          f"kernels) {calls}; kernels named like its operations "
+          f"{draw_kernels}", flush=True)
+    for name, us, cnt in rows[:8]:
+        print(f"    {us / 1e3:8.3f} ms  {cnt:5d} x  {name[:70]}", flush=True)
+    if any(calls.values()):
+        fail("the fleet grid's Philox route generated draws outside the "
+             "kernel")
     # The plain scan path end to end on the same batch.
     t1 = time.monotonic()
     res_scan = run_cells(cells, step="scan")
@@ -608,23 +847,36 @@ def phase_fleet_measure(run: dict) -> dict:
     scan_diff = _result_diff(res, res_scan)
     out = dict(cells=B, variant=key, wall_s=wall, cells_per_s=B / wall,
                n_steps=res.n_steps, max_memory_allocated=mem,
-               kernel_ms_per_chunk=ms, wrapper_ms_per_chunk=wrapper_ms,
+               kernel_ms_per_chunk=ms, philox_ms=times["philox_ms"],
+               pregenerated_ms_per_chunk=pre_ms,
+               generated_then_pregenerated_ms_per_chunk=gen_pre_ms,
+               wrapper_ms_per_chunk=wrapper_ms,
                host_stages=stages, plain_ms_per_chunk=plain_ms,
                chunk_vs_plain=chunk_diff, max_abs_err=worst,
-               steps_per_warp_max=int(taken.max()),
-               steps_per_warp_mean=float(taken.float().mean()),
-               active_cell_steps=active, bytes=bytes_moved, ops=ops,
-               bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+               steps_per_warp_max=times["steps_per_warp_max"],
+               active_cell_steps=active, bytes=bytes_philox,
+               fp64_ops=fp64_ops, int32_ops=int_ops,
+               bound_bytes_ms=t_bytes, bound_fp64_ms=t_fp64,
+               bound_int32_ms=t_int, bound_ops_ms=t_ops,
+               pregenerated_bytes=bytes_pre,
+               pregenerated_bound_bytes_ms=pre_bytes_ms,
+               pregenerated_bound_ops_ms=pre_ops_ms, profile=profile_out,
                scan_wall_s=scan_wall, scan_vs_fused=scan_diff)
     REPORT["fleet"] = out
     print(f"[7] fleet grid: {B} cells x k=1e6 in {wall:.3f} s "
           f"({B / wall:.0f} cells/s), {res.n_steps} steps run, peak "
-          f"{mem / 2**20:.1f} MiB; stages {stages}; kernel {ms:.4f} "
-          f"ms/chunk (with packing {wrapper_ms:.4f}) vs plain "
-          f"{plain_ms:.1f} ms/chunk (steps/warp max {int(taken.max())}); "
-          f"bound max({t_bytes:.4f} ms bytes, {t_ops:.4f} ms ops); plain "
-          f"scan path end to end {scan_wall:.2f} s, mismatches per field "
-          f"against the kernel's run {scan_diff}", flush=True)
+          f"{mem / 2**20:.1f} MiB; stages {stages}; kernel, in-kernel "
+          f"Philox {ms:.4f} ms/chunk (with packing {wrapper_ms:.4f}), "
+          f"pre-generated {pre_ms:.4f}, the generator on its own then "
+          f"pre-generated {gen_pre_ms:.4f} vs plain {plain_ms:.1f} "
+          f"ms/chunk (steps/warp max "
+          f"{times['steps_per_warp_max']}); bound max({t_bytes:.4f} ms "
+          f"bytes, {t_fp64:.4f} ms FP64, {t_int:.4f} ms INT32) = "
+          f"{max(t_bytes, t_ops):.4f} ms, the pre-generated route's "
+          f"max({pre_bytes_ms:.4f} ms bytes, {pre_ops_ms:.4f} ms FP64); plain "
+          f"scan path end to end "
+          f"{scan_wall:.2f} s, mismatches per field against the kernel's "
+          f"run {scan_diff}", flush=True)
     if any(scan_diff.values()):
         fail("fleet grid: plain scan path and kernel path disagree")
     return out
@@ -1928,14 +2180,21 @@ def main() -> int:
         print(json.dumps({"quick": True}))
         return 0
     sim_step.LAUNCHES = 0          # the engine's main path starts here
+    _zero(sim_step.LAUNCHES_BY_ROUTE)
     phase_fig4()
     fleet_run = phase_fleet(10_000)
     launches = sim_step.LAUNCHES   # ... and ends here
+    sim_by_route = dict(sim_step.LAUNCHES_BY_ROUTE)
     REPORT["main_path_launches"] = launches
+    REPORT["main_path_launches_by_route"] = sim_by_route
     print(f"[6] main path (Fig. 4 static + dynamic, fleet grid): "
-          f"{launches} sim_step launches", flush=True)
-    if launches < 1:
-        fail("the main path launched no sim_step kernel")
+          f"{launches} sim_step launches, by route {sim_by_route}",
+          flush=True)
+    if launches != MAIN_PATH_SIM_STEP_LAUNCHES or \
+            sim_by_route["philox"] != launches:
+        fail(f"the main path launched sim_step {launches} times "
+             f"({sim_by_route}), expected {MAIN_PATH_SIM_STEP_LAUNCHES}, all "
+             f"with the draws made in the kernel")
     cfg, model, prompt = serve_setup()
     ssd_scan.LAUNCHES = 0          # the serving main path starts here
     _zero(ssd_scan.LAUNCHES_BY_ROUTE)
@@ -2021,6 +2280,14 @@ def main() -> int:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     quant = phase_quant_measure()
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
+    fig4_kernel = {name: {"philox_ms": REPORT[name]["kernel"]["philox_ms"],
+                          "pregenerated_ms":
+                              REPORT[name]["kernel"]["pregenerated_ms"],
+                          "generated_then_pregenerated_ms":
+                              REPORT[name]["kernel"][
+                                  "generated_then_pregenerated_ms"],
+                          "compare_grid_s": REPORT[name]["seconds"]}
+                   for name in ("fig4_static", "fig4_dynamic")}
     ssd_rows, flash_rows = (REPORT["ssd_kernel_vs_plain"],
                             REPORT["flash_kernel_vs_plain"])
 
@@ -2047,12 +2314,21 @@ def main() -> int:
         "name": "sim_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sim_step.cu",
         "replaces": "src/repro/kernels/sim_step.py:63",
-        "launches": launches, "max_abs_err": max(worst, fleet["max_abs_err"]),
-        "bitwise": True,
+        "launches": launches, "launches_by_route": sim_by_route,
+        "max_abs_err": max(worst, fleet["max_abs_err"]), "bitwise": True,
+        "shape": "fleet grid, 10,000 cells, one 256-step chunk",
         "ms": fleet["kernel_ms_per_chunk"],
         "plain_ms": fleet["plain_ms_per_chunk"], "bound_ms": bound,
         "bound_by": ("bytes" if fleet["bound_bytes_ms"]
                      >= fleet["bound_ops_ms"] else "operations"),
+        "bound_int32_ms": fleet["bound_int32_ms"],
+        "bound_fp64_ms": fleet["bound_fp64_ms"],
+        "pregenerated_ms": fleet["pregenerated_ms_per_chunk"],
+        "generated_then_pregenerated_ms":
+            fleet["generated_then_pregenerated_ms_per_chunk"],
+        "pregenerated_bound_ms": max(fleet["pregenerated_bound_bytes_ms"],
+                                     fleet["pregenerated_bound_ops_ms"]),
+        "fig4": fig4_kernel,
         "library_ms": None}, {
         "name": "ssd_scan_tc", "route": "cuda", "kernel_route": "mma",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

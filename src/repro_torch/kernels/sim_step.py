@@ -1,39 +1,52 @@
 """Fused sim-step kernel: up to ``chunk`` engine steps per launch on Hopper.
 
 Replaces the TPU kernel ``repro/kernels/sim_step.py::_sim_step_kernel``
-(entry ``fused_chunk`` -> ``_fused_call``), which advances a block of cells
-through the engine's branchless step ``_attempt`` -> ``_replica_draw`` ->
-``_apply`` (4-iteration Lambert W inside) with the carried state held on
-chip and a while-loop that stops once the block's cells are all finished.
+(entry ``fused_chunk`` -> ``_fused_call``, draws from ``gen_draws``), which
+advances a block of cells through the engine's branchless step
+``_attempt`` -> ``_replica_draw`` -> ``_apply`` (4-iteration Lambert W
+inside) with the carried state held on chip and a while-loop that stops
+once the block's cells are all finished.
 
 The CUDA version (``csrc/sim_step.cu``) runs one thread per cell with the
-34-double carried state in registers; parameters are read from global
-memory, and the per-step draws are read coalesced from ``[chunk, n_draw,
-B]``.  Each warp leaves the step loop as soon as all 32 of its cells are
-finished (``__all_sync``).
+34-double carried state in registers.  Each thread reads its cell's
+parameters once a launch into the block's shared memory, with the values
+that do not change across steps computed there once.  The draws come from
+one of two routes, picked by the draw source alone:
 
-What bounds it on an H100: by the data-sheet rates (3.35 TB/s, 34 TFLOP/s
-FP64) the bytes it must move set the bound at the fleet grid's shape --
-the draws (24 to 48 bytes per cell-step), the parameters and the state
-outweigh the few hundred FP64 operations of each cell-step.  Measured, it
-runs about a hundred times above that bound: 10,000 cells fill about 2.4
-warps per SM, so the latency of the dependent FP64 chains and of the
-double-precision ``exp``/``log`` subroutines sets its time.  Neither
-reading has been confirmed by a profile.  The design keeps the state out
-of device memory for the whole chunk (one read and one write per launch),
-reads each draw once, and stops finished warps early; some flag variants
-spill registers, which this first version accepts (the build's
-``-Xptxas -v`` report is recorded in PERF.md).
+* a :class:`~repro_torch.sim.draws.PhiloxDraws` source -- the kernel
+  generates the draws itself from the cells' seeds and the step index
+  (:func:`launch_philox`), bit for bit what ``PhiloxDraws.next`` gives:
+  each block of 32 cells has a second warp that draws the next steps into
+  shared memory while the first steps the cells; the source's counter
+  moves as if the draws had been made;
+* any other source (the numpy parity source) -- pre-generated
+  ``[chunk, n_draw, B]`` draws read from device memory (:func:`launch`),
+  in blocks of 32 threads.
+
+Each warp leaves the step loop as soon as all 32 of its cells are
+finished (``__all_sync``).  :func:`run_chunks` is the engine's loop: on the
+card it packs the parameters and the state once, keeps the packed state
+on the card across chunks, reads completion from its ``finished`` row and
+unpacks once at the end.
+
+What bounds it on an H100: at the fleet grid's shape the few hundred FP64
+operations of each cell-step set the bound, ahead of the in-kernel
+generator's 32-bit integer operations and the bytes of the parameters and
+the state; measured, it runs far above that bound, because 10,000 cells
+fill about 2.4 warps per SM and the latency of each cell's dependent FP64
+chain sets its time (PERF.md).
 
 Contract: bit-for-bit equal to :func:`fused_chunk_ref`, the plain torch
 version (a loop of the port's ``_attempt`` / ``_apply`` that applies the
-same per-warp early exit), on every ``_State`` field.  The build uses
-``-fmad=false`` and the kernel evaluates the same IEEE operations in the
-same order as PyTorch's elementwise kernels (NaN-propagating min/max, true
-division, ``x**2`` as ``x*x``).
+same per-warp early exit) fed the same draws, on every ``_State`` field and
+the steps taken per warp.  The build uses ``-fmad=false`` and the kernel
+evaluates the same IEEE operations in the same order as PyTorch's
+elementwise kernels (NaN-propagating min/max, true division, ``x**2`` as
+``x*x``).
 
-``fused_chunk`` launches the kernel for CUDA tensors (or raises) and runs
-``fused_chunk_ref`` for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+CUDA tensors go to the kernel (or the call raises); CPU tensors run
+``fused_chunk_ref`` on the source's ``next`` draws.  ``LAUNCHES`` counts
+kernel launches of both routes, ``LAUNCHES_BY_ROUTE`` those of each.
 """
 from __future__ import annotations
 
@@ -44,11 +57,11 @@ import torch
 
 from repro_torch.device import F64
 from repro_torch.sim import engine as _eng
-from repro_torch.sim.draws import n_draws
+from repro_torch.sim.draws import PhiloxDraws, n_draws
 
 LAUNCHES = 0
+LAUNCHES_BY_ROUTE = {"philox": 0, "pregenerated": 0}
 WARP = 32
-_BLOCK = 128
 
 # Rows of the packed [n, B] float64 parameter tensor (the [B] fields of
 # _Params, in _Params order) -- the kernel's ParamRow enum lists the same.
@@ -82,6 +95,7 @@ def state_rows() -> Tuple[str, ...]:
 
 
 STATE_ROWS = state_rows()
+FINISHED_ROW = STATE_ROWS.index("finished")
 
 
 def pack_state(s: _eng._State) -> torch.Tensor:
@@ -155,13 +169,11 @@ def fused_chunk_ref(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
     return s, taken
 
 
-def _check(s: _eng._State, p: _eng._Params, draws: torch.Tensor,
-           any_pm: bool) -> None:
-    dev = draws.device
+def _check_state(s: _eng._State, p: _eng._Params, dev: torch.device) -> None:
     B = s.t.shape[0]
     for name, x in list(zip(s._fields, s)) + list(zip(p._fields, p)):
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, draws on {dev}")
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if x.is_floating_point() and x.dtype != F64:
             raise ValueError(f"{name} must be float64, got {x.dtype}")
         if x.shape[0] != B:
@@ -171,6 +183,15 @@ def _check(s: _eng._State, p: _eng._Params, draws: torch.Tensor,
             raise ValueError(
                 f"{f} must be [B, 1]: the kernel takes batches whose "
                 f"estimator fits one peer column (no per-peer-form cells)")
+
+
+def _check(s: _eng._State, p: _eng._Params, draws: torch.Tensor,
+           any_pm: bool) -> None:
+    _check_state(s, p, draws.device)
+    _check_draws(draws, s.t.shape[0], any_pm)
+
+
+def _check_draws(draws: torch.Tensor, B: int, any_pm: bool) -> None:
     if draws.dtype != F64 or draws.dim() != 3 or not draws.is_contiguous():
         raise ValueError("draws must be a contiguous float64 [chunk, n, B]")
     if draws.shape[1] != n_draws(any_pm) or draws.shape[2] != B:
@@ -178,18 +199,27 @@ def _check(s: _eng._State, p: _eng._Params, draws: torch.Tensor,
                          f"got {list(draws.shape)}")
 
 
+def _check_seeds(seeds: torch.Tensor, B: int, step0: int) -> None:
+    if seeds.dtype != torch.int64 or seeds.shape != (B,) or \
+            not seeds.is_contiguous():
+        raise ValueError(f"seeds must be a contiguous int64 [{B}]")
+    if step0 < 0:
+        raise ValueError(f"step0 must be >= 0, got {step0}")
+
+
 def _lib():
     from repro_torch.kernels import build
 
     lib = build.load("sim_step")
     if not getattr(lib, "_typed", False):
-        P = ctypes.c_void_p
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sim_step_launch.argtypes = [
-            P, P, P, P, ctypes.c_int, P, P, ctypes.c_int, P, P, P,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
-        lib.sim_step_launch.restype = ctypes.c_int
-        lib.sim_step_error_string.argtypes = [ctypes.c_int]
+            P, P, P, P, I, P, P, I, P, P, P, LL, P, LL, I, I,
+            ctypes.c_double, I, I, I, I, P]
+        lib.sim_step_launch.restype = I
+        lib.sim_step_philox_draws.argtypes = [P, LL, I, I, P, LL, P]
+        lib.sim_step_philox_draws.restype = I
+        lib.sim_step_error_string.argtypes = [I]
         lib.sim_step_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
@@ -204,37 +234,86 @@ def pack_params(p: _eng._Params) -> tuple:
             p.trace_t.contiguous(), p.trace_mtbf.contiguous())
 
 
-def launch(params: tuple, state: torch.Tensor, draws: torch.Tensor,
-           taken: torch.Tensor, *, macro_threshold: float, any_store: bool,
-           any_het: bool, any_shock: bool, any_pm: bool) -> None:
-    """One kernel launch on packed operands (``pack_params``,
-    ``pack_state``): advances ``state`` in place and writes the steps taken
-    per warp to ``taken``.  Raises if the launch fails.  An empty batch or
-    chunk launches nothing and is not counted."""
+def _launch(params: tuple, state: torch.Tensor, taken: torch.Tensor, *,
+            draws, seeds, step0: int, n: int, macro_threshold: float,
+            any_store: bool, any_het: bool, any_shock: bool,
+            any_pm: bool) -> None:
     global LAUNCHES
     pf, p4, hmean, sdpeer, trace_t, trace_mtbf = params
     B = state.shape[1]
-    if B == 0 or draws.shape[0] == 0:
+    if B == 0 or n == 0:
         return
     lib = _lib()
-    stream = torch.cuda.current_stream(draws.device).cuda_stream
+    stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.sim_step_launch(
         pf.data_ptr(), p4.data_ptr(), hmean.data_ptr(), sdpeer.data_ptr(),
         hmean.shape[1], trace_t.data_ptr(), trace_mtbf.data_ptr(),
-        trace_t.shape[1], state.data_ptr(), draws.data_ptr(),
-        taken.data_ptr(), B, draws.shape[0], draws.shape[1],
-        float(macro_threshold), int(any_store), int(any_het),
-        int(any_shock), int(any_pm), stream)
+        trace_t.shape[1], state.data_ptr(),
+        None if draws is None else draws.data_ptr(),
+        None if seeds is None else seeds.data_ptr(), step0,
+        taken.data_ptr(), B, n, n_draws(any_pm), float(macro_threshold),
+        int(any_store), int(any_het), int(any_shock), int(any_pm), stream)
     if rc != 0:
         raise RuntimeError(f"sim_step kernel launch failed: "
                            f"{lib.sim_step_error_string(rc).decode()}")
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE["pregenerated" if seeds is None else "philox"] += 1
+
+
+def launch(params: tuple, state: torch.Tensor, draws: torch.Tensor,
+           taken: torch.Tensor, **flags) -> None:
+    """One kernel launch on packed operands (``pack_params``,
+    ``pack_state``) with pre-generated ``[chunk, n_draw, B]`` draws:
+    advances ``state`` in place and writes the steps taken per warp to
+    ``taken``.  Raises if the launch fails.  An empty batch or chunk
+    launches nothing and is not counted."""
+    _check_draws(draws, state.shape[1], flags["any_pm"])
+    _launch(params, state, taken, draws=draws, seeds=None, step0=0,
+            n=draws.shape[0], **flags)
+
+
+def launch_philox(params: tuple, state: torch.Tensor, seeds: torch.Tensor,
+                  step0: int, n: int, taken: torch.Tensor, **flags) -> None:
+    """One kernel launch that draws in the kernel: steps ``step0 .. step0 +
+    n - 1`` of each cell's Philox stream (``seeds``: the [B] int64 seeds of
+    a :class:`PhiloxDraws`), 32 cells and a generating warp a block.
+    Otherwise as :func:`launch`."""
+    _check_seeds(seeds, state.shape[1], step0)
+    _launch(params, state, taken, draws=None, seeds=seeds, step0=step0,
+            n=n, **flags)
+
+
+def philox_draws(src: PhiloxDraws, step0: int, n: int) -> torch.Tensor:
+    """The kernel's own generator on its own: the draws of steps ``step0 ..
+    step0 + n - 1``, ``[n, n_draw, B]`` (a check of the in-kernel route;
+    CPU tensors: ``src.at``, its plain version)."""
+    if src.device.type == "cpu":
+        return src.at(step0, n)
+    B = src.seeds.shape[0]
+    _check_seeds(src.seeds, B, step0)
+    out = torch.empty(n, n_draws(src.any_pm), B, dtype=F64,
+                      device=src.device)
+    if B == 0 or n == 0:
+        return out
+    lib = _lib()
+    rc = lib.sim_step_philox_draws(
+        src.seeds.data_ptr(), step0, n, int(src.any_pm), out.data_ptr(), B,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"philox_draws kernel launch failed: "
+                           f"{lib.sim_step_error_string(rc).decode()}")
+    return out
+
+
+def _taken(B: int, device) -> torch.Tensor:
+    return torch.zeros(-(-B // WARP), dtype=torch.int32, device=device)
 
 
 def fused_chunk(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
                 macro_threshold: float, any_store: bool, any_het: bool,
                 any_shock: bool, any_pm: bool):
-    """Advance the batch by up to ``draws.shape[0]`` steps.
+    """Advance the batch by up to ``draws.shape[0]`` steps on pre-generated
+    draws.
 
     CUDA tensors: one launch of the CUDA kernel (raises if it cannot be
     built or launched).  CPU tensors: :func:`fused_chunk_ref`.  Returns the
@@ -249,7 +328,48 @@ def fused_chunk(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
                          f"{draws.device}")
     _check(s, p, draws, any_pm)
     state = pack_state(s)
-    taken = torch.zeros(-(-s.t.shape[0] // WARP), dtype=torch.int32,
-                        device=draws.device)
+    taken = _taken(s.t.shape[0], draws.device)
     launch(pack_params(p), state, draws, taken, **kw)
     return unpack_state(state), taken
+
+
+def run_chunks(s: _eng._State, p: _eng._Params, src, *, chunk: int,
+               max_steps: int, macro_threshold: float, plain: bool = False,
+               **flags):
+    """Step the batch ``chunk`` steps at a time until every cell is finished
+    or ``max_steps`` steps have run; returns the final state and the steps
+    run.
+
+    CUDA tensors (``plain`` false): the kernel, with the parameters and the
+    state packed once, the packed state kept on the card across chunks,
+    completion read from its ``finished`` row, and one unpack at the end;
+    a :class:`PhiloxDraws` source draws in the kernel, any other source
+    hands over its pre-generated draws.  CPU tensors or ``plain``:
+    :func:`fused_chunk_ref` on ``src.next`` draws.
+    """
+    kw = dict(macro_threshold=macro_threshold, **flags)
+    steps = 0
+    if plain or s.t.device.type == "cpu":
+        while steps < max_steps:
+            n = min(chunk, max_steps - steps)
+            s, _ = fused_chunk_ref(s, p, src.next(n), **kw)
+            steps += n
+            if bool(s.finished.all()):
+                break
+        return s, steps
+    _check_state(s, p, s.t.device)
+    params, state = pack_params(p), pack_state(s)
+    taken = _taken(s.t.shape[0], s.t.device)
+    finished = state[FINISHED_ROW]
+    philox = isinstance(src, PhiloxDraws)
+    while steps < max_steps:
+        n = min(chunk, max_steps - steps)
+        if philox:
+            launch_philox(params, state, src.seeds, src.skip(n), n, taken,
+                          **kw)
+        else:
+            launch(params, state, src.next(n), taken, **kw)
+        steps += n
+        if bool((finished != 0.0).all()):
+            break
+    return unpack_state(state), steps

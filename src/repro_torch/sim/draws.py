@@ -16,6 +16,11 @@ and the gossip pull).
   halves so that all intermediates stay below 2**63 in int64.  Uniforms
   carry 53 random bits in [0, 1); normals come from Box-Muller.  It is
   held to the reference only statistically (3-sigma agreement of means).
+  It is also the plain version of the CUDA sim-step kernel's own
+  generator: on the card the fused step draws in the kernel from the
+  seeds and the step index (:meth:`PhiloxDraws.skip` advances the counter
+  as :meth:`PhiloxDraws.next` would), bit for bit equal to
+  :meth:`PhiloxDraws.at`.
 * :class:`NumpyDraws` -- the parity source.  It replays the reference
   numpy backend's per-unique-seed ``default_rng`` streams
   (``repro.sim.engine._run_numpy``) on the host in ``_RNG_BLOCK`` blocks,
@@ -83,14 +88,22 @@ class PhiloxDraws:
     def __init__(self, seeds: Sequence[int], any_pm: bool, device):
         sd = torch.as_tensor(np.asarray(list(seeds), dtype=np.int64),
                              dtype=torch.int64, device=device)
+        self.seeds = sd
         self.device = sd.device
         self.any_pm = any_pm
         self.step = 0
-        k0 = sd & _MASK32
-        hi = (sd >> 32) & _MASK32
-        self._keys = [(k0, hi ^ _MAIN_STREAM)]
-        if any_pm:
-            self._keys.append((k0, hi ^ _PM_STREAM))
+        self._keys = None
+
+    def keys(self):
+        """The (k0, k1) key words of the main stream (and the pm stream),
+        made on first use: a run that draws in the kernel never needs them."""
+        if self._keys is None:
+            k0 = self.seeds & _MASK32
+            hi = (self.seeds >> 32) & _MASK32
+            self._keys = [(k0, hi ^ _MAIN_STREAM)]
+            if self.any_pm:
+                self._keys.append((k0, hi ^ _PM_STREAM))
+        return self._keys
 
     def _uniforms(self, key, steps: torch.Tensor, block: int):
         k0, k1 = key
@@ -102,16 +115,29 @@ class PhiloxDraws:
         return _u53(w0, w1), _u53(w2, w3)
 
     def next(self, n: int) -> torch.Tensor:
-        steps = torch.arange(self.step, self.step + n, dtype=torch.int64,
-                             device=self.device)
+        """The draws of the next ``n`` steps, ``[n, n_draw, B]``."""
+        return self.at(self.skip(n), n)
+
+    def skip(self, n: int) -> int:
+        """Advance the counter by ``n`` steps without drawing; returns the
+        first step skipped (where a generator in the kernel starts)."""
+        step0 = self.step
         self.step += n
-        u, u2 = self._uniforms(self._keys[0], steps, 0)
-        a, b = self._uniforms(self._keys[0], steps, 1)
+        return step0
+
+    def at(self, step0: int, n: int) -> torch.Tensor:
+        """The draws of steps ``step0 .. step0 + n - 1`` (the counter does
+        not move)."""
+        steps = torch.arange(step0, step0 + n, dtype=torch.int64,
+                             device=self.device)
+        keys = self.keys()
+        u, u2 = self._uniforms(keys[0], steps, 0)
+        a, b = self._uniforms(keys[0], steps, 1)
         z = torch.sqrt(-2.0 * torch.log1p(-a)) * torch.cos(_TWO_PI * b)
         rows = [u, z, u2]
         if self.any_pm:
-            u_pm, a = self._uniforms(self._keys[1], steps, 0)
-            b, _ = self._uniforms(self._keys[1], steps, 1)
+            u_pm, a = self._uniforms(keys[1], steps, 0)
+            b, _ = self._uniforms(keys[1], steps, 1)
             r = torch.sqrt(-2.0 * torch.log1p(-a))
             rows += [u_pm, r * torch.cos(_TWO_PI * b),
                      r * torch.sin(_TWO_PI * b)]

@@ -12,13 +12,14 @@ held to the reference's numpy backend step by step.
 
 Three things differ from the reference:
 
-* **Execution.** :func:`run_cells` is a chunked host loop that advances
-  the batch ``chunk`` steps at a time through
-  :func:`repro_torch.kernels.sim_step.fused_chunk` -- the hand-written CUDA
-  kernel on the card (``step="fused"``, the default) -- or through its
-  plain torch version :func:`repro_torch.kernels.sim_step.fused_chunk_ref`
-  (``step="scan"``, and always for CPU tensors).  Both take their noise
-  as pre-generated ``[chunk, n_draw, B]`` float64 tensors from
+* **Execution.** :func:`run_cells` is a chunked host loop
+  (:func:`repro_torch.kernels.sim_step.run_chunks`) that advances the
+  batch ``chunk`` steps at a time through the hand-written CUDA kernel on
+  the card (``step="fused"``, the default) or through its plain torch
+  version :func:`repro_torch.kernels.sim_step.fused_chunk_ref`
+  (``step="scan"``, and always for CPU tensors).  The kernel draws the
+  Philox stream itself; the plain version and the numpy parity source
+  take pre-generated ``[chunk, n_draw, B]`` float64 tensors from
   :mod:`repro_torch.sim.draws`.
 * **Draw sources.** ``draws="philox"`` is a device Philox4x32-10 stream
   keyed by each cell's seed; ``draws="numpy"`` replays the reference numpy
@@ -1045,10 +1046,12 @@ def run_cells(cells: Sequence[CellSpec], *, device=None,
     ``chunk``: engine steps per kernel launch; the host checks completion
     between chunks.
     ``step``: "fused" (the CUDA kernel of
-    :mod:`repro_torch.kernels.sim_step`; its plain version on CPU tensors)
-    or "scan" (the plain torch step on any device).
-    ``draws``: "philox" (device stream) or "numpy" (replays the reference
-    numpy backend's streams; :mod:`repro_torch.sim.draws`).
+    :mod:`repro_torch.kernels.sim_step`, with the parameters and the state
+    packed once a run; its plain version on CPU tensors) or "scan" (the
+    plain torch step on any device).
+    ``draws``: "philox" (device stream; the fused step on the card draws
+    it inside the kernel) or "numpy" (replays the reference numpy backend's
+    streams, pre-generated; :mod:`repro_torch.sim.draws`).
     """
     from repro_torch.kernels import sim_step
     from repro_torch.sim.draws import make_draws
@@ -1064,15 +1067,9 @@ def run_cells(cells: Sequence[CellSpec], *, device=None,
     p = from_reference(p_np, device=dev)
     s = _init_state(p, 1)
     src = make_draws(draws, [c.seed for c in cells], flags["any_pm"], dev)
-    run = sim_step.fused_chunk if step == "fused" else sim_step.fused_chunk_ref
-    steps = 0
-    while steps < max_steps:
-        n = min(chunk, max_steps - steps)
-        s, _ = run(s, p, src.next(n), macro_threshold=float(macro_threshold),
-                   **flags)
-        steps += n
-        if bool(s.finished.all()):
-            break
+    s, steps = sim_step.run_chunks(
+        s, p, src, chunk=chunk, max_steps=max_steps,
+        macro_threshold=float(macro_threshold), plain=step == "scan", **flags)
     return _result(s, p_np, steps)
 
 

@@ -125,6 +125,138 @@ def test_main_path_variants_equal_plain_version_on_card(variant, flags):
     assert bool(s.finished.any())
 
 
+def _same(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        same = ((x == y) | (torch.isnan(x) & torch.isnan(y))
+                if x.is_floating_point() else x == y)
+        assert bool(same.all()), name
+
+
+def _philox_chunk(s, p, src, n, flags):
+    """One launch of the in-kernel route on ``src``'s next ``n`` steps:
+    the new state and the steps taken per warp."""
+    state = TK.pack_state(s)
+    taken = torch.zeros(-(-s.t.shape[0] // TK.WARP), dtype=torch.int32,
+                        device="cuda")
+    TK.launch_philox(TK.pack_params(p), state, src.seeds, src.skip(n), n,
+                     taken, macro_threshold=0.05, **flags)
+    return TK.unpack_state(state), taken
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_pm", [False, True])
+@pytest.mark.parametrize("step0", [0, 256, 2**32 - 3])
+def test_in_kernel_generator_equals_philox_draws_on_card(any_pm, step0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    seeds = list(range(300)) + [2**32 + 7, 2**40 + 3, -1, -2**40, 2**63 - 1]
+    src = PhiloxDraws(seeds, any_pm, "cuda")
+    assert torch.equal(TK.philox_draws(src, step0, 8), src.at(step0, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,flags", [
+    ("pooled", (False, False, False, False)),
+    ("pm", (False, False, False, True))])
+@pytest.mark.parametrize("step0", [0, 256, 2**32 - 3])
+def test_in_kernel_route_equals_plain_version_on_card(variant, flags, step0):
+    """The Philox route (draws made in the kernel) against the plain version
+    fed ``PhiloxDraws.next`` from the same counter, on the main path's
+    variants; from 2**32 - 3 the chunks cross the counter's high word and
+    the seeds are >= 2**32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    cells = _main_path_cells(variant)
+    p_np = TE._pack(cells)
+    got = TE.batch_flags(cells, p_np)
+    assert tuple(got[f] for f in ("any_store", "any_het", "any_shock",
+                                  "any_pm")) == flags
+    p = TE.from_reference(p_np, device="cuda")
+    s = TE._init_state(p, 1)
+    seeds = [c.seed + (2**32 if step0 > 2**31 else 0) for c in cells]
+    src_k = PhiloxDraws(seeds, flags[3], "cuda")
+    src_r = PhiloxDraws(seeds, flags[3], "cuda")
+    src_k.step = src_r.step = step0
+    before, philox = TK.LAUNCHES, TK.LAUNCHES_BY_ROUTE["philox"]
+    for n in (64, 7, 64, 1, 64):
+        a, ta = _philox_chunk(s, p, src_k, n, got)
+        b, tb = TK.fused_chunk_ref(s, p, src_r.next(n), macro_threshold=0.05,
+                                   **got)
+        torch.cuda.synchronize()
+        assert torch.equal(ta, tb)
+        _same(a, b)
+        s = a
+    assert src_k.step == src_r.step == step0 + 200
+    assert TK.LAUNCHES == before + 5
+    assert TK.LAUNCHES_BY_ROUTE["philox"] == philox + 5
+    assert bool(s.finished.any())
+
+
+@pytest.mark.cuda
+def test_in_kernel_route_every_flag_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    cells = _cells(200)
+    p = TE.from_reference(TE._pack(cells), device="cuda")
+    s = TE._init_state(p, 1)
+    seeds = [c.seed + 2**33 for c in cells]
+    src_k = PhiloxDraws(seeds, True, "cuda")
+    src_r = PhiloxDraws(seeds, True, "cuda")
+    src_k.step = src_r.step = 2**32 - 100
+    for _ in range(6):
+        a, ta = _philox_chunk(s, p, src_k, 64, FLAGS)
+        b, tb = TK.fused_chunk_ref(s, p, src_r.next(64), macro_threshold=0.05,
+                                   **FLAGS)
+        torch.cuda.synchronize()
+        assert torch.equal(ta, tb)
+        _same(a, b)
+        s = a
+    assert bool(s.finished.any())
+
+
+@pytest.mark.cuda
+def test_pre_generated_route_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    cells = _cells(300)
+    p = TE.from_reference(TE._pack(cells), device="cuda")
+    s = TE._init_state(p, 1)
+    d = PhiloxDraws([c.seed for c in cells], True, "cuda").next(300)
+    state = TK.pack_state(s)
+    taken = torch.zeros(-(-300 // TK.WARP), dtype=torch.int32, device="cuda")
+    pre = TK.LAUNCHES_BY_ROUTE["pregenerated"]
+    TK.launch(TK.pack_params(p), state, d, taken, macro_threshold=0.05,
+              **FLAGS)
+    assert TK.LAUNCHES_BY_ROUTE["pregenerated"] == pre + 1
+    b, tb = TK.fused_chunk_ref(s, p, d, macro_threshold=0.05, **FLAGS)
+    torch.cuda.synchronize()
+    assert torch.equal(taken, tb)
+    _same(TK.unpack_state(state), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["pooled", "pm"])
+def test_run_cells_fused_equals_scan_on_card(variant):
+    """run_cells on the card: the kernel path (parameters and state packed
+    once, draws made in the kernel) equals the plain scan path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    import dataclasses
+
+    import numpy as np
+
+    cells = _main_path_cells(variant)
+    by_route = dict(TK.LAUNCHES_BY_ROUTE)
+    a = TE.run_cells(cells, step="fused", chunk=96)
+    assert TK.LAUNCHES_BY_ROUTE["philox"] > by_route["philox"]
+    assert TK.LAUNCHES_BY_ROUTE["pregenerated"] == by_route["pregenerated"]
+    b = TE.run_cells(cells, step="scan", chunk=96)
+    assert a.completed.any()
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        np.testing.assert_array_equal(x, y, err_msg=f.name)
+
+
 def _ssd_inputs(b, s, h, p, n, dtype, seed, with_init):
     """x, dt, A, B, C, initial state on the card, made as
     tests/test_kernels.py makes them, from a seeded generator."""

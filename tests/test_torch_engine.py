@@ -230,6 +230,42 @@ def test_scan_and_fused_agree_on_cpu():
     _assert_results_close(a, b, rtol=0.0)
 
 
+@pytest.mark.parametrize("case", ["ragged_chunk", "counter_past_2_32",
+                                  "seeds_past_2_32"])
+def test_fused_equals_scan_bitwise_on_cpu(case, monkeypatch):
+    """``step="fused"`` in chunks of 7 steps equals ``step="scan"`` in
+    chunks of 32 bit for bit (chunks that do not divide the run), also with
+    a Philox counter that starts below 2**32 and crosses it and with seeds
+    >= 2**32 -- the step counter and key words the kernel's in-kernel
+    generator mirrors -- and those high words change the stream (they are
+    not cut off)."""
+    import dataclasses
+
+    from repro_torch.sim import draws as D
+
+    pooled = _cells(T, ("pooled",))
+    cells = [pooled[i] for i in (0, 2, 4, 18, 28)] + _cells(T, ("pm",))[2:3]
+    base = TE.run_cells(cells, device="cpu", step="scan", chunk=32)
+    if case == "counter_past_2_32":
+        make = D.make_draws
+
+        def start_high(kind, seeds, any_pm, device):
+            src = make(kind, seeds, any_pm, device)
+            src.step = 2**32 - 20
+            return src
+
+        monkeypatch.setattr(D, "make_draws", start_high)
+    elif case == "seeds_past_2_32":
+        cells = [dataclasses.replace(c, seed=c.seed + 2**32 + 2**40 * (i % 2))
+                 for i, c in enumerate(cells)]
+    a = TE.run_cells(cells, device="cpu", step="scan", chunk=32)
+    b = TE.run_cells(cells, device="cpu", step="fused", chunk=7)
+    assert a.n_steps != b.n_steps
+    _assert_results_close(a, b, rtol=0.0)
+    if case != "ragged_chunk":
+        assert not np.array_equal(a.wall_time, base.wall_time)
+
+
 # ---------------------------------------------------------------- philox
 @pytest.mark.parametrize("family,kw", [
     ("pooled", dict(k=16, work=2 * 3600.0)),

@@ -6,11 +6,14 @@ On the CPU: ``fused_chunk`` runs its plain version ``fused_chunk_ref``
 the reference's own ``gen_draws`` draws (8 cells, chunk 16, every static
 flag): counts exact, floats within 1e-9 relative (XLA's and torch's libm
 differ by an ulp; the chunk compounds it).  The packed layouts the CUDA
-source declares must match the wrapper's.
+source declares must match the wrapper's, and its Philox constants and
+stream tags those of ``repro_torch.sim.draws`` (the kernel draws that
+stream itself on the card).
 
 The card test (marker ``cuda``) is in ``test_torch_cuda.py``, which
 imports nothing of jax so that it runs on the GPU machine.
 """
+import inspect
 import re
 import types
 from pathlib import Path
@@ -87,6 +90,62 @@ def test_cuda_source_layouts_match_wrapper():
     for f in TK.PARAM_ROWS:
         assert getattr(p, f).ndim == 1, f
     assert len(TK.STATE_ROWS) == 34
+
+
+def _const(name):
+    return re.search(r"constexpr\s+\w+\s+%s\s*=\s*([^;]+);" % name,
+                     CU).group(1).strip()
+
+
+def test_cuda_source_philox_constants_match_draws():
+    from repro_torch.sim import draws as D
+
+    def hex32(text):
+        return int(text.rstrip("uU"), 16)
+
+    assert hex32(_const("kPhiloxM0")) == D._PHILOX_M0
+    assert hex32(_const("kPhiloxM1")) == D._PHILOX_M1
+    assert hex32(_const("kPhiloxW0")) == D._PHILOX_W0
+    assert hex32(_const("kPhiloxW1")) == D._PHILOX_W1
+    assert hex32(_const("kMainStream")) == D._MAIN_STREAM
+    assert hex32(_const("kPmStream")) == D._PM_STREAM
+    assert int(_const("kPhiloxRounds")) == inspect.signature(
+        D.philox4x32).parameters["rounds"].default
+    num, den = _const("kInv2p53").split("/")
+    assert float(num) / float(den) == D._INV_2_53 == 2.0 ** -53
+    assert float(_const("kTwoPi")) == D._TWO_PI
+
+
+def test_philox_at_and_skip_follow_next():
+    """``at`` is the counter-free form of ``next`` (what the kernel draws
+    for a chunk), and ``skip`` moves the counter as ``next`` does."""
+    seeds = [0, 5, 2**32 + 1, -3]
+    a = PhiloxDraws(seeds, True, "cpu")
+    b = PhiloxDraws(seeds, True, "cpu")
+    first = a.next(5)
+    assert b.skip(5) == 0 and b.step == a.step == 5
+    assert torch.equal(b.at(0, 5), first)
+    assert torch.equal(a.next(3), b.at(5, 3))
+    assert torch.equal(TK.philox_draws(b, 5, 3), b.at(5, 3))
+    assert not torch.equal(b.at(0, 3), b.at(2**32, 3))   # the counter's hi word
+
+
+def test_run_chunks_on_cpu_is_the_plain_version_on_next():
+    """CPU tensors: ``run_chunks`` steps ``fused_chunk_ref`` on the
+    source's ``next`` draws (here across the counter's high word, in chunks
+    that do not divide the run) and launches nothing."""
+    p = TE.from_reference(TE._pack(_eight(T)), device="cpu")
+    s = TE._init_state(p, 1)
+    src = PhiloxDraws(range(8), True, "cpu")
+    src.step = 2**32 - 7
+    before = TK.LAUNCHES
+    a, steps = TK.run_chunks(s, p, src, chunk=5, max_steps=16,
+                             macro_threshold=0.05, **FLAGS)
+    assert steps == 16 and src.step == 2**32 + 9 and TK.LAUNCHES == before
+    b, _ = TK.fused_chunk_ref(s, p, src.at(2**32 - 7, 16),
+                              macro_threshold=0.05, **FLAGS)
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), name
 
 
 def test_pack_unpack_state_round_trip():
@@ -173,12 +232,15 @@ def test_cell_steps_count_the_steps_each_cell_needs():
 def test_empty_launch_is_not_counted():
     p = TE.from_reference(TE._pack(_eight(T)), device="cpu")
     s = TE._init_state(p, 1)
-    before = TK.LAUNCHES
+    before, by_route = TK.LAUNCHES, dict(TK.LAUNCHES_BY_ROUTE)
     TK.launch(TK.pack_params(p), TK.pack_state(s),
               torch.zeros(0, 6, 8, dtype=torch.float64),
               torch.zeros(1, dtype=torch.int32), macro_threshold=0.05,
               **FLAGS)
-    assert TK.LAUNCHES == before
+    TK.launch_philox(TK.pack_params(p), TK.pack_state(s),
+                     torch.arange(8), 0, 0, torch.zeros(1, dtype=torch.int32),
+                     macro_threshold=0.05, **FLAGS)
+    assert TK.LAUNCHES == before and TK.LAUNCHES_BY_ROUTE == by_route
 
 
 def test_plain_version_matches_pallas_kernel_interpret_mode():
