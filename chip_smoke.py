@@ -23,6 +23,13 @@ Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 4. across devices: parity draws (the pre-generated route), kernel on the
    card against the plain version on the CPU -- counts exact, floats
    within 1e-9 relative;
+G1. across devices, the per-peer estimator form: a mixed batch (gossip
+   at fanout 1, 3 and 8 with k = 2, 8, 16 and 32, isolated, pooled, fixed,
+   oracle, a heterogeneous mix, a shock, a store cell, a class-pooled cell;
+   macro-stepping on) through the plain step on the card against the CPU
+   with parity draws -- counts exact, floats within 1e-9 relative, no
+   sim_step launch; and the Philox per-peer observation rows made on the
+   card against those made on the CPU, bit for bit;
 S1. both ssd_scan kernels -- the tensor-core kernels (the route of bf16
    at these shapes) and the SIMT kernel -- against their plain torch
    version on the card at the serving shape (b 8, s 1024, h 24, p 64,
@@ -42,7 +49,24 @@ S2. across devices: the mamba2 SMOKE config in float32, prefill and four
 6. main path: the fleet grid, 10,000 class-pooled gossip cells of
    k = 1,000,000 peers, through ``run_cells(step="fused")`` -- every cell
    must complete.  The sim_step launches of phases 5 and 6 are that
-   path's count;
+   path's count (15, all on the Philox route; by variant too);
+G2. main path: ``gossip_fidelity_sweep`` at
+   ``benchmarks/gossip_fidelity.py``'s settings (288 cells, k = 16, 12 h
+   of work, 16 seeds, Philox draws) -- a per-peer batch, so the plain step
+   and 0 sim_step launches; every cell completes, isolated's mean wall
+   above pooled's and gossip every 300 s within 10% of pooled in each
+   scenario; steps, seconds and seconds a step (cold and warm), and
+   ``torch.profiler`` over 32 warm steps (device time by kernel, kernels a
+   step, idle share);
+G3. main path: ``server_offload_sweep``, ``heterogeneity_sweep`` and
+   ``correlated_churn_sweep`` at the reference's defaults through the
+   kernel with Philox draws (variants 1000, 0000 and 0010): every cell
+   completes, R = 3 moves fewer server bytes and finishes sooner than
+   R = 0, every heterogeneity row > 100% with its oracle gap in
+   [0.95, 1.05], relative runtime at 2 shocks/h above that at 0 in every
+   scenario; sim_step launches by route and by variant;
+G4. ``python -m repro_torch.launch.paper_figs --fast`` as a subprocess on
+   the card: exit 0 and every CSV header printed;
 S3. main path: ``repro_torch.serve`` on the full mamba2-130m (24 layers,
    d_model 768, bf16, the port's seeded init): ``greedy_generate`` of 32
    tokens after a 1024-token prompt, batch 8 -- 24 ssd_scan launches (one
@@ -69,7 +93,11 @@ S4. the same parameters and prompt with ``use_flash_kernel=False`` (the
    seeds; operations: the step's and Box-Muller's FP64 instructions at
    the FP64 instruction rate, Philox's 32-bit integer operations at the
    INT32 rate; the pre-generated route's bound beside it); run_cells'
-   host stages;
+   host stages; G3's three sweep batches the same way (run_cells with the
+   kernel against the plain step, every field equal; a 256-step chunk on
+   both routes beside the plain step's and the bound: bytes against the
+   step's and Box-Muller's FP64 instructions and Philox's INT32
+   operations);
    ``torch.profiler`` over one warm fleet ``run_cells`` (device time by
    kernel, idle share, and no ``PhiloxDraws`` draws: none of its calls and
    none of its torch kernels);
@@ -196,9 +224,28 @@ OPS_PER_FLEET_CELL_STEP = 104 + 121 + 12 + 241
 # counts as one operation, so the FP64 count is a lower bound.
 PHILOX_INT_OPS_PER_PM_STEP = 4 * 10 * 4 + 3 + 7 * 3
 BOX_MULLER_OPS_PER_PM_STEP = 7 * 2 + 7 + 9
+# The no-pm Philox route's draws of one cell-step (philox_draws<false>),
+# counted as above: two Philox4x32-10 calls (block 0: u, u2; block 1: the
+# Box-Muller pair's uniforms), the counter's words and add, 4 uniforms'
+# shift-shift-add; FP64: 4 uniforms' conversion and scale, one Box-Muller
+# normal (negation, log1p, scale, sqrt, 2 pi b, cos, product).
+PHILOX_INT_OPS_PER_STEP = 2 * 10 * 4 + 3 + 4 * 3
+BOX_MULLER_OPS_PER_STEP = 4 * 2 + 7
+# FP64 operations of one step of one pooled-estimator cell (the Fig. 4,
+# heterogeneity and correlated-churn batches), counted as for the fleet
+# cell: _attempt 104, _apply without the estimator 121, the pooled
+# estimator 12.  A shock adds no per-step work there (its rates are
+# per-cell constants, computed once).  A store cell adds the replica draw
+# (replica_draw<false, false>): the availability and its clamp 6, the
+# ratio and (1 - A)^R 4, the m = 0 term 1, 8 unrolled terms of 18 (the
+# count's compare-add, the pmf update, the CDF, the striped restore time
+# and the E[T_d] sum) and the final count, restore time and selects 8.
+OPS_PER_POOLED_CELL_STEP = 104 + 121 + 12
+REPLICA_DRAW_OPS = 6 + 4 + 1 + 8 * 18 + 8
 # The main path's kernel variants, as (store, het, shock, pm): the Fig. 4
-# grids run 0000, the fleet grid 0001.
-MAIN_PATH_VARIANTS = ("0000", "0001")
+# grids and the heterogeneity sweep run 0000, the fleet grid 0001, the
+# server-offload sweep 1000, the correlated-churn sweep 0010.
+MAIN_PATH_VARIANTS = ("0000", "0001", "1000", "0010")
 # sim_step launches of the main path: 256-step chunks of Fig. 4 static (6)
 # and dynamic (8) and of the fleet grid (1).
 MAIN_PATH_SIM_STEP_LAUNCHES = 15
@@ -572,8 +619,10 @@ def _result_diff(a, b) -> dict:
 
 def _flag_key(flags: dict) -> str:
     """The kernel instantiation a batch runs, as (store, het, shock, pm)."""
-    return "".join(str(int(flags[f])) for f in (
-        "any_store", "any_het", "any_shock", "any_pm"))
+    from repro_torch.kernels import sim_step
+
+    return sim_step.variant(flags["any_store"], flags["any_het"],
+                            flags["any_shock"], flags["any_pm"])
 
 
 def chunk_times(cells, reps: int = 20) -> dict:
@@ -879,6 +928,435 @@ def phase_fleet_measure(run: dict) -> dict:
           f"run {scan_diff}", flush=True)
     if any(scan_diff.values()):
         fail("fleet grid: plain scan path and kernel path disagree")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The paper's main path closed: the per-peer form and the four sweeps
+# --------------------------------------------------------------------------- #
+
+def perpeer_cells():
+    """G1's mixed per-peer batch: gossip cells at fanout 1, 3 and 8 with
+    k = 2, 8, 16 and 32 and isolated cells at each k; pooled adaptive,
+    fixed (with failure bursts to macro-step) and oracle cells; a
+    heterogeneous gossip cell, a shocked isolated cell and a store gossip
+    cell; a class-pooled gossip cell (k = 64) riding along."""
+    import dataclasses
+
+    from repro_torch.p2p import StoreSpec
+    from repro_torch.sim import (CellSpec, PeerClass, PeerClassMix,
+                                 PolicyConfig, ShockSpec, scenario)
+
+    sc = scenario("constant", mtbf=4000.0)
+    mix = PeerClassMix((PeerClass("stable"),
+                        PeerClass("volatile", hazard_mult=3.0, speed=0.7,
+                                  uplink_mult=0.5)), (0.6, 0.4))
+    kw = dict(work=4 * 3600.0, V=20.0, T_d=50.0, max_wall_time=16 * 3600.0)
+    ad = dict(kind="adaptive", prior_mu=1 / 32000.0, prior_v=20.0)
+
+    def gossip(fan, period=300.0):
+        return PolicyConfig(regime="gossip", gossip_period=period,
+                            gossip_fanout=fan, **ad)
+
+    cells = []
+    for k in (2, 8, 16, 32):
+        cells += [CellSpec(scenario=sc, policy=gossip(f), k=k, **kw)
+                  for f in (1, 3, 8)]
+        cells.append(CellSpec(scenario=sc, policy=PolicyConfig(
+            regime="isolated", **ad), k=k, **kw))
+    cells += [
+        CellSpec(scenario=sc, policy=PolicyConfig(**ad), **kw),
+        CellSpec(scenario=scenario("constant", mtbf=1000.0),
+                 policy=PolicyConfig(kind="fixed", fixed_T=3600.0), **kw),
+        CellSpec(scenario=sc, policy=PolicyConfig(kind="oracle"), **kw),
+        CellSpec(scenario=sc, policy=gossip(3), mix=mix, **kw),
+        CellSpec(scenario=sc, policy=PolicyConfig(regime="isolated", **ad),
+                 shock=ShockSpec(rate=2e-4, kill_frac=0.3), **kw),
+        CellSpec(scenario=sc, policy=gossip(2, 600.0), store=StoreSpec(R=3),
+                 **kw),
+        CellSpec(scenario=sc, policy=gossip(2, 600.0), k=64, n_slots=256,
+                 **kw)]
+    return [dataclasses.replace(c, seed=i) for i, c in enumerate(cells)]
+
+
+def _results_close(a, b) -> tuple:
+    """(count fields that differ, the largest relative float difference)."""
+    import numpy as np
+
+    bad = [f for f in ("n_checkpoints", "n_failures", "n_server_restores",
+                       "n_peer_restores", "completed")
+           if not np.array_equal(getattr(a, f), getattr(b, f))]
+    rel = 0.0
+    for f in ("wall_time", "wasted_work", "checkpoint_time", "restore_time",
+              "server_bytes"):
+        x, y = getattr(a, f), getattr(b, f)
+        r = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+        rel = max(rel, float(np.max(np.where(x == y, 0.0, r))))
+    return bad, rel
+
+
+def phase_perpeer_across_devices() -> None:
+    """G1: the per-peer form through the plain step on the card against the
+    same on the CPU with parity draws (counts exact, floats within 1e-9
+    relative, macro-stepping on), no sim_step launch; then the Philox
+    per-peer observation rows made on the card against those made on the
+    CPU, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import batch_step, run_cells
+    from repro_torch.sim.draws import PhiloxDraws
+
+    cells = perpeer_cells()
+    if batch_step(cells) != "scan":
+        fail("G1's batch does not need the per-peer form")
+    before = sim_step.LAUNCHES
+    t0 = time.monotonic()
+    a = run_cells(cells, device="cuda", draws="numpy", step="scan",
+                  chunk=128)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    b = run_cells(cells, device="cpu", draws="numpy", step="scan", chunk=128)
+    bad, rel = _results_close(a, b)
+    launched = sim_step.LAUNCHES - before
+    seeds = [c.seed for c in cells] + [2**32 + 7, 2**40 + 3, -1, -2**40]
+    obs = {}
+    for step0 in (0, 2**32 - 3):
+        x = PhiloxDraws(seeds, False, "cuda", 32).obs_at(step0, 256).cpu()
+        y = PhiloxDraws(seeds, False, "cpu", 32).obs_at(step0, 256)
+        obs[f"step0={step0}"] = [int((x[:, r] != y[:, r]).sum())
+                                 for r in range(2)]
+    REPORT["perpeer_across_devices"] = dict(
+        cells=len(cells), n_steps=a.n_steps, card_s=card_s,
+        count_mismatch=bad, max_rel_err=rel, sim_step_launches=launched,
+        philox_obs_mismatches=obs)
+    print(f"[G1] per-peer form, plain step, card vs CPU with parity draws: "
+          f"{len(cells)} cells, {a.n_steps} steps ({card_s:.2f} s on the "
+          f"card), count mismatches {bad}, max rel err {rel:.3g}, sim_step "
+          f"launches {launched}; Philox per-peer rows card vs CPU, "
+          f"mismatches (u3, z3): {obs}", flush=True)
+    if bad or rel > 1e-9:
+        fail("G1: card and CPU disagree on the per-peer form")
+    if launched:
+        fail("G1: a per-peer batch launched the sim_step kernel")
+    if any(any(v) for v in obs.values()):
+        fail("G1: the Philox per-peer rows differ between card and CPU")
+
+
+class _Captured:
+    """Records the cells of every ``run_cells`` call a sweep makes (and, in
+    ``steps``, the steps the plain step runs: the most any warp took in
+    each chunk)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import sim_step
+        from repro_torch.sim import experiments
+
+        self.cells, self.steps = [], 0
+        self._run, self._ref = experiments.run_cells, sim_step.fused_chunk_ref
+
+        def run(cells, **kw):
+            self.cells.append(list(cells))
+            return self._run(cells, **kw)
+
+        def ref(*a, **kw):
+            s, taken = self._ref(*a, **kw)
+            self.steps += int(taken.max()) if taken.numel() else 0
+            return s, taken
+
+        experiments.run_cells, sim_step.fused_chunk_ref = run, ref
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import sim_step
+        from repro_torch.sim import experiments
+
+        experiments.run_cells, sim_step.fused_chunk_ref = self._run, self._ref
+
+
+def phase_gossip_sweep() -> dict:
+    """G2, main path: ``gossip_fidelity_sweep`` at
+    ``benchmarks/gossip_fidelity.py``'s settings on the card with Philox
+    draws (a per-peer batch: the plain step, no sim_step launch).  Every
+    cell completes; isolated's mean wall exceeds pooled's and gossip every
+    300 s lies within 10% of pooled in each scenario.  Steps, seconds and
+    seconds a step of a cold and a warm run; then ``torch.profiler`` over
+    the first 32 steps of a warm run of the same batch (device time by
+    kernel, kernels a step, idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import sim_step
+    from repro_torch.launch import paper_figs as PF
+    from repro_torch.sim import gossip_fidelity_sweep, run_cells
+
+    def sweep():
+        return gossip_fidelity_sweep(
+            PF._scenarios(PF.GOSSIP_MTBF), periods=PF.GOSSIP_PERIODS,
+            fanouts=PF.GOSSIP_FANOUTS, mtbf0=PF.GOSSIP_MTBF, **PF.GOSSIP_KW)
+
+    runs = []
+    for _ in range(2):
+        sim_step.LAUNCHES = 0
+        with _Captured() as cap:
+            t0 = time.monotonic()
+            rows = sweep()
+            torch.cuda.synchronize()
+            sec = time.monotonic() - t0
+        runs.append(dict(seconds=sec, steps=cap.steps,
+                         s_per_step=sec / max(cap.steps, 1),
+                         launches=sim_step.LAUNCHES))
+    cells = cap.cells[0]
+    out = dict(cells=len(cells), runs=runs,
+               rows=[(c.scenario, c.regime, c.period, c.fanout, c.mean_wall,
+                      c.inflation_pct, c.completed_frac) for c in rows])
+    print(f"[G2] gossip_fidelity_sweep (main path): {len(cells)} cells, "
+          f"{len(rows)} rows; cold {runs[0]['seconds']:.2f} s / "
+          f"{runs[0]['steps']} steps ({runs[0]['s_per_step'] * 1e3:.2f} "
+          f"ms/step), warm {runs[1]['seconds']:.2f} s / {runs[1]['steps']} "
+          f"steps ({runs[1]['s_per_step'] * 1e3:.2f} ms/step); sim_step "
+          f"launches {[r['launches'] for r in runs]}", flush=True)
+    for r in out["rows"]:
+        print(f"    {r[0]:11s} {r[1]:8s} {r[2]:6.0f} {r[3]} wall "
+              f"{r[4]:.1f} s inflation {r[5]:+.2f}% completed {r[6]:.3f}",
+              flush=True)
+    # The first 32 steps of a warm run under the profiler.
+    n = 32
+    walls = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        run_cells(cells, step="scan", max_steps=n, chunk=n)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_cells(cells, step="scan", max_steps=n, chunk=n)
+        torch.cuda.synchronize()
+    prows = _kernel_rows(prof)
+    dev_us = sum(r[1] for r in prows)
+    kernels = sum(r[2] for r in prows)
+    out["profile"] = dict(steps=n, wall_s=walls, device_ms=dev_us / 1e3,
+                          kernels=kernels, kernels_per_step=kernels / n,
+                          top=prows[:8])
+    if dev_us > 0:
+        out["profile"]["idle_share"] = 1.0 - dev_us / 1e6 / min(walls)
+    print(f"[G2] profile of {n} warm steps: {min(walls):.3f} s unprofiled, "
+          f"device time {dev_us / 1e3:.2f} ms in {kernels} kernels "
+          f"({kernels / n:.0f} a step), idle share "
+          f"{out['profile'].get('idle_share', 'not measured')}", flush=True)
+    for name, us, cnt in prows[:8]:
+        print(f"    {us / 1e3:8.3f} ms  {cnt:6d} x  {name[:70]}", flush=True)
+    REPORT["gossip_sweep"] = out
+    if any(r["launches"] for r in runs):
+        fail("G2: the per-peer gossip sweep launched the sim_step kernel")
+    if min(r[6] for r in out["rows"]) < 1.0:
+        fail("G2: a gossip-sweep cell did not complete")
+    for scen in {r[0] for r in out["rows"]}:
+        wall = {(r[1], r[2]): r[4] for r in out["rows"] if r[0] == scen}
+        pooled = wall[("pooled", 0.0)]
+        if not wall[("isolated", 0.0)] > pooled:
+            fail(f"G2: {scen}: isolated is not slower than pooled")
+        g300 = [w for (reg, per), w in wall.items()
+                if reg == "gossip" and per == 300.0]
+        if not g300 or any(abs(w - pooled) >= 0.10 * pooled for w in g300):
+            fail(f"G2: {scen}: gossip every 300 s is not within 10% of "
+                 f"pooled")
+    return out
+
+
+def phase_kernel_sweeps() -> dict:
+    """G3, main path: ``server_offload_sweep``, ``heterogeneity_sweep`` and
+    ``correlated_churn_sweep`` at the reference's defaults on the card,
+    through the kernel with Philox draws.  Every cell completes; R = 3 moves
+    fewer server bytes and finishes sooner than R = 0 in every scenario;
+    every heterogeneity row > 100% relative runtime with its oracle gap in
+    [0.95, 1.05]; relative runtime at 2 shocks/h above that at 0 in every
+    scenario.  Returns each sweep's cells (phase 7 holds them against the
+    plain step) and the launches by route and variant."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import (correlated_churn_sweep, heterogeneity_sweep,
+                                 server_offload_sweep)
+
+    sim_step.LAUNCHES = 0          # G3's main path starts here
+    _zero(sim_step.LAUNCHES_BY_ROUTE)
+    sim_step.LAUNCHES_BY_VARIANT.clear()
+    out, cells = {}, {}
+    for name, fn in (("offload", server_offload_sweep),
+                     ("hetero", heterogeneity_sweep),
+                     ("shock", correlated_churn_sweep)):
+        before = dict(sim_step.LAUNCHES_BY_VARIANT)
+        with _Captured() as cap:
+            t0 = time.monotonic()
+            rows = fn()
+            torch.cuda.synchronize()
+            sec = time.monotonic() - t0
+        cells[name] = cap.cells[0]
+        launched = {k: v - before.get(k, 0)
+                    for k, v in sim_step.LAUNCHES_BY_VARIANT.items()
+                    if v - before.get(k, 0)}
+        out[name] = dict(cells=len(cap.cells[0]), seconds=sec,
+                         launches_by_variant=launched,
+                         rows=[dataclasses.asdict(r) for r in rows])
+        print(f"[G3] {name} sweep: {len(cap.cells[0])} cells in {sec:.2f} s, "
+              f"launches by variant (store, het, shock, pm) {launched}",
+              flush=True)
+        for r in out[name]["rows"]:
+            print(f"    {r}", flush=True)
+    launches = dict(total=sim_step.LAUNCHES,
+                    by_route=dict(sim_step.LAUNCHES_BY_ROUTE),
+                    by_variant=dict(sim_step.LAUNCHES_BY_VARIANT))  # ... ends
+    out["launches"] = launches
+    REPORT["kernel_sweeps"] = out
+    print(f"[G3] the sweeps' sim_step launches: {launches}", flush=True)
+    if launches["by_route"]["pregenerated"] or launches["total"] == 0:
+        fail("G3: the sweeps did not launch sim_step on the Philox route "
+             "alone")
+    for name, var in (("offload", "1000"), ("hetero", "0000"),
+                      ("shock", "0010")):
+        if set(out[name]["launches_by_variant"]) != {var}:
+            fail(f"G3: the {name} sweep ran variants "
+                 f"{out[name]['launches_by_variant']}, expected {var}")
+    rows = {k: out[k]["rows"] for k in ("offload", "hetero", "shock")}
+    if any(r["completed_frac"] < 1.0 for v in rows.values() for r in v):
+        fail("G3: a sweep cell did not complete")
+    for scen in {r["scenario"] for r in rows["offload"]}:
+        by_r = {r["R"]: r for r in rows["offload"] if r["scenario"] == scen}
+        if not (by_r[3]["mean_server_bytes"] < by_r[0]["mean_server_bytes"]
+                and by_r[3]["mean_wall"] < by_r[0]["mean_wall"]):
+            fail(f"G3: {scen}: R = 3 does not off-load the server")
+    for r in rows["hetero"]:
+        if not (r["relative_runtime"] > 100.0
+                and 0.95 <= r["oracle_gap"] <= 1.05):
+            fail(f"G3: heterogeneity row out of band: {r}")
+    for scen in {r["scenario"] for r in rows["shock"]}:
+        rel = {r["shocks_per_hour"]: r["relative_runtime"]
+               for r in rows["shock"] if r["scenario"] == scen}
+        if not rel[2.0] > rel[0.0]:
+            fail(f"G3: {scen}: relative runtime at 2 shocks/h ({rel[2.0]}) "
+                 f"is not above that at 0 ({rel[0.0]})")
+    return dict(cells=cells, launches=launches)
+
+
+def phase_entry_point() -> dict:
+    """G4: ``python -m repro_torch.launch.paper_figs --fast`` on the card as
+    a subprocess: exit 0 and every CSV header printed."""
+    import os
+
+    from repro_torch.launch import paper_figs as PF
+    from repro_torch.sim import experiments as X
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.paper_figs",
+                        "--fast"], capture_output=True, text=True, env=env,
+                       cwd=str(ROOT), timeout=600)
+    sec = time.monotonic() - t0
+    lines = r.stdout.splitlines()
+    headers = [PF.HEADER, X.OFFLOAD_CSV_HEADER, X.GOSSIP_CSV_HEADER,
+               X.HETERO_CSV_HEADER, X.SHOCK_CSV_HEADER]
+    missing = [h for h in headers if h not in lines]
+    out = dict(rc=r.returncode, seconds=sec, lines=len(lines),
+               missing_headers=missing, stderr=r.stderr[-4000:])
+    REPORT["paper_figs_cli"] = out
+    print(f"[G4] python -m repro_torch.launch.paper_figs --fast: exit "
+          f"{r.returncode} in {sec:.1f} s, {len(lines)} lines, missing "
+          f"headers {missing}; its timings:", flush=True)
+    for line in r.stderr.splitlines()[-8:]:
+        print(f"    {line}", flush=True)
+    if r.returncode != 0 or missing:
+        fail("G4: the paper_figs entry point failed")
+    return out
+
+
+def sweep_bound(p, active: int, fp64_per_step: int,
+                int32_per_step: int) -> dict:
+    """The least time of one chunk of a non-pm batch on the Philox route:
+    bytes (parameters, state and seeds, as the fleet grid's bound counts
+    them) against the FP64 instructions (the step's and Box-Muller's) and
+    Philox's 32-bit integer operations of the ``active`` cell-steps this
+    run's data needs."""
+    from repro_torch.kernels import sim_step
+
+    B, L = p.k.shape[0], p.trace_t.shape[1]
+    nbytes = 8 * (B * (len(sim_step.PARAM_ROWS) + 4 * len(sim_step.TAB4)
+                       + 2 + 2 * L) + 2 * B * len(sim_step.STATE_ROWS)) + 8 * B
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp64 = active * (fp64_per_step + BOX_MULLER_OPS_PER_STEP) \
+        / FP64_OPS_PER_S * 1e3
+    t_int = active * int32_per_step / INT32_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, bound_bytes_ms=t_bytes, bound_fp64_ms=t_fp64,
+                bound_int32_ms=t_int,
+                bound_ms=max(t_bytes, t_fp64, t_int),
+                bound_by="bytes" if t_bytes >= max(t_fp64, t_int)
+                else "operations")
+
+
+def phase_sweeps_vs_plain(sweep_cells: dict) -> dict:
+    """Phase 7 for G3's variants: each sweep's batch through run_cells with
+    the kernel and with the plain step on the card (every BatchResult field
+    equal), then one 256-step chunk of it by CUDA events on both routes,
+    beside the plain step's chunk and the bound."""
+    import torch
+
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import engine, run_cells
+    from repro_torch.sim.draws import PhiloxDraws
+
+    out = {}
+    for name, cells in sweep_cells.items():
+        p_np = engine._pack(cells)
+        flags = engine.batch_flags(cells, p_np)
+        key = _flag_key(flags)
+        t0 = time.monotonic()
+        a = run_cells(cells, step="fused")
+        b = run_cells(cells, step="scan")
+        diff = _result_diff(a, b)
+        vs_sec = time.monotonic() - t0
+        print(f"[7] {name} sweep, kernel vs plain step on the card: "
+              f"{len(cells)} cells, variant (store, het, shock, pm) {key}, "
+              f"{a.n_steps} steps; mismatches per field {diff}", flush=True)
+        if any(diff.values()):
+            fail(f"{name} sweep: kernel and plain step disagree")
+        t = chunk_times(cells)
+        p = engine.from_reference(p_np, device="cuda")
+        s0 = engine._init_state(p, 1)
+        kw = dict(macro_threshold=0.05, **flags)
+        d = PhiloxDraws([c.seed for c in cells], flags["any_pm"],
+                        "cuda").at(0, engine.DEFAULT_CHUNK)
+        cell_steps = torch.zeros(len(cells), dtype=torch.int64,
+                                 device="cuda")
+        sim_step.fused_chunk_ref(s0, p, d, cell_steps=cell_steps, **kw)
+        plain_ms = cuda_ms(lambda: sim_step.fused_chunk_ref(s0, p, d, **kw))
+        active = int(cell_steps.sum())
+        ops = OPS_PER_POOLED_CELL_STEP + (REPLICA_DRAW_OPS
+                                          if flags["any_store"] else 0)
+        bound = sweep_bound(p, active, ops, PHILOX_INT_OPS_PER_STEP)
+        ms = sum(t["philox_ms"]) / 2
+        out[name] = dict(cells=len(cells), variant=key, n_steps=a.n_steps,
+                         vs_plain_mismatches=diff, vs_plain_seconds=vs_sec,
+                         ms=ms, philox_ms=t["philox_ms"],
+                         pregenerated_ms=t["pregenerated_ms"],
+                         generated_then_pregenerated_ms=t[
+                             "generated_then_pregenerated_ms"],
+                         plain_ms=plain_ms, active_cell_steps=active,
+                         fp64_ops_per_cell_step=ops
+                         + BOX_MULLER_OPS_PER_STEP,
+                         steps_per_warp_max=t["steps_per_warp_max"],
+                         **bound)
+        print(f"[7] {name} sweep kernel ({key}) a 256-step chunk at B = "
+              f"{len(cells)}: in-kernel Philox {t['philox_ms'][0]:.4f} / "
+              f"{t['philox_ms'][1]:.4f} ms, pre-generated "
+              f"{t['pregenerated_ms']:.4f} ms, plain {plain_ms:.1f} ms; "
+              f"bound max({bound['bound_bytes_ms']:.4f} ms bytes, "
+              f"{bound['bound_fp64_ms']:.4f} ms FP64, "
+              f"{bound['bound_int32_ms']:.4f} ms INT32) = "
+              f"{bound['bound_ms']:.4f} ms ({active} active cell-steps)",
+              flush=True)
+    REPORT["sweeps_vs_plain"] = out
     return out
 
 
@@ -2169,6 +2647,7 @@ def main() -> int:
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
                                   64 if quick else 128)
     phase_across_devices()
+    phase_perpeer_across_devices()
     phase_ssd_kernel_vs_plain()
     s2 = phase_serve_card_vs_cpu()
     quant_worst = phase_quant_kernel_vs_plain()
@@ -2181,20 +2660,29 @@ def main() -> int:
         return 0
     sim_step.LAUNCHES = 0          # the engine's main path starts here
     _zero(sim_step.LAUNCHES_BY_ROUTE)
+    sim_step.LAUNCHES_BY_VARIANT.clear()
     phase_fig4()
     fleet_run = phase_fleet(10_000)
     launches = sim_step.LAUNCHES   # ... and ends here
     sim_by_route = dict(sim_step.LAUNCHES_BY_ROUTE)
+    sim_by_variant = dict(sim_step.LAUNCHES_BY_VARIANT)
     REPORT["main_path_launches"] = launches
     REPORT["main_path_launches_by_route"] = sim_by_route
+    REPORT["main_path_launches_by_variant"] = sim_by_variant
     print(f"[6] main path (Fig. 4 static + dynamic, fleet grid): "
-          f"{launches} sim_step launches, by route {sim_by_route}",
-          flush=True)
+          f"{launches} sim_step launches, by route {sim_by_route}, by "
+          f"variant (store, het, shock, pm) {sim_by_variant}", flush=True)
     if launches != MAIN_PATH_SIM_STEP_LAUNCHES or \
             sim_by_route["philox"] != launches:
         fail(f"the main path launched sim_step {launches} times "
              f"({sim_by_route}), expected {MAIN_PATH_SIM_STEP_LAUNCHES}, all "
              f"with the draws made in the kernel")
+    # The rest of the paper's main path: the per-peer gossip sweep (no
+    # sim_step launch: its counts are zeroed and read inside), the three
+    # sweeps through the kernel (their counts likewise), the entry point.
+    gossip = phase_gossip_sweep()
+    sweeps = phase_kernel_sweeps()
+    phase_entry_point()
     cfg, model, prompt = serve_setup()
     ssd_scan.LAUNCHES = 0          # the serving main path starts here
     _zero(ssd_scan.LAUNCHES_BY_ROUTE)
@@ -2256,6 +2744,7 @@ def main() -> int:
     # shapes (the checks fail the run on any mismatch).
     phase_fig4_vs_plain()
     fleet = phase_fleet_measure(fleet_run)
+    sweeps_vs_plain = phase_sweeps_vs_plain(sweeps["cells"])
     ssd = phase_ssd_measure()
     flash = phase_flash_measure()
     # The training main path: counts to 0 just before, read just after.
@@ -2315,6 +2804,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sim_step.cu",
         "replaces": "src/repro/kernels/sim_step.py:63",
         "launches": launches, "launches_by_route": sim_by_route,
+        "launches_by_variant": sim_by_variant,
+        "sweeps": {name: {k: r[k] for k in (
+            "variant", "cells", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_fp64_ms", "bound_int32_ms", "bound_bytes_ms",
+            "pregenerated_ms")} for name, r in sweeps_vs_plain.items()},
+        "sweeps_launches": sweeps["launches"],
+        "gossip_sweep_launches": [r["launches"] for r in gossip["runs"]],
         "max_abs_err": max(worst, fleet["max_abs_err"]), "bitwise": True,
         "shape": "fleet grid, 10,000 cells, one 256-step chunk",
         "ms": fleet["kernel_ms_per_chunk"],

@@ -46,7 +46,13 @@ elementwise kernels (NaN-propagating min/max, true division, ``x**2`` as
 
 CUDA tensors go to the kernel (or the call raises); CPU tensors run
 ``fused_chunk_ref`` on the source's ``next`` draws.  ``LAUNCHES`` counts
-kernel launches of both routes, ``LAUNCHES_BY_ROUTE`` those of each.
+kernel launches of both routes, ``LAUNCHES_BY_ROUTE`` those of each and
+``LAUNCHES_BY_VARIANT`` those of each flag variant.
+
+Like the reference's Pallas kernel, the kernel takes only batches whose
+estimator fits one peer column (``peer_axis == 1``); ``_check_state`` and
+the launch functions reject a per-peer batch with ``ValueError``, and
+``fused_chunk_ref`` (with its ``obs`` rows) is the only step for it.
 """
 from __future__ import annotations
 
@@ -61,7 +67,16 @@ from repro_torch.sim.draws import PhiloxDraws, n_draws
 
 LAUNCHES = 0
 LAUNCHES_BY_ROUTE = {"philox": 0, "pregenerated": 0}
+LAUNCHES_BY_VARIANT: dict = {}  # flag variant (see ``variant``) -> launches
 WARP = 32
+
+
+def variant(any_store: bool, any_het: bool, any_shock: bool,
+            any_pm: bool) -> str:
+    """The kernel instantiation of a flag set, as its (store, het, shock,
+    pm) bits, e.g. ``"1000"`` for a store batch."""
+    return "".join(str(int(f)) for f in (any_store, any_het, any_shock,
+                                          any_pm))
 
 # Rows of the packed [n, B] float64 parameter tensor (the [B] fields of
 # _Params, in _Params order) -- the kernel's ParamRow enum lists the same.
@@ -138,16 +153,27 @@ def _warp_live(finished: torch.Tensor) -> torch.Tensor:
 
 def fused_chunk_ref(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
                     macro_threshold: float, any_store: bool, any_het: bool,
-                    any_shock: bool, any_pm: bool,
+                    any_shock: bool, any_pm: bool, peer_axis: int = 1,
+                    obs: torch.Tensor | None = None,
                     cell_steps: torch.Tensor | None = None):
     """Plain torch version of the kernel: ``draws.shape[0]`` steps of
     ``_attempt`` / ``_apply``, with the kernel's per-warp early exit (a
     warp whose 32 cells are all finished at the start of a step keeps its
     state).  Returns the new state and the steps taken per warp.
 
+    It also steps batches the kernel does not take: with the state's peer
+    axis ``peer_axis`` > 1 (the per-peer form), ``obs`` holds the per-peer
+    observation rows ``[chunk, 2, B, peer_axis]`` (``next_obs`` of the
+    draw source).
+
     ``cell_steps``, if given, is a [B] integer tensor to which each step
     adds 1 for every cell that was unfinished at its start (the cell-steps
     the data needs, as opposed to the warp-steps the kernel runs)."""
+    if s.ema_d.shape[1] != peer_axis:
+        raise ValueError(f"the state's peer axis is {s.ema_d.shape[1]}, "
+                         f"expected {peer_axis}")
+    if peer_axis > 1 and (obs is None or obs.shape[0] != draws.shape[0]):
+        raise ValueError("a per-peer batch needs obs rows for every step")
     live_w = _warp_live(s.finished)
     taken = torch.zeros(live_w.shape[0], dtype=torch.int32,
                         device=live_w.device)
@@ -160,9 +186,10 @@ def fused_chunk_ref(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
             cell_steps += ~s.finished
         d = draws[i]
         u_pm, z_pm = (d[3], d[4:6].T) if any_pm else (None, None)
+        u3, z3 = (obs[i, 0], obs[i, 1]) if peer_axis > 1 else (None, None)
         pre = _eng._attempt(s, p, d[2], any_store, any_het, any_shock)
         new = _eng._apply(s, p, pre, d[0], d[1], u_pm, z_pm,
-                          macro_threshold, any_pm)
+                          macro_threshold, any_pm, u3, z3)
         s = _eng._State(*(torch.where(live if x.dim() == 1 else live[:, None],
                                       n, x) for n, x in zip(new, s)))
         taken += live_w.to(torch.int32)
@@ -180,9 +207,13 @@ def _check_state(s: _eng._State, p: _eng._Params, dev: torch.device) -> None:
             raise ValueError(f"{name} has {x.shape[0]} cells, expected {B}")
     for f in _STATE_COL:
         if getattr(s, f).shape != (B, 1):
-            raise ValueError(
-                f"{f} must be [B, 1]: the kernel takes batches whose "
-                f"estimator fits one peer column (no per-peer-form cells)")
+            raise ValueError(f"{f} must be [B, 1]: {_PER_PEER_REFUSED}")
+
+
+_PER_PEER_REFUSED = (
+    "the sim_step kernel takes batches whose estimator fits one peer "
+    "column (peer_axis 1: no per-peer-form cells); step a per-peer batch "
+    "with the plain version (run_cells(step='scan'))")
 
 
 def _check(s: _eng._State, p: _eng._Params, draws: torch.Tensor,
@@ -237,8 +268,10 @@ def pack_params(p: _eng._Params) -> tuple:
 def _launch(params: tuple, state: torch.Tensor, taken: torch.Tensor, *,
             draws, seeds, step0: int, n: int, macro_threshold: float,
             any_store: bool, any_het: bool, any_shock: bool,
-            any_pm: bool) -> None:
+            any_pm: bool, peer_axis: int = 1) -> None:
     global LAUNCHES
+    if peer_axis != 1:
+        raise ValueError(_PER_PEER_REFUSED)
     pf, p4, hmean, sdpeer, trace_t, trace_mtbf = params
     B = state.shape[1]
     if B == 0 or n == 0:
@@ -258,6 +291,8 @@ def _launch(params: tuple, state: torch.Tensor, taken: torch.Tensor, *,
                            f"{lib.sim_step_error_string(rc).decode()}")
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE["pregenerated" if seeds is None else "philox"] += 1
+    key = variant(any_store, any_het, any_shock, any_pm)
+    LAUNCHES_BY_VARIANT[key] = LAUNCHES_BY_VARIANT.get(key, 0) + 1
 
 
 def launch(params: tuple, state: torch.Tensor, draws: torch.Tensor,
@@ -311,16 +346,20 @@ def _taken(B: int, device) -> torch.Tensor:
 
 def fused_chunk(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
                 macro_threshold: float, any_store: bool, any_het: bool,
-                any_shock: bool, any_pm: bool):
+                any_shock: bool, any_pm: bool, peer_axis: int = 1):
     """Advance the batch by up to ``draws.shape[0]`` steps on pre-generated
     draws.
 
     CUDA tensors: one launch of the CUDA kernel (raises if it cannot be
     built or launched).  CPU tensors: :func:`fused_chunk_ref`.  Returns the
-    new state and the steps taken per warp of 32 cells.
+    new state and the steps taken per warp of 32 cells.  A per-peer batch
+    (``peer_axis`` > 1) raises ``ValueError`` on every device.
     """
     kw = dict(macro_threshold=macro_threshold, any_store=any_store,
-              any_het=any_het, any_shock=any_shock, any_pm=any_pm)
+              any_het=any_het, any_shock=any_shock, any_pm=any_pm,
+              peer_axis=peer_axis)
+    if peer_axis != 1:
+        raise ValueError(_PER_PEER_REFUSED)
     if draws.device.type == "cpu" and s.t.device.type == "cpu":
         return fused_chunk_ref(s, p, draws, **kw)
     if draws.device.type != "cuda":
@@ -345,14 +384,18 @@ def run_chunks(s: _eng._State, p: _eng._Params, src, *, chunk: int,
     completion read from its ``finished`` row, and one unpack at the end;
     a :class:`PhiloxDraws` source draws in the kernel, any other source
     hands over its pre-generated draws.  CPU tensors or ``plain``:
-    :func:`fused_chunk_ref` on ``src.next`` draws.
+    :func:`fused_chunk_ref` on ``src.next`` draws (and ``src.next_obs``
+    rows for a per-peer batch, ``peer_axis`` > 1, which only this branch
+    takes).
     """
     kw = dict(macro_threshold=macro_threshold, **flags)
     steps = 0
     if plain or s.t.device.type == "cpu":
+        per_peer = flags.get("peer_axis", 1) > 1
         while steps < max_steps:
             n = min(chunk, max_steps - steps)
-            s, _ = fused_chunk_ref(s, p, src.next(n), **kw)
+            obs = src.next_obs(n) if per_peer else None
+            s, _ = fused_chunk_ref(s, p, src.next(n), obs=obs, **kw)
             steps += n
             if bool(s.finished.all()):
                 break

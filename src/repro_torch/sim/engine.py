@@ -25,10 +25,13 @@ Three things differ from the reference:
   keyed by each cell's seed; ``draws="numpy"`` replays the reference numpy
   backend's per-seed ``default_rng`` streams so trajectories are
   comparable cell by cell with ``repro.sim.run_cells(backend="numpy")``.
-* **Scope of this slice.** Only batches whose estimator state fits one
-  peer column are supported (pooled cells and the class-pooled form at
-  any k).  The per-peer form (isolated/gossip cells with k <= 32 under
-  ``peer_form="auto"``) raises ``NotImplementedError``.
+* **The per-peer form.** A batch with isolated/gossip cells at k <= 32
+  (under ``peer_form="auto"``) carries its estimator state on a peer axis
+  of width ``_PEER_CAP`` and draws per-peer observation noise; the CUDA
+  kernel serves only batches whose estimator fits one peer column (as the
+  reference's Pallas kernel does), so such a batch runs the plain torch
+  step (``step="scan"``, on any device) and ``step="fused"`` raises
+  ``ValueError``.  :func:`batch_step` names the step a batch allows.
 
 Division by a Python constant goes through :func:`repro_torch.device.div`
 so that it is IEEE true division on every device (CUDA's elementwise
@@ -892,14 +895,50 @@ def _pool_update(s: _State, p: _Params, t, elapsed, mu, finished, u_pm, z_pm):
             due.to(F64), next_g)
 
 
+def _gossip_mix(s_t, ema_d, ema_T, mu0, n_round, next_g, finished,
+                peer_act, p: _Params):
+    """One epidemic exchange round for cells whose gossip clock is due
+    (``repro.sim.engine._gossip_mix``): each peer pulls the mu point
+    estimates of ``g_fanout`` ring neighbours at the circulant offsets
+    1 + (round * fanout + f) mod (k - 1), blends merged = (1 - w) * local
+    + w * remote_mean and re-seeds its window at the merged value."""
+    due = (p.regime == _REGIME_IDS["gossip"]) & ~finished & (s_t >= next_g)
+    P = ema_d.shape[1]
+    mu_hat = (ema_d + p.prior_count[:, None]) / (
+        ema_T + p.prior_count[:, None] / mu0)
+    idx = torch.arange(P, dtype=F64, device=ema_d.device)[None, :]
+    kk = torch.clamp_min(p.k, 1.0)[:, None]
+    km1 = torch.clamp_min(p.k - 1.0, 1.0)
+    rem_mu = torch.zeros_like(mu_hat)
+    for f in range(_FANOUT_CAP):
+        off = 1.0 + torch.remainder(n_round * p.g_fanout + f, km1)
+        # Clamp to the materialized peer axis: per-peer cells always have
+        # j < k <= P; this only guards class-pooled cells riding a mixed
+        # batch, whose result is overridden anyway.
+        j = torch.clamp_max(torch.remainder(idx + off[:, None], kk),
+                            float(P - 1)).to(torch.int64)
+        in_f = (f < p.g_fanout)[:, None]
+        rem_mu = rem_mu + torch.where(in_f, torch.gather(mu_hat, 1, j), 0.0)
+    w = p.g_weight[:, None]
+    merged_mu = (1.0 - w) * mu_hat + w * rem_mu / p.g_fanout[:, None]
+    upd = due[:, None] & peer_act
+    return (torch.where(upd, 0.0, ema_d),
+            torch.where(upd, 0.0, ema_T),
+            torch.where(upd, merged_mu, mu0),
+            n_round + due,
+            torch.where(due, s_t + p.g_period, next_g))
+
+
 def _apply(s: _State, p: _Params, pre, u, z, u_pm, z_pm,
-           macro_threshold: float, any_pm: bool) -> _State:
+           macro_threshold: float, any_pm: bool, u3=None, z3=None) -> _State:
     """Post-sampling half: advance each cell by one (macro-)attempt
-    (``repro.sim.engine._apply`` with ``peer_axis == 1``).
+    (``repro.sim.engine._apply``; the peer axis is the state's).
 
     ``u`` is a uniform (failure time, or geometric failure count for macro
     cells), ``z`` a standard normal (macro burst duration); ``u_pm`` [B] /
-    ``z_pm`` [B, 2] (None unless ``any_pm``) drive the class-pooled form.
+    ``z_pm`` [B, 2] (None unless ``any_pm``) drive the class-pooled form;
+    ``u3`` / ``z3`` [B, P] (needed when the state's peer axis P > 1) drive
+    the per-peer observation sampling of non-pooled regimes.
     """
     (mu, kmu, attempt_len, work_target, is_final, cycle_len, censor_now, att,
      td_rest, from_server) = pre
@@ -971,21 +1010,48 @@ def _apply(s: _State, p: _Params, pre, u, z, u_pm, z_pm,
     n_srv = s.n_srv + srv_rest
     n_peer = s.n_peer + (rs & p.store_on & ~from_server)
 
-    # Estimator: pooled expectation feed into peer slot 0.
     elapsed = t - s.t
-    d = ((p.hsum_watch * mu + p.shock_rate * p.shock_dwatch)
-         * elapsed)[:, None]
-    expo = (p.watch * elapsed)[:, None]
-    beta = torch.exp(d * p.log_decay[:, None])
-    ema_d = s.ema_d * beta + d
-    ema_T = s.ema_T * beta + expo
-    mu0, n_round, next_g = s.mu0, s.n_round, s.next_g
+    peer_axis = s.ema_d.shape[1]
+    if peer_axis == 1:
+        # Estimator: pooled expectation feed into peer slot 0.
+        d = ((p.hsum_watch * mu + p.shock_rate * p.shock_dwatch)
+             * elapsed)[:, None]
+        expo = (p.watch * elapsed)[:, None]
+        beta = torch.exp(d * p.log_decay[:, None])
+        ema_d = s.ema_d * beta + d
+        ema_T = s.ema_T * beta + expo
+        mu0, n_round, next_g = s.mu0, s.n_round, s.next_g
+    else:
+        # Per-peer form: pooled cells keep the expectation feed in slot 0;
+        # isolated/gossip cells Poisson-sample each peer's watch/k share.
+        pooled = p.regime == _REGIME_IDS["pooled"]
+        peer_act = (torch.arange(peer_axis, dtype=F64,
+                                 device=elapsed.device)[None, :]
+                    < torch.where(pooled, 1.0, p.k)[:, None])
+        rate_slot = torch.where(pooled, p.watch, p.watch / p.k)
+        rate_death = torch.where(pooled[:, None], p.hsum_watch[:, None],
+                                 (p.watch / p.k)[:, None]
+                                 * p.hmean_peer[:, :peer_axis])
+        lam = (rate_death * (mu * elapsed)[:, None]
+               + (p.shock_rate * elapsed)[:, None]
+               * p.shock_dpeer[:, :peer_axis]) * peer_act
+        d = torch.where(pooled[:, None], lam, _sample_counts(lam, u3, z3))
+        beta = torch.exp(d * p.log_decay[:, None])
+        ema_d = torch.where(peer_act, s.ema_d * beta + d, s.ema_d)
+        ema_T = torch.where(peer_act,
+                            s.ema_T * beta + rate_slot[:, None]
+                            * elapsed[:, None], s.ema_T)
+        ema_d, ema_T, mu0, n_round, next_g = _gossip_mix(
+            t, ema_d, ema_T, s.mu0, s.n_round, s.next_g, finished,
+            peer_act, p)
 
     pm_d, pm_T, pm_mu0, pm_v = s.pm_d, s.pm_T, s.pm_mu0, s.pm_v
     if any_pm:
         (ema_d0, ema_T0, mu0_0, pmd, pmT, pmm, pmv, rinc, next_g_pm) = \
             _pool_update(s, p, t, elapsed, mu, finished, u_pm, z_pm)
-        col0 = p.pm_on[:, None]  # the peer axis is one column wide here
+        # Class-pooled cells override their decision row (peer slot 0).
+        col0 = p.pm_on[:, None] & (torch.arange(
+            peer_axis, device=elapsed.device)[None, :] == 0)
         ema_d = where(col0, ema_d0[:, None], ema_d)
         ema_T = where(col0, ema_T0[:, None], ema_T)
         mu0 = where(col0, mu0_0[:, None], mu0)
@@ -1010,23 +1076,31 @@ def _apply(s: _State, p: _Params, pre, u, z, u_pm, z_pm,
 # Public entry point.                                                          #
 # --------------------------------------------------------------------------- #
 
-PER_PEER_TODO = (
-    "the per-peer estimator form (isolated/gossip cells with k <= "
-    f"{_PEER_CAP} under peer_form='auto', which need _gossip_mix) is not "
-    "ported yet -- ROADMAP.md Queue 1, 'per-peer form with _gossip_mix'; "
-    "use peer_form='pm' for the class-pooled form")
+def _per_peer(c: CellSpec, peer_form: str) -> bool:
+    """The cell's estimator needs the per-peer form (``_pack``'s rule)."""
+    return (c.policy.regime != "pooled" and peer_form != "pm"
+            and c.k <= _PEER_CAP)
+
+
+def batch_step(cells: Sequence[CellSpec], peer_form: str = "auto") -> str:
+    """The step a batch's estimator form allows: ``"scan"`` (the plain
+    torch step) when any cell needs the per-peer form, else ``"fused"``
+    (the CUDA kernel on the card)."""
+    return "scan" if any(_per_peer(c, peer_form) for c in cells) else "fused"
 
 
 def batch_flags(cells: Sequence[CellSpec], p: _Params) -> dict:
-    """The static flags of a packed batch (as ``repro``'s run_cells derives
-    them); raises for batches that need the per-peer form."""
-    if any(c.policy.regime != "pooled" and not pm
-           for c, pm in zip(cells, p.pm_on)):
-        raise NotImplementedError(PER_PEER_TODO)
+    """The static flags of a packed batch, as ``repro``'s run_cells derives
+    them: ``any_store``, ``any_het``, ``any_shock``, ``any_pm`` and the
+    width of the estimator's peer axis, ``peer_axis`` (``_PEER_CAP`` when
+    any cell needs the per-peer form, else 1)."""
     return dict(any_store=any(c.store is not None for c in cells),
                 any_het=bool(np.asarray(p.store_mix).any()),
                 any_shock=any(_cell_shock(c) is not None for c in cells),
-                any_pm=bool(np.asarray(p.pm_on).any()))
+                any_pm=bool(np.asarray(p.pm_on).any()),
+                peer_axis=_PEER_CAP if any(
+                    c.policy.regime != "pooled" and not pm
+                    for c, pm in zip(cells, p.pm_on)) else 1)
 
 
 def run_cells(cells: Sequence[CellSpec], *, device=None,
@@ -1041,14 +1115,16 @@ def run_cells(cells: Sequence[CellSpec], *, device=None,
     exhausted are reported censored at their current wall clock.
     ``macro_threshold``: cycle survival probability below which failure
     bursts are macro-stepped; 0 disables.
-    ``peer_form``: "auto" | "pm" (see ``repro.sim.engine.run_cells``);
-    batches that need the per-peer form raise ``NotImplementedError``.
+    ``peer_form``: "auto" | "perpeer" | "pm" (see
+    ``repro.sim.engine.run_cells``).
     ``chunk``: engine steps per kernel launch; the host checks completion
     between chunks.
     ``step``: "fused" (the CUDA kernel of
     :mod:`repro_torch.kernels.sim_step`, with the parameters and the state
     packed once a run; its plain version on CPU tensors) or "scan" (the
-    plain torch step on any device).
+    plain torch step on any device).  A batch that needs the per-peer form
+    runs only with "scan" (:func:`batch_step`); "fused" raises
+    ``ValueError`` for it on every device, as the reference does.
     ``draws``: "philox" (device stream; the fused step on the card draws
     it inside the kernel) or "numpy" (replays the reference numpy backend's
     streams, pre-generated; :mod:`repro_torch.sim.draws`).
@@ -1064,9 +1140,14 @@ def run_cells(cells: Sequence[CellSpec], *, device=None,
         raise ValueError("chunk must be >= 1")
     p_np = _pack(cells, peer_form)
     flags = batch_flags(cells, p_np)
+    if step == "fused" and flags["peer_axis"] != 1:
+        raise ValueError(
+            "step='fused' supports batches with no per-peer-form cells "
+            "(pooled or class-pooled estimators only); use step='scan'")
     p = from_reference(p_np, device=dev)
-    s = _init_state(p, 1)
-    src = make_draws(draws, [c.seed for c in cells], flags["any_pm"], dev)
+    s = _init_state(p, flags["peer_axis"])
+    src = make_draws(draws, [c.seed for c in cells], flags["any_pm"], dev,
+                     flags["peer_axis"])
     s, steps = sim_step.run_chunks(
         s, p, src, chunk=chunk, max_steps=max_steps,
         macro_threshold=float(macro_threshold), plain=step == "scan", **flags)

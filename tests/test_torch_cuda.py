@@ -257,6 +257,97 @@ def test_run_cells_fused_equals_scan_on_card(variant):
         np.testing.assert_array_equal(x, y, err_msg=f.name)
 
 
+def _perpeer_cells():
+    """A small per-peer batch: gossip at fanout 1, 3 and 8 with k = 2 and
+    16, isolated, pooled, a fixed cell that macro-steps, a heterogeneous
+    gossip cell, a shocked isolated cell, a store gossip cell and a
+    class-pooled cell."""
+    import dataclasses
+
+    mix = PeerClassMix((PeerClass("stable"),
+                        PeerClass("volatile", hazard_mult=3.0, speed=0.7,
+                                  uplink_mult=0.5)), (0.6, 0.4))
+    sc = scenario("constant", mtbf=4000.0)
+    ad = dict(kind="adaptive", prior_mu=1 / 32000.0, prior_v=20.0)
+    kw = dict(work=2 * 3600.0, V=20.0, T_d=50.0, max_wall_time=20 * 3600.0)
+    g = [PolicyConfig(regime="gossip", gossip_period=300.0, gossip_fanout=f,
+                      **ad) for f in (1, 3, 8)]
+    iso = PolicyConfig(regime="isolated", **ad)
+    cells = [CellSpec(scenario=sc, policy=pol, k=k, **kw)
+             for k in (2, 16) for pol in g + [iso]]
+    cells += [
+        CellSpec(scenario=sc, policy=PolicyConfig(**ad), **kw),
+        CellSpec(scenario=scenario("constant", mtbf=1000.0),
+                 policy=PolicyConfig(kind="fixed", fixed_T=3600.0), **kw),
+        CellSpec(scenario=sc, policy=g[1], mix=mix, **kw),
+        CellSpec(scenario=sc, policy=iso,
+                 shock=ShockSpec(rate=2e-4, kill_frac=0.3), **kw),
+        CellSpec(scenario=sc, policy=g[0], store=StoreSpec(R=3), **kw),
+        CellSpec(scenario=sc, policy=g[0], k=64, n_slots=256, **kw)]
+    return [dataclasses.replace(c, seed=i) for i, c in enumerate(cells)]
+
+
+@pytest.mark.cuda
+def test_per_peer_form_card_equals_cpu():
+    """The per-peer form through the plain step on the card equals the CPU
+    with parity draws (counts exact, floats within 1e-9 relative) and
+    launches no kernel; the Philox per-peer rows are the same bits on the
+    card and the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    import numpy as np
+
+    cells = _perpeer_cells()
+    assert TE.batch_step(cells) == "scan"
+    before = TK.LAUNCHES
+    a = TE.run_cells(cells, device="cuda", draws="numpy", step="scan")
+    b = TE.run_cells(cells, device="cpu", draws="numpy", step="scan")
+    assert TK.LAUNCHES == before
+    for f in ("n_checkpoints", "n_failures", "n_server_restores",
+              "n_peer_restores", "completed"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    for f in ("wall_time", "wasted_work", "checkpoint_time", "restore_time",
+              "server_bytes"):
+        np.testing.assert_allclose(getattr(a, f), getattr(b, f), rtol=1e-9,
+                                   atol=0.0, err_msg=f)
+    with pytest.raises(ValueError, match="per-peer"):
+        TE.run_cells(cells, step="fused")
+    seeds = [c.seed for c in cells] + [2**32 + 7, -1]
+    for step0 in (0, 2**32 - 3):
+        x = PhiloxDraws(seeds, False, "cuda", 32).obs_at(step0, 64)
+        y = PhiloxDraws(seeds, False, "cpu", 32).obs_at(step0, 64)
+        assert torch.equal(x.cpu(), y), step0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", ["offload", "gossip", "hetero", "shock"])
+def test_sweeps_complete_on_card(sweep):
+    """Each sweep on the card at a small size: every cell completes; the
+    per-peer gossip batch launches no kernel, the other three launch the
+    kernel's variant for their flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch import sim
+
+    kw = dict(seeds=range(2), work=3 * 3600.0)
+    before = dict(TK.LAUNCHES_BY_VARIANT)
+    launches = TK.LAUNCHES
+    if sweep == "offload":
+        rows, variant = sim.server_offload_sweep(**kw), "1000"
+    elif sweep == "gossip":
+        rows, variant = sim.gossip_fidelity_sweep(**kw), None
+    elif sweep == "hetero":
+        rows, variant = sim.heterogeneity_sweep(**kw), "0000"
+    else:
+        rows, variant = sim.correlated_churn_sweep(**kw), "0010"
+    assert rows and all(r.completed_frac == 1.0 for r in rows)
+    if variant is None:
+        assert TK.LAUNCHES == launches
+    else:
+        assert TK.LAUNCHES_BY_VARIANT.get(variant, 0) > before.get(variant, 0)
+
+
 def _ssd_inputs(b, s, h, p, n, dtype, seed, with_init):
     """x, dt, A, B, C, initial state on the card, made as
     tests/test_kernels.py makes them, from a seeded generator."""

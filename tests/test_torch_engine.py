@@ -12,8 +12,9 @@
   compounded over many steps).
 * Philox draws: 3-sigma agreement of means with the numpy backend, and a
   cell's result is the same alone and inside a batch.
-* Guards: per-peer batches raise, entry points need a card unless asked
-  for the CPU, and the package imports without jax or repro.
+* Guards: per-peer batches refuse the fused step and run the plain one,
+  entry points need a card unless asked for the CPU, and the package
+  imports without jax or repro.
 """
 import subprocess
 import sys
@@ -249,8 +250,8 @@ def test_fused_equals_scan_bitwise_on_cpu(case, monkeypatch):
     if case == "counter_past_2_32":
         make = D.make_draws
 
-        def start_high(kind, seeds, any_pm, device):
-            src = make(kind, seeds, any_pm, device)
+        def start_high(*args, **kw):
+            src = make(*args, **kw)
             src.step = 2**32 - 20
             return src
 
@@ -317,11 +318,17 @@ def test_philox_known_answer_and_uniform_range():
 
 # ---------------------------------------------------------------- guards
 def test_per_peer_batches_raise():
-    cells = [_cell(T, _scenarios(T)[0], regime="isolated", k=16)]
-    with pytest.raises(NotImplementedError, match="per-peer"):
+    """A per-peer batch (isolated at k = 16) raises ``ValueError`` with
+    ``step="fused"`` (the kernel does not take it) and runs with
+    ``step="scan"``; under ``peer_form="pm"`` it is class-pooled and runs
+    with either step."""
+    cells = [_cell(T, _scenarios(T)[0], regime="isolated", k=16,
+                   work=600.0)]
+    with pytest.raises(ValueError, match="per-peer"):
         TE.run_cells(cells, device="cpu")
-    TE.run_cells([_cell(T, _scenarios(T)[0], regime="isolated", k=16,
-                        work=600.0)], device="cpu", peer_form="pm")
+    res = TE.run_cells(cells, device="cpu", step="scan")
+    assert res.completed.all()
+    TE.run_cells(cells, device="cpu", peer_form="pm")
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
