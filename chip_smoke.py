@@ -10,8 +10,10 @@ Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
    ``ckpt_quant.cu`` and ``flash_attention.cu`` with nvcc for sm_90a (one
    nvcc per source, started together) and prints the build seconds and
    the ``-Xptxas -v`` reports: registers, stack and spill bytes of each of
-   sim_step's 32 kernels (16 flag variants x 2 draw routes); the main
-   path's variants (0000: Fig. 4, 0001: the fleet grid) must not spill;
+   sim_step's 32 kernels (16 flag variants x 2 draw routes); the
+   variants the paths run (0000: Fig. 4, 0001: the fleet grid, 1000 and
+   0010: the sweeps, 1100, 1010 and 1110: the workflow DAGs) must not
+   spill;
 3. sim_step against its plain torch version on the card: the kernel's own
    Philox generator against ``PhiloxDraws.at`` (every row, step0 0, 256
    and 2**32 - 3, seeds >= 2**32 and negative), then a mixed batch of
@@ -59,14 +61,52 @@ G2. main path: ``gossip_fidelity_sweep`` at
    ``torch.profiler`` over 32 warm steps (device time by kernel, kernels a
    step, idle share);
 G3. main path: ``server_offload_sweep``, ``heterogeneity_sweep`` and
-   ``correlated_churn_sweep`` at the reference's defaults through the
-   kernel with Philox draws (variants 1000, 0000 and 0010): every cell
+   ``correlated_churn_sweep`` at the reference's defaults, their depth cut
+   to 12 h of work a cell (the defaults' 24 h made phase 7's plain-step
+   runs of these batches ~100 s), through the kernel with Philox draws
+   (variants 1000, 0000 and 0010): every cell
    completes, R = 3 moves fewer server bytes and finishes sooner than
    R = 0, every heterogeneity row > 100% with its oracle gap in
    [0.95, 1.05], relative runtime at 2 shocks/h above that at 0 in every
    scenario; sim_step launches by route and by variant;
 G4. ``python -m repro_torch.launch.paper_figs --fast`` as a subprocess on
    the card: exit 0 and every CSV header printed;
+W1. the workflow digital twin across devices: ``tests/test_exec.py``'s
+   shocked 3-stage DAG at 8 seeds, homogeneous, with a ``StoreSpec(R=3)``
+   and two-class with the store, through ``simulate_workflow`` with parity
+   draws on the card (the kernel's pre-generated route; variants 0010,
+   1010, 1110) and on the CPU -- counts and ``completed`` exact, floats
+   within 1e-9 relative; the sim_step launches by variant;
+W2. main path: ``examples/workflow_dag.py``'s DAG at full shape (diurnal,
+   MTBF 7,200 s), 4,096 seeds a stage on the Philox route, the adaptive
+   and the fixed 1 h policy, homogeneous and with ``--mix
+   fast_core_volunteer_tail --p2p --replicas 3``: mean makespan, waste
+   band, server bytes, wall, cells/s, a profiled run's idle share; the
+   means of makespan and waste within 3 sigma of the port's CPU run with
+   numpy draws at 64 seeds, and the completed shares within 3 sigma of
+   each other (the check that binds where the fixed policy censors
+   seeds); the CPU run is made in a spawned worker while W3 waits on the
+   disk, and held after W3;
+W3. main path: the example's ``--execute`` on the card (``MixTask(dim=64)``
+   payloads on the card, 4 schedule seeds) on both forms of the DAG: the
+   executor's mean waste inside the sim's 3-sigma band; supersteps a
+   second, checkpoints, write seconds, restores.  The sim_step launches
+   of W2 and W3 are the workflow path's count (Philox route, 0000 and
+   1100);
+W4. ``PowerIterTask(dim=2048)`` on the card (a 16 MiB float32 matrix in
+   every checkpoint), one schedule seed of the 3-stage DAG: killed in
+   ``train``, resumed, the final payload bitwise equal to an
+   uninterrupted run's; the eigenvalue against ``eigvalsh``;
+P1. the policy service's ``--smoke`` flows (2,048 clients x 8 flushes, 16
+   queries, calibrate) with the session state on the card and on the CPU,
+   windowed and moment: every decision bitwise equal;
+P2. the policy service at scale on the card: 100,000 windowed clients
+   (``policy_session_replay``) and 1,000,000 moment clients
+   (``policy_moment_1m``): us a decision, flush p50/p99, peak memory, a
+   profiled flush's idle share, the 100k run's decisions bitwise the CPU
+   service's;
+   ``python -m repro_torch.launch.serve_policy --smoke --device cuda`` as
+   a subprocess, exit 0;
 S3. main path: ``repro_torch.serve`` on the full mamba2-130m (24 layers,
    d_model 768, bf16, the port's seeded init): ``greedy_generate`` of 32
    tokens after a 1024-token prompt, batch 8 -- 24 ssd_scan launches (one
@@ -171,10 +211,19 @@ A6. both flash_attention kernels timed by CUDA events (in turns) at
    version,
    ``scaled_dot_product_attention`` (the library yardstick; whether it
    equals the kernel within A1's tolerance) and its bound;
+W5. each sim_step variant the workflow path ran (0000, 1100 at W2's
+   4,096-cell train stage; 0010, 1010, 1110 at W1's): one 256-step chunk
+   from the batch's initial state on both routes against the plain step
+   fed the same draws (every ``_State`` field and the steps per warp
+   equal), the chunk timed on both routes beside the plain step's, and
+   the bound (the step's FP64 instructions with the diurnal hazard and
+   the replica draw's class and shock terms);
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
    the serving prefills for the tensor-core kernels, the float32 SMOKE
-   prefills of S2/A2 for the SIMT ones --, error, times, bound), the
-   card's name and power limit, and the final result line.
+   prefills of S2/A2 for the SIMT ones, sim_step's main path and the
+   workflow path's --, error, times, bound), the card's name and power
+   limit, and the final result line.  ``[t]`` lines give the seconds of
+   each group of phases.
 
 Any failed phase exits non-zero before the result line is printed.
 Details go to ``chiprun_out/chip_smoke.json``.
@@ -188,6 +237,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -246,6 +297,41 @@ REPLICA_DRAW_OPS = 6 + 4 + 1 + 8 * 18 + 8
 # grids and the heterogeneity sweep run 0000, the fleet grid 0001, the
 # server-offload sweep 1000, the correlated-churn sweep 0010.
 MAIN_PATH_VARIANTS = ("0000", "0001", "1000", "0010")
+# FP64 operations a step adds to OPS_PER_POOLED_CELL_STEP, counted from
+# csrc/sim_step.cu as above.  A time-varying hazard (the diurnal scenario
+# of the example DAG): hazard() 7 (add, product, division, sin, product,
+# add, division) and set_mu_terms() 38 per step.  The replica draw's
+# heterogeneous terms (replica_draw<true, _>): per class 6 (the class
+# availability's two products, two sums and division, the count's
+# product), the shared product, 3 sums, the mixed availability 4 and the
+# mixed striped time 9, 2 selects.  Its shock terms (replica_draw<_,
+# true>): q 3, the post-shock availability 2, its ratio 2 and (1 - A)^R 2,
+# the pmf mixture 4, and per unrolled term 7 (the second pmf update and
+# the mixture).  Both: the post-shock class terms 8, 3 sums, availability
+# 4, striped time 9, the restore-time mixture 4.
+TIME_VARYING_MU_OPS = 7 + 38
+REPLICA_HET_OPS = 4 * 6 + 1 + 3 + 4 + 9 + 2
+REPLICA_SHOCK_OPS = 3 + 2 + 2 + 2 + 4 + 8 * 7
+REPLICA_HET_SHOCK_OPS = 8 + 3 + 4 + 9 + 4
+# The workflow path's variants, as (store, het, shock, pm): the example DAG
+# (W2, W3) runs 0000 and, with --mix and --p2p, 1100; W1's shocked DAGs
+# 0010, 1010 (--p2p) and 1110 (--mix and --p2p).
+WORKFLOW_VARIANTS = ("0000", "1100", "0010", "1010", "1110")
+TWIN_SEEDS = 8            # W1: seeds of each DAG, card and CPU
+WF_SEEDS = 4096           # W2: seeds a stage on the card (Philox draws)
+WF_CPU_SEEDS = 64         # W2: the CPU run it is held to (numpy draws)
+EXEC_SEEDS = 4            # W3: pinned schedule seeds executed per DAG
+POWER_DIM = 2048          # W4: PowerIterTask's matrix (float32, 16 MiB)
+POLICY_TEMPLATE = dict(k=8.0, window=32, prior_mu=1.0 / 7200.0)
+# P2: benchmarks/policy_service_bench.py's policy_session_replay (full mode)
+# and policy_moment_1m rows, as (name, estimator, clients, rounds, key bits,
+# whether the CPU service runs the same stream to hold the decisions to)
+POLICY_SCALE = (("session_replay_100k", "windowed", 100_000, 6, 12, True),
+                ("moment_1m", "moment", 1_000_000, 3, 10, False))
+
+
+# G3's depth: 12 h of work a cell (the sweeps' default is 24 h)
+G3_WORK = 12 * 3600.0
 # sim_step launches of the main path: 256-step chunks of Fig. 4 static (6)
 # and dynamic (8) and of the fleet grid (1).
 MAIN_PATH_SIM_STEP_LAUNCHES = 15
@@ -287,6 +373,21 @@ def cuda_ms(fn, reps: int = 1) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+_LAP = {"t0": 0.0, "last": 0.0}
+
+
+def _lap(name) -> None:
+    """Seconds since the previous lap (``None`` starts the clock)."""
+    now = time.monotonic()
+    if name is None:
+        _LAP["t0"] = _LAP["last"] = now
+        return
+    REPORT.setdefault("phase_seconds", {})[name] = now - _LAP["last"]
+    print(f"[t] {name}: {now - _LAP['last']:.1f} s (script "
+          f"{now - _LAP['t0']:.1f} s)", flush=True)
+    _LAP["last"] = now
 
 
 def mixed_cells(n: int):
@@ -426,7 +527,8 @@ def phase_build() -> None:
         fail(f"expected 32 sim_step kernels in the ptxas report, found "
              f"{len(REPORT['ptxas_table'])}")
     spilled = [r for r in REPORT["ptxas_table"]
-               if r[0] in MAIN_PATH_VARIANTS and (r[4] or r[5])]
+               if r[0] in MAIN_PATH_VARIANTS + WORKFLOW_VARIANTS
+               and (r[4] or r[5])]
     if spilled:
         fail(f"main-path sim_step variants spill registers: {spilled}")
     for name, key in (("ssd_scan", "ssd_ptxas"), ("ckpt_quant", "quant_ptxas"),
@@ -1044,16 +1146,21 @@ def phase_perpeer_across_devices() -> None:
 
 
 class _Captured:
-    """Records the cells of every ``run_cells`` call a sweep makes (and, in
-    ``steps``, the steps the plain step runs: the most any warp took in
-    each chunk)."""
+    """Records the cells of every ``run_cells`` call that ``module`` (by
+    default ``repro_torch.sim.experiments``: the sweeps) makes, and in
+    ``steps`` the steps the plain step runs: the most any warp took in
+    each chunk."""
+
+    def __init__(self, module=None):
+        from repro_torch.sim import experiments
+
+        self.module = module or experiments
 
     def __enter__(self):
         from repro_torch.kernels import sim_step
-        from repro_torch.sim import experiments
 
         self.cells, self.steps = [], 0
-        self._run, self._ref = experiments.run_cells, sim_step.fused_chunk_ref
+        self._run, self._ref = self.module.run_cells, sim_step.fused_chunk_ref
 
         def run(cells, **kw):
             self.cells.append(list(cells))
@@ -1064,14 +1171,20 @@ class _Captured:
             self.steps += int(taken.max()) if taken.numel() else 0
             return s, taken
 
-        experiments.run_cells, sim_step.fused_chunk_ref = run, ref
+        self.module.run_cells, sim_step.fused_chunk_ref = run, ref
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import sim_step
-        from repro_torch.sim import experiments
 
-        experiments.run_cells, sim_step.fused_chunk_ref = self._run, self._ref
+        self.module.run_cells, sim_step.fused_chunk_ref = self._run, self._ref
+
+    def batches(self) -> list:
+        """(kernel variant, cells) of each recorded call."""
+        from repro_torch.sim import engine
+
+        return [(_flag_key(engine.batch_flags(c, engine._pack(c))), c)
+                for c in self.cells]
 
 
 def phase_gossip_sweep() -> dict:
@@ -1166,8 +1279,9 @@ def phase_gossip_sweep() -> dict:
 
 def phase_kernel_sweeps() -> dict:
     """G3, main path: ``server_offload_sweep``, ``heterogeneity_sweep`` and
-    ``correlated_churn_sweep`` at the reference's defaults on the card,
-    through the kernel with Philox draws.  Every cell completes; R = 3 moves
+    ``correlated_churn_sweep`` at the reference's defaults but 12 h of work
+    a cell (``G3_WORK``) on the card, through the kernel with Philox
+    draws.  Every cell completes; R = 3 moves
     fewer server bytes and finishes sooner than R = 0 in every scenario;
     every heterogeneity row > 100% relative runtime with its oracle gap in
     [0.95, 1.05]; relative runtime at 2 shocks/h above that at 0 in every
@@ -1191,7 +1305,7 @@ def phase_kernel_sweeps() -> dict:
         before = dict(sim_step.LAUNCHES_BY_VARIANT)
         with _Captured() as cap:
             t0 = time.monotonic()
-            rows = fn()
+            rows = fn(work=G3_WORK)
             torch.cuda.synchronize()
             sec = time.monotonic() - t0
         cells[name] = cap.cells[0]
@@ -2629,6 +2743,681 @@ def phase_quant_measure() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The workflow digital twin (sim/workflow.py, exec/) and the policy service
+# --------------------------------------------------------------------------- #
+
+def _fp64_ops_per_step(key: str, time_varying: bool) -> int:
+    """FP64 operations of one cell-step of variant ``key`` (store, het,
+    shock, pm) without the draws, a lower bound as counted above."""
+    store, het, shock = key[0] == "1", key[1] == "1", key[2] == "1"
+    ops = OPS_PER_POOLED_CELL_STEP
+    if time_varying:
+        ops += TIME_VARYING_MU_OPS
+    if store:
+        ops += REPLICA_DRAW_OPS
+        ops += REPLICA_HET_OPS if het else 0
+        ops += REPLICA_SHOCK_OPS if shock else 0
+        ops += REPLICA_HET_SHOCK_OPS if het and shock else 0
+    return ops
+
+
+def twin_dag(form: str):
+    """W1's DAGs: ``tests/test_exec.py``'s shocked 3-stage DAG, homogeneous
+    (variant 0010), with a ``StoreSpec(R=3)`` (1010), and two-class with
+    the store (1110)."""
+    from repro_torch.p2p import StoreSpec
+    from repro_torch.sim import (PolicyConfig, ShockSpec, Stage, WorkflowSpec,
+                                 peer_class_mix, scenario)
+
+    spec = WorkflowSpec(stages=(
+        Stage(name="prep", work=1800.0, k=8),
+        Stage(name="train", work=2400.0, k=8, deps=("prep",), handoff=120.0),
+        Stage(name="eval", work=900.0, k=8, deps=("train",), handoff=60.0)))
+    scen = scenario("constant", mtbf=5400.0).with_shock(
+        ShockSpec(rate=1 / 3600.0, kill_frac=0.3))
+    kw = dict(policy=PolicyConfig(kind="adaptive", prior_mu=1 / 5400.0,
+                                  prior_v=20.0), V=20.0, T_d=50.0)
+    if form in ("p2p", "two_class"):
+        kw["store"] = StoreSpec(R=3)
+    if form == "two_class":
+        kw["mix"] = peer_class_mix("fast_core_volunteer_tail")
+    return spec, scen, kw
+
+
+def example_runs():
+    """W2's four runs of ``examples/workflow_dag.py``'s DAG (diurnal, MTBF
+    7,200 s): the adaptive and the fixed 1 h policy, homogeneous and with
+    ``--mix fast_core_volunteer_tail --p2p --replicas 3`` (200 MB images)."""
+    from repro_torch.launch import workflow_dag as WD
+    from repro_torch.p2p import StoreSpec, TransferModel
+    from repro_torch.sim import PolicyConfig, peer_class_mix, scenario
+
+    scen = scenario("diurnal", mtbf=7200.0)
+    adaptive = PolicyConfig(kind="adaptive", prior_mu=1.0 / 7200.0,
+                            prior_v=WD.V)
+    fixed = PolicyConfig(kind="fixed", fixed_T=3600.0)
+    p2p = dict(mix=peer_class_mix("fast_core_volunteer_tail"),
+               store=StoreSpec(R=3, transfer=TransferModel(img_bytes=200e6)))
+    return WD.build_workflow(), scen, [
+        ("adaptive", adaptive, {}), ("fixed", fixed, {}),
+        ("adaptive_mix_p2p", adaptive, p2p), ("fixed_mix_p2p", fixed, p2p)]
+
+
+def _workflow_diff(a, b) -> tuple:
+    """(count/completed fields that differ, the largest relative float
+    difference) between two WorkflowResults."""
+    bad, rel = [], 0.0
+    if not np.array_equal(a.completed, b.completed):
+        bad.append("completed")
+    for sname in a.stages:
+        sa, sb = a.stages[sname], b.stages[sname]
+        cb, cr = _results_close(sa.sim, sb.sim)
+        bad += [f"{sname}.{f}" for f in cb]
+        rel = max(rel, cr)
+        for f in ("ready", "start", "finish", "handoff_time", "handoff_waste",
+                  "server_bytes"):
+            x, y = getattr(sa, f), getattr(sb, f)
+            r = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+            rel = max(rel, float(np.max(np.where(x == y, 0.0, r))))
+    return bad, rel
+
+
+def phase_workflow_across_devices() -> dict:
+    """W1: the shocked 3-stage DAGs at 8 seeds, card against CPU with
+    parity draws (the kernel's pre-generated route on the card, the plain
+    step on the CPU): counts and ``completed`` exact, floats within 1e-9
+    relative; the sim_step launches by variant."""
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import workflow
+    from repro_torch.sim.workflow import simulate_workflow, waste_band
+
+    out, batches = {}, {}
+    for form, want in (("homogeneous", "0010"), ("p2p", "1010"),
+                       ("two_class", "1110")):
+        spec, scen, kw = twin_dag(form)
+        before = dict(sim_step.LAUNCHES_BY_VARIANT)
+        pre = sim_step.LAUNCHES_BY_ROUTE["pregenerated"]
+        with _Captured(workflow) as cap:
+            t0 = time.monotonic()
+            a = simulate_workflow(spec, scen, seeds=range(TWIN_SEEDS),
+                                  device="cuda", draws="numpy", **kw)
+            card_s = time.monotonic() - t0
+        launched = {k: v - before.get(k, 0)
+                    for k, v in sim_step.LAUNCHES_BY_VARIANT.items()
+                    if v - before.get(k, 0)}
+        t0 = time.monotonic()
+        b = simulate_workflow(spec, scen, seeds=range(TWIN_SEEDS),
+                              device="cpu", draws="numpy", **kw)
+        cpu_s = time.monotonic() - t0
+        bad, rel = _workflow_diff(a, b)
+        out[form] = dict(count_mismatch=bad, max_rel_err=rel,
+                         launches_by_variant=launched,
+                         pregenerated=sim_step.LAUNCHES_BY_ROUTE[
+                             "pregenerated"] - pre,
+                         card_s=card_s, cpu_s=cpu_s,
+                         completed=bool(a.all_completed),
+                         waste_band=waste_band(a),
+                         mean_makespan=a.mean_makespan)
+        batches[want] = max((c for k, c in cap.batches() if k == want),
+                            key=lambda c: c[0].work, default=[])
+        print(f"[W1] {form} shocked 3-stage DAG, {TWIN_SEEDS} seeds, card "
+              f"vs CPU with parity draws: count mismatches {bad}, max rel "
+              f"err {rel:.3g}; sim_step launches by variant (store, het, "
+              f"shock, pm) {launched}; card {card_s:.2f} s, CPU {cpu_s:.2f} "
+              f"s; makespan {a.mean_makespan / 3600:.3f} h, waste band "
+              f"{tuple(round(x, 1) for x in out[form]['waste_band'])} s",
+              flush=True)
+        if bad or rel > 1e-9:
+            fail(f"W1: {form} DAG, card and CPU disagree")
+        if set(launched) != {want} or out[form]["pregenerated"] != sum(
+                launched.values()):
+            fail(f"W1: {form} DAG launched {launched}, expected only {want} "
+                 f"on the pre-generated route")
+        if not a.all_completed:
+            fail(f"W1: {form} DAG did not complete")
+    REPORT["workflow_across_devices"] = out
+    return batches
+
+
+def _w2_cpu_reference() -> dict:
+    """W2's CPU run (numpy draws, 64 seeds) of each example run: per-seed
+    makespan and predicted waste.  Runs in a worker process of its own."""
+    import torch
+
+    from repro_torch.sim.workflow import predicted_waste, simulate_workflow
+
+    torch.set_num_threads(2)
+    spec, scen, runs = example_runs()
+    out = {}
+    for name, pol, kw in runs:
+        t0 = time.monotonic()
+        r = simulate_workflow(spec, scen, policy=pol,
+                              seeds=range(WF_CPU_SEEDS), V=20.0, T_d=50.0,
+                              device="cpu", draws="numpy", **kw)
+        out[name] = dict(makespan=r.makespan.tolist(),
+                         waste=predicted_waste(r).tolist(),
+                         completed=float(r.completed.mean()),
+                         seconds=time.monotonic() - t0)
+    return out
+
+
+def start_w2_cpu_reference():
+    """Start ``_w2_cpu_reference`` in a worker process of its own (spawned,
+    so it never touches the card); the worker is terminated at exit."""
+    import atexit
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(pool.terminate)
+    return pool, pool.apply_async(_w2_cpu_reference)
+
+
+def _three_sigma(a, b) -> tuple:
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    tol = 3.0 * float(np.sqrt(np.var(a, ddof=1) / a.size
+                              + np.var(b, ddof=1) / b.size))
+    return abs(float(a.mean()) - float(b.mean())), tol
+
+
+def _share_three_sigma(p1: float, n1: int, p2: float, n2: int) -> tuple:
+    """Gap between two completed shares and 3 sigma of it, the shares
+    pooled (a sample that completed every seed has no spread of its own)."""
+    p = (p1 * n1 + p2 * n2) / (n1 + n2)
+    return abs(p1 - p2), 3.0 * float(np.sqrt(p * (1 - p) * (1 / n1 + 1 / n2)))
+
+
+def phase_workflow_example() -> tuple:
+    """W2, main path: the example DAG at full shape, 4,096 seeds a stage on
+    the Philox route, four runs; mean makespan, waste band, server bytes,
+    wall, cells/s; a profiled run's device idle share (its device time
+    over its own wall).  Returns the runs (held against the CPU run by
+    ``phase_workflow_example_vs_cpu``) and each variant's batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sim import workflow
+    from repro_torch.sim.workflow import (predicted_waste, simulate_workflow,
+                                          waste_band)
+
+    spec, scen, runs = example_runs()
+    out, batches = {}, {}
+    for name, pol, kw in runs:
+        with _Captured(workflow) as cap:
+            t0 = time.monotonic()
+            res = simulate_workflow(spec, scen, policy=pol,
+                                    seeds=range(WF_SEEDS), V=20.0, T_d=50.0,
+                                    device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        captured = cap.batches()
+        if name.startswith("adaptive"):   # each variant's longest stage
+            for key, cells in captured:
+                if cells[0].work > batches.get(key, [cells[0]])[0].work \
+                        or key not in batches:
+                    batches[key] = cells
+        band = waste_band(res)
+        n_cells = WF_SEEDS * len(spec)
+        out[name] = dict(
+            seeds=WF_SEEDS, wall_s=wall, cells_per_s=n_cells / wall,
+            mean_makespan_h=res.mean_makespan / 3600.0,
+            completed=float(res.completed.mean()), waste_band=band,
+            mean_server_bytes=float(res.server_bytes.mean()),
+            steps={s: r.sim.n_steps for s, r in res.stages.items()},
+            variants=sorted({k for k, _ in captured}),
+            makespan=res.makespan, waste=predicted_waste(res))
+        print(f"[W2] example DAG, {name}: {WF_SEEDS} seeds a stage in "
+              f"{wall:.2f} s ({n_cells / wall:.0f} cells/s), makespan "
+              f"{res.mean_makespan / 3600:.3f} h, completed "
+              f"{out[name]['completed']:.4f}, waste band ({band[0]:.0f}, "
+              f"{band[1]:.0f}, {band[2]:.0f}) s, server bytes "
+              f"{out[name]['mean_server_bytes']:.4g}, steps "
+              f"{out[name]['steps']}, variants {out[name]['variants']}",
+              flush=True)
+    # The device's idle share over one more (warm) run of the mixed-fleet
+    # DAG: its device time over its own wall, under the profiler.
+    name, pol, kw = runs[2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        simulate_workflow(spec, scen, policy=pol, seeds=range(WF_SEEDS),
+                          V=20.0, T_d=50.0, device="cuda", **kw)
+        torch.cuda.synchronize()
+        warm = time.monotonic() - t0
+    rows = _kernel_rows(prof)
+    dev_us = sum(r[1] for r in rows)
+    kern_us = sum(r[1] for r in rows if "sim_step" in r[0])
+    prof_out = dict(run=name, profiled_wall_s=warm, device_ms=dev_us / 1e3,
+                    sim_step_ms=kern_us / 1e3,
+                    kernels=sum(r[2] for r in rows), top=rows[:6],
+                    idle_share=1.0 - dev_us / 1e6 / warm if dev_us else None)
+    print(f"[W2] profile of the {name} run: {warm:.2f} s, device time "
+          f"{dev_us / 1e3:.2f} ms in {prof_out['kernels']} kernels "
+          f"(sim_step {kern_us / 1e3:.2f} ms), idle share "
+          f"{prof_out['idle_share']}", flush=True)
+    REPORT["workflow_example"] = dict(runs=out, profile=prof_out)
+    return out, batches
+
+
+def phase_workflow_example_vs_cpu(out: dict, cpu_ref) -> None:
+    """W2's check: each run's means of makespan and predicted waste within
+    3 sigma of the CPU run with numpy draws at 64 seeds, and its completed
+    share within 3 sigma of the CPU run's (``cpu_ref``: the worker pool
+    and the pending result of ``start_w2_cpu_reference``)."""
+    pool, pending = cpu_ref
+    t0 = time.monotonic()
+    ref = pending.get(timeout=1200)
+    waited = time.monotonic() - t0
+    pool.close()
+    pool.join()
+    print(f"[W2] waited {waited:.1f} s for the CPU run", flush=True)
+    checks = {}
+    for name, r in out.items():
+        c = ref[name]
+        dm, tm = _three_sigma(r.pop("makespan"), c["makespan"])
+        dw, tw = _three_sigma(r.pop("waste"), c["waste"])
+        dc, tc = _share_three_sigma(r["completed"], WF_SEEDS, c["completed"],
+                                    WF_CPU_SEEDS)
+        checks[name] = dict(makespan_gap=dm, makespan_tol=tm, waste_gap=dw,
+                            waste_tol=tw, completed_gap=dc, completed_tol=tc,
+                            cpu_completed=c["completed"],
+                            cpu_seconds=c["seconds"])
+        print(f"[W2] {name} vs the CPU run ({WF_CPU_SEEDS} seeds, numpy "
+              f"draws, {c['seconds']:.1f} s): makespan gap {dm:.1f} s (3 "
+              f"sigma {tm:.1f}), waste gap {dw:.1f} s (3 sigma {tw:.1f}), "
+              f"completed {r['completed']:.4f} vs {c['completed']:.4f} (gap "
+              f"{dc:.4f}, 3 sigma {tc:.4f})", flush=True)
+    REPORT["workflow_example"].update(vs_cpu=checks, cpu_wait_s=waited)
+    for name, c in checks.items():
+        if not (c["makespan_gap"] <= c["makespan_tol"]
+                and c["waste_gap"] <= c["waste_tol"]
+                and c["completed_gap"] <= c["completed_tol"]):
+            fail(f"W2: {name}: the card's means or completed share are not "
+                 f"within 3 sigma of the CPU run's")
+    for name in ("adaptive", "adaptive_mix_p2p"):
+        if out[name]["completed"] < 1.0:
+            fail(f"W2: {name}: a workflow did not complete")
+
+
+def phase_twin_execute() -> dict:
+    """W3, main path: the example's ``--execute`` on the card --
+    ``MixTask(dim=64)`` payloads on the card, 4 schedule seeds (executed at
+    once, in threads), both forms of the DAG; the measured mean waste
+    inside the sim's 3-sigma band."""
+    from repro_torch.launch import workflow_dag as WD
+
+    spec, scen, runs = example_runs()
+    out = {}
+    for form, (name, pol, kw) in (("homogeneous", runs[0]),
+                                  ("mix_p2p", runs[2])):
+        t0 = time.monotonic()
+        got = WD.execute_for_real(spec, scen, pol, sim_seeds=8,
+                                  exec_seeds=EXEC_SEEDS, device="cuda",
+                                  dim=64, **kw)
+        sec = time.monotonic() - t0
+        reps = got["reports"]
+        real = sum(r.real_seconds for r in reps)
+        steps = sum(r.executed_supersteps for r in reps)
+        out[form] = dict(
+            band=got["band"], measured=got["measured"],
+            inside=got["inside"], seconds=sec,
+            supersteps=steps, supersteps_per_s=steps / real,
+            supersteps_per_phase_s=steps / sec,
+            checkpoints=sum(r.n_checkpoints for r in reps),
+            write_s=sum(r.write_real_s for r in reps),
+            restore_read_s=sum(r.restore_real_s for r in reps),
+            restores=sum(r.n_restores for r in reps),
+            failures=sum(s.n_failures for r in reps
+                         for s in r.stages.values()),
+            completed=all(r.completed for r in reps),
+            server_bytes=[r.server_bytes for r in reps])
+        o = out[form]
+        print(f"[W3] digital twin on the card, {form}: measured mean waste "
+              f"{np.mean(o['measured']):.0f} s, band ({o['band'][0]:.0f}, "
+              f"{o['band'][1]:.0f}, {o['band'][2]:.0f}) s: "
+              f"{'INSIDE' if o['inside'] else 'OUTSIDE'}; {steps} supersteps "
+              f"at {o['supersteps_per_s']:.0f} a second a run "
+              f"({EXEC_SEEDS} runs at once: {o['supersteps_per_phase_s']:.0f} "
+              f"a second in all), {o['checkpoints']} "
+              f"checkpoints written in {o['write_s']:.2f} s, {o['restores']} "
+              f"restores after {o['failures']} failures (images read in "
+              f"{o['restore_read_s']:.2f} s); {sec:.1f} s",
+              flush=True)
+        if not (o["inside"] and o["completed"]):
+            fail(f"W3: {form}: the executor's waste is outside the sim's "
+                 f"band, or a run did not complete")
+    REPORT["twin_execute"] = out
+    return out
+
+
+def phase_power_iter() -> dict:
+    """W4: one schedule seed of the shocked 3-stage DAG with
+    ``PowerIterTask(dim=2048)`` on the card (a 16 MiB float32 matrix in
+    every checkpoint): killed mid-stage and resumed, the final payload
+    bitwise equal to an uninterrupted run's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.exec import (ExecutorConfig, ExecutorKilled, KillSpec,
+                                  PowerIterTask, WorkflowExecutor)
+    from repro_torch.sim.workflow import export_failure_schedule
+
+    spec, scen, _ = twin_dag("homogeneous")
+    sched = export_failure_schedule(spec, scen, seed=0, horizon_factor=60.0)
+    tasks = {s.name: PowerIterTask(dim=POWER_DIM, seed=i, device="cuda")
+             for i, s in enumerate(spec.stages)}
+    like = tasks["eval"].init({"train": tasks["train"].init({})})
+    knobs = dict(seconds_per_superstep=15.0, V=20.0, T_d=50.0,
+                 prior_mu=1 / 5400.0)
+    base = ROOT / ".smoke_ckpt"
+    base.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="w4_", dir=str(base)) as root:
+        cfg = ExecutorConfig(root=f"{root}/killed", **knobs)
+        t0 = time.monotonic()
+        try:
+            WorkflowExecutor(spec, tasks, sched, cfg).run(
+                kill=KillSpec("train", after_supersteps=80))
+            fail("W4: the kill did not fire")
+        except ExecutorKilled as e:
+            killed_at = e.superstep
+        resumed = WorkflowExecutor(spec, tasks, sched, cfg).run(resume=True)
+        t1 = time.monotonic()
+        ref_cfg = ExecutorConfig(root=f"{root}/whole", **knobs)
+        whole = WorkflowExecutor(spec, tasks, sched, ref_cfg)
+        rep = whole.run()
+        t2 = time.monotonic()
+        a = WorkflowExecutor(spec, tasks, sched, cfg).output("eval", like)
+        b = whole.output("eval", like)
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    mat = b["mat"].double()
+    lam_max = float(torch.linalg.eigvalsh(mat)[-1])
+    eig = float(b["eig"])
+    out = dict(dim=POWER_DIM, killed_at=killed_at,
+               resumed_from=resumed.stages["train"].start_superstep,
+               bitwise=same, eig=eig, lam_max=lam_max,
+               checkpoints=rep.n_checkpoints, write_s=rep.write_real_s,
+               restores=rep.n_restores, supersteps=rep.executed_supersteps,
+               supersteps_per_s=rep.steps_per_second,
+               kill_resume_s=t1 - t0, whole_s=t2 - t1,
+               device=str(b["mat"].device), waste=rep.total_waste)
+    REPORT["power_iter"] = out
+    print(f"[W4] PowerIterTask(dim={POWER_DIM}) on the card, 3-stage DAG, "
+          f"schedule seed 0: killed in train at superstep {killed_at}, "
+          f"resumed from {out['resumed_from']}, final payload bitwise equal "
+          f"to an uninterrupted run: {same}; eig {eig:.6f} (largest "
+          f"eigenvalue {lam_max:.6f}); uninterrupted run {rep.n_checkpoints} "
+          f"checkpoints written in {rep.write_real_s:.2f} s, "
+          f"{rep.n_restores} restores, {rep.executed_supersteps} supersteps "
+          f"at {rep.steps_per_second:.0f} a second; kill + resume "
+          f"{t1 - t0:.1f} s, whole {t2 - t1:.1f} s", flush=True)
+    if not same or out["device"] != "cuda:0":
+        fail("W4: the resumed payload differs from the uninterrupted run's")
+    if not (0.0 < eig <= lam_max * (1 + 1e-4)):
+        fail(f"W4: eig {eig} is not a Rayleigh quotient of the matrix")
+    return out
+
+
+def phase_workflow_vs_plain(batches: dict) -> dict:
+    """W5: each sim_step variant the workflow path ran, at its batch: one
+    256-step chunk from the batch's initial state through both routes --
+    the Philox draws made in the kernel, and the same draws pre-generated
+    (``PhiloxDraws.at``) -- against the plain step fed those draws, every
+    ``_State`` field and the steps per warp equal; the chunk timed on both
+    routes (CUDA events) beside the plain step's (one run, CUDA events)
+    and the bound."""
+    import torch
+
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import engine
+    from repro_torch.sim.draws import PhiloxDraws
+
+    out = {}
+    for key in WORKFLOW_VARIANTS:
+        cells = batches.get(key)
+        if not cells:
+            fail(f"the workflow path ran no batch of variant {key}")
+        p_np = engine._pack(cells)
+        flags = engine.batch_flags(cells, p_np)
+        if _flag_key(flags) != key:
+            fail(f"variant {key}: batch flags {flags}")
+        p = engine.from_reference(p_np, device="cuda")
+        s0 = engine._init_state(p, 1)
+        kw = dict(macro_threshold=0.05, **flags)
+        n = engine.DEFAULT_CHUNK
+        src = PhiloxDraws([c.seed for c in cells], flags["any_pm"], "cuda")
+        d = src.at(0, n)
+        cell_steps = torch.zeros(len(cells), dtype=torch.int64,
+                                 device="cuda")
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        ref, taken_ref = sim_step.fused_chunk_ref(s0, p, d,
+                                                  cell_steps=cell_steps, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        diffs, worst = {}, 0.0
+        for route, (st, taken) in (
+                ("philox", _philox_chunk(s0, p, src, n, **kw)),
+                ("pregenerated", sim_step.fused_chunk(s0, p, d, **kw))):
+            torch.cuda.synchronize()
+            diff, w = _state_diff(st, ref)
+            worst = max(worst, w)
+            diff["steps_taken"] = int((taken != taken_ref).sum())
+            diffs[route] = diff
+        t = chunk_times(cells)
+        active = int(cell_steps.sum())
+        varying = any(c.scenario.name != "constant" for c in cells)
+        ops = _fp64_ops_per_step(key, varying)
+        bound = sweep_bound(p, active, ops, PHILOX_INT_OPS_PER_STEP)
+        out[key] = dict(cells=len(cells), k=cells[0].k,
+                        work=cells[0].work, scenario=cells[0].scenario.name,
+                        vs_plain_mismatches=diffs, max_abs_err=worst,
+                        ms=sum(t["philox_ms"]) / 2, philox_ms=t["philox_ms"],
+                        pregenerated_ms=t["pregenerated_ms"],
+                        plain_ms=plain_ms, active_cell_steps=active,
+                        finished=int(ref.finished.sum()),
+                        fp64_ops_per_cell_step=ops + BOX_MULLER_OPS_PER_STEP,
+                        steps_per_warp_max=t["steps_per_warp_max"], **bound)
+        bad = {r: {f: v for f, v in dd.items() if v}
+               for r, dd in diffs.items()}
+        print(f"[W5] workflow variant {key} at its batch ({len(cells)} cells "
+              f"of k = {cells[0].k}, {cells[0].scenario.name}, work "
+              f"{cells[0].work:.0f} s): one 256-step chunk, kernel vs plain "
+              f"step on the card, mismatching fields per route {bad} "
+              f"({out[key]['finished']} cells finished in it); in-kernel "
+              f"Philox {t['philox_ms'][0]:.4f} / {t['philox_ms'][1]:.4f} ms, "
+              f"pre-generated {t['pregenerated_ms']:.4f} ms, plain "
+              f"{plain_ms:.1f} ms; bound max({bound['bound_bytes_ms']:.4f} ms "
+              f"bytes, {bound['bound_fp64_ms']:.4f} ms FP64, "
+              f"{bound['bound_int32_ms']:.4f} ms INT32) = "
+              f"{bound['bound_ms']:.4f} ms ({active} active cell-steps x "
+              f"{ops + BOX_MULLER_OPS_PER_STEP} FP64)", flush=True)
+        if any(any(v.values()) for v in diffs.values()):
+            fail(f"variant {key}: kernel and plain step disagree")
+    REPORT["workflow_vs_plain"] = out
+    return out
+
+
+def _smoke_flows(svc) -> dict:
+    """``launch/serve_policy.py --smoke``'s flows on one service: the
+    calibrate report, the 16 query decisions, the 8 session flushes of
+    2,048 clients (their DecisionBatches) and each flush's seconds."""
+    import torch
+
+    from repro_torch.policy import PolicyRequest
+
+    out = {"calibrate": svc.calibrate(1.0 / 7200.0, n_observations=128,
+                                      seed=0)}
+    out["query"] = svc.query([
+        PolicyRequest(client=f"q{i}", k=float(4 + i),
+                      failures=(1800.0 + 60.0 * i, 5400.0),
+                      checkpoint_overheads=(15.0,), now=7200.0)
+        for i in range(16)])
+    clients = [f"s{i}" for i in range(2048)]
+    rng = np.random.default_rng(0)
+    out["session"], out["seconds"] = [], []
+    for rnd in range(8):
+        batch = {
+            "failures": rng.exponential(3600.0, (len(clients), 2)) + 1e-3,
+            "checkpoint_overheads": rng.exponential(20.0, len(clients)),
+            "restores": np.where(rng.random(len(clients)) < 0.5,
+                                 rng.exponential(50.0, len(clients)), np.nan),
+            "now": np.full(len(clients), (rnd + 1) * 1800.0)}
+        t0 = time.perf_counter()
+        out["session"].append(svc.session_update_arrays(clients, **batch))
+        if svc.device.type == "cuda":
+            torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+    return out
+
+
+def phase_policy_across_devices() -> dict:
+    """P1: the ``--smoke`` flows (2,048 clients x 8 flushes, a query batch,
+    calibrate) on the card and on the CPU, windowed and moment: every
+    decision bitwise equal."""
+    from repro_torch.serve.policy_service import PolicyService
+
+    out = {}
+    for est in ("windowed", "moment"):
+        a = _smoke_flows(PolicyService(estimator=est, device="cuda"))
+        b = _smoke_flows(PolicyService(estimator=est, device="cpu"))
+        bad = 0
+        for x, y in zip(a["session"], b["session"]):
+            for f in ("interval", "mu", "V", "T_d", "n_failures", "clamped"):
+                bad += int((getattr(x, f).view(np.uint8)
+                            != getattr(y, f).view(np.uint8)).sum())
+        bad += sum(d.to_dict() != e.to_dict()
+                   for d, e in zip(a["query"], b["query"]))
+        ca, cb = a["calibrate"], b["calibrate"]
+        bad += int((ca.mu_hat, ca.interval, ca.interval_oracle)
+                   != (cb.mu_hat, cb.interval, cb.interval_oracle))
+        out[est] = dict(mismatches=bad, card_flush_s=a["seconds"],
+                        cpu_flush_s=b["seconds"])
+        print(f"[P1] policy service --smoke flows, {est}, card vs CPU: "
+              f"{bad} mismatching decision bytes over 8 x 2,048 session "
+              f"decisions, 16 queries and calibrate; flush p50 card "
+              f"{np.median(a['seconds']) * 1e3:.2f} ms, CPU "
+              f"{np.median(b['seconds']) * 1e3:.2f} ms", flush=True)
+        if bad:
+            fail(f"P1: {est}: card and CPU decisions differ")
+    REPORT["policy_across_devices"] = out
+    return out
+
+
+def _replay(est: str, n: int, rounds: int, key_bits: int,
+            device: str) -> dict:
+    """``benchmarks/policy_service_bench.py``'s replay of the diurnal,
+    boinc-mix stream through ``session_update_arrays``."""
+    import torch
+
+    from repro_torch.policy import PolicyRequest
+    from repro_torch.serve.policy_service import (PolicyService,
+                                                  synthetic_stream)
+
+    tpl = PolicyRequest(**POLICY_TEMPLATE)
+    stream = list(synthetic_stream("diurnal", n_clients=n, n_rounds=rounds,
+                                   obs_per_round=2, mix="boinc", seed=0))
+    svc = PolicyService(estimator=est, max_window=tpl.window,
+                        lw_key_bits=key_bits, device=device)
+    clients = [f"c{i}" for i in range(n)]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    lat, out = [], []
+    for batch in stream:
+        t0 = time.perf_counter()
+        out.append(svc.session_update_arrays(clients, template=tpl, **batch))
+        lat.append(time.perf_counter() - t0)
+    res = dict(clients=n, rounds=rounds, estimator=est, key_bits=key_bits,
+               flush_s=lat, p50_ms=float(np.percentile(lat, 50) * 1e3),
+               p99_ms=float(np.percentile(lat, 99) * 1e3),
+               us_per_decision=float(np.sum(lat)) / (n * rounds) * 1e6,
+               mean_interval=float(out[-1].interval.mean()),
+               lw_hit_rate=svc.stats()["lw_hit_rate"])
+    if device == "cuda":
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return dict(res, _svc=svc, _clients=clients, _tpl=tpl, _stream=stream,
+                _decisions=out)
+
+
+def phase_policy_scale() -> dict:
+    """P2: the policy service at scale on the card -- 100,000 clients
+    windowed (``policy_session_replay``: 6 rounds, key bits 12) and
+    1,000,000 moment clients (``policy_moment_1m``: 3 rounds, key bits 10):
+    us a decision, flush p50/p99, peak device memory, a profiled flush's
+    idle share; the 100k run's decisions bitwise equal to the CPU
+    service's;
+    then ``python -m repro_torch.launch.serve_policy --smoke --device
+    cuda`` as a subprocess, exit 0."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, est, n, rounds, bits, vs_cpu in POLICY_SCALE:
+        run = _replay(est, n, rounds, bits, "cuda")
+        cpu = _replay(est, n, rounds, bits, "cpu") if vs_cpu else None
+        bad = sum(int((getattr(x, f).view(np.uint8)
+                       != getattr(y, f).view(np.uint8)).sum())
+                  for x, y in zip(run["_decisions"], cpu["_decisions"])
+                  for f in ("interval", "mu", "V", "T_d", "n_failures",
+                            "clamped")) if cpu else None
+        # One more flush (the first round's arrays again) under the
+        # profiler: its device time against its own seconds.
+        svc, batch = run["_svc"], run["_stream"][0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc.session_update_arrays(run["_clients"], template=run["_tpl"],
+                                      **batch)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+        rows = _kernel_rows(prof)
+        dev_us = sum(r[1] for r in rows)
+        res = {k: v for k, v in run.items() if not k.startswith("_")}
+        res.update(card_vs_cpu_mismatches=bad, profiled_flush_s=warm,
+                   device_ms=dev_us / 1e3, kernels=sum(r[2] for r in rows),
+                   idle_share=1.0 - dev_us / 1e6 / warm if dev_us else None,
+                   top=rows[:5])
+        if cpu:
+            res.update(cpu_p50_ms=cpu["p50_ms"], cpu_p99_ms=cpu["p99_ms"],
+                       cpu_us_per_decision=cpu["us_per_decision"])
+        out[name] = res
+        versus = (f"CPU service {cpu['us_per_decision']:.3f} us a decision; "
+                  f"card vs CPU {bad} mismatching decision bytes" if cpu
+                  else "not run against the CPU service (P1 and the 100k "
+                  "run hold that)")
+        print(f"[P2] policy service {name} ({est}, {n:,} clients x {rounds} "
+              f"flushes, key bits {bits}) on the card: "
+              f"{res['us_per_decision']:.3f} us a decision, flush p50 "
+              f"{res['p50_ms']:.1f} ms p99 {res['p99_ms']:.1f} ms, peak "
+              f"{res['peak_bytes'] / 2**20:.1f} MiB, a flush's device time "
+              f"{res['device_ms']:.2f} ms in {res['kernels']} kernels against "
+              f"{warm * 1e3:.1f} ms (idle share {res['idle_share']}); "
+              f"{versus}", flush=True)
+        if bad:
+            fail(f"P2: {name}: card and CPU decisions differ")
+        del run, cpu, svc
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m",
+                        "repro_torch.launch.serve_policy", "--smoke",
+                        "--device", "cuda"], capture_output=True, text=True,
+                       env=env, cwd=str(ROOT), timeout=300)
+    out["cli"] = dict(rc=r.returncode, seconds=time.monotonic() - t0,
+                      stdout=r.stdout[-3000:], stderr=r.stderr[-3000:])
+    print(f"[P2] python -m repro_torch.launch.serve_policy --smoke --device "
+          f"cuda: exit {r.returncode} in {out['cli']['seconds']:.1f} s",
+          flush=True)
+    for line in r.stdout.splitlines():
+        print(f"    {line[:160]}", flush=True)
+    REPORT["policy_scale"] = out
+    if r.returncode != 0:
+        fail("P2: the serve_policy entry point failed")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2639,8 +3428,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     quick = "--quick" in sys.argv[1:]
+    _lap(None)
     phase_env()
     phase_build()
+    _lap("1-2")
     from repro_torch.kernels import (ckpt_quant, flash_attention, sim_step,
                                      ssd_scan)
 
@@ -2654,6 +3445,7 @@ def main() -> int:
     phase_train_card_vs_cpu()
     phase_flash_kernel_vs_plain()
     a2 = phase_olmo_card_vs_cpu()
+    _lap("3-4, G1, S1-S2, T1-T2, A1-A2")
     if quick:
         _dump()
         print(json.dumps({"quick": True}))
@@ -2677,12 +3469,45 @@ def main() -> int:
         fail(f"the main path launched sim_step {launches} times "
              f"({sim_by_route}), expected {MAIN_PATH_SIM_STEP_LAUNCHES}, all "
              f"with the draws made in the kernel")
+    _lap("5-6")
     # The rest of the paper's main path: the per-peer gossip sweep (no
     # sim_step launch: its counts are zeroed and read inside), the three
     # sweeps through the kernel (their counts likewise), the entry point.
     gossip = phase_gossip_sweep()
     sweeps = phase_kernel_sweeps()
     phase_entry_point()
+    _lap("G2-G4")
+    # The digital twin; the workflow main path (W2, W3) with the counts at
+    # 0 just before it.
+    wf_batches = phase_workflow_across_devices()
+    _lap("W1")
+    sim_step.LAUNCHES = 0          # the workflow main path starts here
+    _zero(sim_step.LAUNCHES_BY_ROUTE)
+    sim_step.LAUNCHES_BY_VARIANT.clear()
+    wf_runs, batches = phase_workflow_example()
+    wf_batches.update(batches)
+    _lap("W2")
+    # W2's CPU run, in a worker while W3 waits on the disk
+    cpu_ref = start_w2_cpu_reference()
+    phase_twin_execute()
+    wf_launches = dict(total=sim_step.LAUNCHES,   # ... and ends here
+                       by_route=dict(sim_step.LAUNCHES_BY_ROUTE),
+                       by_variant=dict(sim_step.LAUNCHES_BY_VARIANT))
+    REPORT["workflow_main_path_launches"] = wf_launches
+    print(f"[W3] workflow main path (W2's example DAG runs and W3's "
+          f"digital twin): sim_step launches {wf_launches}", flush=True)
+    if wf_launches["total"] == 0 or wf_launches["by_route"]["pregenerated"] \
+            or not {"0000", "1100"} <= set(wf_launches["by_variant"]):
+        fail("the workflow main path did not launch sim_step on the Philox "
+             "route with variants 0000 and 1100")
+    phase_workflow_example_vs_cpu(wf_runs, cpu_ref)
+    _lap("W3, W2 vs CPU")
+    phase_power_iter()
+    _lap("W4")
+    phase_policy_across_devices()
+    _lap("P1")
+    phase_policy_scale()
+    _lap("P2")
     cfg, model, prompt = serve_setup()
     ssd_scan.LAUNCHES = 0          # the serving main path starts here
     _zero(ssd_scan.LAUNCHES_BY_ROUTE)
@@ -2713,6 +3538,7 @@ def main() -> int:
         SSD_KERNEL_NAMES)
     del model
     torch.cuda.empty_cache()
+    _lap("S3-S5")
     cfg, model, prompt = olmo_setup()
     flash_attention.LAUNCHES = 0   # the dense serving main path starts here
     _zero(flash_attention.LAUNCHES_BY_ROUTE)
@@ -2740,13 +3566,17 @@ def main() -> int:
         FLASH_KERNEL_NAMES)
     del model, olmo_run
     torch.cuda.empty_cache()
+    _lap("A3-A5")
     # Held against the plain step: each variant the main path ran, at its
     # shapes (the checks fail the run on any mismatch).
     phase_fig4_vs_plain()
     fleet = phase_fleet_measure(fleet_run)
     sweeps_vs_plain = phase_sweeps_vs_plain(sweeps["cells"])
+    wf_vs_plain = phase_workflow_vs_plain(wf_batches)
+    _lap("7 and W5")
     ssd = phase_ssd_measure()
     flash = phase_flash_measure()
+    _lap("S6, A6")
     # The training main path: counts to 0 just before, read just after.
     ckpt_root = ROOT / ".smoke_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -2767,6 +3597,7 @@ def main() -> int:
         phase_train_measure(train_run)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    _lap("T3-T4")
     quant = phase_quant_measure()
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
     fig4_kernel = {name: {"philox_ms": REPORT[name]["kernel"]["philox_ms"],
@@ -2810,6 +3641,11 @@ def main() -> int:
             "bound_fp64_ms", "bound_int32_ms", "bound_bytes_ms",
             "pregenerated_ms")} for name, r in sweeps_vs_plain.items()},
         "sweeps_launches": sweeps["launches"],
+        "workflow_launches": wf_launches,
+        "workflow": {key: {k: r[k] for k in (
+            "cells", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_fp64_ms", "bound_bytes_ms", "pregenerated_ms")}
+            for key, r in wf_vs_plain.items()},
         "gossip_sweep_launches": [r["launches"] for r in gossip["runs"]],
         "max_abs_err": max(worst, fleet["max_abs_err"]), "bitwise": True,
         "shape": "fleet grid, 10,000 cells, one 256-step chunk",
@@ -2893,6 +3729,7 @@ def main() -> int:
                       "bound_ms": gqa_t["bound_ms"],
                       "library_ms": gqa_t["library_ms"]}}]}
     REPORT["kernels"] = kernels
+    _lap("T4 quant, 8")
     _dump()
     print(json.dumps(kernels))
     print(nvidia_smi())

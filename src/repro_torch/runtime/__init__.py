@@ -1,9 +1,14 @@
-"""Runtime of the port: the fault-tolerant trainer and its failure
-injector (the replay mode waits for ROADMAP Queue 1 item 7)."""
+"""Runtime of the port: the fault-tolerant trainer, the failure injector
+(live and schedule-replay modes) and the serialized failure schedules."""
 from repro_torch.runtime.failures import (
+    FailureEvent,
     FailureInjector,
+    ScheduleExhausted,
     SimulatedFailure,
+    StageSchedule,
     StragglerMonitor,
+    WorkflowSchedule,
+    build_stage_schedule,
 )
 from repro_torch.runtime.trainer import (
     CheckpointPolicyConfig,
@@ -12,6 +17,8 @@ from repro_torch.runtime.trainer import (
 )
 
 __all__ = [
-    "CheckpointPolicyConfig", "FailureInjector", "FaultTolerantTrainer",
-    "SimulatedFailure", "StragglerMonitor", "TrainerReport",
+    "CheckpointPolicyConfig", "FailureEvent", "FailureInjector",
+    "FaultTolerantTrainer", "ScheduleExhausted", "SimulatedFailure",
+    "StageSchedule", "StragglerMonitor", "TrainerReport",
+    "WorkflowSchedule", "build_stage_schedule",
 ]

@@ -1,5 +1,4 @@
-"""Churn simulation on torch (port of ``repro.sim``, without its workflow
-DAG layer).
+"""Churn simulation on torch (port of ``repro.sim``).
 
 * :mod:`repro_torch.sim.scenarios` -- registry of named churn environments.
 * :mod:`repro_torch.sim.network` / :mod:`repro_torch.sim.job` -- the
@@ -8,6 +7,9 @@ DAG layer).
   engine, stepped by the CUDA kernel of :mod:`repro_torch.kernels.sim_step`
   (or, for per-peer-form batches, by its plain torch step).
 * :mod:`repro_torch.sim.draws` -- the Philox and numpy-parity draw sources.
+* :mod:`repro_torch.sim.workflow` -- inter-dependent DAG stages (the
+  paper's work flows) and the digital-twin bridge (pinned failure
+  schedules, predicted waste).
 * :mod:`repro_torch.sim.experiments` -- the Fig. 4/5 grids on either
   engine, and the server-offload, gossip-fidelity, heterogeneity and
   correlated-churn sweeps.
@@ -72,6 +74,16 @@ from repro_torch.sim.scenarios import (
     resolve_shock,
     scenario,
 )
+from repro_torch.sim.workflow import (
+    Stage,
+    StageResult,
+    WorkflowResult,
+    WorkflowSpec,
+    export_failure_schedule,
+    predicted_waste,
+    simulate_workflow,
+    waste_band,
+)
 
 __all__ = [
     "AdaptivePolicy",
@@ -96,6 +108,10 @@ __all__ = [
     "ShockClock",
     "ShockSpec",
     "SimResult",
+    "Stage",
+    "StageResult",
+    "WorkflowResult",
+    "WorkflowSpec",
     "available_mixes",
     "available_scenarios",
     "batch_step",
@@ -104,6 +120,7 @@ __all__ = [
     "constant_mtbf",
     "correlated_churn_sweep",
     "doubling_mtbf",
+    "export_failure_schedule",
     "fig4_dynamic",
     "fig4_static",
     "fig5_td_sweep",
@@ -114,6 +131,7 @@ __all__ = [
     "heterogeneity_sweep",
     "offload_csv",
     "peer_class_mix",
+    "predicted_waste",
     "register_mix",
     "register_scenario",
     "resolve_shock",
@@ -123,5 +141,7 @@ __all__ = [
     "server_offload_sweep",
     "shock_csv",
     "simulate_job",
+    "simulate_workflow",
     "summarize",
+    "waste_band",
 ]

@@ -625,3 +625,193 @@ def test_flash_kernel_refuses_autograd_and_bad_operands():
     with torch.no_grad():
         out = FA.flash_attention(q, k, v, scale=0.125)
     assert out.grad_fn is None and FA.LAUNCHES == before + 1
+
+
+# --------------------------------------------------------------------------- #
+# The workflow digital twin and the policy service on the card                #
+# --------------------------------------------------------------------------- #
+
+def _twin_dag(form, scale=1.0):
+    from repro_torch.sim import Stage, WorkflowSpec, peer_class_mix
+
+    spec = WorkflowSpec(stages=(
+        Stage(name="prep", work=1800.0 * scale, k=8),
+        Stage(name="train", work=2400.0 * scale, k=8, deps=("prep",),
+              handoff=120.0),
+        Stage(name="eval", work=900.0 * scale, k=8, deps=("train",),
+              handoff=60.0)))
+    scen = scenario("constant", mtbf=5400.0).with_shock(
+        ShockSpec(rate=1 / 3600.0, kill_frac=0.3))
+    kw = dict(policy=PolicyConfig(kind="adaptive", prior_mu=1 / 5400.0,
+                                  prior_v=20.0), V=20.0, T_d=50.0)
+    if form != "homogeneous":
+        kw["store"] = StoreSpec(R=3)
+    if form == "two_class":
+        kw["mix"] = peer_class_mix("fast_core_volunteer_tail")
+    return spec, scen, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,variant", [("homogeneous", "0010"),
+                                          ("p2p", "1010"),
+                                          ("two_class", "1110")])
+def test_workflow_card_equals_cpu(form, variant):
+    """W1 at 4 seeds: parity draws, the kernel's pre-generated route on the
+    card against the plain step on the CPU -- counts and ``completed``
+    exact, floats within 1e-9 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    import numpy as np
+
+    from repro_torch.sim.workflow import simulate_workflow
+
+    spec, scen, kw = _twin_dag(form)
+    before = dict(TK.LAUNCHES_BY_VARIANT)
+    a = simulate_workflow(spec, scen, seeds=range(4), device="cuda",
+                          draws="numpy", **kw)
+    launched = {k: v - before.get(k, 0)
+                for k, v in TK.LAUNCHES_BY_VARIANT.items()
+                if v - before.get(k, 0)}
+    assert set(launched) == {variant}
+    b = simulate_workflow(spec, scen, seeds=range(4), device="cpu",
+                          draws="numpy", **kw)
+    assert np.array_equal(a.completed, b.completed) and a.all_completed
+    for sname in a.stages:
+        sa, sb = a.stages[sname], b.stages[sname]
+        for f in ("n_checkpoints", "n_failures", "n_server_restores",
+                  "n_peer_restores", "completed"):
+            assert np.array_equal(getattr(sa.sim, f), getattr(sb.sim, f))
+        for x, y in ((sa.finish, sb.finish), (sa.sim.wasted_work,
+                                              sb.sim.wasted_work),
+                     (sa.handoff_waste, sb.handoff_waste),
+                     (sa.server_bytes, sb.server_bytes)):
+            np.testing.assert_allclose(x, y, rtol=1e-9, atol=0)
+
+
+def _variant_cells(variant):
+    import dataclasses
+
+    mix = PeerClassMix((PeerClass("stable"),
+                        PeerClass("volatile", hazard_mult=3.0, speed=0.7,
+                                  uplink_mult=0.5)), (0.6, 0.4))
+    store, het, shock = (variant[i] == "1" for i in range(3))
+    scen = scenario("diurnal", mtbf=4000.0) if not shock else \
+        scenario("constant", mtbf=4000.0)
+    kw = dict(work=1.5 * 3600.0, V=20.0, T_d=50.0, max_wall_time=1e6,
+              policy=PolicyConfig(kind="adaptive", prior_mu=1 / 4000.0,
+                                  prior_v=20.0),
+              store=StoreSpec(R=3) if store else None,
+              mix=mix if het else None,
+              shock=ShockSpec(rate=3e-4, kill_frac=0.3) if shock else None)
+    base = CellSpec(scenario=scen, **kw)
+    return [dataclasses.replace(base, seed=i) for i in range(70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["1010", "1100", "1110"])
+@pytest.mark.parametrize("draws", ["philox", "numpy"])
+def test_workflow_variants_equal_plain_version_on_card(variant, draws):
+    """The variants the workflow path brings to the kernel, through
+    run_cells with the kernel and with the plain step on the card, on both
+    routes: every BatchResult field equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.sim import run_cells
+
+    cells = _variant_cells(variant)
+    flags = TE.batch_flags(cells, TE._pack(cells))
+    assert TK.variant(flags["any_store"], flags["any_het"],
+                      flags["any_shock"], flags["any_pm"]) == variant
+    route = "philox" if draws == "philox" else "pregenerated"
+    before = TK.LAUNCHES_BY_ROUTE[route]
+    a = run_cells(cells, step="fused", draws=draws, chunk=64)
+    assert TK.LAUNCHES_BY_ROUTE[route] > before
+    b = run_cells(cells, step="scan", draws=draws, chunk=64)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert np.array_equal(x, y, equal_nan=isinstance(x, np.ndarray)
+                              and x.dtype.kind == "f"), f.name
+    assert a.completed.all()
+
+
+@pytest.mark.cuda
+def test_executor_on_card_resumes_bitwise_and_matches_cpu(tmp_path):
+    """MixTask payloads on the card: a killed and resumed run's final
+    payload is bitwise an uninterrupted run's, and within 1e-12 of the
+    same run on the CPU (same control flow: the schedule's clock)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.exec import (ExecutorConfig, ExecutorKilled, KillSpec,
+                                  MixTask, WorkflowExecutor)
+    from repro_torch.sim.workflow import export_failure_schedule
+
+    spec, scen, kw = _twin_dag("two_class", scale=0.5)
+    sched = export_failure_schedule(spec, scen, seed=1, horizon_factor=60.0,
+                                    mix=kw["mix"], store=kw["store"])
+    outs, reps = {}, {}
+    for dev in ("cuda", "cpu"):
+        tasks = {s.name: MixTask(dim=64, salt=i, device=dev)
+                 for i, s in enumerate(spec.stages)}
+        like = tasks["eval"].init({"train": tasks["train"].init({})})
+        knobs = dict(seconds_per_superstep=15.0, prior_mu=1 / 5400.0)
+        ex = WorkflowExecutor(spec, tasks, sched, ExecutorConfig(
+            root=str(tmp_path / f"{dev}_whole"), **knobs))
+        reps[dev] = ex.run()
+        outs[dev] = ex.output("eval", like)
+        if dev == "cuda":
+            cfg = ExecutorConfig(root=str(tmp_path / "killed"), **knobs)
+            with pytest.raises(ExecutorKilled):
+                WorkflowExecutor(spec, tasks, sched, cfg).run(
+                    kill=KillSpec("train", after_supersteps=40))
+            assert WorkflowExecutor(spec, tasks, sched, cfg).run(
+                resume=True).completed
+            got = WorkflowExecutor(spec, tasks, sched, cfg).output("eval",
+                                                                   like)
+            assert all(torch.equal(got[k], outs["cuda"][k]) for k in got)
+            assert got["x"].device.type == "cuda"
+    for n in reps["cuda"].stages:
+        a, b = reps["cuda"].stages[n], reps["cpu"].stages[n]
+        assert (a.executed_supersteps, a.n_failures, a.n_checkpoints,
+                a.n_restores) == (b.executed_supersteps, b.n_failures,
+                                  b.n_checkpoints, b.n_restores)
+        assert a.waste == b.waste
+    for k in outs["cpu"]:
+        torch.testing.assert_close(outs["cuda"][k].cpu(), outs["cpu"][k],
+                                   rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["windowed", "moment"])
+def test_policy_service_card_equals_cpu(estimator):
+    """P1 at small size: the session state on the card, decisions bitwise
+    the CPU service's on a synthetic stream and a typed query batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    import numpy as np
+
+    from repro_torch.policy import PolicyRequest
+    from repro_torch.serve.policy_service import (PolicyService,
+                                                  synthetic_stream)
+
+    a = PolicyService(estimator=estimator, max_window=32, device="cuda")
+    b = PolicyService(estimator=estimator, max_window=32, device="cpu")
+    assert a.state.buf.device.type == "cuda"
+    clients = [f"c{i}" for i in range(512)]
+    tpl = PolicyRequest(k=8.0, window=32, prior_mu=1 / 7200.0)
+    for batch in synthetic_stream("diurnal", n_clients=512, n_rounds=4,
+                                  mix="boinc", seed=2):
+        x = a.session_update_arrays(clients, template=tpl, **batch)
+        y = b.session_update_arrays(clients, template=tpl, **batch)
+        for f in ("interval", "mu", "V", "T_d", "n_failures", "clamped"):
+            assert getattr(x, f).tobytes() == getattr(y, f).tobytes(), f
+    reqs = [PolicyRequest(client=f"q{i}", k=float(4 + i),
+                          failures=(1800.0 + 60.0 * i, 5400.0),
+                          checkpoint_overheads=(15.0,), now=7200.0)
+            for i in range(16)]
+    assert [d.to_dict() for d in a.query(reqs)] == \
+        [d.to_dict() for d in b.query(reqs)]
+    assert np.isfinite([d.interval for d in a.query(reqs)]).all()

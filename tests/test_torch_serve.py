@@ -222,6 +222,13 @@ def test_entry_points_default_to_cuda():
             T_models.init_params(0, cfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T_launch.main(["--arch", ARCH, "--smoke"])
+        from repro_torch.launch import serve_policy, workflow_dag
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            workflow_dag.main(["--seeds", "2"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            workflow_dag.main(["--seeds", "2", "--execute", "--p2p"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_policy.main(["--smoke"])
 
 
 def test_launch_serve_runs_on_cpu(capsys):

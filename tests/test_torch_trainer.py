@@ -139,10 +139,24 @@ def test_failure_injector_is_the_reference_injector(mode):
 
 
 def test_replay_mode_waits_for_the_digital_twin():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        FailureInjector(k=2, schedule=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        FailureInjector.from_schedule(object())
+    """The replay mode came with the digital twin: ``schedule=`` and
+    ``from_schedule`` replay a reference-built schedule as the reference's
+    injector does (raise points, observations), no longer raising."""
+    from repro.runtime.failures import build_stage_schedule as r_build
+    from repro_torch.runtime.failures import WorkflowSchedule
+
+    st = r_build(r_scenario("constant", mtbf=1500.0), k=4, seed=3,
+                 horizon=40_000.0, n_slots=32,
+                 shock=R_Shock(rate=5e-4, kill_frac=0.4))
+    from repro.runtime.failures import WorkflowSchedule as R_Sched
+    port = WorkflowSchedule.from_json(
+        R_Sched(stages={"s": st}, seed=3).to_json()).stages["s"]
+    for make in (lambda cls, s: cls(k=4, schedule=s, seconds_per_step=40.0),
+                 lambda cls, s: cls.from_schedule(s, seconds_per_step=40.0)):
+        a = _drive(make(R_Inj, st), R_Fail)
+        b = _drive(make(FailureInjector, port), SimulatedFailure)
+        assert a == b
+        assert sum(x[0] == "fail" for x in b) > 3
 
 
 def test_straggler_monitor_is_the_reference_monitor():
