@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full run (one card, ~minutes)
-    python3 chip_smoke.py --quick    # build + kernel checks (to A2)
+    python3 chip_smoke.py --quick    # build + kernel checks (to V2)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
@@ -179,7 +179,9 @@ A1. both flash_attention kernels against their plain torch version on
    128: the tensor-core kernel; float32 and head_dim 16/32: the SIMT
    kernel), and the SIMT kernel too on every tensor-core case --
    kernel_bench's shapes, tests/test_kernels.py's four shapes in float32
-   and bf16, softcap 50 with and without the causal mask, Sq < Skv, Sq >
+   and bf16, softcap 50 with and without the causal mask (q scaled so the
+   scores reach the cap, and the softcap must move the plain output by
+   10x the tolerance), Sq < Skv, Sq >
    Skv (the rows that see no key must be exactly 0), lengths off the
    128-row grid, strided views, head_dim 16 and 32, olmo-1b's prefill
    shape (128, 1, 1024, 128) and a GQA serving shape (16, 12, 1024, 128),
@@ -211,6 +213,44 @@ A6. both flash_attention kernels timed by CUDA events (in turns) at
    version,
    ``scaled_dot_product_attention`` (the library yardstick; whether it
    equals the kernel within A1's tolerance) and its bound;
+V1. the flash_attention kernel against its plain version on the card at
+   the four dense variants' prefill shapes (batch 8, 1024 tokens, bf16:
+   the tensor-core route): gemma2-27b (128, 2, 1024, 128) with softcap 50
+   and scale 1/12, stablelm-1.6b (256, 1, 1024, 64), starcoder2-3b (16,
+   12, 1024, 128), qwen2-vl-7b (32, 7, 1024, 128); A1's bf16 tolerance;
+   and gemma2's shape again with q scaled so the scores reach the cap
+   (standard deviation 30), where the plain version with the softcap must
+   differ from the same call without it by 10x the tolerance;
+V2. across devices: the four variants' SMOKE configs in float32 (float32
+   KV cache) with the kernel on, prefill and 8 teacher-forced decode steps
+   at 24- and 40-token prompts (40 is wider than the SMOKE window of 32:
+   gemma2's and starcoder2's local layers take ``_attention_core``) --
+   logits and caches within 1e-4, one SIMT launch a layer whose window is
+   not narrower than the prompt; the int8 KV cache (gemma2 SMOKE):
+   ``quantize_kv`` of the same K/V bitwise on both devices, a decode step
+   over the CPU's own prefill cache within 1e-4, the card's own prefill
+   codes within one step of the CPU's with at most 0.1% off;
+V3. main path: ``repro_torch.serve`` on the full gemma2-27b (46 layers,
+   d_model 4608, 27,227,128,320 parameters, bf16, drawn on the card by a
+   CUDA generator): ``greedy_generate`` of 32 tokens after a 1024-token
+   prompt, batch 8 -- exactly 46 flash_attention launches (one per
+   layer, prefill only: the prompt is inside the 4,096 window), all on the
+   tensor-core route; prefill seconds and decode tokens/s through the step
+   factories, peak device memory, the plain path's prefill;
+V4. V3's parameters and prompt with the knob off, held as A4 holds olmo
+   (bf16 with the same-run floor; float32 within 1e-4 at full width and
+   the depth cut to 2 layers: 46 float32 layers need ~109 GB);
+V5. ``torch.profiler`` over one warm gemma2-27b prefill and five decode
+   steps: device time by kernel, launches per step, the idle share;
+V6. stablelm-1.6b, starcoder2-3b and qwen2-vl-7b at full width and depth,
+   each drawn on the card: ``greedy_generate`` (batch 8, 1024 + 32) with
+   exactly 24, 30 and 28 flash launches, all on the tensor-core route; the
+   timed prefill and decode; A4's logits check (float32 at full depth);
+   each model freed before the next;
+V7. the flash kernel timed by CUDA events at V1's four shapes beside its
+   plain version, ``scaled_dot_product_attention`` (none at gemma2's:
+   SDPA has no softcap) and the bound (bytes; the bf16 tensor-core
+   operations and, at gemma2's, the softcap's float32 operations);
 W5. each sim_step variant the workflow path ran (0000, 1100 at W2's
    4,096-cell train stage; 0010, 1010, 1110 at W1's): one 256-step chunk
    from the batch's initial state on both routes against the plain step
@@ -219,9 +259,10 @@ W5. each sim_step variant the workflow path ran (0000, 1100 at W2's
    the bound (the step's FP64 instructions with the diurnal hazard and
    the replica draw's class and shock terms);
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
-   the serving prefills for the tensor-core kernels, the float32 SMOKE
-   prefills of S2/A2 for the SIMT ones, sim_step's main path and the
-   workflow path's --, error, times, bound), the card's name and power
+   the serving prefills for the tensor-core kernels (the flash kernel's
+   by model), the float32 SMOKE prefills of S2/A2/V2 for the SIMT ones,
+   sim_step's main path and the workflow path's --, error, times, bound;
+   the flash kernel's at the variants' shapes), the card's name and power
    limit, and the final result line.  ``[t]`` lines give the seconds of
    each group of phases.
 
@@ -1821,14 +1862,14 @@ def _kernel_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def phase_serve_profile(tag: str, cfg, model, prompt, serve: dict,
-                        n_tokens: int, kernels: tuple) -> dict:
+def phase_serve_profile(tag: str, cfg, model, prompt, n_tokens: int,
+                        kernels: tuple) -> dict:
     """Where the serving time goes: ``torch.profiler`` over one warm
     prefill and 5 decode steps; device time by kernel (the share of the
     prefill of the kernels whose names hold one of ``kernels``: the port's
-    kernel), kernels per step, and the device's idle share against
-    the unprofiled host-clock times of ``serve`` (kernels run one at a
-    time on the one stream)."""
+    kernel), kernels per step, and the device's idle share: each profiled
+    run's device time against its own host-clock wall (kernels run one at
+    a time on the one stream)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1838,9 +1879,12 @@ def phase_serve_profile(tag: str, cfg, model, prompt, serve: dict,
     srv = make_serve_step(cfg)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
+    torch.cuda.synchronize()
     with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         logits, cache = pre(model, {"tokens": prompt})
         torch.cuda.synchronize()
+        pre_wall = time.perf_counter() - t0
     tok = logits[:, -1].argmax(-1)[:, None]
     rows = _kernel_rows(prof)
     total = sum(r[1] for r in rows)
@@ -1851,10 +1895,13 @@ def phase_serve_profile(tag: str, cfg, model, prompt, serve: dict,
                           kernel_ms=mine / 1e3,
                           kernels=sum(r[2] for r in rows), top=top)
     steps = 5
+    torch.cuda.synchronize()
     with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
             logits, cache = srv(model, cache, {"tokens": tok})
         torch.cuda.synchronize()
+        dec_wall = (time.perf_counter() - t0) / steps
     rows = _kernel_rows(prof)
     total_d = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
@@ -1865,19 +1912,19 @@ def phase_serve_profile(tag: str, cfg, model, prompt, serve: dict,
         out["note"] = "the profiler recorded no device time: not measured"
         print(f"[{tag}] {cfg.name} serve profile: {out['note']}", flush=True)
     else:
-        pre_wall = min(serve["prefill_s"])
-        dec_wall = serve["decode_s"] / (n_tokens - 1)
+        out["prefill"]["profiled_wall_s"] = pre_wall
+        out["decode"]["profiled_wall_s_per_step"] = dec_wall
         out["prefill"]["idle_share"] = 1.0 - total / 1e6 / pre_wall
         out["decode"]["idle_share"] = (1.0 - total_d / 1e6 / steps
                                        / dec_wall)
         print(f"[{tag}] {cfg.name} serve profile: prefill device time "
               f"{total / 1e3:.2f} ms ({kernel} {mine / 1e3:.2f} ms = "
               f"{mine / total:.1%}), {out['prefill']['kernels']} kernels, "
-              f"idle share against {pre_wall:.4f} s unprofiled "
+              f"idle share against its own {pre_wall:.4f} s "
               f"{out['prefill']['idle_share']:.1%}; decode device time "
               f"{total_d / 1e3 / steps:.2f} ms/step, "
               f"{launches / steps:.0f} kernels/step, idle share against "
-              f"{dec_wall * 1e3:.2f} ms/step unprofiled "
+              f"its own {dec_wall * 1e3:.2f} ms/step "
               f"{out['decode']['idle_share']:.1%}", flush=True)
         for name, us, n in top:
             print(f"    prefill {us / 1e3:8.3f} ms  {n:5d} x  {name[:70]}",
@@ -1980,6 +2027,40 @@ def flash_inputs(bg, r, sq, skv, d, dtype, seed):
             for shape in ((bg, r, sq, d), (bg, skv, d), (bg, skv, d))]
 
 
+# The softcap's checks run with q scaled so that the scores s = scale q.k
+# have this standard deviation (|s| up to ~150 over 1,024 keys): there
+# tanh(s / 50) * 50 moves s by tens.  At unit-normal inputs it moves s by
+# less than 0.01, and a kernel that dropped the softcap would pass.  The
+# float32 cases stay at unit inputs: at scores of this size float32
+# rounding of the scores alone takes 0.2-0.4 of the 2e-5 tolerance.
+CAP_SCORE_STD = 30.0
+# ... and the softcap must move the plain output by this many times the
+# tolerance before the kernel's agreement with it counts
+CAP_CONTROL = 10.0
+
+
+def cap_scores(q, scale):
+    """q scaled so that scale q.k has a standard deviation of CAP_SCORE_STD
+    against unit-normal k."""
+    return (q.float() * (CAP_SCORE_STD / (scale * q.shape[-1] ** 0.5))
+            ).to(q.dtype)
+
+
+def softcap_effect(q, k, v, kw, tol) -> dict:
+    """How far the softcap moves the plain output on these inputs, as
+    _gap's max_ratio of the uncapped output against the capped one, and
+    the largest |score| of the first (BG) row."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    capped = FA.flash_attention_plain(q, k, v, **kw)
+    free = FA.flash_attention_plain(q, k, v, **{**kw, "softcap": None})
+    s = torch.einsum("rsd,td->rst", q[0].float(), k[0].float()) * kw["scale"]
+    return dict(control_ratio=_gap(free, capped, tol)["max_ratio"],
+                max_score=float(s.abs().max()))
+
+
 def flash_work(bg, r, sq, skv, d, elt_bytes, causal=True):
     """Bytes the attention must move (q, k, v read once, o written once)
     and its operations: 4 d per visible (query, key) pair (q k^T and
@@ -2042,8 +2123,12 @@ def phase_flash_kernel_vs_plain() -> float:
         if name.startswith("strided"):
             q, k, v = _strided(q, k, v)
         kw = dict(scale=d ** -0.5, causal=causal, softcap=cap)
-        want = FA.flash_attention_plain(q, k, v, **kw)
         tol = FLASH_TOL[str(dt).split(".")[-1]]
+        effect = {}
+        if cap is not None and dt == bf16:
+            q = cap_scores(q, kw["scale"])
+            effect = softcap_effect(q, k, v, kw, tol)
+        want = FA.flash_attention_plain(q, k, v, **kw)
         dead = max(sq - skv, 0) if causal else 0
         routed = FA.route(dt, d)
         for how in dict.fromkeys((routed, "simt")):
@@ -2056,21 +2141,27 @@ def phase_flash_kernel_vs_plain() -> float:
             g["zero_rows"] = dead
             g["zero_rows_exact"] = bool((out[:, :, :dead] == 0).all()) and \
                 bool((want[:, :, :dead] == 0).all())
-            ok = _ok(g) and g["zero_rows_exact"] and out.dtype == dt
+            ok = _ok(g) and g["zero_rows_exact"] and out.dtype == dt and \
+                effect.get("control_ratio", CAP_CONTROL) >= CAP_CONTROL
             worst = max(worst, g["max_abs"])
             rows.append(dict(case=name, shape=(bg, r, sq, skv, d),
                              dtype=str(dt), causal=causal, softcap=cap,
-                             route=how, tol=tol, ok=ok, **g))
+                             route=how, tol=tol, ok=ok, **g, **effect))
             print(f"[A1] flash_attention {how} kernel vs plain, {name} "
                   f"{(bg, r, sq, skv, d)} {str(dt).split('.')[-1]}"
                   f"{'' if causal else ', no mask'}"
                   f"{'' if cap is None else f', softcap {cap}'}: max |d| "
                   f"{g['max_abs']:.3g} = {g['max_ratio']:.3f} x ({tol} + "
-                  f"{tol}|b|){f', {dead} zero rows exact' if dead else ''}",
-                  flush=True)
+                  f"{tol}|b|){f', {dead} zero rows exact' if dead else ''}"
+                  + (f"; scores up to {effect['max_score']:.0f}, the "
+                     f"softcap moves the plain output "
+                     f"{effect['control_ratio']:.0f} x the tolerance"
+                     if effect else ""), flush=True)
     REPORT["flash_kernel_vs_plain"] = rows
     if not all(r["ok"] for r in rows):
-        fail("flash_attention kernel differs from its plain version")
+        fail("flash_attention kernel differs from its plain version (or "
+             "a softcap case's softcap moved the plain output by less than "
+             f"{CAP_CONTROL} x the tolerance)")
     if {r["route"] for r in rows} != {"wgmma", "simt"}:
         fail("A1 did not run both flash_attention kernels")
     return worst
@@ -2142,16 +2233,19 @@ def olmo_setup():
     return cfg, model, prompt
 
 
-def phase_olmo_vs_plain(cfg, model, prompt, run) -> dict:
-    """A4: the kernel path against the plain path (``_attention_core``) on
-    the card, prefill + OLMO_FORCED teacher-forced decode logits, held as
-    S4 holds the SSD path: bf16 within LOGIT_TOL + LOGIT_TOL |b| except
-    where the same run's floor -- ``flash_attention_plain`` in the kernel's
-    place against ``_attention_core``, two plain implementations that
-    differ in where they round (float32 against bf16 scores and
-    probabilities) -- crosses it, by at most NOISE_FACTOR times the
-    floor's ratio; relative RMS within LOGIT_TOL.  float32: the bf16
-    weights cast on the card, float32 KV caches, elementwise within
+def phase_dense_vs_plain(tag: str, cfg, model, prompt, run,
+                         f32_layers=None) -> dict:
+    """A4 and V4: the kernel path against the plain path
+    (``_attention_core``) on the card, prefill + OLMO_FORCED teacher-forced
+    decode logits, held as S4 holds the SSD path: bf16 within LOGIT_TOL +
+    LOGIT_TOL |b| except where the same run's floor --
+    ``flash_attention_plain`` in the kernel's place against
+    ``_attention_core``, two plain implementations that differ in where
+    they round (float32 against bf16 scores and probabilities) -- crosses
+    it, by at most NOISE_FACTOR times the floor's ratio; relative RMS
+    within LOGIT_TOL.  float32: the bf16 weights cast on the card (the
+    first ``f32_layers`` blocks where given: gemma2-27b's 46 float32
+    layers would need ~109 GB), float32 KV caches, elementwise within
     OLMO_F32_TOL."""
     import torch
     from unittest import mock
@@ -2171,10 +2265,13 @@ def phase_olmo_vs_plain(cfg, model, prompt, run) -> dict:
     bf16["limit_ratio"] = max(1.0, NOISE_FACTOR * floor["max_ratio"])
     bf16["argmax_agree"] = float((k.argmax(-1) == p.argmax(-1)).float().mean())
     del k_out, p_out, q_out
-    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=f32_layers or cfg.n_layers)
     model32 = M.DenseLM(cfg32)                     # on the meta device
+    kept = {n for n, _ in model32.named_parameters()}
     model32.load_state_dict({n: t.float() for n, t in
-                             model.named_parameters()}, assign=True)
+                             model.named_parameters() if n in kept},
+                            assign=True)
     k32, _ = _serve_run(model32, cfg32, prompt, forced,
                         cache_dtype=torch.float32)
     p32, _ = _serve_run(model32, cfg32.replace(use_flash_kernel=False),
@@ -2182,22 +2279,24 @@ def phase_olmo_vs_plain(cfg, model, prompt, run) -> dict:
     f32 = _gap(torch.stack(k32), torch.stack(p32), OLMO_F32_TOL)
     del model32, k32, p32
     torch.cuda.empty_cache()
-    out = dict(bf16=bf16, bf16_plain_vs_plain=floor, f32=f32)
-    REPORT["olmo_vs_plain"] = out
-    print(f"[A4] olmo-1b kernel path vs plain _attention_core path on the "
-          f"card, prefill + {OLMO_FORCED} teacher-forced decode logits: bf16 "
+    out = dict(bf16=bf16, bf16_plain_vs_plain=floor, f32=f32,
+               f32_layers=cfg32.n_layers)
+    REPORT[f"{cfg.name}_vs_plain"] = out
+    print(f"[{tag}] {cfg.name} kernel path vs plain _attention_core path on "
+          f"the card, prefill + {OLMO_FORCED} teacher-forced decode logits: "
+          f"bf16 "
           f"rel RMS {bf16['rel_rms']:.4g} (tol {LOGIT_TOL}), max |d| "
           f"{bf16['max_abs']:.4g} = {bf16['max_ratio']:.3f} x ({LOGIT_TOL} + "
           f"{LOGIT_TOL}|b|) (limit {bf16['limit_ratio']:.3f} x), argmax agree "
           f"{bf16['argmax_agree']:.3f}; noise floor (flash_attention_plain vs "
           f"_attention_core): rel RMS {floor['rel_rms']:.4g}, max |d| "
           f"{floor['max_abs']:.4g} = {floor['max_ratio']:.3f} x; float32 at "
-          f"full width: max |d| {f32['max_abs']:.3g} = "
-          f"{f32['max_ratio']:.4f} x ({OLMO_F32_TOL} + {OLMO_F32_TOL}|b|)",
-          flush=True)
+          f"full width, {cfg32.n_layers} layers: max |d| "
+          f"{f32['max_abs']:.3g} = {f32['max_ratio']:.4f} x ({OLMO_F32_TOL} "
+          f"+ {OLMO_F32_TOL}|b|)", flush=True)
     if not (bf16["finite"] and bf16["max_ratio"] <= bf16["limit_ratio"]
             and bf16["rel_rms"] <= LOGIT_TOL and _ok(f32)):
-        fail("olmo-1b: kernel path and plain path disagree")
+        fail(f"{cfg.name}: kernel path and plain path disagree")
     return out
 
 
@@ -2276,6 +2375,347 @@ def phase_flash_measure() -> dict:
               f"tensor rate = {t_ops:.4f} ms); at the float32 SIMT rate "
               f"{row['f32_simt_bound_ms']:.4f} ms", flush=True)
     REPORT["flash_measure"] = out
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The dense variants: gemma2-27b on the main path, stablelm-1.6b,
+# starcoder2-3b and qwen2-vl-7b beside it
+# --------------------------------------------------------------------------- #
+
+GEMMA = "gemma2-27b"
+VARIANTS = (GEMMA, "stablelm-1.6b", "starcoder2-3b", "qwen2-vl-7b")
+# V6's three models, with the depth each runs at (their published depth)
+V6_ARCHS = ("stablelm-1.6b", "starcoder2-3b", "qwen2-vl-7b")
+V4_F32_LAYERS = 2      # gemma2-27b's float32 check: 46 layers need ~109 GB
+INT8_STEP_SHARE = 1e-3  # V2: codes off by one step, at most this share
+# float32 operations of the attention softcap, tanh(s / cap) * cap, per
+# visible score: the division, the tanh and the product (a math-library
+# call counts as one)
+SOFTCAP_OPS = 3
+
+
+def variant_shape(cfg, batch: int = OLMO_BATCH, prompt: int = OLMO_PROMPT):
+    """(BG, R, Sq, Skv, D), softcap and scale of the config's prefill
+    attention at ``batch`` x ``prompt``."""
+    a = cfg.attention
+    scale = a.query_scale if a.query_scale is not None else \
+        a.head_dim ** -0.5
+    return ((batch * a.n_kv_heads, a.n_heads // a.n_kv_heads, prompt,
+             prompt, a.head_dim), a.softcap, scale)
+
+
+def flash_layers(cfg, prompt: int) -> int:
+    """How many of a prefill's layers take the flash kernel's route: those
+    whose sliding window, if any, is not narrower than the prompt."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    return sum(L.flash_route(cfg, causal=True, q_offset=0, seq=prompt,
+                             layer_is_local=M._layer_is_local_static(cfg, i))
+               for i in range(cfg.n_layers))
+
+
+def phase_variant_flash_vs_plain() -> dict:
+    """V1: the flash kernel against its plain version on the card at the
+    four variants' prefill shapes (bf16: the tensor-core route), gemma2's
+    with its softcap 50 and query scale 1/12, at A1's tolerance; then
+    gemma2's shape with q scaled so the scores reach the cap
+    (``cap_scores``), where the softcap must move the plain output by
+    CAP_CONTROL x the tolerance."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    tol = FLASH_TOL["bfloat16"]
+    cases = [(arch, arch, False) for arch in VARIANTS]
+    cases.append((f"{GEMMA} at the cap", GEMMA, True))
+    out = {}
+    for i, (name, arch, at_cap) in enumerate(cases):
+        (bg, r, sq, skv, d), cap, scale = variant_shape(get_config(arch))
+        q, k, v = flash_inputs(bg, r, sq, skv, d, torch.bfloat16, 600 + i)
+        kw = dict(scale=scale, causal=True, softcap=cap)
+        effect = {}
+        if at_cap:
+            q = cap_scores(q, scale)
+            effect = softcap_effect(q, k, v, kw, tol)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        before = FA.LAUNCHES_BY_ROUTE["wgmma"]
+        got = FA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        g = _gap(got, want, tol)
+        g["route"] = FA.route(q.dtype, d)
+        g["launched_wgmma"] = FA.LAUNCHES_BY_ROUTE["wgmma"] - before
+        out[name] = dict(shape=(bg, r, sq, skv, d), softcap=cap, scale=scale,
+                         **g, **effect)
+        print(f"[V1] flash_attention {g['route']} kernel vs plain at "
+              f"{arch}'s prefill {(bg, r, sq, skv, d)} bf16"
+              f"{'' if cap is None else f', softcap {cap}'}, scale "
+              f"{scale:.5f}: max |d| {g['max_abs']:.3g} = "
+              f"{g['max_ratio']:.3f} x ({tol} + {tol}|b|)"
+              + (f"; q scaled, scores up to {effect['max_score']:.0f}: the "
+                 f"softcap moves the plain output "
+                 f"{effect['control_ratio']:.0f} x the tolerance (at least "
+                 f"{CAP_CONTROL:.0f})" if at_cap else ""), flush=True)
+        del q, k, v, want, got
+    REPORT["variant_flash_vs_plain"] = out
+    if not all(_ok(g) and g["route"] == "wgmma" and g["launched_wgmma"] == 1
+               and g.get("control_ratio", CAP_CONTROL) >= CAP_CONTROL
+               for g in out.values()):
+        fail("V1: the flash kernel differs from its plain version at a "
+             "variant's shape (or left the tensor-core route, or the "
+             "softcap moved the plain output at the cap by less than "
+             f"{CAP_CONTROL} x the tolerance)")
+    return out
+
+
+def phase_variants_card_vs_cpu() -> dict:
+    """V2: each variant's SMOKE config in float32 (float32 KV cache) with
+    the kernel on, prefill and 8 teacher-forced decode steps at 24- and
+    40-token prompts, the card against the CPU: logits and caches within
+    OLMO_F32_TOL.  At 40 tokens, wider than the SMOKE window of 32,
+    gemma2's and starcoder2's local layers take ``_attention_core``.  Then
+    the int8 KV cache (gemma2 SMOKE): ``quantize_kv`` of the same K/V
+    bitwise on both devices; one decode step over the CPU's own prefill
+    cache within OLMO_F32_TOL of the CPU's; the card's own prefill codes
+    within one step of the CPU's, at most INT8_STEP_SHARE of them off (a
+    value on a rounding boundary crosses it with the last bits of the two
+    devices' products)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.layers import quantize_kv
+
+    g = torch.Generator().manual_seed(9)
+    toks = torch.randint(0, 256, (2, 48), generator=g)
+    out, want_launches = {}, 0
+    by_route0 = dict(FA.LAUNCHES_BY_ROUTE)
+    for arch in VARIANTS:
+        cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                             compute_dtype="float32",
+                                             use_flash_kernel=True)
+        models = {dev: init_params(0, cfg, device=dev)
+                  for dev in ("cuda", "cpu")}
+        gaps = []
+        for n in (24, 40):
+            res = {dev: _serve_run(m, cfg, toks[:, :n].to(dev),
+                                   toks[:, n:n + 8].to(dev),
+                                   cache_dtype=torch.float32)
+                   for dev, m in models.items()}
+            pairs = list(zip(res["cuda"][0], res["cpu"][0])) + [
+                (res["cuda"][1]["kv"][k], res["cpu"][1]["kv"][k])
+                for k in ("k", "v")]
+            gaps += [_gap(a.cpu(), b, OLMO_F32_TOL) for a, b in pairs]
+            want_launches += flash_layers(cfg, n)
+        out[arch] = dict(max_abs_err=max(x["max_abs"] for x in gaps),
+                         ok=all(_ok(x) for x in gaps),
+                         flash_layers={n: flash_layers(cfg, n)
+                                       for n in (24, 40)})
+        print(f"[V2] {arch} SMOKE float32, kernel on the card vs plain on "
+              f"the CPU, prompts of 24 and 40 tokens: prefill + 8 decode "
+              f"logits and KV caches, max |d| {out[arch]['max_abs_err']:.3g} "
+              f"(tol {OLMO_F32_TOL}); flash layers a prefill "
+              f"{out[arch]['flash_layers']}", flush=True)
+    by_route = {k: FA.LAUNCHES_BY_ROUTE[k] - by_route0[k] for k in by_route0}
+    # the int8 KV cache
+    x = torch.randn(2, 2, 40, 16, generator=g) * 3
+    x[0, 0, 3] = 0.0                      # an all-zero row: scale 1
+    (qc, sc), (qg, sg) = quantize_kv(x), quantize_kv(x.cuda())
+    quant_same = bool(torch.equal(qc, qg.cpu()) and torch.equal(sc, sg.cpu()))
+    cfg = get_smoke_config(GEMMA).replace(
+        param_dtype="float32", compute_dtype="float32", kv_cache_quant=True,
+        use_flash_kernel=True)
+    models = {dev: init_params(0, cfg, device=dev) for dev in ("cuda", "cpu")}
+    q_toks = toks[:, :24]
+    with torch.inference_mode():
+        caches = {dev: prefill(m, q_toks[:, :-1].to(dev), cfg, 32)[1]
+                  for dev, m in models.items()}
+        steps = {k: (caches["cuda"]["kv"][k].cpu().int()
+                     - caches["cpu"]["kv"][k].int()).abs()
+                 for k in ("k", "v")}
+        scale_rel = max(float(((caches["cuda"]["kv"][k].cpu()
+                                / caches["cpu"]["kv"][k]) - 1).abs().max())
+                        for k in ("k_scale", "v_scale"))
+        moved = {"kv": {k: v.cuda() for k, v in caches["cpu"]["kv"].items()},
+                 "index": caches["cpu"]["index"]}
+        lg, _ = decode_step(models["cuda"], moved, q_toks[:, -1:].cuda(), cfg)
+        lc, _ = decode_step(models["cpu"], caches["cpu"], q_toks[:, -1:], cfg)
+    dec = _gap(lg.cpu(), lc, OLMO_F32_TOL)
+    off = {k: int((d > 0).sum()) for k, d in steps.items()}
+    n_codes = sum(d.numel() for d in steps.values())
+    int8 = dict(quantize_kv_bitwise=quant_same, decode_over_cpu_cache=dec,
+                codes_off_by_one=off, codes=n_codes,
+                max_code_step=max(int(d.max()) for d in steps.values()),
+                max_scale_rel=scale_rel)
+    out["int8"] = int8
+    out["launches_by_route"] = by_route
+    out["expected_launches"] = want_launches
+    REPORT["variants_card_vs_cpu"] = out
+    print(f"[V2] flash launches of these prefills by route {by_route} "
+          f"(expected {want_launches} SIMT); int8 KV cache (gemma2 SMOKE): "
+          f"quantize_kv card == CPU bitwise: {quant_same}; decode over the "
+          f"CPU's cache max |d| {dec['max_abs']:.3g} (tol {OLMO_F32_TOL}); "
+          f"the card's own prefill codes off by one step {off} of "
+          f"{n_codes} (largest step {int8['max_code_step']}), scales max rel "
+          f"{scale_rel:.3g}", flush=True)
+    if not all(r["ok"] for a, r in out.items() if a in VARIANTS):
+        fail("V2: a variant's SMOKE config differs between card and CPU")
+    if by_route["simt"] != want_launches or by_route["wgmma"]:
+        fail(f"V2: the float32 prefills launched {by_route}, expected "
+             f"{want_launches} SIMT launches")
+    if not (quant_same and _ok(dec) and int8["max_code_step"] <= 1
+            and sum(off.values()) <= INT8_STEP_SHARE * n_codes):
+        fail("V2: the int8 KV cache differs between card and CPU")
+    return out
+
+
+def dense_setup(tag: str, arch: str):
+    """The full config, drawn on the card by a CUDA generator (seed 0), and
+    a prompt from a CPU generator (seed 1)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    assert cfg.use_flash_kernel
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_PROMPT),
+                           generator=g).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    REPORT[f"{arch}_init"] = dict(params=n_params, weight_bytes=weights,
+                                  seconds=init_s,
+                                  peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"[{tag}] {arch}: {n_params:,} parameters ({weights / 1e9:.2f} GB) "
+          f"drawn on the card in {init_s:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawn",
+          flush=True)
+    return cfg, model, prompt
+
+
+def serve_variant(tag: str, arch: str, f32_layers=None,
+                  profile: bool = False) -> dict:
+    """One dense variant's serving main path (V3 for gemma2-27b, V6 for
+    the others): greedy_generate with the flash counts at 0 just before
+    and read just after -- exactly one launch a layer, all on the
+    tensor-core route -- then the timed prefill and decode, the plain
+    path's prefill, the logits check against the plain path (V4) and,
+    with ``profile``, the profiler (V5).  The model is freed after."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    cfg, model, prompt = dense_setup(tag, arch)
+    FA.LAUNCHES = 0                # this serving main path starts here
+    _zero(FA.LAUNCHES_BY_ROUTE)
+    run = phase_serve(cfg, model, prompt, OLMO_TOKENS)
+    launches = FA.LAUNCHES         # ... and ends here
+    by_route = dict(FA.LAUNCHES_BY_ROUTE)
+    print(f"[{tag}] {arch} serving main path (greedy_generate, one prefill "
+          f"of {cfg.n_layers} layers and {OLMO_TOKENS - 1} decode steps): "
+          f"{launches} flash_attention launches, by route {by_route}",
+          flush=True)
+    want = flash_layers(cfg, OLMO_PROMPT)
+    if launches != cfg.n_layers or want != cfg.n_layers or \
+            by_route["wgmma"] != cfg.n_layers:
+        fail(f"{arch}'s serving main path launched flash_attention "
+             f"{launches} times ({by_route}), expected {cfg.n_layers} (one "
+             f"per layer, prefill only), all on the tensor-core route")
+    out = dict(launches=launches, launches_by_route=by_route)
+    out["serve"] = phase_serve_measure(tag, cfg, model, prompt, run,
+                                       OLMO_TOKENS, "_attention_core")
+    torch.cuda.empty_cache()
+    out["vs_plain"] = phase_dense_vs_plain(
+        "V4" if arch == GEMMA else tag, cfg, model, prompt, run, f32_layers)
+    if profile:
+        out["profile"] = phase_serve_profile(
+            "V5", cfg, model, prompt, OLMO_TOKENS,
+            FLASH_KERNEL_NAMES)
+    del model, run
+    torch.cuda.empty_cache()
+    REPORT[f"{arch}_serving"] = out
+    return out
+
+
+def flash_bound(bg, r, sq, skv, d, softcap):
+    """Bytes, tensor-core operations and softcap float32 operations of
+    the attention, and the least time: the larger of the bytes at the
+    memory rate and the operations at their rates (the tensor-core
+    products and the softcap's float32 work may overlap)."""
+    nbytes, flops = flash_work(bg, r, sq, skv, d, 2)
+    cap_ops = SOFTCAP_OPS * flops // (4 * d) if softcap is not None else 0
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / BF16_TC_OPS_PER_S, cap_ops / FP32_OPS_PER_S) * 1e3
+    return dict(bytes=nbytes, flops=flops, softcap_ops=cap_ops,
+                bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_variant_flash_measure() -> dict:
+    """V7: the flash kernel (the tensor-core route), its plain version and
+    ``scaled_dot_product_attention`` timed by CUDA events at the four
+    variants' prefill shapes, beside the bound.  SDPA has no softcap, so
+    at gemma2's shape no library call computes the same function."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    for i, arch in enumerate(VARIANTS):
+        (bg, r, sq, skv, d), cap, scale = variant_shape(get_config(arch))
+        q, k, v = flash_inputs(bg, r, sq, skv, d, torch.bfloat16, 700 + i)
+
+        def kern():
+            return FA.flash_attention(q, k, v, scale=scale, softcap=cap)
+
+        ms_a = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_plain(
+            q, k, v, scale=scale, softcap=cap), 3)
+        ms_b = cuda_ms(kern, 20)
+        lib_ms, lib_gap, lib_note = None, None, None
+        if cap is not None:
+            lib_note = "none: SDPA has no softcap"
+        else:
+            lib_gap = _gap(_sdpa(q, k, v, scale), kern(),
+                           FLASH_TOL["bfloat16"])
+            lib_ms = cuda_ms(lambda: _sdpa(q, k, v, scale), 20)
+        row = dict(shape=(bg, r, sq, skv, d), softcap=cap, scale=scale,
+                   route=FA.route(q.dtype, d), ms=min(ms_a, ms_b),
+                   ms_runs=[ms_a, ms_b], plain_ms=plain_ms,
+                   library_ms=lib_ms, library_note=lib_note,
+                   library_equals_kernel=None if lib_gap is None
+                   else _ok(lib_gap), library_gap=lib_gap,
+                   **flash_bound(bg, r, sq, skv, d, cap))
+        out[arch] = row
+        lib_txt = lib_note if lib_ms is None else (
+            f"{lib_ms:.4f} ms (equals the kernel within 2e-2: "
+            f"{_ok(lib_gap)}, max |d| {lib_gap['max_abs']:.3g})")
+        ops_txt = f"{row['flops']:,} flop at the bf16 tensor rate"
+        if cap is not None:
+            ops_txt += (f", {row['softcap_ops']:,} softcap operations at the "
+                        f"float32 rate")
+        print(f"[V7] flash_attention at {arch}'s prefill {row['shape']} bf16"
+              f"{'' if cap is None else f', softcap {cap}'}: {row['route']} "
+              f"kernel {ms_a:.4f}, {ms_b:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"scaled_dot_product_attention {lib_txt}; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['bytes']:,} B at 3.35 TB/s = "
+              f"{row['bound_bytes_ms']:.4f} ms; {ops_txt} = "
+              f"{row['bound_ops_ms']:.4f} ms)", flush=True)
+        del q, k, v
+    REPORT["variant_flash_measure"] = out
     return out
 
 
@@ -3445,7 +3885,9 @@ def main() -> int:
     phase_train_card_vs_cpu()
     phase_flash_kernel_vs_plain()
     a2 = phase_olmo_card_vs_cpu()
-    _lap("3-4, G1, S1-S2, T1-T2, A1-A2")
+    v1 = phase_variant_flash_vs_plain()
+    v2 = phase_variants_card_vs_cpu()
+    _lap("3-4, G1, S1-S2, T1-T2, A1-A2, V1-V2")
     if quick:
         _dump()
         print(json.dumps({"quick": True}))
@@ -3534,7 +3976,7 @@ def main() -> int:
           f"is {'no slower' if kp <= pp else 'SLOWER'}", flush=True)
     logits_vs_plain = phase_serve_vs_plain(cfg, model, prompt, serve_run)
     REPORT["serve_profile"] = phase_serve_profile(
-        "S5", cfg, model, prompt, REPORT["serve"], SERVE_TOKENS,
+        "S5", cfg, model, prompt, SERVE_TOKENS,
         SSD_KERNEL_NAMES)
     del model
     torch.cuda.empty_cache()
@@ -3560,13 +4002,21 @@ def main() -> int:
     REPORT["olmo_serve"] = phase_serve_measure("A3", cfg, model, prompt,
                                                olmo_run, OLMO_TOKENS,
                                                "_attention_core")
-    olmo_vs_plain = phase_olmo_vs_plain(cfg, model, prompt, olmo_run)
+    olmo_vs_plain = phase_dense_vs_plain("A4", cfg, model, prompt, olmo_run)
     REPORT["olmo_profile"] = phase_serve_profile(
-        "A5", cfg, model, prompt, REPORT["olmo_serve"], OLMO_TOKENS,
+        "A5", cfg, model, prompt, OLMO_TOKENS,
         FLASH_KERNEL_NAMES)
     del model, olmo_run
     torch.cuda.empty_cache()
     _lap("A3-A5")
+    # The dense variants' serving main paths, the flash counts at 0 just
+    # before each and read just after (inside serve_variant).
+    variants = {GEMMA: serve_variant("V3", GEMMA, f32_layers=V4_F32_LAYERS,
+                                     profile=True)}
+    _lap("V3-V5")
+    for arch in V6_ARCHS:
+        variants[arch] = serve_variant("V6", arch)
+    _lap("V6")
     # Held against the plain step: each variant the main path ran, at its
     # shapes (the checks fail the run on any mismatch).
     phase_fig4_vs_plain()
@@ -3576,7 +4026,8 @@ def main() -> int:
     _lap("7 and W5")
     ssd = phase_ssd_measure()
     flash = phase_flash_measure()
-    _lap("S6, A6")
+    vflash = phase_variant_flash_measure()
+    _lap("S6, A6, V7")
     # The training main path: counts to 0 just before, read just after.
     ckpt_root = ROOT / ".smoke_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -3630,6 +4081,24 @@ def main() -> int:
             olmo_vs_plain["bf16_plain_vs_plain"]["max_ratio"],
         "f32_max_abs": olmo_vs_plain["f32"]["max_abs"]}
     olmo_t, gqa_t = flash["olmo-1b prefill"], flash["GQA serving"]
+    tc_by_path = {"olmo-1b": flash_by_route["wgmma"], **{
+        arch: r["launches_by_route"]["wgmma"] for arch, r in variants.items()}}
+    simt_by_path = {"olmo SMOKE float32 (A2)": a2["launches_by_route"]["simt"],
+                    "variants' SMOKE float32 (V2)":
+                        v2["launches_by_route"]["simt"]}
+    variant_rows = {arch: {
+        k: r[k] for k in ("shape", "softcap", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "library_note")}
+        for arch, r in vflash.items()}
+    for arch, row in variant_rows.items():
+        row["max_abs_err"] = v1[arch]["max_abs"]
+        if arch == GEMMA:
+            row["at_the_cap"] = {k: v1[f"{GEMMA} at the cap"][k] for k in (
+                "max_abs", "max_ratio", "control_ratio", "max_score")}
+        row["logits_vs_plain_path"] = {
+            "bf16_max_ratio": variants[arch]["vs_plain"]["bf16"]["max_ratio"],
+            "bf16_rel_rms": variants[arch]["vs_plain"]["bf16"]["rel_rms"],
+            "f32_max_abs": variants[arch]["vs_plain"]["f32"]["max_abs"]}
     kernels = {"kernels": [{
         "name": "sim_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sim_step.cu",
@@ -3701,9 +4170,13 @@ def main() -> int:
         "name": "flash_attention_tc", "route": "cuda", "kernel_route": "wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "olmo-1b serving prefill (bf16, A3)",
-        "launches": flash_by_route["wgmma"],
-        "max_abs_err": worst_of(flash_rows, "wgmma", (None,)),
+        "path": "the dense serving prefills (bf16): olmo-1b (A3), "
+                "gemma2-27b (V3), stablelm-1.6b, starcoder2-3b, qwen2-vl-7b "
+                "(V6)",
+        "launches": sum(tc_by_path.values()),
+        "launches_by_path": tc_by_path,
+        "max_abs_err": max(worst_of(flash_rows, "wgmma", (None,)),
+                           max(g["max_abs"] for g in v1.values())),
         "tolerance": FLASH_TOL, "logits_vs_plain_path": flash_logits,
         "shape": FLASH_OLMO_SHAPE, "ms": olmo_t["ms"],
         "plain_ms": olmo_t["plain_ms"], "bound_ms": olmo_t["bound_ms"],
@@ -3711,12 +4184,14 @@ def main() -> int:
         "f32_simt_bound_ms": olmo_t["f32_simt_bound_ms"],
         "library_ms": olmo_t["library_ms"],
         "gqa_shape": {k: gqa_t[k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "library_ms")}}, {
+            "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "variant_shapes": variant_rows}, {
         "name": "flash_attention", "route": "cuda", "kernel_route": "simt",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "olmo serving in float32 (A2: SMOKE prefills)",
-        "launches": a2["launches_by_route"]["simt"],
+        "path": "dense serving in float32 (A2, V2: SMOKE prefills)",
+        "launches": sum(simt_by_path.values()),
+        "launches_by_path": simt_by_path,
         "max_abs_err": worst_of(flash_rows, "simt", (None,)),
         "tolerance": FLASH_TOL,
         "shape": FLASH_OLMO_SHAPE, "ms": olmo_t["simt_ms"],

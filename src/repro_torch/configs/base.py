@@ -1,5 +1,6 @@
-"""Model/shape configuration schema: the port's copy of the dataclasses of
-``repro/configs/base.py`` (the dry-run shape table stays there).
+"""Model/shape configuration schema: the port's copy of
+``repro/configs/base.py`` -- the dataclasses, the four input shapes of the
+(arch x shape) table and the rule of which shapes an arch takes.
 
 One ``ModelConfig`` instance fully determines a network; each ported
 architecture file (``src/repro_torch/configs/<id>.py``) exports ``CONFIG``
@@ -182,3 +183,25 @@ class ShapeConfig:
     @property
     def is_train(self) -> bool:
         return self.kind == "train"
+
+
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4096, global_batch=256, kind="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32768, global_batch=32,
+                          kind="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32768, global_batch=128,
+                         kind="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524288, global_batch=1,
+                        kind="decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+# Archs allowed to run long_500k (sub-quadratic context handling).
+LONG_CONTEXT_ARCHS = frozenset({"mamba2-130m", "zamba2-7b"})
+
+
+def shape_applicable(arch_id: str, shape: ShapeConfig,
+                     cfg: ModelConfig) -> bool:
+    if shape.name == "long_500k" and arch_id not in LONG_CONTEXT_ARCHS:
+        return False
+    return True

@@ -1,0 +1,45 @@
+"""olmoe-1b-7b [moe]: 64 experts top-8.
+
+16L d_model=2048 16H (GQA kv=16) d_ff=1024 vocab=50304, MoE 64e top-8
+[arXiv:2409.02060; hf]
+
+Data only: the same values as ``repro/configs/olmoe_1b_7b.py``,
+field for field.
+The moe family is not ported yet: ``models.init_params`` raises for it
+(ROADMAP Queue 1 item 9.4).
+"""
+from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig, RopeConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    n_layers=16,
+    d_model=2048,
+    d_ff=1024,
+    vocab=50304,
+    attention=AttentionConfig(n_heads=16, n_kv_heads=16, head_dim=128,
+                              rope=RopeConfig(theta=10000.0)),
+    moe=MoEConfig(n_experts=64, top_k=8, expert_dff=1024, n_shared=0,
+                  capacity_factor=1.25, group_size=512),
+    norm="rmsnorm",
+    act="silu_gated",
+    tie_embeddings=False,
+)
+
+SMOKE = ModelConfig(
+    name="olmoe-smoke",
+    family="moe",
+    n_layers=2,
+    d_model=64,
+    d_ff=128,
+    vocab=256,
+    attention=AttentionConfig(n_heads=4, n_kv_heads=4, head_dim=16,
+                              rope=RopeConfig()),
+    # capacity_factor sized so smoke tests never drop tokens (prefill/decode
+    # equivalence is exact only without capacity drops)
+    moe=MoEConfig(n_experts=8, top_k=2, expert_dff=128, n_shared=0,
+                  capacity_factor=8.0, group_size=64),
+    norm="rmsnorm",
+    act="silu_gated",
+    remat="none",
+)

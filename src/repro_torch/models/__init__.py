@@ -1,5 +1,5 @@
 """Model library of the port (the ssm family: mamba2; the dense family:
-olmo)."""
+olmo, gemma2, stablelm, starcoder2, qwen2-vl)."""
 from repro_torch.models.model import (
     DenseLM,
     Mamba2LM,

@@ -1,17 +1,20 @@
-"""Layer library of the port: the parts of ``repro/models/layers.py`` that
-the ported families use -- rmsnorm and the non-parametric LayerNorm,
-standard RoPE, GQA attention over a serving cache, the MLPs, tied
-embedding and unembedding, in bfloat16 and float32.
+"""Layer library of the port: ``repro/models/layers.py`` for the ported
+families -- the norms (rmsnorm, gemma's ``(1 + scale)`` rmsnorm,
+LayerNorm with and without bias, the non-parametric LayerNorm), RoPE,
+partial RoPE and M-RoPE, GQA attention over a serving cache (bfloat16 or
+float32, or int8 codes with float32 per-(token, head) scales), the MLPs,
+tied or untied embedding and unembedding and the final logit softcap, in
+bfloat16 and float32.
 
 Conventions, as in the JAX package: parameters are mappings of name to
 tensor (``nn.ParameterDict`` inside the modules), ``init_*`` functions
 build them and the ``apply`` logic is plain functions; compute runs in
 ``cfg.compute_dtype``, norm statistics and the softmax in float32.
-Initialisation draws from an explicit CPU ``torch.Generator``, so a seed
-gives the same weights on every device; ``gen=None`` gives uninitialised
-tensors on the meta device (shapes and dtypes only).  The other norms,
-partial RoPE and M-RoPE, the int8 KV cache, an untied unembedding and the
-logit softcap wait for the slices that need them (ROADMAP Queue 1).
+Initialisation draws from an explicit ``torch.Generator`` on the
+generator's own device: a CPU generator (a seed) gives the same weights
+on every device, a CUDA generator draws on the card (the full-width
+models, whose draw on the CPU would take minutes).  ``gen=None`` gives
+uninitialised tensors on the meta device (shapes and dtypes only).
 """
 from __future__ import annotations
 
@@ -22,13 +25,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import div
 
 Params = Mapping[str, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NEG_INF = -1e30
-NORMS = ("rmsnorm", "nonparametric")
+INV_127 = 1.0 / 127.0   # the int8 KV scale's factor (rounded to float32)
+NORMS = ("rmsnorm", "rmsnorm_one", "layernorm", "layernorm_nobias",
+         "nonparametric")
 ACTS = ("silu_gated", "gelu_gated", "gelu")
+FRONTENDS = ("none", "patches")   # 'audio_frames' comes with the encdec family
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -39,28 +46,17 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a layer option the port does not have yet: the norms
-    other than rmsnorm and the non-parametric LayerNorm, an untied
-    unembedding, the logit softcap, partial RoPE and M-RoPE, the int8 KV
-    cache and the modality frontends (ROADMAP Queue 1)."""
-    def missing(what: str):
-        return NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue 1)")
-
+    """Raise for a layer option the port does not have yet: a dtype other
+    than bfloat16 and float32, and the audio-frames frontend (it comes
+    with the encdec family, ROADMAP Queue 1 item 9.6); and for an unknown
+    norm or activation."""
+    _dtype(cfg.param_dtype)
+    _dtype(cfg.compute_dtype)
+    if cfg.frontend not in FRONTENDS:
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r} is not ported yet (ROADMAP Queue 1)")
     if cfg.norm not in NORMS:
-        raise missing(f"norm {cfg.norm!r}")
-    if not cfg.tie_embeddings:
-        raise missing("an untied unembedding")
-    if cfg.logit_softcap is not None:
-        raise missing("the logit softcap")
-    rope = cfg.attention.rope
-    if rope is not None and (rope.partial_pct != 1.0
-                             or rope.mrope_sections is not None):
-        raise missing("partial RoPE and M-RoPE")
-    if cfg.kv_cache_quant:
-        raise missing("the int8 KV cache (kv_cache_quant)")
-    if cfg.frontend != "none":
-        raise missing(f"frontend {cfg.frontend!r}")
+        raise ValueError(f"unknown norm {cfg.norm!r}")
     if cfg.act not in ACTS:
         raise ValueError(f"unknown act {cfg.act!r}")
 
@@ -68,15 +64,17 @@ def check_ported(cfg: ModelConfig) -> None:
 def truncated_normal_init(gen: Optional[torch.Generator], shape, scale: float,
                           dtype: torch.dtype) -> torch.Tensor:
     """Normal draws truncated to [-2, 2], times ``scale``, cast to ``dtype``
-    (inverse CDF of uniforms from ``gen``, in float32 on the CPU).  ``gen``
-    None: an uninitialised tensor on the meta device."""
+    (inverse CDF of float32 uniforms from ``gen``, on ``gen``'s device,
+    in place: one float32 buffer at a time).  ``gen`` None: an
+    uninitialised tensor on the meta device."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = lo + (1.0 - 2.0 * lo) * torch.rand(shape, generator=gen,
-                                           dtype=torch.float32)
-    x = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp_(-2.0, 2.0)
-    return (x * scale).to(dtype)
+    x = torch.rand(shape, generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    x.mul_(1.0 - 2.0 * lo).add_(lo)                       # u
+    x.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return x.mul_(scale).to(dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -85,30 +83,46 @@ def truncated_normal_init(gen: Optional[torch.Generator], shape, scale: float,
 
 def init_norm(gen: Optional[torch.Generator], cfg: ModelConfig,
               dim: int) -> Dict[str, torch.Tensor]:
+    """The norm's parameters (none are drawn): rmsnorm's scale of ones,
+    gemma's ``rmsnorm_one`` scale of zeros (applied as ``1 + scale``),
+    LayerNorm's scale of ones and bias of zeros, ``layernorm_nobias``'s
+    scale, nothing for the non-parametric norm."""
     check_ported(cfg)
+    dt = _dtype(cfg.param_dtype)
+    dev = gen.device if gen is not None else None
     if cfg.norm == "nonparametric":
         return {}
-    return {"scale": torch.ones(dim, dtype=_dtype(cfg.param_dtype))}
+    if cfg.norm == "rmsnorm_one":
+        return {"scale": torch.zeros(dim, dtype=dt, device=dev)}
+    p = {"scale": torch.ones(dim, dtype=dt, device=dev)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(dim, dtype=dt, device=dev)
+    return p
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Statistics in float32: rmsnorm over the mean square; the LayerNorms
+    over the mean and the population variance."""
     xf = x.float()
-    if cfg.norm == "rmsnorm":
+    if cfg.norm.startswith("rmsnorm"):
         var = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
-    elif cfg.norm == "nonparametric":
-        # OLMo: LayerNorm without affine parameters
+        y = xf * torch.rsqrt(var + cfg.norm_eps)
+        scale = p["scale"].float()
+        y = y * (1.0 + scale) if cfg.norm == "rmsnorm_one" else y * scale
+    else:
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf - mean).square().mean(dim=-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
-    else:
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} is not ported yet (ROADMAP Queue 1)")
+        if cfg.norm == "layernorm":
+            y = y * p["scale"].float() + p["bias"].float()
+        elif cfg.norm == "layernorm_nobias":
+            y = y * p["scale"].float()
+        # 'nonparametric' (olmo): no affine parameters at all
     return y.to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
-# Rotary embeddings (standard RoPE)
+# Rotary embeddings (RoPE, partial RoPE, M-RoPE)
 # --------------------------------------------------------------------------- #
 
 def _rope_freqs(head_dim_rot: int, theta: float,
@@ -122,20 +136,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                partial_pct: float = 1.0,
                mrope_sections: Optional[Tuple[int, int, int]] = None
                ) -> torch.Tensor:
-    """Rotate ``x`` (B, H, S, D) by ``positions`` (B or 1, S): interleaved
-    pairs (``x[..., 0::2]``, ``x[..., 1::2]``) as in the JAX package,
-    angles in float32."""
-    if partial_pct != 1.0 or mrope_sections is not None:
-        raise NotImplementedError(
-            "partial RoPE and M-RoPE are not ported yet (ROADMAP Queue 1)")
+    """Rotate ``x`` (B, H, S, D) by ``positions``: interleaved pairs
+    (``x[..., 0::2]``, ``x[..., 1::2]``) as in the JAX package, angles in
+    float32.  The first ``d_rot = int(D * partial_pct)`` dims (rounded
+    down to an even number) rotate and the rest pass through (stablelm:
+    0.25).
+
+    positions: (B or 1, S) for RoPE, (B or 1, 3, S) for M-RoPE
+    (qwen2-vl): the d_rot/2 frequency slots split into
+    ``mrope_sections`` (t, h, w), each driven by its own position stream;
+    for text the three streams are equal and M-RoPE reduces to RoPE."""
     B, H, S, D = x.shape
-    d_rot = D - D % 2
+    d_rot = int(D * partial_pct)
+    d_rot -= d_rot % 2
     if d_rot == 0:
         return x
-    if positions.dim() == 3:
-        positions = positions[:, 0]
     freqs = _rope_freqs(d_rot, theta, x.device)                  # (d_rot/2,)
-    angles = positions[:, None, :, None].float() * freqs         # (B,1,S,d/2)
+    if mrope_sections is None:
+        if positions.dim() == 3:
+            positions = positions[:, 0]
+        angles = positions[:, None, :, None].float() * freqs     # (B,1,S,d/2)
+    else:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs (B, 3, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        if sum(mrope_sections) != d_rot // 2:
+            raise ValueError(f"mrope sections {mrope_sections} != "
+                             f"{d_rot // 2} freq slots")
+        sec_id = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.tensor(mrope_sections, device=x.device))
+        per_slot = positions.float()[:, sec_id, :]           # (B, slots, S)
+        angles = per_slot.transpose(1, 2)[:, None] * freqs   # (B,1,S,slots)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., 0:d_rot:2].float(), x[..., 1:d_rot:2].float()
     r1 = x1 * cos - x2 * sin
@@ -149,6 +181,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # --------------------------------------------------------------------------- #
 # Attention (GQA, softcap, sliding window, decode cache)
 # --------------------------------------------------------------------------- #
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, G, S, hd) -> int8 codes and float32 per-(token, head) scales:
+    scale = absmax · float32(1/127) (1 for an all-zero row), codes =
+    clip(round half to even (t / scale), -127, 127).
+
+    The JAX package writes ``amax / 127.0``, which XLA compiles (the
+    serving steps are jitted) to the product with the float32 reciprocal,
+    as the Pallas quantize kernel computes it; the port writes that
+    product.  One multiplication by a float32 constant and one true
+    division by a tensor round the same on the card and the CPU, so both
+    give the same scales and codes for the same input."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax * INV_127, 1.0)
+    codes = torch.round(tf / scale[..., None]).clamp_(-127, 127)
+    return codes.to(torch.int8), scale
+
 
 def init_attention(gen: Optional[torch.Generator],
                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
@@ -245,7 +295,10 @@ def multi_head_attention(
     (masked) cache.  ``layer_index`` selects the layer slice of a stacked
     (L, B, G, max_seq, hd) cache.  Unlike the JAX package, which returns
     updated copies, the port writes into the given cache tensors in place
-    and returns the same dict.
+    and returns the same dict.  A cache that also holds 'k_scale' and
+    'v_scale' is the int8 cache (``kv_cache_quant``): the new K/V go in as
+    :func:`quantize_kv` codes and scales, and attention reads them back as
+    codes times scales in the compute dtype.
 
     With ``cfg.use_flash_kernel`` and :func:`flash_route` true, the
     attention runs through ``kernels.ops.flash_attention`` on the prompt's
@@ -277,19 +330,37 @@ def multi_head_attention(
 
     q_offset, kv_valid = 0, None
     k_own, v_own = k, v
-    k_all, v_all = k, v
+
+    def read_all():   # what _attention_core reads: with a cache, all of it
+        return k, v
+
     if cache is not None:
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet (ROADMAP Queue 1)")
         idx = int(cache_index or 0)
-        ck, cv = cache["k"], cache["v"]
-        if layer_index is not None:
-            ck, cv = ck[layer_index], cv[layer_index]
-        ck[:, :, idx:idx + S] = k.to(ck.dtype)
-        cv[:, :, idx:idx + S] = v.to(cv.dtype)
-        k_own, v_own = k.to(ck.dtype).to(cdt), v.to(cv.dtype).to(cdt)
-        k_all, v_all = ck.to(cdt), cv.to(cdt)
+        names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache \
+            else ("k", "v")
+        bufs = [cache[n] if layer_index is None else cache[n][layer_index]
+                for n in names]
+        if len(bufs) == 4:
+            ck, cv, cks, cvs = bufs
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            ck[:, :, idx:idx + S], cks[:, :, idx:idx + S] = kq, ks
+            cv[:, :, idx:idx + S], cvs[:, :, idx:idx + S] = vq, vs
+
+            def read(codes, scales):
+                return codes.to(cdt) * scales[..., None].to(cdt)
+
+            k_own, v_own = read(kq, ks), read(vq, vs)
+
+            def read_all():
+                return read(ck, cks), read(cv, cvs)
+        else:
+            ck, cv = bufs
+            ck[:, :, idx:idx + S] = k.to(ck.dtype)
+            cv[:, :, idx:idx + S] = v.to(cv.dtype)
+            k_own, v_own = k.to(ck.dtype).to(cdt), v.to(cv.dtype).to(cdt)
+
+            def read_all():
+                return ck.to(cdt), cv.to(cdt)
         q_offset, kv_valid = idx, idx + S
 
     scale = a.query_scale if a.query_scale is not None else \
@@ -301,6 +372,7 @@ def multi_head_attention(
             v_own.reshape(B * G, S, hd), scale=scale, causal=True,
             softcap=a.softcap)
     else:
+        k_all, v_all = read_all()
         ctx = _attention_core(
             q.reshape(B, G, rep, S, hd), k_all, v_all, scale=scale,
             softcap=a.softcap, causal=causal,
@@ -348,9 +420,16 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_embedding(gen: Optional[torch.Generator],
                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The token embedding (vocab, d_model) and, untied, the unembedding
+    (d_model, vocab), drawn in that order."""
     check_ported(cfg)
-    return {"tok": truncated_normal_init(gen, (cfg.vocab, cfg.d_model), 0.02,
-                                         _dtype(cfg.param_dtype))}
+    dt = _dtype(cfg.param_dtype)
+    p = {"tok": truncated_normal_init(gen, (cfg.vocab, cfg.d_model), 0.02,
+                                      dt)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = truncated_normal_init(
+            gen, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model), dt)
+    return p
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor,
@@ -366,5 +445,16 @@ def embed_tokens(p: Params, tokens: torch.Tensor,
 
 def logits_from_hidden(p: Params, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
+    """float32 logits through the tied embedding or the untied
+    unembedding, then the final softcap ``tanh(logits / cap) * cap``
+    (gemma2: 30)."""
     cdt = _dtype(cfg.compute_dtype)
-    return torch.einsum("bsd,vd->bsv", x.to(cdt), p["tok"].to(cdt)).float()
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x.to(cdt), p["tok"].to(cdt))
+    else:
+        logits = x.to(cdt) @ p["unembed"].to(cdt)
+    logits = logits.float()
+    if cfg.logit_softcap is not None:
+        logits = torch.tanh(div(logits, cfg.logit_softcap)) \
+            * cfg.logit_softcap
+    return logits

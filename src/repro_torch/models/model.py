@@ -10,14 +10,21 @@ counterpart here.  Its remat does: with ``cfg.remat == "full"`` each block
 runs under ``torch.utils.checkpoint.checkpoint`` when autograd records the
 forward (training); ``"dots"`` raises.  :func:`loss_fn` is the training
 loss.  The moe, hybrid and encdec families wait for later slices (ROADMAP
-Queue 1) and raise.
+Queue 1 item 9) and raise.  The dense family covers every dense config
+of the registry: olmo-1b, gemma2-27b (alternating local/global windows,
+both softcaps, ``(1 + scale)`` rmsnorms and post-block norms),
+stablelm-1.6b (LayerNorm with bias, partial RoPE, an untied head),
+starcoder2-3b (LayerNorm, plain GELU, a sliding window) and qwen2-vl-7b
+(M-RoPE over (B, 3, S) positions; text gives three equal streams).
 
 Parameters are built frozen (``requires_grad=False``), as serving wants
 them; the training entry points (``repro_torch.train.step``) turn
 ``requires_grad`` on.  Parameter names follow the JAX pytree:
 ``embed.tok``, ``blocks.<i>.norm.scale``, ``blocks.<i>.mixer.<name>``
 (ssm), ``blocks.<i>.attn.wq``, ``blocks.<i>.mlp.w_up``, ... (dense; the
-non-parametric norms hold no leaves), ``final_norm.scale``;
+non-parametric norms hold no leaves, LayerNorm adds ``bias``),
+``blocks.<i>.post_attn_norm`` / ``post_mlp_norm`` (gemma2),
+``final_norm.scale``, ``embed.unembed`` (an untied head);
 :func:`from_reference` carries the JAX package's ``init_params`` pytree
 (as numpy arrays, layer-stacked ``(L, ...)`` leaves under ``blocks``)
 across dtype for dtype.
@@ -27,7 +34,9 @@ h, p, n), "conv": (L, B, W-1, conv_dim)}, "index": int}``; the SSM state
 and conv carry are float32 whatever ``cache_dtype`` prefill is given, as
 in the JAX package.  dense: ``{"kv": {"k", "v": (L, B, G, max_seq, hd)},
 "index": int}`` in ``cache_dtype``, written in place layer by layer (the
-JAX decode path's ``layer_index`` form).  Entry points run on CUDA unless
+JAX decode path's ``layer_index`` form); with ``kv_cache_quant`` the K/V
+are int8 codes beside float32 ``k_scale``/``v_scale`` of (L, B, G,
+max_seq), whatever ``cache_dtype``.  Entry points run on CUDA unless
 given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -49,13 +58,18 @@ Cache = Dict[str, Any]
 
 
 FAMILIES = ("ssm", "dense")
+# The families still to port, by their ROADMAP Queue 1 item.
+MISSING_FAMILIES = {"moe": "9.4", "hybrid": "9.5", "encdec": "9.6"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
+        item = MISSING_FAMILIES.get(cfg.family)
+        if item is None:
+            raise ValueError(f"unknown family {cfg.family!r}")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet; only "
-            f"{FAMILIES} are (the others are in ROADMAP Queue 1)")
+            f"{FAMILIES} are (ROADMAP Queue 1 item {item})")
     L.check_ported(cfg)
 
 
@@ -145,9 +159,11 @@ def model_class(cfg: ModelConfig) -> Type[nn.Module]:
 
 def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
                 device=None) -> LM:
-    """Randomly initialised model from a seed or a CPU ``torch.Generator``
-    (draws on the CPU, so a seed gives the same weights on every device),
-    moved to ``device`` (default CUDA)."""
+    """Randomly initialised model on ``device`` (default CUDA).  A seed or
+    a CPU ``torch.Generator`` draws on the CPU, so a seed gives the same
+    weights on every device; a CUDA generator draws on its card (the
+    full-width models: gemma2-27b's 27.2 B draws would take minutes on the
+    CPU), with the same formula and in the same order."""
     _require_ported(cfg)
     dev = resolve_device(device)
     if isinstance(gen, int):
@@ -188,15 +204,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Serving cache for the ported families.  ssm: ``max_seq`` and
     ``dtype`` do not enter it (the SSM cache has no sequence axis and is
     float32).  dense: zeroed K and V of (L, B, G, max_seq, hd) in
-    ``dtype``."""
+    ``dtype``; with ``kv_cache_quant``, int8 K and V codes and float32
+    scales of (L, B, G, max_seq) set to 1 (``dtype`` does not enter)."""
     _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "dense":
         a = cfg.attention
         shape = (cfg.n_layers, batch, a.n_kv_heads, max_seq, a.head_dim)
-        return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)},
-                "index": 0}
+        if cfg.kv_cache_quant:
+            kv = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                  "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                  "k_scale": torch.ones(shape[:4], device=dev),
+                  "v_scale": torch.ones(shape[:4], device=dev)}
+        else:
+            kv = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {"kv": kv, "index": 0}
     one = SSM.init_ssm_cache(cfg, batch, device=dev)
     st = {k: v[None].repeat(cfg.n_layers, *([1] * v.dim()))
           for k, v in one.items()}
@@ -273,10 +296,13 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
     """Compute logits (float32).
 
-    batch: {'tokens': (B, S) integer; dense: optional 'positions' (B, S)}.
-    With ``cache`` the call is a serving step writing at
-    ``cache['index']``; ``last_only`` computes logits for the final
-    position only (prefill -- avoids a (B, S, V) tensor).
+    batch: {'tokens': (B, S) integer; dense: optional 'positions', (B, S)
+    or, for M-RoPE, (B, 3, S)}.  Without positions they count from the
+    cache's index (0 without a cache); an M-RoPE model given (B, S)
+    positions runs three equal streams (text).  With ``cache`` the call is
+    a serving step writing at ``cache['index']``; ``last_only`` computes
+    logits for the final position only (prefill -- avoids a (B, S, V)
+    tensor).
     """
     _require_ported(cfg)
     tokens = batch["tokens"]
@@ -288,6 +314,11 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      )[None, :] + cache_index
+        rope = cfg.attention.rope
+        if rope is not None and rope.mrope_sections is not None \
+                and positions.dim() == 2:
+            positions = positions[:, None, :].expand(
+                positions.shape[0], 3, positions.shape[1])
         kv = cache["kv"] if cache is not None else None
         x, new_kv = _dense_stack(params, x, cfg, positions=positions,
                                  kv_cache=kv, cache_index=cache_index)
@@ -325,21 +356,31 @@ def loss_fn(params: LM, batch: Mapping[str, torch.Tensor],
     return ce, {"loss": ce, "ce": ce}
 
 
+def _batch(tokens: torch.Tensor,
+           positions: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    batch = {"tokens": tokens}
+    if positions is not None:
+        batch["positions"] = positions
+    return batch
+
+
 def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
-            max_seq: int, *, cache_dtype=torch.bfloat16
-            ) -> Tuple[torch.Tensor, Cache]:
+            max_seq: int, *, positions: Optional[torch.Tensor] = None,
+            cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt through the model, returning (last_logits, cache)."""
     cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                        device=tokens.device)
-    logits, cache, _ = forward(params, {"tokens": tokens}, cfg, cache=cache,
-                               last_only=True)
+    logits, cache, _ = forward(params, _batch(tokens, positions), cfg,
+                               cache=cache, last_only=True)
     return logits, cache
 
 
 def decode_step(params: LM, cache: Cache, tokens: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
+                cfg: ModelConfig, *,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
     """One serving step: tokens (B, 1) -> (logits (B,1,V), new cache)."""
-    logits, new_cache, _ = forward(params, {"tokens": tokens}, cfg,
+    logits, new_cache, _ = forward(params, _batch(tokens, positions), cfg,
                                    cache=cache)
     return logits, new_cache
 

@@ -65,7 +65,8 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tenso
     d_inner, nheads, _ = ssm_dims(cfg)
     conv_dim = d_inner + 2 * s.d_state
     # dt bias initialised so softplus(dt_bias) spans [dt_min, dt_max]
-    u = torch.rand(nheads, generator=gen, dtype=torch.float32)
+    u = torch.rand(nheads, generator=gen, dtype=torch.float32,
+                   device=gen.device)
     dt_init = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min))
                         + math.log(s.dt_min))
     dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))  # inverse softplus

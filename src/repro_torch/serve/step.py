@@ -3,7 +3,10 @@
 
 ``make_serve_step`` builds one decode step: one new token per sequence
 against the cache (the SSM state, or the dense family's KV cache, which
-is written in place).  The steps run eagerly under
+is written in place).  A batch holds 'tokens' and, for an M-RoPE model
+(qwen2-vl), optionally 'positions' of (B, 3, S) (prefill) or (B, 3, 1)
+(decode), as ``configs.specs.input_specs`` gives them; without them the
+positions count from the cache's index.  The steps run eagerly under
 ``torch.inference_mode``; there is no ``jit`` to build.  A dense cache
 made by these steps is an inference tensor: continue it with these steps
 (or under ``torch.inference_mode``), since PyTorch refuses an in-place
@@ -22,7 +25,8 @@ from repro_torch.models.model import (LM, decode_step, forward, init_cache,
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int,
                       cache_dtype=torch.bfloat16) -> Callable:
-    """(params, batch) -> (last_logits, cache).  batch: {'tokens': (B, S)}."""
+    """(params, batch) -> (last_logits, cache).  batch: {'tokens': (B, S)},
+    optionally 'positions'."""
 
     @torch.inference_mode()
     def prefill_step(params: LM, batch: Dict[str, torch.Tensor]):

@@ -815,3 +815,161 @@ def test_policy_service_card_equals_cpu(estimator):
     assert [d.to_dict() for d in a.query(reqs)] == \
         [d.to_dict() for d in b.query(reqs)]
     assert np.isfinite([d.interval for d in a.query(reqs)]).all()
+
+
+# --------------------------------------------------------------------------- #
+# The dense variants on the card                                              #
+# --------------------------------------------------------------------------- #
+
+VARIANTS = ("gemma2-27b", "stablelm-1.6b", "starcoder2-3b", "qwen2-vl-7b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bg,r,d,softcap,scale", [
+    (16, 2, 128, 50.0, 144 ** -0.5),   # gemma2: softcap 50, query_scale
+    (32, 1, 64, None, 64 ** -0.5),     # stablelm: head_dim 64
+    (4, 12, 128, None, 128 ** -0.5),   # starcoder2: 12 query heads a group
+    (4, 7, 128, None, 128 ** -0.5),    # qwen2-vl: 7 query heads a group
+])
+def test_flash_kernel_at_the_variants_heads_on_card(bg, r, d, softcap,
+                                                    scale):
+    """The dense variants' head layouts on the tensor-core route (bf16),
+    causal, 300 query rows (off the 128-row grid): within 2e-2 of the
+    plain version, as the serving shapes are held in chip_smoke.py V1.
+    With a softcap, q is scaled so the scores s = scale q.k have a
+    standard deviation of 30 (|s| past the cap of 50; at unit inputs the
+    softcap moves s by < 0.01 and a kernel without it would pass), and the
+    softcap must move the plain output by 10x the tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(bg, r, 300, 300, d, torch.bfloat16, 46)
+    tol = 2e-2
+    if softcap is not None:
+        q = (q.float() * (30.0 / (scale * d ** 0.5))).to(q.dtype)
+        capped = FA.flash_attention_plain(q, k, v, scale=scale,
+                                          softcap=softcap).float()
+        free = FA.flash_attention_plain(q, k, v, scale=scale).float()
+        moved = ((free - capped).abs() / (tol + tol * capped.abs())).max()
+        assert float(moved) >= 10.0
+    assert FA.route(q.dtype, d) == "wgmma"
+    before = FA.LAUNCHES_BY_ROUTE["wgmma"]
+    out = FA.flash_attention(q, k, v, scale=scale, softcap=softcap)
+    want = FA.flash_attention_plain(q, k, v, scale=scale, softcap=softcap)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES_BY_ROUTE["wgmma"] == before + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def _flash_layers(cfg, prompt: int) -> int:
+    """How many of a prefill's layers take the flash kernel's route."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    return sum(L.flash_route(cfg, causal=True, q_offset=0, seq=prompt,
+                             layer_is_local=M._layer_is_local_static(cfg, i))
+               for i in range(cfg.n_layers))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", VARIANTS)
+def test_dense_variant_smoke_card_equals_cpu(arch):
+    """V2 for one config: SMOKE in float32 (float32 KV cache) with the
+    kernel on, prefill and 8 teacher-forced decode steps at 24- and
+    40-token prompts, the card against the CPU: logits and caches within
+    1e-4; the kernel launched once a layer whose window is not narrower
+    than the prompt."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                         compute_dtype="float32",
+                                         use_flash_kernel=True)
+    toks = torch.randint(0, cfg.vocab, (2, 48),
+                         generator=torch.Generator().manual_seed(9))
+    models = {dev: init_params(0, cfg, device=dev) for dev in ("cuda", "cpu")}
+    for n in (24, 40):
+        before = FA.LAUNCHES
+        out = {}
+        with torch.inference_mode():
+            for dev, m in models.items():
+                t = toks.to(dev)
+                logits, cache = prefill(m, t[:, :n], cfg, n + 8,
+                                        cache_dtype=torch.float32)
+                seq = [logits]
+                for i in range(8):
+                    logits, cache = decode_step(m, cache, t[:, n + i:][:, :1],
+                                                cfg)
+                    seq.append(logits)
+                out[dev] = (seq, cache)
+        assert FA.LAUNCHES - before == _flash_layers(cfg, n)
+        for a, b in zip(*(out[dev][0] for dev in ("cuda", "cpu"))):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+        for k in ("k", "v"):
+            torch.testing.assert_close(out["cuda"][1]["kv"][k].cpu(),
+                                       out["cpu"][1]["kv"][k], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_int8_cache_card_equals_cpu():
+    """The int8 KV cache: quantize_kv gives the CPU's codes and scales bit
+    for bit on the same K/V; gemma2 SMOKE (float32) decodes over the CPU's
+    own prefill cache to the CPU's logits within 1e-4; the card's own
+    prefill writes the CPU's codes within one step (a value on a rounding
+    boundary may move across it with the last bits of the products)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.layers import quantize_kv
+
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(2, 2, 40, 16, generator=g) * 3
+    x[0, 0, 3] = 0.0                      # an all-zero row: scale 1
+    (qc, sc), (qg, sg) = quantize_kv(x), quantize_kv(x.cuda())
+    assert torch.equal(qc, qg.cpu()) and torch.equal(sc, sg.cpu())
+    cfg = get_smoke_config("gemma2-27b").replace(
+        param_dtype="float32", compute_dtype="float32", kv_cache_quant=True,
+        use_flash_kernel=True)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g)
+    cpu, card = init_params(0, cfg, device="cpu"), init_params(0, cfg,
+                                                               device="cuda")
+    with torch.inference_mode():
+        _, cc = prefill(cpu, toks[:, :-1], cfg, 32)
+        _, gc = prefill(card, toks[:, :-1].cuda(), cfg, 32)
+        for k in ("k", "v"):
+            d = (gc["kv"][k].cpu().int() - cc["kv"][k].int()).abs()
+            assert int(d.max()) <= 1 and float(d.float().mean()) <= 1e-3
+        moved = {"kv": {k: v.cuda() for k, v in cc["kv"].items()},
+                 "index": cc["index"]}
+        lc, _ = decode_step(cpu, cc, toks[:, -1:], cfg)
+        lg, _ = decode_step(card, moved, toks[:, -1:].cuda(), cfg)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_card_generator_draws_on_its_device():
+    """A CUDA torch.Generator draws the weights on the card: the same
+    truncated normal (within [-2, 2] x scale, its standard deviation
+    0.8796 x scale), and the model's parameters on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import truncated_normal_init
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = truncated_normal_init(gen, (1000, 1000), 0.02, torch.float32)
+    assert x.device.type == "cuda"
+    assert float(x.abs().max()) <= 0.04
+    assert abs(float(x.std()) / 0.02 - 0.8796) < 0.01
+    assert abs(float(x.mean())) < 1e-4
+    model = init_params(torch.Generator(device="cuda").manual_seed(0),
+                        get_smoke_config("gemma2-27b"), device="cuda")
+    assert all(p.device.type == "cuda" for p in model.parameters())

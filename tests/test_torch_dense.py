@@ -378,22 +378,13 @@ def test_embedding_scaling_follows_the_norm():
                1e-6)
 
 
+# The families not ported yet; the layer options these cases once listed
+# beside them are ported and held to the JAX package in
+# tests/test_torch_variants.py.  The ids stay those the cases had.
 @pytest.mark.parametrize("change", [
-    dict(kv_cache_quant=True),
-    dict(attention=T_cfg.AttentionConfig(
-        n_heads=4, n_kv_heads=4, head_dim=16,
-        rope=T_cfg.RopeConfig(partial_pct=0.25))),
-    dict(attention=T_cfg.AttentionConfig(
-        n_heads=4, n_kv_heads=4, head_dim=16,
-        rope=T_cfg.RopeConfig(mrope_sections=(2, 3, 3)))),
-    dict(norm="layernorm"),
-    dict(norm="rmsnorm_one"),
-    dict(tie_embeddings=False),
-    dict(logit_softcap=30.0),
-    dict(frontend="patches"),
-    dict(family="moe"),
-    dict(family="hybrid"),
-    dict(family="encdec"),
+    pytest.param(dict(family="moe"), id="change8"),
+    pytest.param(dict(family="hybrid"), id="change9"),
+    pytest.param(dict(family="encdec"), id="change10"),
 ])
 def test_unported_options_raise(change):
     cfg = T_cfg.get_smoke_config(ARCH).replace(**change)
@@ -401,14 +392,6 @@ def test_unported_options_raise(change):
         T_models.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         T_models.init_cache(cfg, 1, 8, device="cpu")
-
-
-def test_rope_variants_raise_in_the_layer():
-    x = torch.zeros(1, 1, 4, 16)
-    pos = torch.arange(4)[None]
-    for kw in (dict(partial_pct=0.25), dict(mrope_sections=(2, 3, 3))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            T_layers.apply_rope(x, pos, 10000.0, **kw)
 
 
 def test_training_refuses_the_dense_family():

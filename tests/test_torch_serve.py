@@ -117,10 +117,12 @@ def test_prefill_of_prompt_off_the_chunk_grid_pads_for_the_kernel():
     _close(lt, lr, 1e-4)
 
 
-@pytest.mark.parametrize("change", [dict(norm="layernorm"),
-                                    dict(norm="rmsnorm_one"),
-                                    dict(tie_embeddings=False),
-                                    dict(logit_softcap=30.0),
+# What the port still lacks (the norms, an untied head and the logit
+# softcap, which stood here once, are ported: tests/test_torch_variants.py).
+@pytest.mark.parametrize("change", [dict(compute_dtype="float16"),
+                                    dict(frontend="audio_frames"),
+                                    dict(family="moe"),
+                                    dict(family="encdec"),
                                     dict(param_dtype="float16")])
 def test_unported_layer_options_raise(change):
     cfg = T_cfg.get_smoke_config(ARCH).replace(**change)
@@ -204,9 +206,9 @@ def test_configs_match_reference_but_for_the_kernel_knob():
         assert r == t
         assert (kr, kt) == ((False, True) if get == "get_config"
                             else (False, False))
-    assert T_cfg.ARCH_IDS == (ARCH, "olmo-1b")
-    with pytest.raises(KeyError, match="ROADMAP Queue 1"):
-        T_cfg.get_config("gemma2-27b")
+    assert T_cfg.ARCH_IDS == R_cfg.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        T_cfg.get_config("mamba3-130m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T_models.init_params(0, T_cfg.get_smoke_config(ARCH).replace(
             family="moe"), device="cpu")
