@@ -174,6 +174,37 @@ T4. training numbers: warm step seconds and tokens/s, peak memory, V
    profiler pass over one train step (device time by kernel, idle share);
    each quant kernel by CUDA events at the embedding leaf beside its plain
    version, its bytes bound and, for dequantize, torch.dequantize;
+D1. across devices, dense training: the five dense SMOKE configs
+   (olmo-1b, gemma2-27b, stablelm-1.6b, starcoder2-3b, qwen2-vl-7b) in
+   float32 at 64 tokens (wider than the SMOKE window of 32), one train
+   step from the same seeded weights on the card and the CPU, held as T2
+   holds mamba2's; then remat 'none', 'full' and 'dots' on the card
+   (olmo, gemma2): bitwise the same gradients, 'none' twice the control;
+D2. main path: ``repro_torch.launch.train --arch olmo-1b``'s code path at
+   full width and depth (16 layers, d_model 2048, 1.18 B parameters drawn
+   on the card, bf16, remat 'full', attention through
+   ``_attention_core``), SyntheticLM batch 8 x 1024 in 2 microbatches, 7
+   steps at AdamW rate 1e-4, the adaptive policy with fixed virtual
+   overheads (V 20 s, T_d 30 s), no replica, the newest image kept (16.5 GB images in
+   ``.smoke_ckpt/``, removed afterwards; the disk and the host memory are
+   checked against the image first); injector seed 11: >= 2 commits and a
+   failure rolled back to a committed image, finite falling losses, no
+   launch but ckpt_quant's; compress_grads three times on the trained
+   model's gradients (113 quantize + 226 dequantize launches a call,
+   |err| within EF_SLACK); both quant kernels bitwise their plain versions
+   on every olmo-1b leaf;
+D3. dense training numbers: warm step seconds, tokens/s and 6 N tokens/s
+   against the bf16 tensor-core peak, peak memory, image, V, write, T_d
+   (the in-run restore), the controller's interval; torch.profiler over
+   one warm step (device time by kernel, idle share, ``_attention_core``'s
+   share by its operators' shapes); ``_attention_core`` and
+   ``scaled_dot_product_attention`` forward + backward timed at the step's
+   attention shape (a yardstick for a flash backward, never on the path);
+   both quant kernels at olmo-1b's embedding leaf (103,022,592 float32)
+   beside their plain versions, bound and torch.dequantize;
+D4. ``python -m repro_torch.launch.fault_tolerant_training --preset ci
+   --device cuda --steps 20`` as a subprocess: exit 0, every policy line,
+   ``MATCH``;
 A1. both flash_attention kernels against their plain torch version on
    the card: the kernel each case's route names (bf16 at head_dim 64 and
    128: the tensor-core kernel; float32 and head_dim 16/32: the SIMT
@@ -2860,44 +2891,29 @@ def _train_smoke_cfg():
                                           compute_dtype="float32")
 
 
-def phase_train_card_vs_cpu() -> dict:
-    """T2: compress_grads on the same SMOKE gradients (the CPU's, carried to
-    the card), card kernels against the CPU's plain versions for three
-    error-feedback steps: bitwise.  Then one SMOKE float32 train step from
-    the same seeded weights on each device, checked part by part: the loss
-    within STEP_TOL relative; each leaf's gradient within 1e-4 max|g| +
-    1e-6 (the CPU tests' bound); the AdamW update of the same gradients on
-    each device, master within STEP_TOL relative + 1e-6; and the whole
-    step's master within STEP_TOL relative + 1e-6, except the elements of
-    a tiny gradient (ADAM_TINY_GRAD, under 1% of them), held to
-    ADAM_TINY_STEP lr."""
+def step_card_vs_cpu(cfg, batch) -> tuple:
+    """One float32 train step of ``cfg`` from the same seeded weights on
+    the card and on the CPU, checked part by part: the loss within
+    STEP_TOL relative; each leaf's gradient within 1e-4 max|g| + 1e-6
+    (the CPU tests' bound); the AdamW update of the same gradients on each
+    device, master within STEP_TOL relative + 1e-6; and the whole step's
+    master within STEP_TOL relative + 1e-6, except the elements of a tiny
+    gradient (ADAM_TINY_GRAD, under 1% of them), held to ADAM_TINY_STEP
+    lr.  Returns (the numbers with ``ok``, the CPU gradients)."""
     import torch
 
-    from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.train.compress import compress_grads, init_error_feedback
     from repro_torch.train.optimizer import AdamWConfig, adamw_update
     from repro_torch.train.schedule import constant
     from repro_torch.train.step import (compute_grads, init_train_state,
                                         make_train_step)
 
-    cfg = _train_smoke_cfg()
     states = {dev: init_train_state(0, cfg, dev) for dev in ("cuda", "cpu")}
     states["cuda"].load_tree(states["cpu"].tree())     # the same weights
-    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
-                                   global_batch=4, seed=2)).batch_at(0)
     tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
     g_cpu, _ = compute_grads(states["cpu"].params, tb, cfg)
     g_own, _ = compute_grads(states["cuda"].params,
                              {k: v.cuda() for k, v in tb.items()}, cfg)
     g_gpu = {k: v.cuda() for k, v in g_cpu.items()}
-    e_cpu, e_gpu = init_error_feedback(g_cpu), init_error_feedback(g_gpu)
-    comp_mism = 0
-    for _ in range(3):
-        o_cpu, e_cpu = compress_grads(g_cpu, e_cpu)
-        o_gpu, e_gpu = compress_grads(g_gpu, e_gpu)
-        comp_mism += sum(int((o_gpu[k].cpu() != o_cpu[k]).sum())
-                         + int((e_gpu[k].cpu() != e_cpu[k]).sum())
-                         for k in g_cpu)
     grad_ratio = max(float(((g_own[k].cpu() - g).abs()
                             / (1e-4 * g.abs().max() + 1e-6)).max())
                      for k, g in g_cpu.items())
@@ -2924,26 +2940,61 @@ def phase_train_card_vs_cpu() -> dict:
                    float(g_own[k].reshape(-1)[i].cpu()))
                   for i in bad.reshape(-1).nonzero()[:4, 0].tolist()]
     n_params = sum(t.numel() for t in g_cpu.values())
-    res = dict(compress_mismatches=comp_mism, loss_cuda=loss["cuda"],
-               loss_cpu=loss["cpu"], loss_rel_err=loss_rel,
-               grad_max_ratio=grad_ratio, adamw_max_ratio=opt_ratio,
-               step_master_beyond_tol=beyond, step_master_tiny=n_tiny,
-               step_master_tiny_max_abs=tiny_max,
+    res = dict(loss_cuda=loss["cuda"], loss_cpu=loss["cpu"],
+               loss_rel_err=loss_rel, grad_max_ratio=grad_ratio,
+               adamw_max_ratio=opt_ratio, step_master_beyond_tol=beyond,
+               step_master_tiny=n_tiny, step_master_tiny_max_abs=tiny_max,
                step_master_worst=sorted(worst, reverse=True)[:8],
-               n_params=n_params)
+               n_params=n_params, lr=opt.lr)
+    res["ok"] = not (loss_rel > STEP_TOL or grad_ratio > 1.0
+                     or opt_ratio > 1.0 or beyond
+                     or n_tiny >= 1e-2 * n_params
+                     or tiny_max > ADAM_TINY_STEP * opt.lr)
+    return res, g_cpu
+
+
+def _step_line(res: dict) -> str:
+    return (f"loss {res['loss_cuda']:.7f} vs {res['loss_cpu']:.7f} (rel "
+            f"{res['loss_rel_err']:.3g}, tol {STEP_TOL}), gradients "
+            f"{res['grad_max_ratio']:.3f} x (1e-4 max|g| + 1e-6), AdamW on "
+            f"the same gradients {res['adamw_max_ratio']:.3f} x ({STEP_TOL}"
+            f"|b| + 1e-6); whole step's master: "
+            f"{res['step_master_beyond_tol']} of {res['n_params']:,} elements "
+            f"beyond {STEP_TOL}|b| + 1e-6, {res['step_master_tiny']} of a "
+            f"gradient below {ADAM_TINY_GRAD} within "
+            f"{res['step_master_tiny_max_abs']:.3g} (limit "
+            f"{ADAM_TINY_STEP * res['lr']:.3g})")
+
+
+def phase_train_card_vs_cpu() -> dict:
+    """T2: compress_grads on the same SMOKE gradients (the CPU's, carried to
+    the card), card kernels against the CPU's plain versions for three
+    error-feedback steps: bitwise.  Then one SMOKE float32 train step on
+    each device, held by :func:`step_card_vs_cpu`."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train.compress import compress_grads, init_error_feedback
+
+    cfg = _train_smoke_cfg()
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=4, seed=2)).batch_at(0)
+    res, g_cpu = step_card_vs_cpu(cfg, batch)
+    g_gpu = {k: v.cuda() for k, v in g_cpu.items()}
+    e_cpu, e_gpu = init_error_feedback(g_cpu), init_error_feedback(g_gpu)
+    comp_mism = 0
+    for _ in range(3):
+        o_cpu, e_cpu = compress_grads(g_cpu, e_cpu)
+        o_gpu, e_gpu = compress_grads(g_gpu, e_gpu)
+        comp_mism += sum(int((o_gpu[k].cpu() != o_cpu[k]).sum())
+                         + int((e_gpu[k].cpu() != e_cpu[k]).sum())
+                         for k in g_cpu)
+    res["compress_mismatches"] = comp_mism
     REPORT["train_card_vs_cpu"] = res
     print(f"[T2] mamba2 SMOKE float32, card vs CPU: compress_grads x3 on the "
           f"same gradients {comp_mism} mismatching elements; one train step: "
-          f"loss {loss['cuda']:.7f} vs {loss['cpu']:.7f} (rel "
-          f"{loss_rel:.3g}, tol {STEP_TOL}), gradients {grad_ratio:.3f} x "
-          f"(1e-4 max|g| + 1e-6), AdamW on the same gradients {opt_ratio:.3f}"
-          f" x ({STEP_TOL}|b| + 1e-6); whole step's master: {beyond} of "
-          f"{n_params:,} elements beyond {STEP_TOL}|b| + 1e-6, {n_tiny} of "
-          f"a gradient below {ADAM_TINY_GRAD} within {tiny_max:.3g} (limit "
-          f"{ADAM_TINY_STEP * opt.lr:.3g})", flush=True)
-    if (comp_mism or loss_rel > STEP_TOL or grad_ratio > 1.0
-            or opt_ratio > 1.0 or beyond or n_tiny >= 1e-2 * n_params
-            or tiny_max > ADAM_TINY_STEP * opt.lr):
+          f"{_step_line(res)}", flush=True)
+    if comp_mism or not res["ok"]:
         fail(f"mamba2 SMOKE training: card and CPU disagree (worst master "
              f"elements: |d|, leaf, CPU and card gradient: "
              f"{res['step_master_worst']})")
@@ -2970,83 +3021,28 @@ def phase_train(ckpt_dir: str) -> dict:
     carrying the error state."""
     import math
 
-    import torch
-
-    from repro_torch.kernels import ckpt_quant as Q
-    from repro_torch.launch import train as launch
-    from repro_torch.train.compress import compress_grads, init_error_feedback
-    from repro_torch.train.step import _to_device, compute_grads
-
-    args = launch.parser().parse_args(train_argv(ckpt_dir))
-    trainer, ckpt = launch.build(args)
-    cfg = trainer.cfg
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    try:
-        report = trainer.run(n_steps=args.steps)
-    finally:
-        ckpt.close()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    mem = torch.cuda.max_memory_allocated()
-    print(f"[T3] {launch.summary(report)}", flush=True)
-    losses = report.losses
-    restored = trainer.restored_steps
-    print(f"[T3] in-run restores returned the images of steps {restored}; "
-          f"{report.wasted_steps} steps wasted", flush=True)
-    if not (report.steps_completed == TRAIN_STEPS and report.n_checkpoints >= 1
-            and report.n_restarts >= 1 and report.wasted_steps >= 1
+    out = train_with_compress("T3", train_argv(ckpt_dir), TRAIN_STEPS)
+    del out["last_grads"], out["last_err"]
+    report, restored = out["report"], out["restored_steps"]
+    losses = report["losses"]
+    if not (report["steps_completed"] == TRAIN_STEPS
+            and report["n_checkpoints"] >= 1 and report["n_restarts"] >= 1
+            and report["wasted_steps"] >= 1
             and any(s is not None and s >= 1 for s in restored)):
         fail(f"training main path: no rollback to a committed image: "
              f"{report}, restores {restored}")
     if not (all(math.isfinite(v) for v in losses)
             and sum(losses[-3:]) / 3 < losses[0]):
         fail(f"training main path: losses {losses}")
-    # compress_grads on the trained model's gradients, error state carried
-    state = trainer.state
-    err = init_error_feedback(dict(state.params.named_parameters()))
-    per_call, secs, ef_ratio = [], [], 0.0
-    for i in range(3):
-        batch = _to_device(trainer.data.batch_at(TRAIN_STEPS + i),
-                           state.opt.step.device)
-        grads, _ = compute_grads(state.params, batch, cfg)
-        before = dict(Q.LAUNCHES)
-        torch.cuda.synchronize()
-        t1 = time.monotonic()
-        _, new_err = compress_grads(grads, err, block=QBLOCK)
-        torch.cuda.synchronize()
-        secs.append(time.monotonic() - t1)
-        per_call.append({k: Q.LAUNCHES[k] - before[k] for k in before})
-        # error feedback: |g + err - deq| <= scale / 2 in every block
-        for k, g in grads.items():
-            flat = (g.float() + err[k]).reshape(-1)
-            pad = -flat.numel() % QBLOCK
-            amax = torch.nn.functional.pad(flat, (0, pad)).reshape(
-                -1, QBLOCK).abs().amax(1)
-            scale = torch.where(amax > 0, amax * Q._inv127(amax),
-                                torch.ones_like(amax))
-            e = torch.nn.functional.pad(new_err[k].reshape(-1), (0, pad))
-            ratio = (e.reshape(-1, QBLOCK).abs().amax(1) / (scale / 2)).max()
-            ef_ratio = max(ef_ratio, float(ratio))
-        err = new_err
-        del grads
-    n_leaves = len(err)
-    out = dict(report=report.__dict__, restored_steps=restored, wall_s=wall,
-               peak_bytes=mem, timings=trainer.timings, compress_seconds=secs,
-               compress_launches=per_call, n_leaves=n_leaves,
-               error_feedback_max_ratio=ef_ratio, trainer=trainer)
-    print(f"[T3] training main path: {report.steps_completed} steps, "
-          f"{report.n_failures} failures, {report.n_checkpoints} checkpoints, "
-          f"{report.n_restarts} restarts in {wall:.1f} s; losses "
-          f"{[round(v, 4) for v in losses]}; compress_grads x3 over "
-          f"{n_leaves} leaves: launches per call {per_call}, error feedback "
-          f"max |err| / (scale/2) {ef_ratio:.7f} (limit {EF_SLACK})",
-          flush=True)
-    want = {"quantize_blocks": n_leaves, "dequantize_blocks": 2 * n_leaves}
-    if any(c != want for c in per_call):
-        fail(f"compress_grads launched {per_call} per call, expected {want}")
-    if ef_ratio > EF_SLACK:
-        fail(f"error feedback invariant broken: {ef_ratio}")
+    print(f"[T3] training main path: {report['steps_completed']} steps, "
+          f"{report['n_failures']} failures, {report['n_checkpoints']} "
+          f"checkpoints, {report['n_restarts']} restarts in "
+          f"{out['wall_s']:.1f} s; losses {[round(v, 4) for v in losses]}; "
+          f"compress_grads x3 over {out['n_leaves']} leaves: launches per "
+          f"call {out['compress_launches']}, error feedback max |err| / "
+          f"(scale/2) {out['error_feedback_max_ratio']:.7f} (limit "
+          f"{EF_SLACK})", flush=True)
+    _check_compress("T3", out)
     return out
 
 
@@ -3130,25 +3126,27 @@ def quant_work(n: int, block: int, in_bytes: int, out_bytes: int) -> int:
     return n * in_bytes + n * out_bytes + 4 * (n // block)
 
 
-def phase_quant_measure() -> dict:
-    """T4: the quant kernels timed by CUDA events at the embedding leaf
-    (float32 in and out), beside their plain versions, their bytes bounds
-    and, for dequantize, torch.dequantize of a per-channel qint8 tensor
-    (the one PyTorch call computing the same function; quantize has none:
-    torch.quantize_per_channel needs the scales given)."""
+def phase_quant_measure(n: int = EMBED_LEAF, tag: str = "T4",
+                        leaf: str = "mamba2-130m's embedding leaf") -> dict:
+    """T4 (D3 at olmo-1b's leaf): the quant kernels timed by CUDA events at
+    an embedding leaf of ``n`` float32 (in and out), beside their plain
+    versions, their bytes bounds and, for dequantize, torch.dequantize of a
+    per-channel qint8 tensor (the one PyTorch call computing the same
+    function; quantize has none: torch.quantize_per_channel needs the
+    scales given)."""
     import torch
 
     from repro_torch.kernels import ckpt_quant as Q
 
     g = torch.Generator(device="cuda").manual_seed(301)
-    x = torch.randn(EMBED_LEAF, generator=g, device="cuda") * 0.01
+    x = torch.randn(n, generator=g, device="cuda") * 0.01
     q, s = Q.quantize_blocks(x, QBLOCK)
     ms_q = cuda_ms(lambda: Q.quantize_blocks(x, QBLOCK), reps=20)
     ms_d = cuda_ms(lambda: Q.dequantize_blocks(q, s, QBLOCK), reps=20)
     plain_q = cuda_ms(lambda: Q.quantize_blocks_plain(x, QBLOCK), reps=5)
     plain_d = cuda_ms(lambda: Q.dequantize_blocks_plain(q, s, QBLOCK), reps=5)
-    b_q = quant_work(EMBED_LEAF, QBLOCK, 4, 1)
-    b_d = quant_work(EMBED_LEAF, QBLOCK, 1, 4)
+    b_q = quant_work(n, QBLOCK, 4, 1)
+    b_d = quant_work(n, QBLOCK, 1, 4)
     lib_d, lib_note, lib_equal = None, None, None
     try:
         qt = torch._make_per_channel_quantized_tensor(
@@ -3159,7 +3157,7 @@ def phase_quant_measure() -> dict:
         lib_d = cuda_ms(lambda: torch.dequantize(qt), reps=20)
     except Exception as e:          # noqa: BLE001 - recorded, not hidden
         lib_note = f"{type(e).__name__}: {e}"[:300]
-    out = dict(n=EMBED_LEAF, blocks=EMBED_LEAF // QBLOCK,
+    out = dict(n=n, blocks=n // QBLOCK,
                quantize=dict(ms=ms_q, plain_ms=plain_q, bytes=b_q,
                              bound_ms=b_q / HBM_BYTES_PER_S * 1e3,
                              library_ms=None,
@@ -3169,17 +3167,483 @@ def phase_quant_measure() -> dict:
                                bound_ms=b_d / HBM_BYTES_PER_S * 1e3,
                                library_ms=lib_d, library_note=lib_note,
                                library_equals_kernel=lib_equal))
-    REPORT["quant_measure"] = out
+    REPORT[f"quant_measure_{tag}"] = out
     for name in ("quantize", "dequantize"):
         r = out[name]
-        print(f"[T4] {name}_blocks at the embedding leaf ({EMBED_LEAF:,} "
-              f"float32, {EMBED_LEAF // QBLOCK:,} blocks): kernel "
+        print(f"[{tag}] {name}_blocks at {leaf} ({n:,} float32, "
+              f"{n // QBLOCK:,} blocks): kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bytes']:,} B at 3.35 TB/s); "
               f"library {r['library_ms'] if r['library_ms'] is not None else 'none'}"
               f"{'' if r.get('library_note') is None else ' (' + r['library_note'] + ')'}"
               f"{'' if r.get('library_equals_kernel') is None else ', equals the kernel: ' + str(r['library_equals_kernel'])}",
               flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Dense training: the five dense configs, olmo-1b trained at full width
+# --------------------------------------------------------------------------- #
+
+DENSE_ARCHS = (OLMO,) + VARIANTS
+DENSE_SEQ = 64          # D1: wider than the SMOKE window of 32, so it masks
+DENSE_TRAIN_STEPS = 7
+# D2's injector, picked on the CPU (the trainer's decisions hang on the
+# virtual clock, the injector's numpy streams and the fixed virtual
+# overheads alone, so the olmo SMOKE config makes the same ones): 64 nodes
+# of MTBF 128,000 s at 60 virtual seconds a step, V 20 s and T_d 30 s (a
+# 16.5 GB image costs more than mamba2's 1.8 GB).  With seed 11 the
+# adaptive policy commits 2 images and the one failure comes 2 steps past
+# the second, so the run rolls back to it (restored in the loop, 2 wasted
+# steps) and restarts.
+DENSE_NODES, DENSE_MTBF, DENSE_STEP_S, DENSE_INJECTOR_SEED = (
+    64, 128000.0, 60.0, 11)
+DENSE_V, DENSE_TD = 20.0, 30.0
+# AdamW's rate on the full model: at the trainer's 1e-3, with no warmup,
+# olmo-1b's losses ran 11.06, 8.04, 17.96, 12.65, ... (my first chip run)
+DENSE_LR = 1e-4
+OLMO_EMBED_LEAF = 50_304 * 2048   # 103,022,592 elements: 201,216 blocks
+# D4's steps: the preset's 40 took 60.9 s on the card (my second chip run);
+# 20 keep the script near 900 s
+FT_STEPS = 20
+
+
+def _dense_smoke_cfg(arch: str):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(arch).replace(param_dtype="float32",
+                                          compute_dtype="float32",
+                                          use_flash_kernel=False)
+
+
+def phase_dense_train_card_vs_cpu() -> dict:
+    """D1: one float32 SMOKE train step of each dense config on the card
+    against the CPU at DENSE_SEQ tokens (:func:`step_card_vs_cpu`, T2's
+    rule); then ``remat`` none, full and dots on the card, olmo and gemma2:
+    bitwise the same gradients (and none twice, the control)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    steps = {}
+    for arch in DENSE_ARCHS:
+        cfg = _dense_smoke_cfg(arch)
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=DENSE_SEQ,
+                                       global_batch=4, seed=2)).batch_at(0)
+        steps[arch], _ = step_card_vs_cpu(cfg, batch)
+        print(f"[D1] {arch} SMOKE float32 at {DENSE_SEQ} tokens, card vs CPU, "
+              f"one train step: {_step_line(steps[arch])}", flush=True)
+    remat = {}
+    for arch in (OLMO, GEMMA):
+        cfg = _dense_smoke_cfg(arch)
+        state = init_train_state(0, cfg, "cuda")
+        batch = _to_device(SyntheticLM(DataConfig(
+            vocab=cfg.vocab, seq_len=DENSE_SEQ, global_batch=4,
+            seed=2)).batch_at(1), "cuda")
+        grads = {r: compute_grads(state.params, batch,
+                                  cfg.replace(remat=r.split()[0]))[0]
+                 for r in ("none", "full", "dots", "none again")}
+        remat[arch] = {r: sum(int((grads[r][k] != g).sum())
+                              for k, g in grads["none"].items())
+                       for r in ("full", "dots", "none again")}
+        print(f"[D1] {arch} SMOKE float32 on the card: gradients differing "
+              f"from remat 'none' (of {sum(g.numel() for g in grads['none'].values()):,}): "
+              f"{remat[arch]}", flush=True)
+    out = dict(steps=steps, remat_mismatches=remat)
+    REPORT["dense_train_card_vs_cpu"] = out
+    bad = [a for a, r in steps.items() if not r["ok"]]
+    if bad:
+        fail(f"D1: dense SMOKE training, card and CPU disagree: {bad} "
+             f"({ {a: steps[a]['step_master_worst'] for a in bad} })")
+    if any(n for m in remat.values() for n in m.values()):
+        fail(f"D1: remat changes the gradients on the card: {remat}")
+    return out
+
+
+def dense_train_argv(ckpt_dir: str) -> list:
+    """The command line of the dense training main path."""
+    return ["--arch", OLMO, "--steps", str(DENSE_TRAIN_STEPS), "--ckpt-dir",
+            ckpt_dir, "--replicas", "0", "--keep", "1", "--policy",
+            "adaptive", "--mtbf", str(DENSE_MTBF), "--nodes",
+            str(DENSE_NODES), "--step-seconds", str(DENSE_STEP_S), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+            str(TRAIN_MICRO), "--lr", str(DENSE_LR), "--injector-seed",
+            str(DENSE_INJECTOR_SEED), "--virtual-ckpt-overhead", str(DENSE_V),
+            "--virtual-restore-time", str(DENSE_TD)]
+
+
+def image_size(cfg) -> tuple:
+    """(parameters, bytes of a checkpoint image): the parameters in their
+    dtype, the float32 master, m and v, the int32 step."""
+    from repro_torch.models import model as M
+
+    params = list(M.model_class(cfg)(cfg).parameters())      # meta device
+    n = sum(p.numel() for p in params)
+    return n, sum(p.numel() * p.element_size() for p in params) + 12 * n + 4
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def train_with_compress(tag: str, argv: list, n_steps: int) -> dict:
+    """A training main path through ``repro_torch.launch.train``'s code
+    (parser, build, the trainer's run), then compress_grads three times on
+    the trained model's gradients, the error state carried: the launches
+    of each call and the error-feedback ratio.  Keeps the last call's
+    gradients and input error state (``last_grads``, ``last_err``)."""
+    import torch
+
+    from repro_torch.kernels import ckpt_quant as Q
+    from repro_torch.launch import train as launch
+    from repro_torch.train.compress import compress_grads, init_error_feedback
+    from repro_torch.train.step import _to_device, compute_grads
+
+    args = launch.parser().parse_args(argv)
+    trainer, ckpt = launch.build(args)
+    cfg = trainer.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        report = trainer.run(n_steps=args.steps)
+    finally:
+        ckpt.close()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    mem = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {launch.summary(report)}", flush=True)
+    print(f"[{tag}] in-run restores returned the images of steps "
+          f"{trainer.restored_steps}; {report.wasted_steps} steps wasted",
+          flush=True)
+    state = trainer.state
+    err = init_error_feedback(dict(state.params.named_parameters()))
+    per_call, secs, ef_ratio = [], [], 0.0
+    for i in range(3):
+        batch = _to_device(trainer.data.batch_at(n_steps + i),
+                           state.opt.step.device)
+        grads, _ = compute_grads(state.params, batch, cfg)
+        before = dict(Q.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        _, new_err = compress_grads(grads, err, block=QBLOCK)
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t1)
+        per_call.append({k: Q.LAUNCHES[k] - before[k] for k in before})
+        # error feedback: |g + err - deq| <= scale / 2 in every block
+        for k, g in grads.items():
+            flat = (g.float() + err[k]).reshape(-1)
+            pad = -flat.numel() % QBLOCK
+            amax = torch.nn.functional.pad(flat, (0, pad)).reshape(
+                -1, QBLOCK).abs().amax(1)
+            scale = torch.where(amax > 0, amax * Q._inv127(amax),
+                                torch.ones_like(amax))
+            e = torch.nn.functional.pad(new_err[k].reshape(-1), (0, pad))
+            ratio = (e.reshape(-1, QBLOCK).abs().amax(1) / (scale / 2)).max()
+            ef_ratio = max(ef_ratio, float(ratio))
+        if i < 2:
+            err = new_err
+            del grads
+    n_leaves = len(err)
+    return dict(report=report.__dict__, restored_steps=trainer.restored_steps,
+                wall_s=wall, peak_bytes=mem, timings=trainer.timings,
+                compress_seconds=secs, compress_launches=per_call,
+                n_leaves=n_leaves, error_feedback_max_ratio=ef_ratio,
+                trainer=trainer, last_grads=grads, last_err=err)
+
+
+def _check_compress(tag: str, out: dict) -> None:
+    want = {"quantize_blocks": out["n_leaves"],
+            "dequantize_blocks": 2 * out["n_leaves"]}
+    if any(c != want for c in out["compress_launches"]):
+        fail(f"{tag}: compress_grads launched {out['compress_launches']} per "
+             f"call, expected {want}")
+    if out["error_feedback_max_ratio"] > EF_SLACK:
+        fail(f"{tag}: error feedback invariant broken: "
+             f"{out['error_feedback_max_ratio']}")
+
+
+def phase_dense_train(ckpt_dir: str) -> dict:
+    """D2 (main path): ``repro_torch.launch.train --arch olmo-1b`` at full
+    width and depth (16 layers, d_model 2048, bf16, remat 'full',
+    ``_attention_core``; the weights drawn on the card), the adaptive
+    policy, DENSE_TRAIN_STEPS steps of batch 8 x 1024 in 2 microbatches, no
+    replica, the newest image kept; then compress_grads three times on the
+    trained model's gradients.  Fails first if the disk or the host memory
+    cannot hold the images."""
+    import math
+
+    from repro_torch.configs import get_config
+
+    n_params, image = image_size(get_config(OLMO))
+    root = Path(ckpt_dir).parent
+    root.mkdir(parents=True, exist_ok=True)
+    free, avail = shutil.disk_usage(root).free, _mem_available()
+    print(f"[D2] olmo-1b: {n_params:,} parameters, a checkpoint image of "
+          f"{image / 1e9:.2f} GB; {free / 1e9:.1f} GB free on the disk, "
+          f"{avail / 1e9:.1f} GB of host memory available", flush=True)
+    if free < 2 * image + 2e9 or avail < 1.5 * image:
+        fail(f"D2: the machine cannot hold olmo-1b's images: {free:,} B free "
+             f"on the disk (two images and 2 GB needed: "
+             f"{2 * image + 2e9:,.0f}), {avail:,} B of host memory available "
+             f"(1.5 images needed: {1.5 * image:,.0f})")
+    out = train_with_compress("D2", dense_train_argv(ckpt_dir),
+                              DENSE_TRAIN_STEPS)
+    out.update(n_params=n_params, image_bytes_predicted=image,
+               disk_free=free, mem_available=avail)
+    rep, restored = out["report"], out["restored_steps"]
+    losses = rep["losses"]
+    print(f"[D2] dense training main path: {rep['steps_completed']} steps, "
+          f"{rep['n_failures']} failures, {rep['n_checkpoints']} checkpoints, "
+          f"{rep['n_restarts']} restarts in {out['wall_s']:.1f} s; losses "
+          f"{[round(v, 4) for v in losses]}; compress_grads x3 over "
+          f"{out['n_leaves']} leaves: launches per call "
+          f"{out['compress_launches']}, error feedback max |err| / "
+          f"(scale/2) {out['error_feedback_max_ratio']:.7f} (limit "
+          f"{EF_SLACK})", flush=True)
+    if not (rep["steps_completed"] == DENSE_TRAIN_STEPS
+            and rep["n_checkpoints"] >= 2 and rep["n_restarts"] >= 1
+            and any(s is not None and s >= 1 for s in restored)):
+        fail(f"D2: no rollback to a committed image after 2 commits: "
+             f"{ {k: v for k, v in rep.items() if k != 'losses'} }, "
+             f"restores {restored}")
+    if not (all(math.isfinite(v) for v in losses)
+            and sum(losses[-3:]) / 3 < losses[0]):
+        fail(f"D2: losses {losses}")
+    _check_compress("D2", out)
+    return out
+
+
+def phase_dense_quant_vs_plain(run: dict) -> dict:
+    """D2: both quant kernels against their plain versions on every olmo-1b
+    leaf, on the last compress_grads call's inputs (gradient + error
+    state): codes, scales and float32/bf16 values bitwise."""
+    import torch
+
+    grads, err = run.pop("last_grads"), run.pop("last_err")
+    mism, worst = {}, 0.0
+    for k, g in grads.items():
+        x = (g.float() + err[k]).reshape(-1)
+        x = torch.nn.functional.pad(x, (0, -x.numel() % QBLOCK))
+        m, e = _quant_vs_plain(x, QBLOCK)
+        worst = max(worst, e)
+        if any(m.values()):
+            mism[k] = m
+    out = dict(leaves=len(grads), leaves_with_mismatches=mism,
+               max_abs_err=worst)
+    REPORT["dense_quant_vs_plain"] = out
+    print(f"[D2] ckpt_quant kernels vs plain on all {len(grads)} olmo-1b "
+          f"leaves (the last call's gradient + error state): {len(mism)} "
+          f"leaves with mismatches; max |kernel - plain| {worst}", flush=True)
+    if mism:
+        fail(f"D2: ckpt_quant kernels differ from their plain versions: "
+             f"{mism}")
+    return out
+
+
+def attention_rows(prof, seq: int, q_chunk: int, attr: str) -> tuple:
+    """(microseconds of ``attr`` in the operators of ``_attention_core``,
+    in all operators) of a profile recorded with shapes: an operator is
+    attention's when an input ends in a (queries, keys) score block -- a
+    score, a probability, the mask, their gradients -- or it is a batched
+    product with a batch above 1 (the dense model's weight products are
+    batch-1 ``bmm``s or ``mm``s)."""
+    attn = total = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = float(getattr(e, attr, 0.0) or 0.0)
+        if us <= 0 or not e.key.startswith("aten::"):
+            continue
+        total += us
+        shapes = [s for s in (e.input_shapes or []) if isinstance(s, list)]
+        score = any(len(s) >= 2 and s[-1] == seq and s[-2] in (seq, q_chunk)
+                    for s in shapes)
+        batched = (e.key in ("aten::bmm", "aten::baddbmm") and shapes
+                   and len(shapes[0]) == 3 and shapes[0][0] > 1)
+        if score or batched:
+            attn += us
+    return attn, total
+
+
+def attention_yardsticks(cfg, micro: int) -> dict:
+    """``_attention_core`` forward, and forward + backward, timed by CUDA
+    events at the training step's attention shape (a microbatch of
+    ``micro`` sequences, bf16), and ``scaled_dot_product_attention``
+    forward + backward at the same shape (the yardstick for a later flash
+    backward; never on the path)."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import _attention_core
+
+    a, s = cfg.attention, TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(302)
+
+    def x(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_(True)
+
+    rep = a.n_heads // a.n_kv_heads
+    q = x(micro, a.n_kv_heads, rep, s, a.head_dim)
+    k, v = x(micro, a.n_kv_heads, s, a.head_dim), x(micro, a.n_kv_heads, s,
+                                                    a.head_dim)
+    scale = 1.0 / math.sqrt(a.head_dim)
+    do = torch.randn(q.shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    def core():
+        return _attention_core(q, k, v, scale=scale, softcap=a.softcap,
+                               causal=True, sliding_window=None,
+                               local_flag=False, q_offset=0, kv_valid=None,
+                               q_chunk=512, cdt=torch.bfloat16)
+
+    def core_fb():
+        torch.autograd.grad(core(), (q, k, v), do)
+
+    def sdpa_fb():
+        o = F.scaled_dot_product_attention(
+            q.reshape(micro, a.n_heads, s, a.head_dim), k, v, is_causal=True,
+            scale=scale, enable_gqa=rep > 1)
+        torch.autograd.grad(o, (q, k, v), do.reshape(o.shape))
+
+    with torch.no_grad():
+        fwd = cuda_ms(core, reps=10)
+    return dict(shape=[micro, a.n_kv_heads, rep, s, a.head_dim],
+                core_fwd_ms=fwd, core_fwd_bwd_ms=cuda_ms(core_fb, reps=10),
+                sdpa_fwd_bwd_ms=cuda_ms(sdpa_fb, reps=10))
+
+
+def phase_dense_train_measure(run: dict) -> dict:
+    """D3: the dense training main path's numbers: warm step seconds,
+    tokens/s and 6 N tokens/s against the bf16 tensor-core peak, peak
+    memory, the image, V and write seconds, T_d (the in-run restores of
+    the newest image: a timed restore more would cost ~40 s), the
+    controller's interval; torch.profiler over one warm
+    step (device time by kernel, idle share, the share of
+    ``_attention_core``'s operators); ``_attention_core`` and SDPA timed at
+    the step's attention shape."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = run.pop("trainer")
+    cfg, tm = trainer.cfg, trainer.timings
+    warm = tm["step"][1:] or tm["step"]
+    step_s = statistics.median(warm)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    model_flops = 6 * run["n_params"] * tok_s
+    state = trainer.state
+    image_bytes = sum(t.numel() * t.element_size()
+                      for t in state.tree().values())
+    batch = trainer.data.batch_at(0)
+    trainer.train_step(state, batch)          # warm, outside the profile
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    unprof = time.monotonic() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    total = sum(r[1] for r in rows)
+    attn_us, op_us = attention_rows(prof, TRAIN_SEQ, 512,
+                                    "self_device_time_total")
+    prof_out = dict(device_ms=total / 1e3, kernels=sum(r[2] for r in rows),
+                    top=rows[:12], unprofiled_step_s=unprof,
+                    attention_ms=attn_us / 1e3, operators_ms=op_us / 1e3)
+    if total > 0:
+        prof_out["idle_share"] = 1.0 - total / 1e6 / unprof
+        prof_out["attention_share"] = attn_us / total
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    yard = attention_yardsticks(cfg, micro)
+    # calls a step: each microbatch and layer runs the forward twice (remat
+    # 'full' recomputes it) and the backward once
+    calls = TRAIN_MICRO * cfg.n_layers
+    yard["core_ms_a_step"] = calls * (yard["core_fwd_bwd_ms"]
+                                      + yard["core_fwd_ms"])
+    yard["sdpa_ms_a_step"] = calls * yard["sdpa_fwd_bwd_ms"]
+    out = dict(run, warm_step_s=warm, median_step_s=step_s,
+               tokens_per_s=tok_s, model_flops_per_s=model_flops,
+               model_flops_share=model_flops / BF16_TC_OPS_PER_S,
+               image_bytes=image_bytes,
+               controller_interval=run["report"]["controller_interval"],
+               profile=prof_out, attention=yard)
+    REPORT["dense_train"] = out
+    print(f"[D3] train olmo-1b, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{TRAIN_MICRO} microbatches, bf16, remat {cfg.remat}: warm step "
+          f"{', '.join(f'{t:.4f}' for t in warm)} s (median {step_s:.4f} s = "
+          f"{tok_s:,.0f} tokens/s, 6 N tokens/s {model_flops / 1e12:.1f} "
+          f"TFLOP/s = {model_flops / BF16_TC_OPS_PER_S:.1%} of 989; first "
+          f"{tm['step'][0]:.3f} s), peak {run['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    print(f"[D3] checkpoint image {image_bytes / 1e9:.3f} GB: V (blocking "
+          f"snapshot) {', '.join(f'{t:.3f}' for t in tm['save_blocking'])} s, "
+          f"write {', '.join(f'{t:.3f}' for t in tm['write'])} s, T_d (the "
+          f"in-run restores of the newest image) "
+          f"{', '.join(f'{t:.3f}' for t in tm['restore'])} s; controller "
+          f"interval {out['controller_interval']:.1f} virtual s; "
+          f"compress_grads "
+          f"{', '.join(f'{t:.4f}' for t in run['compress_seconds'])} s",
+          flush=True)
+    if total > 0:
+        print(f"[D3] train step profile: device time {total / 1e3:.2f} ms "
+              f"against {unprof:.4f} s unprofiled, {prof_out['kernels']} "
+              f"kernels, idle share {prof_out['idle_share']:.1%}; "
+              f"_attention_core's operators {attn_us / 1e3:.2f} ms = "
+              f"{prof_out['attention_share']:.1%} of the device time",
+              flush=True)
+        for name, us, n in rows[:12]:
+            print(f"    {us / 1e3:8.3f} ms  {n:5d} x  {name[:70]}", flush=True)
+    else:
+        print("[D3] train step profile: the profiler recorded no device "
+              "time: not measured", flush=True)
+    print(f"[D3] attention at the step's shape {yard['shape']} bf16: "
+          f"_attention_core forward {yard['core_fwd_ms']:.3f} ms, forward + "
+          f"backward {yard['core_fwd_bwd_ms']:.3f} ms ({calls} calls a step "
+          f"with the recompute: {yard['core_ms_a_step']:.1f} ms); "
+          f"scaled_dot_product_attention forward + backward "
+          f"{yard['sdpa_fwd_bwd_ms']:.3f} ms ({yard['sdpa_ms_a_step']:.1f} "
+          f"ms a step without a recompute)", flush=True)
+    return out
+
+
+def phase_ft_example() -> dict:
+    """D4: ``python -m repro_torch.launch.fault_tolerant_training --preset
+    ci --device cuda --steps FT_STEPS`` as a subprocess: exit 0, the
+    adaptive and the three fixed policies' lines, and ``MATCH``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m",
+                        "repro_torch.launch.fault_tolerant_training",
+                        "--preset", "ci", "--device", "cuda", "--steps",
+                        str(FT_STEPS)],
+                       capture_output=True, text=True, env=env,
+                       cwd=str(ROOT), timeout=600)
+    sec = time.monotonic() - t0
+    lines = r.stdout.splitlines()
+    want = ["adaptive :"] + [f"fixed {f:6.0f}s:" for f in (60, 600, 3600)]
+    missing = [w for w in want if not any(ln.startswith(w) for ln in lines)]
+    match = any(ln.endswith("-> MATCH") for ln in lines)
+    out = dict(rc=r.returncode, seconds=sec, stdout=r.stdout[-4000:],
+               stderr=r.stderr[-4000:], missing=missing, match=match)
+    REPORT["ft_example"] = out
+    print(f"[D4] python -m repro_torch.launch.fault_tolerant_training "
+          f"--preset ci --device cuda --steps {FT_STEPS}: exit "
+          f"{r.returncode} in {sec:.1f} s, "
+          f"missing lines {missing}, MATCH {match}:", flush=True)
+    for line in lines:
+        print(f"    {line}", flush=True)
+    if r.returncode != 0 or missing or not match:
+        fail(f"D4: the fault-tolerant-training entry point failed: "
+             f"{r.stderr[-2000:]}")
     return out
 
 
@@ -4050,6 +4514,40 @@ def main() -> int:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     _lap("T3-T4")
     quant = phase_quant_measure()
+    _lap("T4 quant")
+    phase_dense_train_card_vs_cpu()
+    _lap("D1")
+    torch.cuda.empty_cache()
+    # The dense training main path: counts to 0 just before, read just after.
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    for k in ckpt_quant.LAUNCHES:
+        ckpt_quant.LAUNCHES[k] = 0
+    sim_step.LAUNCHES = ssd_scan.LAUNCHES = flash_attention.LAUNCHES = 0
+    try:
+        dense_run = phase_dense_train(str(ckpt_root / "dense"))
+        dense_quant_launches = dict(ckpt_quant.LAUNCHES)
+        other = dict(sim_step=sim_step.LAUNCHES, ssd_scan=ssd_scan.LAUNCHES,
+                     flash_attention=flash_attention.LAUNCHES)
+        REPORT["dense_train_main_path_launches"] = dict(dense_quant_launches,
+                                                        **other)
+        print(f"[D2] dense training main path: launches "
+              f"{dense_quant_launches} (3 compress_grads calls over "
+              f"{dense_run['n_leaves']} leaves), {other} (training runs "
+              f"_attention_core)", flush=True)
+        if min(dense_quant_launches.values()) < 1 or any(other.values()):
+            fail("the dense training main path launched no ckpt_quant "
+                 "kernel, or launched another kernel")
+        dense_quant_worst = phase_dense_quant_vs_plain(dense_run)[
+            "max_abs_err"]
+        phase_dense_train_measure(dense_run)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _lap("D2-D3")
+    dense_quant = phase_quant_measure(OLMO_EMBED_LEAF, "D3",
+                                      "olmo-1b's embedding leaf")
+    phase_ft_example()
+    _lap("D3 quant, D4")
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
     fig4_kernel = {name: {"philox_ms": REPORT[name]["kernel"]["philox_ms"],
                           "pregenerated_ms":
@@ -4157,13 +4655,22 @@ def main() -> int:
         "name": f"{name}_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ckpt_quant.cu",
         "replaces": replaces,
-        "launches": quant_launches[f"{name}_blocks"],
-        "launches_per_compress_grads": train_run["compress_launches"][0][
-            f"{name}_blocks"],
-        "max_abs_err": quant_worst, "bitwise": True,
+        "launches": (quant_launches[f"{name}_blocks"]
+                     + dense_quant_launches[f"{name}_blocks"]),
+        "launches_by_path": {
+            "mamba2-130m training (T3)": quant_launches[f"{name}_blocks"],
+            "olmo-1b training (D2)": dense_quant_launches[f"{name}_blocks"]},
+        "launches_per_compress_grads": {
+            "mamba2-130m": train_run["compress_launches"][0][f"{name}_blocks"],
+            "olmo-1b": dense_run["compress_launches"][0][f"{name}_blocks"]},
+        "max_abs_err": max(quant_worst, dense_quant_worst), "bitwise": True,
+        "shape": f"mamba2-130m's embedding leaf, {EMBED_LEAF:,} float32",
         "ms": quant[name]["ms"], "plain_ms": quant[name]["plain_ms"],
         "bound_ms": quant[name]["bound_ms"], "bound_by": "bytes",
-        "library_ms": quant[name]["library_ms"]}
+        "library_ms": quant[name]["library_ms"],
+        "olmo_embedding_leaf": dict(n=OLMO_EMBED_LEAF, bound_by="bytes", **{
+            k: dense_quant[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")})}
         for name, replaces in (
             ("quantize", "src/repro/kernels/ckpt_quant.py:28"),
             ("dequantize", "src/repro/kernels/ckpt_quant.py:37"))] + [{

@@ -37,7 +37,10 @@ def const(value: float, like: torch.Tensor) -> torch.Tensor:
     key = (str(like.device), float(value))
     c = _CONSTS.get(key)
     if c is None:
-        c = torch.tensor(float(value), dtype=F64, device=like.device)
+        # a normal tensor even when first asked for under inference mode:
+        # an inference tensor cannot take part in a later backward
+        with torch.inference_mode(False):
+            c = torch.tensor(float(value), dtype=F64, device=like.device)
         _CONSTS[key] = c
     return c
 

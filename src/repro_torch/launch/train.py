@@ -1,25 +1,33 @@
 """Training entry point of the port (single-process execution of the
 production stack):
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
         --steps 20 [--smoke] [--device cpu] [--ckpt-dir DIR] --mtbf 3600
 
 Runs the fault-tolerant trainer: real train steps, adaptive checkpointing
 (the paper's controller), virtual-clock failure injection, restart from
 the sharded checkpoint store.  ``--smoke`` selects the reduced config;
 without ``--device`` it runs on CUDA (and raises where there is no card).
-The flags are the JAX entry point's, plus ``--device``,
-``--injector-seed``, ``--keep`` (checkpoint images of the full model are
-1.8 GB) and the fixed virtual overheads ``--virtual-ckpt-overhead`` and
-``--virtual-restore-time`` (by default the measured seconds count).
-Without ``--ckpt-dir`` the images go to a fresh temporary directory that
-is removed at the end; with it, replicas go to ``DIR_rep0``, ... beside it.
+The weights come from the port's init with a generator of seed 0 on the
+run's device (on the card the draws are made there, as
+``launch/serve.py`` makes them; on the CPU they are the seeded init's).
+The flags are the JAX entry point's, plus ``--device``, ``--lr`` (the
+trainer's AdamW rate, 1e-3 by default as in the JAX package),
+``--injector-seed``, ``--keep`` (checkpoint images of the full models are
+1.8 GB for mamba2-130m, 16.5 GB for olmo-1b) and the fixed virtual
+overheads ``--virtual-ckpt-overhead`` and ``--virtual-restore-time`` (by
+default the measured seconds count).  Without ``--ckpt-dir`` the images go
+to a fresh temporary directory that is removed at the end; with it,
+replicas go to ``DIR_rep0``, ... beside it.
 
-Training runs the SSD through ``ssd_chunked``, as the JAX package trains
-mamba2: the CUDA SSD kernel has no backward, so a config with
-``use_flash_kernel=True`` (the port's serving ``CONFIG``) is trained with
-the knob off, and the entry point says so.  Training is ported for the
-ssm family only: a dense ``--arch`` (olmo-1b) is refused, naming ROADMAP.
+The ssm and dense families train (mamba2-130m; olmo-1b, gemma2-27b,
+stablelm-1.6b, starcoder2-3b, qwen2-vl-7b).  Neither hand-written kernel of
+their serving paths has a backward, so training runs the SSD through
+``ssd_chunked`` and attention through ``_attention_core``, as the JAX
+package trains them: a config with ``use_flash_kernel=True`` (the port's
+serving ``CONFIG``) is trained with the knob off, and the entry point says
+so.  The moe, hybrid and encdec archs are refused, naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -30,10 +38,13 @@ import shutil
 import tempfile
 from typing import Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.ckpt import AsyncCheckpointer
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig
+from repro_torch.device import resolve_device
 from repro_torch.runtime import (
     CheckpointPolicyConfig,
     FailureInjector,
@@ -41,7 +52,8 @@ from repro_torch.runtime import (
     TrainerReport,
 )
 from repro_torch.sim.network import constant_mtbf
-from repro_torch.train.step import require_trainable_family
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import require_trainable_family, serving_kernel
 
 
 def parser() -> argparse.ArgumentParser:
@@ -67,6 +79,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--lr", type=float, default=1e-3,
+                    help="AdamW learning rate (constant schedule)")
     ap.add_argument("--injector-seed", type=int, default=0)
     ap.add_argument("--keep", type=int, default=None,
                     help="keep only this run's newest N checkpoints "
@@ -81,18 +95,21 @@ def parser() -> argparse.ArgumentParser:
 
 
 def training_config(cfg: ModelConfig) -> ModelConfig:
-    """The config training runs: the SSD kernel off (it has no backward).
-    Families other than ssm are refused."""
+    """The config training runs: the serving kernel off (the SSD and the
+    flash-attention kernels have no backward).  The families not ported
+    yet are refused."""
     require_trainable_family(cfg)
     if cfg.use_flash_kernel:
-        print("use_flash_kernel=False: training runs ssd_chunked (the SSD "
-              "kernel has no backward)")
+        kernel, plain = serving_kernel(cfg)
+        print(f"use_flash_kernel=False: training runs {plain} (the {kernel} "
+              f"has no backward)")
         cfg = dataclasses.replace(cfg, use_flash_kernel=False)
     return cfg
 
 
 def build(args) -> Tuple[FaultTolerantTrainer, AsyncCheckpointer]:
     """The trainer and checkpointer the command line describes."""
+    dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = training_config(cfg)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
@@ -106,10 +123,12 @@ def build(args) -> Tuple[FaultTolerantTrainer, AsyncCheckpointer]:
                                seed=args.injector_seed)
     trainer = FaultTolerantTrainer(
         cfg, data_cfg, ckpt=ckpt, injector=injector,
+        seed=torch.Generator(device=dev).manual_seed(0),
         policy=CheckpointPolicyConfig(kind=args.policy,
                                       fixed_interval=args.fixed_interval,
                                       prior_mtbf=args.mtbf),
-        n_microbatches=args.microbatches, device=args.device,
+        opt_cfg=AdamWConfig(lr=args.lr),
+        n_microbatches=args.microbatches, device=dev,
         virtual_ckpt_overhead=args.virtual_ckpt_overhead,
         virtual_restore_time=args.virtual_restore_time)
     return trainer, ckpt

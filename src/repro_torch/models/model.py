@@ -6,9 +6,13 @@ The port of ``repro/models/model.py`` for ``family`` ``"ssm"`` and
 ``"dense"``.  Each stack is an ``nn.Module`` (:class:`Mamba2LM`,
 :class:`DenseLM`: embedding, a ``ModuleList`` of blocks looped in Python,
 final norm); the JAX version's ``lax.scan`` over stacked parameters has no
-counterpart here.  Its remat does: with ``cfg.remat == "full"`` each block
-runs under ``torch.utils.checkpoint.checkpoint`` when autograd records the
-forward (training); ``"dots"`` raises.  :func:`loss_fn` is the training
+counterpart here.  Its remat does, when autograd records the forward
+(training): with ``cfg.remat == "full"`` each block runs under
+``torch.utils.checkpoint.checkpoint``; with ``"dots"`` under torch's
+selective checkpointing with :func:`remat_dots_policy`, which saves the
+outputs of the block's products with no batch dimension (the projections)
+and recomputes the rest, as ``jax.checkpoint_policies.
+checkpoint_dots_with_no_batch_dims`` does.  :func:`loss_fn` is the training
 loss.  The moe, hybrid and encdec families wait for later slices (ROADMAP
 Queue 1 item 9) and raise.  The dense family covers every dense config
 of the registry: olmo-1b, gemma2-27b (alternating local/global windows,
@@ -41,13 +45,18 @@ given ``device="cpu"``.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple, Type, Union
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -226,19 +235,67 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return {"ssm": st, "index": 0}
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether each block is recomputed in the backward (the JAX package's
-    ``_maybe_remat``): only when autograd records the forward."""
+def _remat(cfg: ModelConfig) -> str:
+    """How each block is recomputed in the backward (the JAX package's
+    ``_maybe_remat``): ``cfg.remat`` when autograd records the forward,
+    ``"none"`` otherwise."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
                          f"{cfg.remat!r}")
-    if cfg.remat == "none" or not torch.is_grad_enabled():
-        return False
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matrix products) is not ported yet "
-            "(ROADMAP Queue 1 item 9); use 'full' or 'none'")
-    return True
+    return cfg.remat if torch.is_grad_enabled() else "none"
+
+
+_aten = torch.ops.aten
+# The matrix products and the positions of their two operands.
+_PRODUCTS = {_aten.mm.default: (0, 1), _aten.bmm.default: (0, 1),
+             _aten.addmm.default: (1, 2), _aten.baddbmm.default: (1, 2)}
+# Autograd nodes between a parameter and a product's operand that make
+# the operand the parameter still: views and dtype casts.
+_VIEW_OR_CAST = frozenset({
+    "ViewBackward0", "UnsafeViewBackward0", "ReshapeAliasBackward0",
+    "TBackward0", "TransposeBackward0", "PermuteBackward0",
+    "ExpandBackward0", "AliasBackward0", "UnsqueezeBackward0",
+    "SqueezeBackward0", "SqueezeBackward1", "ToCopyBackward0"})
+
+
+def _is_weight(t: torch.Tensor) -> bool:
+    """Whether a product's operand is a parameter: the parameter itself,
+    or a view or dtype cast of one."""
+    if isinstance(t, nn.Parameter) or isinstance(t._base, nn.Parameter):
+        return True
+    fn = t.grad_fn
+    while fn is not None and type(fn).__name__ in _VIEW_OR_CAST:
+        fn = fn.next_functions[0][0]
+    return fn is not None and type(fn).__name__ == "AccumulateGrad"
+
+
+def remat_dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: save the output of every product with no batch
+    dimension, recompute everything else (``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims``).
+
+    A block's products with no batch dimension are its projections
+    (``wq``/``wk``/``wv``/``wo``, the MLP's up/gate/down, the SSM's
+    in/out projections); attention's score and PV products and the SSD's
+    einsums carry the batch.  The rule reads the operands, not the aten
+    name: ``einsum`` lowers some products with a weight operand (``wo``'s
+    ``bhsk,hkd->bsd``) to a ``bmm`` of batch 1."""
+    ops = _PRODUCTS.get(func)
+    if ops is not None and any(_is_weight(args[i]) for i in ops):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXTS = functools.partial(create_selective_checkpoint_contexts,
+                                   remat_dots_policy)
+
+
+def _checkpointed(remat: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` recomputed in the backward as ``remat``
+    (``"full"`` or ``"dots"``) says."""
+    if remat == "dots":
+        kwargs["context_fn"] = _DOTS_CONTEXTS
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 def _layer_is_local_static(cfg: ModelConfig, i: int) -> bool:
@@ -252,13 +309,12 @@ def _dense_stack(params: DenseLM, x, cfg: ModelConfig, *, positions,
     """The dense block stack, a Python loop over the blocks.  With a cache
     (prefill and decode alike) each layer writes its slice of the stacked
     (L, B, G, max_seq, hd) buffers in place."""
-    remat = kv_cache is None and _remat(cfg)
+    remat = _remat(cfg) if kv_cache is None else "none"
     for i, bp in enumerate(params.blocks):
         kw = dict(positions=positions,
                   layer_is_local=_layer_is_local_static(cfg, i))
-        if remat:
-            x, _ = checkpoint(_apply_dense_block, bp, x, cfg,
-                              use_reentrant=False, **kw)
+        if remat != "none":
+            x, _ = _checkpointed(remat, _apply_dense_block, bp, x, cfg, **kw)
         else:
             x, kv_cache = _apply_dense_block(
                 bp, x, cfg, cache=kv_cache, cache_index=cache_index,
@@ -271,9 +327,8 @@ def _ssm_stack(params: Mamba2LM, x, cfg: ModelConfig, *, ssm_cache=None,
     if ssm_cache is None:
         remat = _remat(cfg)
         for bp in params.blocks:
-            if remat:
-                x, _ = checkpoint(bp, x, use_kernel=use_kernel,
-                                  use_reentrant=False)
+            if remat != "none":
+                x, _ = _checkpointed(remat, bp, x, use_kernel=use_kernel)
             else:
                 x, _ = bp(x, use_kernel=use_kernel)
         return x, None

@@ -18,9 +18,13 @@ model library), wrapped in
 The control flow, the virtual-time accounting and the draws are the
 reference's line for line.  The port's train step updates the state in
 place, and a rollback copies the restored checkpoint into it.  The state
-starts from the port's seeded init, or from ``init_state`` (copied, so
-every ``run`` starts from the same weights).  Training runs the SSD through
-``ssd_chunked``: a config with ``use_flash_kernel=True`` is refused.
+starts from the port's init -- ``seed`` an integer (drawn on the CPU) or a
+``torch.Generator`` (drawn on its device: a full-width model's draws on
+the card), the same weights every ``run`` -- or from ``init_state``
+(copied, so every ``run`` starts from the same weights).  The ssm and
+dense families train; their hand-written kernels have no backward, so
+training runs ``ssd_chunked`` and ``_attention_core``, and a config with
+``use_flash_kernel=True`` is refused.
 
 A rollback restores only images this run committed (or resumed from),
 where the reference takes the newest image in the store: a directory
@@ -32,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -99,7 +103,7 @@ class FaultTolerantTrainer:
         policy: CheckpointPolicyConfig = CheckpointPolicyConfig(),
         opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3),
         n_microbatches: int = 1,
-        seed: int = 0,
+        seed: Union[int, torch.Generator] = 0,
         virtual_ckpt_overhead: Optional[float] = None,
         virtual_restore_time: Optional[float] = None,
         min_feasible_k: int = 1,
@@ -127,6 +131,9 @@ class FaultTolerantTrainer:
         self.train_step = make_train_step(cfg, opt_cfg, constant(1.0),
                                           n_microbatches=n_microbatches)
         self._seed = seed
+        # a generator's state at construction: every run draws from it
+        self._seed_state = (seed.get_state()
+                            if isinstance(seed, torch.Generator) else None)
         self._init_state = init_state
         self.device = (resolve_device(device) if init_state is None
                        else init_state.opt.step.device)
@@ -155,7 +162,11 @@ class FaultTolerantTrainer:
     def _fresh_state(self) -> TrainState:
         if self._init_state is not None:
             return self._init_state.clone()
-        return init_train_state(self._seed, self.cfg, self.device)
+        seed = self._seed
+        if self._seed_state is not None:
+            seed = torch.Generator(device=seed.device)
+            seed.set_state(self._seed_state)
+        return init_train_state(seed, self.cfg, self.device)
 
     # ------------------------------------------------------------------ #
     def run(self, n_steps: int, max_restarts: int = 1000,

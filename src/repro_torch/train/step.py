@@ -9,15 +9,18 @@ parameters (an ``nn.Module``, ``requires_grad``) and the optimizer state
 are updated in place and returned; a caller that needs the old state keeps
 a :meth:`TrainState.clone`.
 
-Training runs the SSD through ``ssd_chunked``: the CUDA SSD kernel has no
-backward, in the JAX package or here, so a config with
+The ssm and dense families train.  Neither hand-written kernel of their
+serving paths has a backward, in the JAX package or here: training runs
+the SSD through ``ssd_chunked`` and attention through ``_attention_core``
+under autograd (as the JAX package trains attention), so a config with
 ``use_flash_kernel=True`` is refused.  ``grad_constraint`` and
 ``zero1_grads_in_scan`` (the ZeRO-1 sharding of the gradients) wait for
 ROADMAP Queue 1 item 6 and raise.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -37,7 +40,7 @@ _OPT_PARTS = ("master", "m", "v")
 
 
 class TrainState(NamedTuple):
-    params: M.Mamba2LM   # param_dtype (bf16) working copy, requires grad
+    params: M.LM         # param_dtype (bf16) working copy, requires grad
     opt: AdamWState      # fp32 master + moments
 
     def tree(self) -> Dict[str, torch.Tensor]:
@@ -59,7 +62,8 @@ class TrainState(NamedTuple):
 
     def clone(self) -> "TrainState":
         """A copy that shares no storage with this state."""
-        params = M.Mamba2LM(self.params.cfg)        # on the meta device
+        cfg = self.params.cfg
+        params = M.model_class(cfg)(cfg)            # on the meta device
         params.load_state_dict({k: p.detach().clone() for k, p
                                 in self.params.named_parameters()},
                                strict=True, assign=True)
@@ -71,31 +75,40 @@ class TrainState(NamedTuple):
 
 
 def require_trainable_family(cfg: ModelConfig) -> None:
-    """Training is ported for the ssm family only."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (dense "
-            f"training and a flash-attention backward are in ROADMAP Queue "
-            f"1); the port trains the ssm family")
+    """Training is ported for every ported family (ssm and dense); the
+    others raise naming their ROADMAP item."""
+    M._require_ported(cfg)
+
+
+def serving_kernel(cfg: ModelConfig) -> Tuple[str, str]:
+    """The hand-written kernel ``use_flash_kernel`` turns on for ``cfg``'s
+    family, which has no backward, and the plain path training runs in its
+    place."""
+    if cfg.family == "dense":
+        return "flash-attention kernel", "_attention_core"
+    return "SSD kernel", "ssd_chunked"
 
 
 def require_trainable(cfg: ModelConfig) -> None:
     """Refuse a config that training cannot run faithfully."""
     require_trainable_family(cfg)
     if cfg.use_flash_kernel:
+        kernel, plain = serving_kernel(cfg)
         raise ValueError(
-            "training needs use_flash_kernel=False: the SSD kernel has no "
-            "backward (in the JAX package or in the port), so training runs "
-            "ssd_chunked; pass dataclasses.replace(cfg, "
-            "use_flash_kernel=False)")
+            f"training needs use_flash_kernel=False: the {kernel} has no "
+            f"backward (in the JAX package or in the port), so training "
+            f"runs {plain}; pass dataclasses.replace(cfg, "
+            f"use_flash_kernel=False)")
 
 
-def _named(params: M.Mamba2LM) -> Dict[str, torch.Tensor]:
+def _named(params: M.LM) -> Dict[str, torch.Tensor]:
     return dict(params.named_parameters())
 
 
-def init_train_state(seed: int, cfg: ModelConfig, device=None) -> TrainState:
-    """The port's seeded init (:func:`repro_torch.models.init_params`) with
+def init_train_state(seed: Union[int, torch.Generator], cfg: ModelConfig,
+                     device=None) -> TrainState:
+    """The port's init (:func:`repro_torch.models.init_params`: a seed
+    draws on the CPU, a ``torch.Generator`` on its own device) with
     trainable parameters, and a fresh AdamW state."""
     require_trainable_family(cfg)
     params = M.init_params(seed, cfg, device=device).requires_grad_(True)
@@ -133,7 +146,7 @@ def _to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def compute_grads(params: M.Mamba2LM, batch: Mapping[str, torch.Tensor],
+def compute_grads(params: M.LM, batch: Mapping[str, torch.Tensor],
                   cfg: ModelConfig
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Gradients of :func:`loss_fn` by name (in the parameters' dtypes) and

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, and the
+port's paths on the card against the CPU.
 
 Marked ``cuda``: it skips without a CUDA device (decided inside the test,
 so every xdist worker collects the same tests).  Imports only torch and
@@ -973,3 +974,81 @@ def test_card_generator_draws_on_its_device():
     model = init_params(torch.Generator(device="cuda").manual_seed(0),
                         get_smoke_config("gemma2-27b"), device="cuda")
     assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+DENSE = ("olmo-1b",) + VARIANTS
+
+
+def _dense_train_cfg(arch):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(arch).replace(param_dtype="float32",
+                                          compute_dtype="float32",
+                                          use_flash_kernel=False)
+
+
+def _dense_batch(cfg, step: int = 0):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                                  seed=2)).batch_at(step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_smoke_train_step_card_equals_cpu(arch):
+    """One float32 SMOKE train step (64 tokens: the windows mask) from the
+    same seeded weights on the card and the CPU: the loss within 1e-5
+    relative, the gradients within 1e-4 max|g| + 1e-6, the master within
+    1e-5 relative + 1e-6 except where the CPU gradient is below 1e-6
+    (Adam's step near its eps; those within 0.05 lr, under 1% of them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (compute_grads, init_train_state,
+                                        make_train_step)
+
+    cfg = _dense_train_cfg(arch)
+    batch = _dense_batch(cfg)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    states = {dev: init_train_state(0, cfg, dev) for dev in ("cuda", "cpu")}
+    grads = {dev: compute_grads(st.params, {k: v.to(dev) for k, v
+                                            in tb.items()}, cfg)[0]
+             for dev, st in states.items()}
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k].cpu(), g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()) + 1e-6)
+    lr = 1e-3
+    out = {dev: make_train_step(cfg, AdamWConfig(lr=lr), constant(1.0))(
+        st, batch) for dev, st in states.items()}
+    loss = {dev: float(m["loss"]) for dev, (_, m) in out.items()}
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-5 * abs(loss["cpu"])
+    n_tiny = 0
+    for k, w in out["cpu"][0].opt.master.items():
+        d = (out["cuda"][0].opt.master[k].cpu() - w).abs()
+        tiny = (grads["cpu"][k].abs() < 1e-6) & (grads["cpu"][k] != 0)
+        n_tiny += int(tiny.sum())
+        assert bool((d[~tiny] <= 1e-5 * w.abs()[~tiny] + 1e-6).all()), k
+        assert bool((d[tiny] <= 0.05 * lr).all()), k
+    assert n_tiny < 1e-2 * sum(g.numel() for g in grads["cpu"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma2-27b"])
+def test_remat_dots_on_card_gives_the_gradients_of_none(arch):
+    """remat 'dots' (and 'full') on the card: bit for bit the gradients of
+    'none'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    cfg = _dense_train_cfg(arch)
+    state = init_train_state(0, cfg, "cuda")
+    batch = _to_device(_dense_batch(cfg, 1), "cuda")
+    out = {r: compute_grads(state.params, batch, cfg.replace(remat=r))[0]
+           for r in ("none", "full", "dots")}
+    for r in ("full", "dots"):
+        for k, g in out["none"].items():
+            assert torch.equal(out[r][k], g), (r, k)

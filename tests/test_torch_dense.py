@@ -394,15 +394,29 @@ def test_unported_options_raise(change):
         T_models.init_cache(cfg, 1, 8, device="cpu")
 
 
-def test_training_refuses_the_dense_family():
-    cfg = T_cfg.get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        T_train.init_train_state(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+@pytest.mark.parametrize("family,item", [("moe", "9.4"), ("hybrid", "9.5"),
+                                         ("encdec", "9.6")])
+def test_training_refuses_the_unported_families(family, item):
+    cfg = T_cfg.get_smoke_config(ARCH).replace(family=family)
+    for refuse in (lambda: T_train.init_train_state(0, cfg, device="cpu"),
+                   lambda: T_train.require_trainable(cfg)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {item}"):
+            refuse()
+
+
+def test_dense_training_refuses_the_flash_kernel(capsys):
+    cfg = T_cfg.get_smoke_config(ARCH).replace(use_flash_kernel=True)
+    with pytest.raises(ValueError, match="flash-attention kernel has no "
+                                         "backward"):
         T_train.require_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        T_launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                             "--steps", "1"])
+    # the entry point trains the serving CONFIG with the knob off, says so
+    assert not T_launch_train.training_config(
+        T_cfg.get_config(ARCH)).use_flash_kernel
+    assert "flash-attention kernel has no backward" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9.4"):
+        T_launch_train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",
+                             "cpu", "--steps", "1"])
 
 
 def test_launch_serve_runs_olmo_on_cpu(capsys):

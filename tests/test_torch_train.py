@@ -14,8 +14,8 @@
   (elements whose gradient is at Adam's eps scale within 0.05 lr a step:
   see ADAM_TINY_GRAD);
 * ``SyntheticLM`` and ``Prefetcher``: bit for bit;
-* the training entry points refuse ``use_flash_kernel=True`` and
-  ``remat='dots'``; ``remat='full'`` gives the gradients of ``'none'``.
+* the training entry points refuse ``use_flash_kernel=True``;
+  ``remat='full'`` and ``remat='dots'`` give the gradients of ``'none'``.
 
 Inputs are made with ``np.random.default_rng`` and reach both sides as the
 same numbers.
@@ -203,11 +203,14 @@ def test_remat_full_gives_the_gradients_of_none():
         torch.testing.assert_close(out[1][k], out[0][k], rtol=0, atol=0)
 
 
-def test_remat_dots_raises_under_grad():
-    _, tcfg = _cfgs("float32", remat="dots")
+def test_remat_dots_gives_the_gradients_of_none():
+    _, tcfg = _cfgs("float32")
+    batch = _torch_batch(_batch(tcfg, seed=2))
     st = T_step.init_train_state(0, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T_step.compute_grads(st.params, _torch_batch(_batch(tcfg)), tcfg)
+    out = [T_step.compute_grads(st.params, batch, tcfg.replace(remat=remat))[0]
+           for remat in ("none", "dots")]
+    for k in out[0]:
+        torch.testing.assert_close(out[1][k], out[0][k], rtol=0, atol=0)
 
 
 # ----------------------------------------------------------------- train step

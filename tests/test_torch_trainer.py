@@ -12,11 +12,11 @@ the CPU.
   no ``.part`` left, HRW placement, gc), plus snapshot isolation under the
   in-place updates of the port's train step, retention of the
   checkpointer's own images and restores limited to given steps;
-* ``FaultTolerantTrainer`` on the mamba2 SMOKE config in float32 with the
-  fixed policy, the same injector seed and the same initial weights as
-  ``repro.runtime.FaultTolerantTrainer``: equal counts (steps, failures,
-  checkpoints, restarts, wasted steps, final fleet size) and each loss
-  within 1e-4 relative;
+* ``FaultTolerantTrainer`` on the mamba2 and olmo SMOKE configs in
+  float32 with the fixed policy, the same injector seed and the same
+  initial weights as ``repro.runtime.FaultTolerantTrainer``: equal counts
+  (steps, failures, checkpoints, restarts, wasted steps, final fleet size)
+  and virtual time, each loss within 1e-4 relative;
 * the adaptive policy as ``tests/test_runtime.py`` holds it (survives
   failures, losses decrease, rollback, interval reacts to churn, elastic
   gating), which reads wall-clock step times and so cannot be compared
@@ -24,7 +24,14 @@ the CPU.
 * ``repro_torch.launch.train --smoke --device cpu`` runs, leaves nothing
   behind without ``--ckpt-dir``, gives the same run twice in one
   directory (a rollback never reaches an earlier run's images), and
-  training refuses ``use_flash_kernel=True``.
+  training refuses ``use_flash_kernel=True``;
+* ``repro_torch.launch.fault_tolerant_training`` against
+  ``examples/fault_tolerant_training.py`` (loaded from its file): its
+  ``run`` at the ``ci`` preset in float32 from the JAX package's initial
+  weights, adaptive and fixed 60 s -- the same failures, checkpoints,
+  wasted steps, virtual hours and interval, the final loss within 1e-4
+  relative; its entry point on the CPU prints every policy line and the
+  kill-and-resume ``MATCH``.
 """
 import os
 import shutil
@@ -378,21 +385,31 @@ def _f32(cfg):
 
 @pytest.fixture(scope="module")
 def jax_parity_run(tmp_path_factory):
-    """The JAX trainer's run (shared: it is the slow half) and its initial
-    state as numpy arrays."""
-    cfg = _f32(R_cfg.get_smoke_config(ARCH))
-    data = R_Data(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=1)
-    ck = R_Ckpt(str(tmp_path_factory.mktemp("jax_ckpt")), n_shards=2)
-    tr = R_Trainer(cfg, data, ckpt=ck, **_parity_kw("jax"))
-    report = tr.run(n_steps=PARITY["steps"])
-    ck.close()
-    init = jax.tree.map(np.asarray, r_init_train_state(jax.random.key(0), cfg))
-    return report, init
+    """The JAX trainer's run on an arch's SMOKE config (cached: it is the
+    slow half) and its initial state as numpy arrays."""
+    runs = {}
+
+    def run(arch):
+        if arch not in runs:
+            cfg = _f32(R_cfg.get_smoke_config(arch))
+            data = R_Data(vocab=cfg.vocab, seq_len=16, global_batch=4,
+                          seed=1)
+            ck = R_Ckpt(str(tmp_path_factory.mktemp("jax_ckpt")), n_shards=2)
+            tr = R_Trainer(cfg, data, ckpt=ck, **_parity_kw("jax"))
+            report = tr.run(n_steps=PARITY["steps"])
+            ck.close()
+            init = jax.tree.map(np.asarray,
+                                r_init_train_state(jax.random.key(0), cfg))
+            runs[arch] = report, init
+        return runs[arch]
+
+    return run
 
 
-def test_trainer_matches_reference_trainer(jax_parity_run, tmp_path):
-    want, init_np = jax_parity_run
-    cfg = _f32(T_cfg.get_smoke_config(ARCH))
+@pytest.mark.parametrize("arch", [ARCH, "olmo-1b"])
+def test_trainer_matches_reference_trainer(jax_parity_run, tmp_path, arch):
+    want, init_np = jax_parity_run(arch)
+    cfg = _f32(T_cfg.get_smoke_config(arch))
     data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=1)
     ck = AsyncCheckpointer(str(tmp_path / "ckpt"), n_shards=2)
     tr = FaultTolerantTrainer(
@@ -515,3 +532,64 @@ def test_training_refuses_the_ssd_kernel(tmp_path, capsys):
     assert full.use_flash_kernel
     assert not T_launch.training_config(full).use_flash_kernel
     assert "use_flash_kernel=False" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------- #
+# The fault-tolerant-training example                                          #
+# --------------------------------------------------------------------------- #
+
+FTT_STEPS = 6
+
+
+@pytest.fixture(scope="module")
+def ftt_example():
+    """``examples/fault_tolerant_training.py`` (the JAX package's)."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "fault_tolerant_training.py")
+    spec = importlib.util.spec_from_file_location("ftt_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kind,fixed", [("adaptive", 0.0), ("fixed", 60.0)])
+def test_fault_tolerant_training_matches_the_example(ftt_example, kind, fixed):
+    """The port's ``run`` against the example's at the ``ci`` preset
+    (float32, both sides from the JAX package's initial weights): the same
+    failures, checkpoints, wasted steps and virtual hours, the final loss
+    within 1e-4."""
+    from repro_torch.launch import fault_tolerant_training as T_ftt
+
+    rcfg = _f32(R_cfg.get_smoke_config("olmo-1b"))
+    tcfg = _f32(T_cfg.get_smoke_config("olmo-1b"))
+    assert (T_ftt.NODES, T_ftt.MTBF, T_ftt.STEP_SECONDS) == (64, 2700.0, 30.0)
+    want = ftt_example.run(kind, fixed, rcfg, FTT_STEPS, T_ftt.MTBF,
+                           T_ftt.STEP_SECONDS, seed=0)
+    init = jax.tree.map(np.asarray, r_init_train_state(jax.random.key(0),
+                                                       rcfg))
+    got = T_ftt.run(kind, fixed, tcfg, FTT_STEPS, T_ftt.MTBF,
+                    T_ftt.STEP_SECONDS, seed=0, device="cpu",
+                    init_state=T_step.from_reference(init, tcfg,
+                                                     device="cpu"))
+    for k in ("failures", "checkpoints", "wasted_steps", "virtual_hours",
+              "interval"):
+        assert got[k] == want[k], k
+    assert want["failures"] > 0 and want["checkpoints"] > 0
+    np.testing.assert_allclose(got["final_loss"], want["final_loss"],
+                               rtol=1e-4)
+
+
+def test_fault_tolerant_training_entry_point_on_cpu(capsys):
+    from repro_torch.launch import fault_tolerant_training as T_ftt
+
+    out = T_ftt.main(["--preset", "ci", "--device", "cpu", "--steps",
+                      str(FTT_STEPS)])
+    text = capsys.readouterr().out
+    assert out["match"] and "-> MATCH" in text
+    assert "adaptive :" in text
+    for fixed in (60, 600, 3600):
+        assert f"fixed {fixed:6d}s:" in text
+        assert out[f"fixed_{fixed}"]["relative_runtime"] > 0
