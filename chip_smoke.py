@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # full run (one card, ~minutes)
     python3 chip_smoke.py --quick    # build + kernel checks (to V2)
+    python3 chip_smoke.py --moe      # build + the moe phases (M1-M5)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
@@ -289,11 +290,53 @@ W5. each sim_step variant the workflow path ran (0000, 1100 at W2's
    equal), the chunk timed on both routes beside the plain step's, and
    the bound (the step's FP64 instructions with the diurnal hazard and
    the replica draw's class and shock terms);
+M1. across devices, the moe family: both moe SMOKE configs (olmoe-1b-7b,
+   deepseek-moe-16b) in float32 with the kernel on, from the same
+   CPU-drawn weights, at capacity factors 8.0 and 0.5 (tokens drop):
+   prefill of 32 tokens and 4 teacher-forced decode steps, logits and KV
+   caches within 1e-4, the routes (expert ids and the within-capacity
+   mask) equal on every layer and step (where one differs: the
+   probabilities at the differing token, and a failure), 8 SIMT launches;
+   one float32 train step each by T2's rule; remat 'none', 'full' and
+   'dots' on the card (olmoe SMOKE) bitwise the same gradients, and 'none'
+   twice (the backward run twice) too;
+M2. main path: ``repro_torch.serve`` on the full olmoe-1b-7b (16 layers,
+   d_model 2048, 64 experts top-8, 6,919,096,320 parameters drawn on the
+   card, bf16): ``greedy_generate`` of 32 tokens after a 1024-token
+   prompt, batch 8 -- exactly 16 flash launches, all ``wgmma``; the timed
+   prefill and decode, peak memory, the plain path's prefill; the logits
+   against ``_attention_core`` by S4's floor rule (for moe the relative
+   RMS limit also follows the floor's: its routes flip as well), with the
+   share of (layer, token, k) routes that differ between the two paths
+   (and between the two plain paths); float32 at full depth with the
+   kernel path made to take the plain path's routes, each of its own
+   differing choices a near tie (1e-4 relative), within 1e-4;
+M3. the same for the full deepseek-moe-16b (28 layers, 64 routed top-6
+   and 2 shared experts, 16,879,568,896 parameters): 28 ``wgmma``
+   launches; the float32 check at 8 layers;
+M4. both models' numbers beside the card's name and power limit:
+   ``torch.profiler`` over one warm prefill and 5 decode steps, the
+   device time split into attention, the moe blocks' products (expert
+   and router), the rest of the moe blocks (dispatch, combine, routing,
+   activation) and the rest, the moe blocks' operators by device time,
+   the idle share; decode beside its weight-read bound (every expert is
+   computed every step);
+M5. main path: olmoe-1b-7b at full width cut to 2 layers (1,045,178,368
+   parameters, drawn on the card, bf16, remat 'dots', ``_attention_core``),
+   5 steps of ``make_train_step`` on SyntheticLM 8 x 1024 in 2
+   microbatches, AdamW 1e-4: finite losses and the moe metrics; step
+   seconds, tokens/s, peak; compress_grads three times on its gradients
+   (23 quantize + 46 dequantize launches a call, |err| within EF_SLACK),
+   both quant kernels bitwise their plain versions on every leaf (the
+   134,217,728-element expert stacks among them) and timed there beside
+   their plain versions, the bound and ``torch.dequantize``;
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
    the serving prefills for the tensor-core kernels (the flash kernel's
-   by model), the float32 SMOKE prefills of S2/A2/V2 for the SIMT ones,
-   sim_step's main path and the workflow path's --, error, times, bound;
-   the flash kernel's at the variants' shapes), the card's name and power
+   by model, the moe models' too), the float32 SMOKE prefills of
+   S2/A2/V2/M1 for the SIMT ones, sim_step's main path and the workflow
+   path's, the quant kernels' by training path (T3, D2, M5) --, error,
+   times, bound; the flash kernel's at the variants' shapes, the quant
+   kernels' at the expert leaf too), the card's name and power
    limit, and the final result line.  ``[t]`` lines give the seconds of
    each group of phases.
 
@@ -308,6 +351,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -1830,7 +1874,6 @@ def phase_serve_vs_plain(cfg, model, prompt, run) -> dict:
     parameters): held elementwise at SSD_F32_TOL.
     """
     import torch
-    from unittest import mock
 
     from repro_torch.kernels import ops, ssd_scan
     from repro_torch.models import init_params
@@ -2279,7 +2322,6 @@ def phase_dense_vs_plain(tag: str, cfg, model, prompt, run,
     layers would need ~109 GB), float32 KV caches, elementwise within
     OLMO_F32_TOL."""
     import torch
-    from unittest import mock
 
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
@@ -2287,15 +2329,33 @@ def phase_dense_vs_plain(tag: str, cfg, model, prompt, run,
 
     forced = run["tokens"][:, :OLMO_FORCED]
     plain_cfg = cfg.replace(use_flash_kernel=False)
-    k_out, _ = _serve_run(model, cfg, prompt, forced)
-    p_out, _ = _serve_run(model, plain_cfg, prompt, forced)
-    with mock.patch.object(ops, "flash_attention", FA.flash_attention_plain):
+    moe = cfg.family == "moe"
+    with RouteSpy() as k_routes:
+        k_out, _ = _serve_run(model, cfg, prompt, forced)
+    with RouteSpy() as p_routes:
+        p_out, _ = _serve_run(model, plain_cfg, prompt, forced)
+    with mock.patch.object(ops, "flash_attention", FA.flash_attention_plain), \
+            RouteSpy() as q_routes:
         q_out, _ = _serve_run(model, cfg, prompt, forced)
     k, p, q = (torch.stack(o) for o in (k_out, p_out, q_out))
     bf16, floor = _gap(k, p, LOGIT_TOL), _gap(q, p, LOGIT_TOL)
     bf16["limit_ratio"] = max(1.0, NOISE_FACTOR * floor["max_ratio"])
+    # moe: the floor's routes flip under bf16 noise as the kernel path's do
+    # (M2/M3 report the share), and its relative RMS gap can cross
+    # LOGIT_TOL too; there the relative RMS limit follows the floor's the
+    # same way.  The dense models keep LOGIT_TOL.
+    bf16["rms_limit"] = max(LOGIT_TOL, NOISE_FACTOR * floor["rel_rms"]) \
+        if moe else LOGIT_TOL
     bf16["argmax_agree"] = float((k.argmax(-1) == p.argmax(-1)).float().mean())
-    del k_out, p_out, q_out
+    routes = {}
+    if moe:     # the (layer-call, token, k) routes that flip under bf16 noise
+        routes["bf16"] = route_gaps(k_routes.routes, p_routes.routes)
+        routes["bf16_plain_vs_plain"] = route_gaps(q_routes.routes,
+                                                   p_routes.routes)
+        prefill = p_routes.routes[:cfg.n_layers]
+        bf16["dropped_share_prefill"] = 1.0 - float(sum(
+            r.kept.float().mean() for r in prefill)) / len(prefill)
+    del k_out, p_out, q_out, k_routes, p_routes, q_routes
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
                         n_layers=f32_layers or cfg.n_layers)
     model32 = M.DenseLM(cfg32)                     # on the meta device
@@ -2303,20 +2363,28 @@ def phase_dense_vs_plain(tag: str, cfg, model, prompt, run,
     model32.load_state_dict({n: t.float() for n, t in
                              model.named_parameters() if n in kept},
                             assign=True)
-    k32, _ = _serve_run(model32, cfg32, prompt, forced,
-                        cache_dtype=torch.float32)
-    p32, _ = _serve_run(model32, cfg32.replace(use_flash_kernel=False),
-                        prompt, forced, cache_dtype=torch.float32)
+    with RouteSpy() as p32_routes:
+        p32, _ = _serve_run(model32, cfg32.replace(use_flash_kernel=False),
+                            prompt, forced, cache_dtype=torch.float32)
+    # moe: the kernel path on the plain path's routes; where its own choice
+    # differs, the two experts must be a near tie
+    with RouteSpy(force=[r.expert_ids for r in p32_routes.routes]
+                  if moe else None) as k32_routes:
+        k32, _ = _serve_run(model32, cfg32, prompt, forced,
+                            cache_dtype=torch.float32)
     f32 = _gap(torch.stack(k32), torch.stack(p32), OLMO_F32_TOL)
-    del model32, k32, p32
+    if moe:
+        routes["f32"] = route_gaps(k32_routes.own, p32_routes.routes)
+    del model32, k32, p32, k32_routes, p32_routes
     torch.cuda.empty_cache()
     out = dict(bf16=bf16, bf16_plain_vs_plain=floor, f32=f32,
-               f32_layers=cfg32.n_layers)
+               f32_layers=cfg32.n_layers, routes=routes)
     REPORT[f"{cfg.name}_vs_plain"] = out
     print(f"[{tag}] {cfg.name} kernel path vs plain _attention_core path on "
           f"the card, prefill + {OLMO_FORCED} teacher-forced decode logits: "
           f"bf16 "
-          f"rel RMS {bf16['rel_rms']:.4g} (tol {LOGIT_TOL}), max |d| "
+          f"rel RMS {bf16['rel_rms']:.4g} (limit {bf16['rms_limit']:.4g}), "
+          f"max |d| "
           f"{bf16['max_abs']:.4g} = {bf16['max_ratio']:.3f} x ({LOGIT_TOL} + "
           f"{LOGIT_TOL}|b|) (limit {bf16['limit_ratio']:.3f} x), argmax agree "
           f"{bf16['argmax_agree']:.3f}; noise floor (flash_attention_plain vs "
@@ -2325,9 +2393,25 @@ def phase_dense_vs_plain(tag: str, cfg, model, prompt, run,
           f"full width, {cfg32.n_layers} layers: max |d| "
           f"{f32['max_abs']:.3g} = {f32['max_ratio']:.4f} x ({OLMO_F32_TOL} "
           f"+ {OLMO_F32_TOL}|b|)", flush=True)
+    if moe:
+        print(f"[{tag}] {cfg.name}: the plain path's prefill drops "
+              f"{bf16['dropped_share_prefill']:.4f} of its claims (capacity "
+              f"factor {cfg.moe.capacity_factor})", flush=True)
+    for name, r in routes.items():
+        print(f"[{tag}] {cfg.name} routes, {name}: {r['differ']} of "
+              f"{r['claims']:,} (layer-call, token, k) claims differ "
+              f"(share {r['share']:.3g}), {r['moved']} to an expert the "
+              f"token does not choose on the other path (share "
+              f"{r['moved_share']:.3g}), within-capacity bits "
+              f"{r['kept_differ']}; largest relative probability gap of a "
+              f"differing claim {r['worst_rel_gap']:.3g}; examples "
+              f"{r['examples'][:3]}", flush=True)
     if not (bf16["finite"] and bf16["max_ratio"] <= bf16["limit_ratio"]
-            and bf16["rel_rms"] <= LOGIT_TOL and _ok(f32)):
+            and bf16["rel_rms"] <= bf16["rms_limit"] and _ok(f32)):
         fail(f"{cfg.name}: kernel path and plain path disagree")
+    if moe and routes["f32"]["worst_rel_gap"] > MOE_F32_NEAR_TIE:
+        fail(f"{cfg.name}: float32 routes of the kernel path differ from the "
+             f"plain path's beyond a near tie: {routes['f32']}")
     return out
 
 
@@ -2668,7 +2752,10 @@ def serve_variant(tag: str, arch: str, f32_layers=None,
     torch.cuda.empty_cache()
     out["vs_plain"] = phase_dense_vs_plain(
         "V4" if arch == GEMMA else tag, cfg, model, prompt, run, f32_layers)
-    if profile:
+    if profile and cfg.family == "moe":
+        out["profile"] = phase_moe_profile("M4", cfg, model, prompt,
+                                           OLMO_TOKENS)
+    elif profile:
         out["profile"] = phase_serve_profile(
             "V5", cfg, model, prompt, OLMO_TOKENS,
             FLASH_KERNEL_NAMES)
@@ -3298,10 +3385,8 @@ def train_with_compress(tag: str, argv: list, n_steps: int) -> dict:
     gradients and input error state (``last_grads``, ``last_err``)."""
     import torch
 
-    from repro_torch.kernels import ckpt_quant as Q
     from repro_torch.launch import train as launch
-    from repro_torch.train.compress import compress_grads, init_error_feedback
-    from repro_torch.train.step import _to_device, compute_grads
+    from repro_torch.train.step import _to_device
 
     args = launch.parser().parse_args(argv)
     trainer, ckpt = launch.build(args)
@@ -3320,12 +3405,30 @@ def train_with_compress(tag: str, argv: list, n_steps: int) -> dict:
           f"{trainer.restored_steps}; {report.wasted_steps} steps wasted",
           flush=True)
     state = trainer.state
-    err = init_error_feedback(dict(state.params.named_parameters()))
+    out = compress_calls(state.params, cfg, [
+        _to_device(trainer.data.batch_at(n_steps + i), state.opt.step.device)
+        for i in range(3)])
+    return dict(out, report=report.__dict__,
+                restored_steps=trainer.restored_steps, wall_s=wall,
+                peak_bytes=mem, timings=trainer.timings, trainer=trainer)
+
+
+def compress_calls(params, cfg, batches: list) -> dict:
+    """compress_grads on the gradients of each batch in turn, the error
+    state carried: the launches and seconds of each call and the
+    error-feedback ratio (|g + err - deq| / (scale / 2), at most EF_SLACK
+    in every block).  Keeps the last call's gradients and input error
+    state (``last_grads``, ``last_err``)."""
+    import torch
+
+    from repro_torch.kernels import ckpt_quant as Q
+    from repro_torch.train.compress import compress_grads, init_error_feedback
+    from repro_torch.train.step import compute_grads
+
+    err = init_error_feedback(dict(params.named_parameters()))
     per_call, secs, ef_ratio = [], [], 0.0
-    for i in range(3):
-        batch = _to_device(trainer.data.batch_at(n_steps + i),
-                           state.opt.step.device)
-        grads, _ = compute_grads(state.params, batch, cfg)
+    for i, batch in enumerate(batches):
+        grads, _ = compute_grads(params, batch, cfg)
         before = dict(Q.LAUNCHES)
         torch.cuda.synchronize()
         t1 = time.monotonic()
@@ -3333,7 +3436,6 @@ def train_with_compress(tag: str, argv: list, n_steps: int) -> dict:
         torch.cuda.synchronize()
         secs.append(time.monotonic() - t1)
         per_call.append({k: Q.LAUNCHES[k] - before[k] for k in before})
-        # error feedback: |g + err - deq| <= scale / 2 in every block
         for k, g in grads.items():
             flat = (g.float() + err[k]).reshape(-1)
             pad = -flat.numel() % QBLOCK
@@ -3344,15 +3446,12 @@ def train_with_compress(tag: str, argv: list, n_steps: int) -> dict:
             e = torch.nn.functional.pad(new_err[k].reshape(-1), (0, pad))
             ratio = (e.reshape(-1, QBLOCK).abs().amax(1) / (scale / 2)).max()
             ef_ratio = max(ef_ratio, float(ratio))
-        if i < 2:
+        if i < len(batches) - 1:
             err = new_err
             del grads
-    n_leaves = len(err)
-    return dict(report=report.__dict__, restored_steps=trainer.restored_steps,
-                wall_s=wall, peak_bytes=mem, timings=trainer.timings,
-                compress_seconds=secs, compress_launches=per_call,
-                n_leaves=n_leaves, error_feedback_max_ratio=ef_ratio,
-                trainer=trainer, last_grads=grads, last_err=err)
+    return dict(compress_seconds=secs, compress_launches=per_call,
+                n_leaves=len(err), error_feedback_max_ratio=ef_ratio,
+                last_grads=grads, last_err=err)
 
 
 def _check_compress(tag: str, out: dict) -> None:
@@ -3645,6 +3744,481 @@ def phase_ft_example() -> dict:
         fail(f"D4: the fault-tolerant-training entry point failed: "
              f"{r.stderr[-2000:]}")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# The moe family: olmoe-1b-7b and deepseek-moe-16b served whole, moe training
+# --------------------------------------------------------------------------- #
+
+OLMOE, DEEPSEEK = "olmoe-1b-7b", "deepseek-moe-16b"
+MOE_ARCHS = (OLMOE, DEEPSEEK)
+MOE_CFS = (8.0, 0.5)    # M1: SMOKE's capacity factor; one where claims drop
+MOE_SEQ = 32            # M1: 2 x 32 tokens, one dispatch group of 64
+# M2/M3's float32 check at full width: olmoe's 16 float32 layers (27.7 GB
+# beside the 13.8 GB bf16 model) fit; deepseek's 28 (67.5 GB) do not
+MOE_F32_LAYERS = {OLMOE: None, DEEPSEEK: 8}
+# a route of the kernel path may differ from the plain path's only where
+# the two experts' probabilities lie this close (relative to the larger):
+# float32 noise in the router's input between flash and _attention_core
+MOE_F32_NEAR_TIE = 1e-4
+MOE_MEM_BEFORE = 8 * 2**30   # M2/M3/M5: allocated bytes allowed before a draw
+# M5: olmoe-1b-7b at full width, cut to 2 layers (1,045,178,368 parameters;
+# the 16 layers would need ~311 GB at ~45 bytes a parameter)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 5
+EXPERT_LEAF = 64 * 2048 * 1024   # 134,217,728 float32: 262,144 blocks of 512
+
+
+class RouteSpy:
+    """Records the routing of every moe layer call (``models.moe.route``
+    through the module, so the model's calls are seen), optionally making
+    each call take given expert choices instead of its own (``force``:
+    one (G, group, K) tensor a call, in call order)."""
+
+    def __init__(self, force=None):
+        self.routes, self.own, self._force = [], [], force
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+
+        real = MOE.route
+
+        def spy(router, xt, cfg, C):
+            r = real(router, xt, cfg, C)
+            if self._force is not None:
+                self.own.append(r)
+                r = MOE.assign(r.probs, self._force[len(self.routes)]
+                               .to(r.expert_ids.device), C)
+            self.routes.append(r)
+            return r
+
+        self._patch = mock.patch.object(MOE, "route", spy)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+
+def route_gaps(a: list, b: list) -> dict:
+    """Where two runs' routes differ, call by call: claims (layer-call,
+    group, token, k) whose expert differs (``differ``: the k-th choice;
+    ``moved``: an expert the token does not choose at all in run ``b``)
+    or whose within-capacity bit differs, their shares, and for the
+    differing expert choices the gap between the two experts'
+    probabilities in run ``a`` (relative to the larger) and between the
+    k-th and (k+1)-th probability of that token."""
+    import torch
+
+    if len(a) != len(b):
+        return dict(calls=(len(a), len(b)), claims=0, differ=-1, share=1.0,
+                    moved=-1, moved_share=1.0, kept_differ=-1,
+                    worst_rel_gap=float("inf"), examples=[])
+    claims = differ = moved = kept_differ = 0
+    worst_rel, gaps = 0.0, []
+    for ra, rb in zip(a, b):
+        ia, ib = ra.expert_ids, rb.expert_ids.to(ra.expert_ids.device)
+        d = ia != ib
+        claims += d.numel()
+        differ += int(d.sum())
+        # claims whose expert is not among the token's experts in run b
+        moved += int((ia[..., :, None] != ib[..., None, :]).all(-1).sum())
+        kept_differ += int((ra.kept != rb.kept.to(ra.kept.device)).sum())
+        for g, s, k in d.nonzero()[:64].tolist():
+            p = ra.probs[g, s].float()
+            pa, pb = float(p[ia[g, s, k]]), float(p[ib[g, s, k]])
+            srt = torch.sort(p, descending=True).values
+            kk = ra.expert_ids.shape[-1]
+            rel = abs(pa - pb) / max(pa, pb)
+            worst_rel = max(worst_rel, rel)
+            if len(gaps) < 8:
+                gaps.append(dict(at=(g, s, k), p_own=pa, p_other=pb,
+                                 rel_gap=rel, kth_gap=float(
+                                     srt[kk - 1] - srt[kk])))
+    return dict(calls=len(a), claims=claims, differ=differ,
+                kept_differ=kept_differ, share=differ / max(claims, 1),
+                moved=moved, moved_share=moved / max(claims, 1),
+                worst_rel_gap=worst_rel, examples=gaps)
+
+
+def phase_moe_card_vs_cpu() -> dict:
+    """M1: both moe SMOKE configs in float32 with the kernel on, the card
+    against the CPU from the same CPU-drawn weights, at capacity factors
+    8.0 and 0.5 (tokens drop): prefill of MOE_SEQ tokens and 4
+    teacher-forced decode steps, logits and KV caches within 1e-4, the
+    routes (expert ids and the within-capacity mask) equal on every layer
+    and step.  Then one float32 train step each (T2's rule), and on the
+    card (olmoe SMOKE) remat none, full and dots bitwise the same
+    gradients, the backward run twice bitwise the same."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    g = torch.Generator().manual_seed(21)
+    serve, launches = {}, FA.LAUNCHES
+    _zero(FA.LAUNCHES_BY_ROUTE)     # the float32 moe serving path starts here
+    for arch in MOE_ARCHS:
+        for cf in MOE_CFS:
+            base = get_smoke_config(arch)
+            cfg = base.replace(param_dtype="float32", compute_dtype="float32",
+                               use_flash_kernel=True,
+                               moe=dataclasses.replace(base.moe,
+                                                       capacity_factor=cf))
+            toks = torch.randint(0, cfg.vocab, (2, MOE_SEQ + 4), generator=g)
+            res = {}
+            for dev in ("cuda", "cpu"):
+                model = init_params(0, cfg, device=dev)
+                t = toks.to(dev)
+                with RouteSpy() as spy:
+                    out, cache = _serve_run(model, cfg, t[:, :MOE_SEQ],
+                                            t[:, MOE_SEQ:],
+                                            cache_dtype=torch.float32)
+                res[dev] = (out, cache, spy.routes)
+            pairs = list(zip(res["cuda"][0], res["cpu"][0])) + [
+                (res["cuda"][1]["kv"][k], res["cpu"][1]["kv"][k])
+                for k in ("k", "v")]
+            gaps = [_gap(a.cpu(), b, OLMO_F32_TOL) for a, b in pairs]
+            routes = route_gaps(res["cuda"][2], res["cpu"][2])
+            dropped = 1.0 - float(torch.cat([r.kept.reshape(-1).float().cpu()
+                                             for r in res["cpu"][2]]).mean())
+            key = f"{arch} cf {cf}"
+            serve[key] = dict(max_abs=max(x["max_abs"] for x in gaps),
+                              ok=all(_ok(x) for x in gaps), routes=routes,
+                              dropped_share=dropped)
+            print(f"[M1] {arch} SMOKE float32, capacity factor {cf}, card vs "
+                  f"CPU, prefill of {MOE_SEQ} + 4 decode: logits and KV "
+                  f"caches max |d| {serve[key]['max_abs']:.3g} (tol "
+                  f"{OLMO_F32_TOL}); routes {routes['differ']} of "
+                  f"{routes['claims']} claims differ, within-capacity bits "
+                  f"{routes['kept_differ']}; claims dropped "
+                  f"{dropped:.3f}", flush=True)
+            if routes["differ"] or routes["kept_differ"]:
+                fail(f"M1: {key}: the card routes differently from the CPU: "
+                     f"{routes}")
+            if not serve[key]["ok"]:
+                fail(f"M1: {key}: card and CPU disagree")
+            if (cf < 1.0) != (dropped > 0.0):
+                fail(f"M1: {key}: dropped share {dropped}")
+    launches = FA.LAUNCHES - launches
+    by_route = dict(FA.LAUNCHES_BY_ROUTE)   # ... and ends here
+    want = 2 * len(MOE_ARCHS) * len(MOE_CFS)   # 2 layers a prefill, card only
+    if launches != want or by_route["simt"] != want:
+        fail(f"M1: the float32 moe prefills launched flash_attention "
+             f"{launches} times ({by_route}), expected {want} SIMT launches")
+    steps = {}
+    for arch in MOE_ARCHS:
+        cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                             compute_dtype="float32")
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=DENSE_SEQ,
+                                       global_batch=4, seed=2)).batch_at(0)
+        steps[arch], _ = step_card_vs_cpu(cfg, batch)
+        print(f"[M1] {arch} SMOKE float32 at {DENSE_SEQ} tokens, card vs CPU, "
+              f"one train step: {_step_line(steps[arch])}", flush=True)
+    cfg = get_smoke_config(OLMOE).replace(param_dtype="float32",
+                                          compute_dtype="float32")
+    state = init_train_state(0, cfg, "cuda")
+    batch = _to_device(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=DENSE_SEQ, global_batch=4,
+        seed=2)).batch_at(1), "cuda")
+    grads = {r: compute_grads(state.params, batch,
+                              cfg.replace(remat=r.split()[0]))[0]
+             for r in ("none", "full", "dots", "none again")}
+    remat = {r: sum(int((grads[r][k] != x).sum())
+                    for k, x in grads["none"].items())
+             for r in ("full", "dots", "none again")}
+    n = sum(x.numel() for x in grads["none"].values())
+    print(f"[M1] {OLMOE} SMOKE float32 on the card: gradients differing from "
+          f"remat 'none' (of {n:,}): {remat}", flush=True)
+    out = dict(serve=serve, launches=launches, launches_by_route=by_route,
+               steps=steps, remat_mismatches=remat)
+    REPORT["moe_card_vs_cpu"] = out
+    bad = [a for a, r in steps.items() if not r["ok"]]
+    if bad:
+        fail(f"M1: moe SMOKE training, card and CPU disagree: {bad} "
+             f"({ {a: steps[a]['step_master_worst'] for a in bad} })")
+    if any(remat.values()):
+        fail(f"M1: remat (or a second backward) changes the moe gradients on "
+             f"the card: {remat}")
+    return out
+
+
+def _require_free_card(tag: str) -> None:
+    """Fail when an earlier phase left a model on the card."""
+    import torch
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[{tag}] {held / 2**30:.2f} GiB allocated on the card before the "
+          f"draw", flush=True)
+    if held > MOE_MEM_BEFORE:
+        fail(f"{tag}: {held:,} B still allocated on the card before drawing "
+             f"a moe model")
+
+
+def phase_moe_profile(tag: str, cfg, model, prompt, n_tokens: int) -> dict:
+    """M4: ``torch.profiler`` over one warm prefill and 5 decode steps of a
+    moe model, its device time split into attention (the flash kernels;
+    ``_attention_core`` in decode), the expert products (the products
+    inside the moe blocks: the stacked experts' bmm and the shared
+    experts'), dispatch/combine and routing (the rest of the moe blocks),
+    and the rest; the idle share against each profiled run's own wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    real_moe, real_core = MOE.apply_moe, L._attention_core
+
+    def moe_span(*a, **k):
+        with record_function("moe block"):
+            return real_moe(*a, **k)
+
+    def core_span(*a, **k):
+        with record_function("attention core"):
+            return real_core(*a, **k)
+
+    spans = ("moe block", "attention core")
+    gemms = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+    def split(prof, steps: int) -> dict:
+        """Kernel microseconds by category: every kernel row but the spans'
+        own device-side ranges; a kernel goes to the span its launching
+        operator runs inside."""
+        rows = [r for r in _kernel_rows(prof) if r[0] not in spans]
+        total = sum(r[1] for r in rows)
+        flash = sum(r[1] for r in rows
+                    if any(n in r[0] for n in FLASH_KERNEL_NAMES))
+        core = moe = gemm = 0.0
+        ops: dict = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CPU or not e.kernels:
+                continue
+            own = sum(k.duration for k in e.kernels)
+            up, p = set(), e.cpu_parent
+            while p is not None:
+                up.add(p.name)
+                p = p.cpu_parent
+            if "attention core" in up:
+                core += own
+            elif "moe block" in up:
+                moe += own
+                gemm += own if e.name in gemms else 0.0
+                ops[e.name] = ops.get(e.name, 0.0) + own
+        ms = dict(device=total, attention=flash + core, expert_products=gemm,
+                  dispatch_combine_routing=moe - gemm,
+                  rest=total - flash - core - moe)
+        out = {k: v / 1e3 / steps for k, v in ms.items()}
+        out["moe_ops_ms"] = sorted(((k, v / 1e3 / steps) for k, v
+                                    in ops.items()), key=lambda r: -r[1])[:8]
+        return out
+
+    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + n_tokens)
+    srv = make_serve_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    with mock.patch.object(MOE, "apply_moe", moe_span), \
+            mock.patch.object(L, "_attention_core", core_span):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, cache = pre(model, {"tokens": prompt})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["prefill"] = dict(split(prof, 1), wall_ms=wall * 1e3)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        steps = 5
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = srv(model, cache, {"tokens": tok})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+        out["decode"] = dict(split(prof, steps), wall_ms=wall * 1e3)
+    for part in ("prefill", "decode"):
+        r = out[part]
+        if r["device"] <= 0:
+            r["note"] = "the profiler recorded no device time: not measured"
+        else:
+            r["idle_share"] = 1.0 - r["device"] / r["wall_ms"]
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    out["decode"]["weight_read_bound_ms"] = weights / HBM_BYTES_PER_S * 1e3
+    out["decode"]["weight_bytes"] = weights
+    for part in ("prefill", "decode"):
+        r = out[part]
+        unit = "ms" if part == "prefill" else "ms a step"
+        print(f"[{tag}] {cfg.name} {part} profile ({unit}): "
+              f"device {r['device']:.3f} of {r['wall_ms']:.3f} wall, "
+              f"idle {r.get('idle_share', float('nan')):.1%}; attention "
+              f"{r['attention']:.3f}, expert products "
+              f"{r['expert_products']:.3f}, dispatch/combine and routing "
+              f"{r['dispatch_combine_routing']:.3f}, rest {r['rest']:.3f}"
+              + (f"; weight-read bound {r['weight_read_bound_ms']:.3f} ms "
+                 f"({weights / 1e9:.2f} GB at 3.35 TB/s)"
+                 if part == "decode" else ""), flush=True)
+        print(f"    the moe blocks' operators by device ms: "
+              f"{[(n, round(v, 3)) for n, v in r['moe_ops_ms']]}", flush=True)
+    return out
+
+
+def phase_moe_train() -> dict:
+    """M5 (main path): olmoe-1b-7b at full width cut to MOE_TRAIN_LAYERS
+    layers, drawn on the card (bf16, remat 'dots', ``_attention_core``),
+    MOE_TRAIN_STEPS steps of ``make_train_step`` on SyntheticLM batch 8 x
+    1024 in 2 microbatches at AdamW 1e-4: finite losses, the moe metrics;
+    step seconds, tokens/s, peak memory.  Then compress_grads three times
+    on the trained model's gradients, the error state carried: one
+    quantize and two dequantize launches a leaf a call, |err| within
+    EF_SLACK; both quant kernels bitwise their plain versions on every
+    leaf."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import training_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (_to_device, init_train_state,
+                                        make_train_step)
+
+    _require_free_card("M5")
+    cfg = training_config(get_config(OLMOE)).replace(
+        n_layers=MOE_TRAIN_LAYERS, remat="dots")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    step = make_train_step(cfg, AdamWConfig(lr=DENSE_LR), constant(1.0),
+                           n_microbatches=TRAIN_MICRO)
+    secs, metrics = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    warm = min(secs[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / warm
+    losses = [m["loss"] for m in metrics]
+    print(f"[M5] {OLMOE} at full width, {cfg.n_layers} layers: {n_params:,} "
+          f"parameters drawn on the card; {MOE_TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches (bf16, "
+          f"remat dots, AdamW {DENSE_LR}): losses "
+          f"{[round(v, 4) for v in losses]}, moe aux "
+          f"{[round(m['moe_aux_loss'], 5) for m in metrics]}, dropped "
+          f"{[round(m['moe_dropped_frac'], 4) for m in metrics]}; step "
+          f"{', '.join(f'{s:.4f}' for s in secs)} s, warm {warm:.4f} s = "
+          f"{tok_s:,.0f} tokens/s, peak {peak / 2**30:.2f} GiB", flush=True)
+    if not all(math.isfinite(v) for m in metrics for v in m.values()) or \
+            not all({"moe_aux_loss", "moe_dropped_frac"} <= set(m)
+                    for m in metrics):
+        fail(f"M5: moe training metrics {metrics}")
+    out = dict(compress_calls(state.params, cfg, [
+        _to_device(data.batch_at(MOE_TRAIN_STEPS + i), "cuda")
+        for i in range(3)]), n_params=n_params, layers=cfg.n_layers,
+        step_s=secs, warm_step_s=warm, tokens_per_s=tok_s, peak_bytes=peak,
+        metrics=metrics)
+    print(f"[M5] compress_grads x3 over {out['n_leaves']} leaves: launches "
+          f"per call {out['compress_launches']}, "
+          f"{', '.join(f'{t:.3f}' for t in out['compress_seconds'])} s, "
+          f"error feedback max |err| / (scale/2) "
+          f"{out['error_feedback_max_ratio']:.7f} (limit {EF_SLACK})",
+          flush=True)
+    _check_compress("M5", out)
+    del state, step
+    return out
+
+
+def phase_moe_quant_vs_plain(run: dict) -> dict:
+    """M5: both quant kernels against their plain versions on every leaf
+    of the 2-layer olmoe (the 134,217,728-element expert stacks among
+    them), bitwise."""
+    import torch
+
+    grads, err = run.pop("last_grads"), run.pop("last_err")
+    mism, worst, biggest = {}, 0.0, 0
+    for k, x in grads.items():
+        x = (x.float() + err[k]).reshape(-1)
+        biggest = max(biggest, x.numel())
+        x = torch.nn.functional.pad(x, (0, -x.numel() % QBLOCK))
+        m, e = _quant_vs_plain(x, QBLOCK)
+        worst = max(worst, e)
+        if any(m.values()):
+            mism[k] = m
+    del grads, err
+    torch.cuda.empty_cache()
+    out = dict(leaves=run["n_leaves"], largest_leaf=biggest,
+               leaves_with_mismatches=mism, max_abs_err=worst)
+    REPORT["moe_quant_vs_plain"] = out
+    print(f"[M5] ckpt_quant kernels vs plain on all {run['n_leaves']} leaves "
+          f"(largest {biggest:,} elements): {len(mism)} leaves with "
+          f"mismatches; max |kernel - plain| {worst}", flush=True)
+    if mism or biggest != EXPERT_LEAF:
+        fail(f"M5: ckpt_quant kernels differ from their plain versions "
+             f"({mism}) or the expert leaf is not {EXPERT_LEAF:,}")
+    return out
+
+
+def moe_phases() -> dict:
+    """M1-M5: the moe SMOKE checks, the two moe models served whole (their
+    flash counts at 0 just before each serving main path and read just
+    after, inside :func:`serve_variant`), the 2-layer olmoe trained (the
+    ckpt_quant counts at 0 just before and read just after), both quant
+    kernels timed at the expert leaf."""
+    import torch
+
+    from repro_torch.kernels import (ckpt_quant, flash_attention, sim_step,
+                                     ssd_scan)
+
+    card = phase_moe_card_vs_cpu()
+    _lap("M1")
+    serve = {}
+    for tag, arch in (("M2", OLMOE), ("M3", DEEPSEEK)):
+        # serve_variant: exactly one wgmma launch a layer, the timed prefill
+        # and decode, the logits against the plain path with the route
+        # comparison (phase_dense_vs_plain), the M4 profile
+        _require_free_card(tag)
+        serve[arch] = serve_variant(tag, arch, f32_layers=MOE_F32_LAYERS[arch],
+                                    profile=True)
+        _lap(f"{tag}, M4")
+    for k in ckpt_quant.LAUNCHES:     # the moe training main path starts here
+        ckpt_quant.LAUNCHES[k] = 0
+    sim_step.LAUNCHES = ssd_scan.LAUNCHES = flash_attention.LAUNCHES = 0
+    train = phase_moe_train()
+    launches = dict(ckpt_quant.LAUNCHES)   # ... and ends here
+    other = dict(sim_step=sim_step.LAUNCHES, ssd_scan=ssd_scan.LAUNCHES,
+                 flash_attention=flash_attention.LAUNCHES)
+    REPORT["moe_train_main_path_launches"] = dict(launches, **other)
+    print(f"[M5] moe training main path: launches {launches} (3 "
+          f"compress_grads calls over {train['n_leaves']} leaves), {other} "
+          f"(training runs _attention_core)", flush=True)
+    if min(launches.values()) < 1 or any(other.values()):
+        fail("M5: the moe training main path launched no ckpt_quant kernel, "
+             "or launched another kernel")
+    quant_vs_plain = phase_moe_quant_vs_plain(train)
+    torch.cuda.empty_cache()
+    quant = phase_quant_measure(EXPERT_LEAF, "M5",
+                                "olmoe-1b-7b's expert stack")
+    _lap("M5")
+    REPORT["moe_train"] = train
+    return dict(card_vs_cpu=card, serve=serve, train=train,
+                train_launches=launches, quant_vs_plain=quant_vs_plain,
+                quant=quant)
 
 
 # --------------------------------------------------------------------------- #
@@ -4339,6 +4913,12 @@ def main() -> int:
     from repro_torch.kernels import (ckpt_quant, flash_attention, sim_step,
                                      ssd_scan)
 
+    if "--moe" in sys.argv[1:]:
+        moe = moe_phases()
+        _dump()
+        print(json.dumps({"moe": True, "m5_launches": moe["train_launches"]}))
+        return 0
+
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
                                   64 if quick else 128)
     phase_across_devices()
@@ -4548,6 +5128,7 @@ def main() -> int:
                                       "olmo-1b's embedding leaf")
     phase_ft_example()
     _lap("D3 quant, D4")
+    moe = moe_phases()
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
     fig4_kernel = {name: {"philox_ms": REPORT[name]["kernel"]["philox_ms"],
                           "pregenerated_ms":
@@ -4580,10 +5161,14 @@ def main() -> int:
         "f32_max_abs": olmo_vs_plain["f32"]["max_abs"]}
     olmo_t, gqa_t = flash["olmo-1b prefill"], flash["GQA serving"]
     tc_by_path = {"olmo-1b": flash_by_route["wgmma"], **{
-        arch: r["launches_by_route"]["wgmma"] for arch, r in variants.items()}}
+        arch: r["launches_by_route"]["wgmma"] for arch, r in variants.items()},
+        **{arch: moe["serve"][arch]["launches_by_route"]["wgmma"]
+           for arch in MOE_ARCHS}}
     simt_by_path = {"olmo SMOKE float32 (A2)": a2["launches_by_route"]["simt"],
                     "variants' SMOKE float32 (V2)":
-                        v2["launches_by_route"]["simt"]}
+                        v2["launches_by_route"]["simt"],
+                    "moe SMOKE float32 (M1)":
+                        moe["card_vs_cpu"]["launches_by_route"]["simt"]}
     variant_rows = {arch: {
         k: r[k] for k in ("shape", "softcap", "ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms", "library_note")}
@@ -4656,20 +5241,30 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ckpt_quant.cu",
         "replaces": replaces,
         "launches": (quant_launches[f"{name}_blocks"]
-                     + dense_quant_launches[f"{name}_blocks"]),
+                     + dense_quant_launches[f"{name}_blocks"]
+                     + moe["train_launches"][f"{name}_blocks"]),
         "launches_by_path": {
             "mamba2-130m training (T3)": quant_launches[f"{name}_blocks"],
-            "olmo-1b training (D2)": dense_quant_launches[f"{name}_blocks"]},
+            "olmo-1b training (D2)": dense_quant_launches[f"{name}_blocks"],
+            "olmoe-1b-7b 2-layer training (M5)":
+                moe["train_launches"][f"{name}_blocks"]},
         "launches_per_compress_grads": {
             "mamba2-130m": train_run["compress_launches"][0][f"{name}_blocks"],
-            "olmo-1b": dense_run["compress_launches"][0][f"{name}_blocks"]},
-        "max_abs_err": max(quant_worst, dense_quant_worst), "bitwise": True,
+            "olmo-1b": dense_run["compress_launches"][0][f"{name}_blocks"],
+            "olmoe-1b-7b, 2 layers": moe["train"]["compress_launches"][0][
+                f"{name}_blocks"]},
+        "max_abs_err": max(quant_worst, dense_quant_worst,
+                           moe["quant_vs_plain"]["max_abs_err"]),
+        "bitwise": True,
         "shape": f"mamba2-130m's embedding leaf, {EMBED_LEAF:,} float32",
         "ms": quant[name]["ms"], "plain_ms": quant[name]["plain_ms"],
         "bound_ms": quant[name]["bound_ms"], "bound_by": "bytes",
         "library_ms": quant[name]["library_ms"],
         "olmo_embedding_leaf": dict(n=OLMO_EMBED_LEAF, bound_by="bytes", **{
             k: dense_quant[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}),
+        "olmoe_expert_leaf": dict(n=EXPERT_LEAF, bound_by="bytes", **{
+            k: moe["quant"][name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms")})}
         for name, replaces in (
             ("quantize", "src/repro/kernels/ckpt_quant.py:28"),
@@ -4677,9 +5272,9 @@ def main() -> int:
         "name": "flash_attention_tc", "route": "cuda", "kernel_route": "wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "the dense serving prefills (bf16): olmo-1b (A3), "
+        "path": "the dense and moe serving prefills (bf16): olmo-1b (A3), "
                 "gemma2-27b (V3), stablelm-1.6b, starcoder2-3b, qwen2-vl-7b "
-                "(V6)",
+                "(V6), olmoe-1b-7b (M2), deepseek-moe-16b (M3)",
         "launches": sum(tc_by_path.values()),
         "launches_by_path": tc_by_path,
         "max_abs_err": max(worst_of(flash_rows, "wgmma", (None,)),
@@ -4696,7 +5291,8 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "kernel_route": "simt",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "dense serving in float32 (A2, V2: SMOKE prefills)",
+        "path": "dense and moe serving in float32 (A2, V2, M1: SMOKE "
+                "prefills)",
         "launches": sum(simt_by_path.values()),
         "launches_by_path": simt_by_path,
         "max_abs_err": worst_of(flash_rows, "simt", (None,)),

@@ -3,10 +3,12 @@
 28L d_model=2048 16H (GQA kv=16) d_ff=1408 vocab=102400, MoE 64e top-6
 [arXiv:2401.06066; hf]
 
-Data only: the same values as ``repro/configs/deepseek_moe_16b.py``,
-field for field.
-The moe family is not ported yet: ``models.init_params`` raises for it
-(ROADMAP Queue 1 item 9.4).
+The same values as ``repro/configs/deepseek_moe_16b.py`` with one deliberate
+difference: ``CONFIG`` sets ``use_flash_kernel=True``, so the prefill's
+attention runs through the hand-written CUDA flash-attention kernel
+(``kernels/csrc/flash_attention.cu``), which is the serving path on the
+card.  In the JAX package the knob defaults to off.  ``SMOKE`` keeps the
+default; tests set the knob the same way on both sides.
 """
 from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig, RopeConfig
 
@@ -24,6 +26,7 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     act="silu_gated",
     tie_embeddings=False,
+    use_flash_kernel=True,   # the one difference from the JAX config
 )
 
 SMOKE = ModelConfig(

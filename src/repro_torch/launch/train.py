@@ -20,13 +20,14 @@ default the measured seconds count).  Without ``--ckpt-dir`` the images go
 to a fresh temporary directory that is removed at the end; with it,
 replicas go to ``DIR_rep0``, ... beside it.
 
-The ssm and dense families train (mamba2-130m; olmo-1b, gemma2-27b,
-stablelm-1.6b, starcoder2-3b, qwen2-vl-7b).  Neither hand-written kernel of
+The ssm, dense and moe families train (mamba2-130m; olmo-1b,
+gemma2-27b, stablelm-1.6b, starcoder2-3b, qwen2-vl-7b; olmoe-1b-7b,
+deepseek-moe-16b).  Neither hand-written kernel of
 their serving paths has a backward, so training runs the SSD through
 ``ssd_chunked`` and attention through ``_attention_core``, as the JAX
 package trains them: a config with ``use_flash_kernel=True`` (the port's
 serving ``CONFIG``) is trained with the knob off, and the entry point says
-so.  The moe, hybrid and encdec archs are refused, naming their ROADMAP
+so.  The hybrid and encdec archs are refused, naming their ROADMAP
 item.
 """
 from __future__ import annotations

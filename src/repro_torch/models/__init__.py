@@ -1,5 +1,6 @@
 """Model library of the port (the ssm family: mamba2; the dense family:
-olmo, gemma2, stablelm, starcoder2, qwen2-vl)."""
+olmo, gemma2, stablelm, starcoder2, qwen2-vl; the moe family: olmoe,
+deepseek-moe)."""
 from repro_torch.models.model import (
     DenseLM,
     Mamba2LM,

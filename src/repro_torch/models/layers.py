@@ -4,7 +4,7 @@ LayerNorm with and without bias, the non-parametric LayerNorm), RoPE,
 partial RoPE and M-RoPE, GQA attention over a serving cache (bfloat16 or
 float32, or int8 codes with float32 per-(token, head) scales), the MLPs,
 tied or untied embedding and unembedding and the final logit softcap, in
-bfloat16 and float32.
+bfloat16, float32 and float16.
 
 Conventions, as in the JAX package: parameters are mappings of name to
 tensor (``nn.ParameterDict`` inside the modules), ``init_*`` functions
@@ -29,7 +29,10 @@ from repro_torch.device import div
 
 Params = Mapping[str, torch.Tensor]
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+# the dtypes the flash kernels take; float16 runs _attention_core
+FLASH_DTYPES = (torch.bfloat16, torch.float32)
 NEG_INF = -1e30
 INV_127 = 1.0 / 127.0   # the int8 KV scale's factor (rounded to float32)
 NORMS = ("rmsnorm", "rmsnorm_one", "layernorm", "layernorm_nobias",
@@ -40,16 +43,14 @@ FRONTENDS = ("none", "patches")   # 'audio_frames' comes with the encdec family
 
 def _dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
-        raise NotImplementedError(
-            f"dtype {name!r} is not ported yet (ROADMAP Queue 1)")
+        raise ValueError(f"unknown dtype {name!r}")
     return _DTYPES[name]
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a layer option the port does not have yet: a dtype other
-    than bfloat16 and float32, and the audio-frames frontend (it comes
-    with the encdec family, ROADMAP Queue 1 item 9.6); and for an unknown
-    norm or activation."""
+    """Raise for a layer option the port does not have yet: the
+    audio-frames frontend (it comes with the encdec family, ROADMAP Queue
+    1 item 9.6); and for an unknown dtype, norm or activation."""
     _dtype(cfg.param_dtype)
     _dtype(cfg.compute_dtype)
     if cfg.frontend not in FRONTENDS:
@@ -264,15 +265,17 @@ def _attention_core(qg, k, v, *, scale, softcap, causal, sliding_window,
 def flash_route(cfg: ModelConfig, *, causal: bool, q_offset: int, seq: int,
                 layer_is_local: bool) -> bool:
     """Whether the attention of a call runs through the flash kernel: the
-    knob is on, the mask is causal, the queries start at position 0 (a
+    knob is on, the compute dtype is one the kernels take (bfloat16 or
+    float32), the mask is causal, the queries start at position 0 (a
     prefill, or a forward without a cache) and no sliding window is
-    narrower than the prompt.  Everything else (decode, a prefill behind
-    earlier tokens) runs :func:`_attention_core`."""
+    narrower than the prompt.  Everything else (float16, decode, a
+    prefill behind earlier tokens) runs :func:`_attention_core`."""
     a = cfg.attention
     narrow = (a.sliding_window is not None and layer_is_local
               and a.sliding_window < seq)
-    return bool(cfg.use_flash_kernel and causal and q_offset == 0
-                and not narrow)
+    return bool(cfg.use_flash_kernel
+                and _dtype(cfg.compute_dtype) in FLASH_DTYPES
+                and causal and q_offset == 0 and not narrow)
 
 
 def multi_head_attention(
@@ -399,18 +402,26 @@ def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig,
     return p
 
 
+def activate(cfg: ModelConfig, up: torch.Tensor,
+             gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """The MLP's hidden activation: ``silu(gate) * up``, ``gelu(gate) *
+    up`` or ``gelu(up)``; GELU is the tanh approximation, as
+    ``jax.nn.gelu(approximate=True)``."""
+    if cfg.act == "silu_gated":
+        return F.silu(gate) * up
+    if cfg.act == "gelu_gated":
+        return F.gelu(gate, approximate="tanh") * up
+    if cfg.act == "gelu":
+        return F.gelu(up, approximate="tanh")
+    raise ValueError(f"unknown act {cfg.act!r}")
+
+
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cdt = _dtype(cfg.compute_dtype)
     xc = x.to(cdt)
-    up = xc @ p["w_up"].to(cdt)
-    if cfg.act == "silu_gated":
-        h = F.silu(xc @ p["w_gate"].to(cdt)) * up
-    elif cfg.act == "gelu_gated":
-        h = F.gelu(xc @ p["w_gate"].to(cdt), approximate="tanh") * up
-    elif cfg.act == "gelu":
-        h = F.gelu(up, approximate="tanh")
-    else:
-        raise ValueError(f"unknown act {cfg.act!r}")
+    gated = cfg.act.endswith("gated")
+    h = activate(cfg, xc @ p["w_up"].to(cdt),
+                 xc @ p["w_gate"].to(cdt) if gated else None)
     return (h @ p["w_down"].to(cdt)).to(x.dtype)
 
 

@@ -1,9 +1,11 @@
 """Model assembly of the port: init / forward / prefill / decode for the
-ssm family (the Mamba2 stack, attention-free) and the dense family (the
-pre-norm transformer: GQA attention + MLP).
+ssm family (the Mamba2 stack, attention-free), the dense family (the
+pre-norm transformer: GQA attention + MLP) and the moe family (the same
+transformer with a mixture-of-experts block, ``models/moe.py``, in place
+of the MLP).
 
-The port of ``repro/models/model.py`` for ``family`` ``"ssm"`` and
-``"dense"``.  Each stack is an ``nn.Module`` (:class:`Mamba2LM`,
+The port of ``repro/models/model.py`` for ``family`` ``"ssm"``,
+``"dense"`` and ``"moe"``.  Each stack is an ``nn.Module`` (:class:`Mamba2LM`,
 :class:`DenseLM`: embedding, a ``ModuleList`` of blocks looped in Python,
 final norm); the JAX version's ``lax.scan`` over stacked parameters has no
 counterpart here.  Its remat does, when autograd records the forward
@@ -13,13 +15,16 @@ selective checkpointing with :func:`remat_dots_policy`, which saves the
 outputs of the block's products with no batch dimension (the projections)
 and recomputes the rest, as ``jax.checkpoint_policies.
 checkpoint_dots_with_no_batch_dims`` does.  :func:`loss_fn` is the training
-loss.  The moe, hybrid and encdec families wait for later slices (ROADMAP
-Queue 1 item 9) and raise.  The dense family covers every dense config
+loss, plus the moe block's load-balancing loss averaged over the layers.
+The hybrid and encdec families wait for later slices (ROADMAP Queue 1
+item 9) and raise.  The dense family covers every dense config
 of the registry: olmo-1b, gemma2-27b (alternating local/global windows,
 both softcaps, ``(1 + scale)`` rmsnorms and post-block norms),
 stablelm-1.6b (LayerNorm with bias, partial RoPE, an untied head),
 starcoder2-3b (LayerNorm, plain GELU, a sliding window) and qwen2-vl-7b
-(M-RoPE over (B, 3, S) positions; text gives three equal streams).
+(M-RoPE over (B, 3, S) positions; text gives three equal streams); the
+moe family olmoe-1b-7b (64 experts, top-8) and deepseek-moe-16b (64
+routed top-6 and 2 shared experts).
 
 Parameters are built frozen (``requires_grad=False``), as serving wants
 them; the training entry points (``repro_torch.train.step``) turn
@@ -27,6 +32,7 @@ them; the training entry points (``repro_torch.train.step``) turn
 ``embed.tok``, ``blocks.<i>.norm.scale``, ``blocks.<i>.mixer.<name>``
 (ssm), ``blocks.<i>.attn.wq``, ``blocks.<i>.mlp.w_up``, ... (dense; the
 non-parametric norms hold no leaves, LayerNorm adds ``bias``),
+``blocks.<i>.moe.router``, ``blocks.<i>.moe.w_up``, ... (moe),
 ``blocks.<i>.post_attn_norm`` / ``post_mlp_norm`` (gemma2),
 ``final_norm.scale``, ``embed.unembed`` (an untied head);
 :func:`from_reference` carries the JAX package's ``init_params`` pytree
@@ -36,7 +42,8 @@ across dtype for dtype.
 The serving caches mirror the JAX ones.  ssm: ``{"ssm": {"state": (L, B,
 h, p, n), "conv": (L, B, W-1, conv_dim)}, "index": int}``; the SSM state
 and conv carry are float32 whatever ``cache_dtype`` prefill is given, as
-in the JAX package.  dense: ``{"kv": {"k", "v": (L, B, G, max_seq, hd)},
+in the JAX package.  dense and moe: ``{"kv": {"k", "v": (L, B, G,
+max_seq, hd)},
 "index": int}`` in ``cache_dtype``, written in place layer by layer (the
 JAX decode path's ``layer_index`` form); with ``kv_cache_quant`` the K/V
 are int8 codes beside float32 ``k_scale``/``v_scale`` of (L, B, G,
@@ -59,16 +66,19 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import div, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Cache = Dict[str, Any]
 
 
-FAMILIES = ("ssm", "dense")
+FAMILIES = ("ssm", "dense", "moe")
+# the families of the transformer stack (DenseLM)
+ATTENTION_FAMILIES = ("dense", "moe")
 # The families still to port, by their ROADMAP Queue 1 item.
-MISSING_FAMILIES = {"moe": "9.4", "hybrid": "9.5", "encdec": "9.6"}
+MISSING_FAMILIES = {"hybrid": "9.5", "encdec": "9.6"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -121,10 +131,10 @@ class Mamba2LM(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm transformer block's parameters: attention and MLP, each
-    behind a norm (plus gemma2's post-block norms when
-    ``cfg.post_block_norm``); run by :func:`_apply_dense_block` under the
-    caller's config."""
+    """Pre-norm transformer block's parameters: attention and the MLP (the
+    moe family: the MoE block, ``moe``), each behind a norm (plus gemma2's
+    post-block norms when ``cfg.post_block_norm``); run by
+    :func:`_apply_dense_block` under the caller's config."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
                  device=None):
@@ -134,15 +144,18 @@ class DenseBlock(nn.Module):
         self.attn_norm = _norm(L.init_norm(gen, cfg, d), dev)
         self.attn = _norm(L.init_attention(gen, cfg), dev)
         self.mlp_norm = _norm(L.init_norm(gen, cfg, d), dev)
-        self.mlp = _norm(L.init_mlp(gen, cfg), dev)
+        if cfg.family == "moe":
+            self.moe = _norm(MOE.init_moe(gen, cfg), dev)
+        else:
+            self.mlp = _norm(L.init_mlp(gen, cfg), dev)
         if cfg.post_block_norm:
             self.post_attn_norm = _norm(L.init_norm(gen, cfg, d), dev)
             self.post_mlp_norm = _norm(L.init_norm(gen, cfg, d), dev)
 
 
 class DenseLM(nn.Module):
-    """The dense language model's parameters: embedding, blocks, final
-    norm (run by :func:`forward`).  ``gen`` None builds it on the meta
+    """The dense (and moe) language model's parameters: embedding, blocks,
+    final norm (run by :func:`forward`).  ``gen`` None builds it on the meta
     device, to be loaded (:func:`from_reference`)."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
@@ -202,22 +215,26 @@ def _apply_dense_block(bp: DenseBlock, x, cfg: ModelConfig, *, positions,
         attn_out = L.apply_norm(bp.post_attn_norm, attn_out, cfg)
     x = x + attn_out
     h = L.apply_norm(bp.mlp_norm, x, cfg)
-    ffn_out = L.apply_mlp(bp.mlp, h, cfg)
+    aux = {}
+    if cfg.family == "moe":
+        ffn_out, aux = MOE.apply_moe(bp.moe, h, cfg)
+    else:
+        ffn_out = L.apply_mlp(bp.mlp, h, cfg)
     if cfg.post_block_norm:
         ffn_out = L.apply_norm(bp.post_mlp_norm, ffn_out, cfg)
-    return x + ffn_out, new_cache
+    return x + ffn_out, new_cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Cache:
     """Serving cache for the ported families.  ssm: ``max_seq`` and
     ``dtype`` do not enter it (the SSM cache has no sequence axis and is
-    float32).  dense: zeroed K and V of (L, B, G, max_seq, hd) in
+    float32).  dense and moe: zeroed K and V of (L, B, G, max_seq, hd) in
     ``dtype``; with ``kv_cache_quant``, int8 K and V codes and float32
     scales of (L, B, G, max_seq) set to 1 (``dtype`` does not enter)."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         a = cfg.attention
         shape = (cfg.n_layers, batch, a.n_kv_heads, max_seq, a.head_dim)
         if cfg.kv_cache_quant:
@@ -276,13 +293,20 @@ def remat_dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
 
     A block's products with no batch dimension are its projections
     (``wq``/``wk``/``wv``/``wo``, the MLP's up/gate/down, the SSM's
-    in/out projections); attention's score and PV products and the SSD's
-    einsums carry the batch.  The rule reads the operands, not the aten
-    name: ``einsum`` lowers some products with a weight operand (``wo``'s
-    ``bhsk,hkd->bsd``) to a ``bmm`` of batch 1."""
+    in/out projections, the moe router and shared experts); attention's
+    score and PV products, the SSD's einsums and the moe expert products
+    (``gecd,edf->gecf``: the expert axis is a batch dimension) carry one.
+    The rule reads the operands, not the aten name: a product is saved
+    when an operand is a parameter and no parameter operand has a batch
+    dimension above 1.  ``einsum`` lowers some products with a weight
+    operand (``wo``'s ``bhsk,hkd->bsd``) to a ``bmm`` of batch 1, saved;
+    the expert products are ``bmm``s over the stacked (E, d, f) weights,
+    recomputed."""
     ops = _PRODUCTS.get(func)
-    if ops is not None and any(_is_weight(args[i]) for i in ops):
-        return CheckpointPolicy.MUST_SAVE
+    if ops is not None:
+        weights = [args[i] for i in ops if _is_weight(args[i])]
+        if weights and all(w.dim() < 3 or w.shape[0] == 1 for w in weights):
+            return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
@@ -306,20 +330,36 @@ def _layer_is_local_static(cfg: ModelConfig, i: int) -> bool:
 
 def _dense_stack(params: DenseLM, x, cfg: ModelConfig, *, positions,
                  kv_cache=None, cache_index=None):
-    """The dense block stack, a Python loop over the blocks.  With a cache
-    (prefill and decode alike) each layer writes its slice of the stacked
-    (L, B, G, max_seq, hd) buffers in place."""
+    """The dense (and moe) block stack, a Python loop over the blocks.
+    With a cache (prefill and decode alike) each layer writes its slice of
+    the stacked (L, B, G, max_seq, hd) buffers in place.
+
+    Returns (x, cache, aux).  The moe blocks' aux, as the JAX package
+    reduces it: without a cache the layers' sum over ``n``; a decode step
+    (one token) the sum of each layer's value over ``n``; a prefill none."""
     remat = _remat(cfg) if kv_cache is None else "none"
+    n = cfg.n_layers
+    decode = kv_cache is not None and x.shape[1] == 1
+    aux_tot: Dict[str, torch.Tensor] = {}
     for i, bp in enumerate(params.blocks):
         kw = dict(positions=positions,
                   layer_is_local=_layer_is_local_static(cfg, i))
         if remat != "none":
-            x, _ = _checkpointed(remat, _apply_dense_block, bp, x, cfg, **kw)
+            x, _, aux = _checkpointed(remat, _apply_dense_block, bp, x, cfg,
+                                      **kw)
         else:
-            x, kv_cache = _apply_dense_block(
+            x, kv_cache, aux = _apply_dense_block(
                 bp, x, cfg, cache=kv_cache, cache_index=cache_index,
                 layer_index=None if kv_cache is None else i, **kw)
-    return x, kv_cache
+        for k, v in aux.items():
+            if decode:
+                v = div(v, n).to(v.dtype)
+            aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
+    if kv_cache is not None and not decode:
+        return x, kv_cache, {}
+    if not decode:
+        aux_tot = {k: div(v, n).to(v.dtype) for k, v in aux_tot.items()}
+    return x, kv_cache, aux_tot
 
 
 def _ssm_stack(params: Mamba2LM, x, cfg: ModelConfig, *, ssm_cache=None,
@@ -349,7 +389,10 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig, *, cache: Optional[Cache] = None,
             last_only: bool = False
             ) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
-    """Compute logits (float32).
+    """Compute (logits (float32), the new cache, aux).  aux holds the moe
+    blocks' ``moe_aux_loss`` and ``moe_dropped_frac`` averaged over the
+    layers, without a cache and in a decode step (empty for a prefill and
+    for the other families).
 
     batch: {'tokens': (B, S) integer; dense: optional 'positions', (B, S)
     or, for M-RoPE, (B, 3, S)}.  Without positions they count from the
@@ -362,8 +405,8 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
     _require_ported(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(params.embed, tokens, cfg)
-    new_cache = None
-    if cfg.family == "dense":
+    new_cache, aux = None, {}
+    if cfg.family in ATTENTION_FAMILIES:
         cache_index = int(cache["index"]) if cache is not None else 0
         positions = batch.get("positions")
         if positions is None:
@@ -375,8 +418,8 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
             positions = positions[:, None, :].expand(
                 positions.shape[0], 3, positions.shape[1])
         kv = cache["kv"] if cache is not None else None
-        x, new_kv = _dense_stack(params, x, cfg, positions=positions,
-                                 kv_cache=kv, cache_index=cache_index)
+        x, new_kv, aux = _dense_stack(params, x, cfg, positions=positions,
+                                      kv_cache=kv, cache_index=cache_index)
         if cache is not None:
             new_cache = {"kv": new_kv,
                          "index": cache_index + tokens.shape[1]}
@@ -391,14 +434,15 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
         x = x[:, -1:]
     x = L.apply_norm(params.final_norm, x, cfg)
     logits = L.logits_from_hidden(params.embed, x, cfg)
-    return logits, new_cache, {}
+    return logits, new_cache, aux
 
 
 def loss_fn(params: LM, batch: Mapping[str, torch.Tensor],
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy.  batch['labels'] (B, S); entries < 0 are
-    ignored.  Returns (loss, {'loss', 'ce'})."""
-    logits, _, _ = forward(params, batch, cfg)
+    """Next-token cross-entropy, plus the moe aux loss.  batch['labels']
+    (B, S); entries < 0 are ignored.  Returns (loss, {'loss', 'ce'} and,
+    moe, {'moe_aux_loss', 'moe_dropped_frac'})."""
+    logits, _, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     valid = labels >= 0
     labels_safe = labels.clamp(min=0).long()
@@ -408,7 +452,8 @@ def loss_fn(params: LM, batch: Mapping[str, torch.Tensor],
     nll = lse - gold
     denom = valid.sum().clamp(min=1)
     ce = torch.where(valid, nll, 0.0).sum() / denom
-    return ce, {"loss": ce, "ce": ce}
+    total = ce + aux["moe_aux_loss"] if "moe_aux_loss" in aux else ce
+    return total, {"loss": total, "ce": ce, **aux}
 
 
 def _batch(tokens: torch.Tensor,

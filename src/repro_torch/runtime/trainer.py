@@ -21,8 +21,8 @@ place, and a rollback copies the restored checkpoint into it.  The state
 starts from the port's init -- ``seed`` an integer (drawn on the CPU) or a
 ``torch.Generator`` (drawn on its device: a full-width model's draws on
 the card), the same weights every ``run`` -- or from ``init_state``
-(copied, so every ``run`` starts from the same weights).  The ssm and
-dense families train; their hand-written kernels have no backward, so
+(copied, so every ``run`` starts from the same weights).  The ssm, dense
+and moe families train; their hand-written kernels have no backward, so
 training runs ``ssd_chunked`` and ``_attention_core``, and a config with
 ``use_flash_kernel=True`` is refused.
 

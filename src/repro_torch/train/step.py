@@ -9,11 +9,13 @@ parameters (an ``nn.Module``, ``requires_grad``) and the optimizer state
 are updated in place and returned; a caller that needs the old state keeps
 a :meth:`TrainState.clone`.
 
-The ssm and dense families train.  Neither hand-written kernel of their
-serving paths has a backward, in the JAX package or here: training runs
-the SSD through ``ssd_chunked`` and attention through ``_attention_core``
-under autograd (as the JAX package trains attention), so a config with
-``use_flash_kernel=True`` is refused.  ``grad_constraint`` and
+The ssm, dense and moe families train.  Neither hand-written kernel of
+their serving paths has a backward, in the JAX package or here: training
+runs the SSD through ``ssd_chunked`` and attention through
+``_attention_core`` under autograd (as the JAX package trains attention),
+so a config with ``use_flash_kernel=True`` is refused.  A moe step
+averages the blocks' ``moe_aux_loss`` and ``moe_dropped_frac`` over the
+microbatches with the loss.  ``grad_constraint`` and
 ``zero1_grads_in_scan`` (the ZeRO-1 sharding of the gradients) wait for
 ROADMAP Queue 1 item 6 and raise.
 """
@@ -75,8 +77,8 @@ class TrainState(NamedTuple):
 
 
 def require_trainable_family(cfg: ModelConfig) -> None:
-    """Training is ported for every ported family (ssm and dense); the
-    others raise naming their ROADMAP item."""
+    """Training is ported for every ported family (ssm, dense and moe);
+    the others raise naming their ROADMAP item."""
     M._require_ported(cfg)
 
 
@@ -84,7 +86,7 @@ def serving_kernel(cfg: ModelConfig) -> Tuple[str, str]:
     """The hand-written kernel ``use_flash_kernel`` turns on for ``cfg``'s
     family, which has no backward, and the plain path training runs in its
     place."""
-    if cfg.family == "dense":
+    if cfg.family in M.ATTENTION_FAMILIES:
         return "flash-attention kernel", "_attention_core"
     return "SSD kernel", "ssd_chunked"
 
@@ -135,9 +137,15 @@ def from_reference(state_np: Any, cfg: ModelConfig, device=None) -> TrainState:
     return TrainState(params, AdamWState(step=step, **parts))
 
 
-def _zero_metrics(device) -> Dict[str, torch.Tensor]:
+def _zero_metrics(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    """The metrics a microbatched step averages: the loss and the
+    cross-entropy, and for the moe family the aux loss and the dropped
+    share."""
+    names = ("loss", "ce")
+    if cfg.family == "moe":
+        names += ("moe_aux_loss", "moe_dropped_frac")
     return {k: torch.zeros((), dtype=torch.float32, device=device)
-            for k in ("loss", "ce")}
+            for k in names}
 
 
 def _to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -189,7 +197,7 @@ def make_train_step(
             mb = b // n_microbatches
             g_sum = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
                      for k, p in state.params.named_parameters()}
-            m_sum = _zero_metrics(dev)
+            m_sum = _zero_metrics(cfg, dev)
             for i in range(n_microbatches):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 grads, metrics = compute_grads(state.params, micro, cfg)

@@ -1052,3 +1052,130 @@ def test_remat_dots_on_card_gives_the_gradients_of_none(arch):
     for r in ("full", "dots"):
         for k, g in out["none"].items():
             assert torch.equal(out[r][k], g), (r, k)
+
+
+MOE = ("olmoe-1b-7b", "deepseek-moe-16b")
+
+
+def _moe_cfg(arch, **change):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    cf = change.pop("capacity_factor", cfg.moe.capacity_factor)
+    return cfg.replace(param_dtype="float32", compute_dtype="float32",
+                       moe=dataclasses.replace(cfg.moe, capacity_factor=cf),
+                       **change)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [8.0, 0.5])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_smoke_card_equals_cpu(arch, cf, monkeypatch):
+    """M1 for one config: SMOKE in float32 (float32 KV cache) with the
+    kernel on, at capacity factor 8.0 and 0.5 (tokens drop), prefill of 32
+    tokens and 4 teacher-forced decode steps, the card against the CPU:
+    the routes (expert ids, within-capacity mask) equal on every layer and
+    step, logits and caches within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import moe as MOE
+
+    cfg = _moe_cfg(arch, capacity_factor=cf, use_flash_kernel=True)
+    seen, real = [], MOE.route
+
+    def spy(*args, **kwargs):
+        r = real(*args, **kwargs)
+        seen.append(r)
+        return r
+
+    monkeypatch.setattr(MOE, "route", spy)
+    toks = torch.randint(0, cfg.vocab, (2, 36),
+                         generator=torch.Generator().manual_seed(12))
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            m = init_params(0, cfg, device=dev)
+            t, first = toks.to(dev), len(seen)
+            logits, cache = prefill(m, t[:, :32], cfg, 36,
+                                    cache_dtype=torch.float32)
+            logs = [logits]
+            for i in range(4):
+                logits, cache = decode_step(m, cache, t[:, 32 + i:][:, :1],
+                                            cfg)
+                logs.append(logits)
+            out[dev] = (logs, cache, seen[first:])
+    (lg, cg, rg), (lc, cc, rc) = out["cuda"], out["cpu"]
+    assert len(rg) == len(rc) == 5 * cfg.n_layers
+    for a, b in zip(rg, rc):
+        assert torch.equal(a.expert_ids.cpu(), b.expert_ids)
+        assert torch.equal(a.kept.cpu(), b.kept)
+    kept = torch.cat([r.kept.reshape(-1) for r in rc])
+    assert bool(kept.all()) == (cf == 8.0)
+    for a, b in zip(lg, lc):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    for k in ("k", "v"):
+        torch.testing.assert_close(cg["kv"][k].cpu(), cc["kv"][k], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_smoke_train_step_card_equals_cpu(arch):
+    """One float32 SMOKE train step from the same seeded weights on the
+    card and the CPU, held as the dense configs' are (T2's rule)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (compute_grads, init_train_state,
+                                        make_train_step)
+
+    cfg = _moe_cfg(arch, use_flash_kernel=False)
+    batch = _dense_batch(cfg)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    states = {dev: init_train_state(0, cfg, dev) for dev in ("cuda", "cpu")}
+    grads = {dev: compute_grads(st.params, {k: v.to(dev) for k, v
+                                            in tb.items()}, cfg)[0]
+             for dev, st in states.items()}
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k].cpu(), g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()) + 1e-6)
+    lr = 1e-3
+    out = {dev: make_train_step(cfg, AdamWConfig(lr=lr), constant(1.0))(
+        st, batch) for dev, st in states.items()}
+    for k in ("loss", "moe_aux_loss"):
+        a, b = (float(out[dev][1][k]) for dev in ("cuda", "cpu"))
+        assert abs(a - b) <= 1e-5 * abs(b), k
+    n_tiny = 0
+    for k, w in out["cpu"][0].opt.master.items():
+        d = (out["cuda"][0].opt.master[k].cpu() - w).abs()
+        tiny = (grads["cpu"][k].abs() < 1e-6) & (grads["cpu"][k] != 0)
+        n_tiny += int(tiny.sum())
+        assert bool((d[~tiny] <= 1e-5 * w.abs()[~tiny] + 1e-6).all()), k
+        assert bool((d[tiny] <= 0.05 * lr).all()), k
+    assert n_tiny < 1e-2 * sum(g.numel() for g in grads["cpu"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_backward_is_deterministic_and_remat_free_on_card(arch):
+    """The dispatch and combine write unique slots (no atomic adds): on the
+    card the backward run twice gives the same gradients bit for bit, and
+    remat 'full' and 'dots' give those of 'none'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    cfg = _moe_cfg(arch, use_flash_kernel=False)
+    state = init_train_state(0, cfg, "cuda")
+    batch = _to_device(_dense_batch(cfg, 1), "cuda")
+    out = {r: compute_grads(state.params, batch,
+                            cfg.replace(remat=r.split()[0]))[0]
+           for r in ("none", "none again", "full", "dots")}
+    for r in ("none again", "full", "dots"):
+        for k, g in out["none"].items():
+            assert torch.equal(out[r][k], g), (r, k)

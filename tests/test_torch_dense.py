@@ -380,9 +380,9 @@ def test_embedding_scaling_follows_the_norm():
 
 # The families not ported yet; the layer options these cases once listed
 # beside them are ported and held to the JAX package in
-# tests/test_torch_variants.py.  The ids stay those the cases had.
+# tests/test_torch_variants.py, the moe family in tests/test_torch_moe.py.
+# The ids stay those the cases had.
 @pytest.mark.parametrize("change", [
-    pytest.param(dict(family="moe"), id="change8"),
     pytest.param(dict(family="hybrid"), id="change9"),
     pytest.param(dict(family="encdec"), id="change10"),
 ])
@@ -394,7 +394,7 @@ def test_unported_options_raise(change):
         T_models.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("family,item", [("moe", "9.4"), ("hybrid", "9.5"),
+@pytest.mark.parametrize("family,item", [("hybrid", "9.5"),
                                          ("encdec", "9.6")])
 def test_training_refuses_the_unported_families(family, item):
     cfg = T_cfg.get_smoke_config(ARCH).replace(family=family)
@@ -414,8 +414,8 @@ def test_dense_training_refuses_the_flash_kernel(capsys):
     assert not T_launch_train.training_config(
         T_cfg.get_config(ARCH)).use_flash_kernel
     assert "flash-attention kernel has no backward" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9.4"):
-        T_launch_train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9.5"):
+        T_launch_train.main(["--arch", "zamba2-7b", "--smoke", "--device",
                              "cpu", "--steps", "1"])
 
 
