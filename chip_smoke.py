@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # full run (one card, ~minutes)
     python3 chip_smoke.py --quick    # build + kernel checks (to V2)
     python3 chip_smoke.py --moe      # build + the moe phases (M1-M5)
+    python3 chip_smoke.py --hybrid   # build + the hybrid phases (H1-H5)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
@@ -37,9 +38,10 @@ S1. both ssd_scan kernels -- the tensor-core kernels (the route of bf16
    at these shapes) and the SIMT kernel -- against their plain torch
    version on the card at the serving shape (b 8, s 1024, h 24, p 64,
    n 128, Q 256, bf16 x/B/C) with a zero and a random initial state, at
-   two chunks with a random state, and at s < Q and s = Q: y within 1e-2
-   (one bf16 rounding of y after float32 sums in another order), the
-   final state within 1e-4;
+   two chunks with a random state, at s < Q and s = Q, and at zamba2-7b's
+   prefill shape (b 8, s 1024, h 112, p 64, n 64, Q 256) with a zero and
+   a random initial state: y within 1e-2 (one bf16 rounding of y after
+   float32 sums in another order), the final state within 1e-4;
 S2. across devices: the mamba2 SMOKE config in float32, prefill and four
    teacher-forced decode steps, kernel on the card against the plain
    version on the CPU -- logits and caches within 1e-4; at a 32-token
@@ -249,7 +251,10 @@ V1. the flash_attention kernel against its plain version on the card at
    the four dense variants' prefill shapes (batch 8, 1024 tokens, bf16:
    the tensor-core route): gemma2-27b (128, 2, 1024, 128) with softcap 50
    and scale 1/12, stablelm-1.6b (256, 1, 1024, 64), starcoder2-3b (16,
-   12, 1024, 128), qwen2-vl-7b (32, 7, 1024, 128); A1's bf16 tolerance;
+   12, 1024, 128), qwen2-vl-7b (32, 7, 1024, 128), and zamba2-7b's (256,
+   1, 1024, 112), its head_dim zero-padded to 128 by the wrapper; A1's
+   bf16 tolerance; at zamba2's the scale check (the kernel's output lies
+   nearer the plain output at 1/sqrt(112) than at 1/sqrt(128));
    and gemma2's shape again with q scaled so the scores reach the cap
    (standard deviation 30), where the plain version with the softcap must
    differ from the same call without it by 10x the tolerance;
@@ -330,11 +335,51 @@ M5. main path: olmoe-1b-7b at full width cut to 2 layers (1,045,178,368
    both quant kernels bitwise their plain versions on every leaf (the
    134,217,728-element expert stacks among them) and timed there beside
    their plain versions, the bound and ``torch.dequantize``;
+H1. across devices, the hybrid family: zamba2 SMOKE in float32 with the
+   kernels on (SIMT SSD, SIMT flash at head_dim 16), from the same
+   CPU-drawn weights: prefill of 32 and 40 tokens and 4 teacher-forced
+   decode steps, logits, SSM state, conv carry and K/V within 1e-4, one
+   SSD launch a layer and one flash launch a use of the shared block a
+   prefill; one float32 train step by T2's rule; remat 'none', 'full' and
+   'dots' and a second backward bitwise the same gradients on the card;
+H2. zamba2-7b's kernel shapes: S1's and V1's zamba2 cases (run there in
+   the whole script, here with ``--hybrid``), and both kernels timed by
+   CUDA events at those shapes beside their plain versions, their bounds
+   (SSD 270.0 MB, flash 234.9 MB: bytes) and, for flash,
+   ``scaled_dot_product_attention`` at head_dim 112 (the yardstick; the
+   kernel's time includes the wrapper's pad copies);
+H3. main path: ``repro_torch.serve`` on the full zamba2-7b (81 Mamba2
+   layers, the shared block after every 6: 13 uses, d_model 3584,
+   6,636,442,832 parameters drawn on the card, bf16): ``greedy_generate``
+   of 32 tokens after a 1024-token prompt, batch 8 -- exactly 81 SSD calls
+   (all ``mma``) and 13 flash launches (all ``wgmma``) a prefill, none in
+   decode; the logits against the plain path (``ssd_chunked``,
+   ``_attention_core``) by S4's floor rule, the relative RMS limit also
+   following the floor's, the decode steps reported alone; float32 on the
+   first 12 layers within 1e-4; the flash kernel's output at each of the
+   prefill's 13 shared-block uses against its plain version on the same
+   recorded q, k, v within A1's bf16 tolerance;
+H4. zamba2-7b's numbers beside the card's name and power limit: the
+   timed prefill and decode, peak memory, the plain path's prefill;
+   ``torch.profiler`` over one warm prefill and 5 decode steps, the device
+   time split into the SSD kernels, flash, the Mamba2 projections, the rest
+   of the mixers, the shared block's products, the rest of it and the
+   rest, the idle share; the prefill beside its operations bound and a
+   decode step beside its read bound;
+H5. main path: zamba2-7b at full width cut to 12 layers (1,255,956,416
+   parameters, two uses of the shared block, drawn on the card, bf16,
+   remat 'dots', ``ssd_chunked`` and ``_attention_core``), 5 steps of
+   ``make_train_step`` on SyntheticLM 8 x 1024 in 2 microbatches, AdamW
+   1e-4: finite losses, step seconds, tokens/s, peak; compress_grads
+   three times on its gradients (119 quantize + 238 dequantize launches a
+   call, |err| within EF_SLACK), both quant kernels bitwise their plain
+   versions on every leaf (the 114,688,000-element embedding among them);
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
    the serving prefills for the tensor-core kernels (the flash kernel's
-   by model, the moe models' too), the float32 SMOKE prefills of
-   S2/A2/V2/M1 for the SIMT ones, sim_step's main path and the workflow
-   path's, the quant kernels' by training path (T3, D2, M5) --, error,
+   by model, the moe and hybrid models' too; the SSD kernel's by model),
+   the float32 SMOKE prefills of S2/A2/V2/M1/H1 for the SIMT ones,
+   sim_step's main path and the workflow path's, the quant kernels' by
+   training path (T3, D2, M5, H5) --, error,
    times, bound; the flash kernel's at the variants' shapes, the quant
    kernels' at the expert leaf too), the card's name and power
    limit, and the final result line.  ``[t]`` lines give the seconds of
@@ -1596,6 +1641,9 @@ def phase_sweeps_vs_plain(sweep_cells: dict) -> dict:
 
 ARCH = "mamba2-130m"
 SERVE_SHAPE = dict(b=8, s=1024, h=24, p=64, n=128, chunk=256)
+# zamba2-7b's prefill SSD at batch 8 x 1024 (112 heads of 64, d_state 64)
+ZAMBA = "zamba2-7b"
+ZAMBA_SSD_SHAPE = dict(b=8, s=1024, h=112, p=64, n=64, chunk=256)
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_FORCED = 8, 1024, 32, 4
 # the device kernels of each port kernel, as the profiler names them
 SSD_KERNEL_NAMES = ("ssd_scan_kernel", "ssd_chunk_state_kernel",
@@ -1649,10 +1697,12 @@ def _zero(counts: dict) -> None:
         counts[k] = 0
 
 
-def phase_ssd_kernel_vs_plain() -> float:
+def phase_ssd_kernel_vs_plain(hybrid_only: bool = False) -> float:
     """S1: the ssd_scan kernels against their plain version on the card.
     Each case runs the kernel its route names (bf16 at these shapes: the
-    tensor-core kernels) and the SIMT kernel on the same inputs."""
+    tensor-core kernels) and the SIMT kernel on the same inputs; the last
+    two cases are zamba2-7b's prefill shape (H2; ``hybrid_only`` runs
+    those alone)."""
     import torch
 
     from repro_torch.kernels import ssd_scan
@@ -1663,6 +1713,9 @@ def phase_ssd_kernel_vs_plain() -> float:
              ("2 chunks, random state", dict(sh, b=2, s=512), True),
              ("s < Q", dict(sh, s=128), True),
              ("s = Q", dict(sh, s=256), False)]
+    hybrid = [("zamba2-7b, zero state", dict(ZAMBA_SSD_SHAPE), False),
+              ("zamba2-7b, random state", dict(ZAMBA_SSD_SHAPE), True)]
+    cases = hybrid if hybrid_only else cases + hybrid
     worst, rows = 0.0, []
     for i, (name, shape, with_init) in enumerate(cases):
         x, dt, A, B, C, init = ssd_inputs(dtype=torch.bfloat16, seed=100 + i,
@@ -1685,11 +1738,14 @@ def phase_ssd_kernel_vs_plain() -> float:
             worst = max(worst, ey, es)
             rows.append(dict(case=name, shape=shape, route=how, y=gy,
                              state=gs, ok=_ok(gy) and _ok(gs)))
-            print(f"[S1] ssd_scan {how} kernel vs plain on the card, {name} "
-                  f"{shape}: max |dy| {ey:.3g} = {gy['max_ratio']:.3f} x "
+            tag = "S1, H2" if name.startswith("zamba2") else "S1"
+            print(f"[{tag}] ssd_scan {how} kernel vs plain on the card, "
+                  f"{name} {shape}: max |dy| {ey:.3g} = "
+                  f"{gy['max_ratio']:.3f} x "
                   f"(tol {SSD_Y_TOL}), max |dstate| {es:.3g} = "
                   f"{gs['max_ratio']:.3f} x (tol {SSD_F32_TOL})", flush=True)
-    REPORT["ssd_kernel_vs_plain"] = rows
+    REPORT["ssd_kernel_vs_plain"] = REPORT.get("ssd_kernel_vs_plain",
+                                               []) + rows
     if not all(r["ok"] for r in rows):
         fail("ssd_scan kernel differs from its plain version")
     if {r["route"] for r in rows} != {"mma", "simt"}:
@@ -1936,6 +1992,28 @@ def _kernel_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
+def _operator_kernels(prof, skip: tuple = ()):
+    """(event, its kernels' device microseconds, the names of its
+    ancestors) for every CPU event that launched kernels, leaving out the
+    kernels whose names hold one of ``skip`` and CUPTI's "Command Buffer
+    Full" events: the host waiting on a full launch queue, which carry
+    kernels their operators carry too (at zamba2-7b's prefill ~110 ms of
+    ~820, which would otherwise be counted twice)."""
+    from torch.autograd import DeviceType
+
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels \
+                or e.name == "Command Buffer Full":
+            continue
+        own = sum(k.duration for k in e.kernels
+                  if not any(n in k.name for n in skip))
+        up, p = set(), e.cpu_parent
+        while p is not None:
+            up.add(p.name)
+            p = p.cpu_parent
+        yield e, own, up
+
+
 def phase_serve_profile(tag: str, cfg, model, prompt, n_tokens: int,
                         kernels: tuple) -> dict:
     """Where the serving time goes: ``torch.profiler`` over one warm
@@ -2024,19 +2102,18 @@ def ssd_work(b, s, h, p, n, chunk, x_bytes, with_init):
     return nbytes, ops_bf16, ops_f32
 
 
-def phase_ssd_measure() -> dict:
-    """S6: both ssd_scan kernels and their plain version timed at the
-    serving shape, and the bound.  ``bound_ms`` is the least time over the
-    routes the card has: the bytes, or every operation at the bf16 tensor
-    rate (the tensor-core route issues the float32-operand products as
-    three bf16 passes, but the work is counted once); ``f32_simt_bound_ms`` is
-    the bound of the SIMT kernel, whose products run at the float32 SIMT
-    rate."""
+def phase_ssd_measure(sh: dict = SERVE_SHAPE, tag: str = "S6") -> dict:
+    """S6 (and H2 at zamba2-7b's shape): both ssd_scan kernels and their
+    plain version timed at a serving shape, and the bound.  ``bound_ms``
+    is the least time over the routes the card has: the bytes, or every
+    operation at the bf16 tensor rate (the tensor-core route issues the
+    float32-operand products as three bf16 passes, but the work is counted
+    once); ``f32_simt_bound_ms`` is the bound of the SIMT kernel, whose
+    products run at the float32 SIMT rate."""
     import torch
 
     from repro_torch.kernels import ssd_scan
 
-    sh = SERVE_SHAPE
     x, dt, A, B, C, init = ssd_inputs(dtype=torch.bfloat16, seed=200,
                                       with_init=True, **sh)
     Q = sh["chunk"]
@@ -2067,8 +2144,9 @@ def phase_ssd_measure() -> dict:
                bound_ops_ms=t_tc, bound_ms=max(t_bytes, t_tc),
                bound_by="bytes" if t_bytes >= t_tc else "operations",
                f32_simt_bound_ms=max(t_bytes, t_simt))
-    REPORT["ssd_measure"] = out
-    print(f"[S6] ssd_scan at {sh}: {routed} kernels {ms_a:.4f}, {ms_b:.4f} ms; "
+    REPORT["ssd_measure" if tag == "S6" else f"ssd_measure_{tag}"] = out
+    print(f"[{tag}] ssd_scan at {sh}: {routed} kernels {ms_a:.4f}, "
+          f"{ms_b:.4f} ms; "
           f"SIMT kernel {simt_a:.4f}, {simt_b:.4f} ms; plain {plain_ms:.3f} "
           f"ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
           f"{nbytes:,} B at 3.35 TB/s = {t_bytes:.4f} ms; {ops_f32:,} flop "
@@ -2531,23 +2609,30 @@ def flash_layers(cfg, prompt: int) -> int:
                for i in range(cfg.n_layers))
 
 
-def phase_variant_flash_vs_plain() -> dict:
+def phase_variant_flash_vs_plain(archs: tuple = VARIANTS + (ZAMBA,)
+                                 ) -> dict:
     """V1: the flash kernel against its plain version on the card at the
-    four variants' prefill shapes (bf16: the tensor-core route), gemma2's
-    with its softcap 50 and query scale 1/12, at A1's tolerance; then
-    gemma2's shape with q scaled so the scores reach the cap
-    (``cap_scores``), where the softcap must move the plain output by
-    CAP_CONTROL x the tolerance."""
+    four variants' and zamba2-7b's prefill shapes (bf16: the tensor-core
+    route; zamba2's head_dim 112 zero-padded to 128), gemma2's with its
+    softcap 50 and query scale 1/12, at A1's tolerance; then gemma2's
+    shape with q scaled so the scores reach the cap (``cap_scores``),
+    where the softcap must move the plain output by CAP_CONTROL x the
+    tolerance.  At a padded head_dim the scale check: the kernel's output
+    must lie nearer the plain version at the caller's scale (1/sqrt(112))
+    than at 1/sqrt(128), the scale of the padded D (H2 runs zamba2's case
+    alone)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
 
     tol = FLASH_TOL["bfloat16"]
-    cases = [(arch, arch, False) for arch in VARIANTS]
-    cases.append((f"{GEMMA} at the cap", GEMMA, True))
+    cases = [(arch, arch, False) for arch in archs]
+    if GEMMA in archs:
+        cases.append((f"{GEMMA} at the cap", GEMMA, True))
     out = {}
-    for i, (name, arch, at_cap) in enumerate(cases):
+    for name, arch, at_cap in cases:
+        i = (VARIANTS + (f"{GEMMA} at the cap", ZAMBA)).index(name)
         (bg, r, sq, skv, d), cap, scale = variant_shape(get_config(arch))
         q, k, v = flash_inputs(bg, r, sq, skv, d, torch.bfloat16, 600 + i)
         kw = dict(scale=scale, causal=True, softcap=cap)
@@ -2562,6 +2647,15 @@ def phase_variant_flash_vs_plain() -> dict:
         g = _gap(got, want, tol)
         g["route"] = FA.route(q.dtype, d)
         g["launched_wgmma"] = FA.LAUNCHES_BY_ROUTE["wgmma"] - before
+        padded = FA.padded_head_dim(q.dtype, d)
+        if padded != d:
+            wrong = FA.flash_attention_plain(q, k, v, **{
+                **kw, "scale": padded ** -0.5})
+            effect = dict(padded_to=padded, scale_check=dict(
+                gap_at_scale=g["max_abs"],
+                gap_at_padded_scale=_gap(got, wrong, tol)["max_abs"],
+                control_ratio=_gap(wrong, want, tol)["max_ratio"]))
+            del wrong
         out[name] = dict(shape=(bg, r, sq, skv, d), softcap=cap, scale=scale,
                          **g, **effect)
         print(f"[V1] flash_attention {g['route']} kernel vs plain at "
@@ -2573,15 +2667,29 @@ def phase_variant_flash_vs_plain() -> dict:
                  f"softcap moves the plain output "
                  f"{effect['control_ratio']:.0f} x the tolerance (at least "
                  f"{CAP_CONTROL:.0f})" if at_cap else ""), flush=True)
+        if "scale_check" in effect:
+            sc = effect["scale_check"]
+            print(f"[V1, H2] {arch}: head_dim {d} padded to {padded}; the "
+                  f"kernel's max |d| from the plain version at scale "
+                  f"1/sqrt({d}) {sc['gap_at_scale']:.3g}, at 1/sqrt({padded})"
+                  f" {sc['gap_at_padded_scale']:.3g} (the two plain outputs "
+                  f"differ by {sc['control_ratio']:.2f} x the tolerance): "
+                  f"nearer 1/sqrt({d}): "
+                  f"{sc['gap_at_scale'] < sc['gap_at_padded_scale']}",
+                  flush=True)
         del q, k, v, want, got
-    REPORT["variant_flash_vs_plain"] = out
+    REPORT["variant_flash_vs_plain"] = dict(
+        REPORT.get("variant_flash_vs_plain", {}), **out)
     if not all(_ok(g) and g["route"] == "wgmma" and g["launched_wgmma"] == 1
                and g.get("control_ratio", CAP_CONTROL) >= CAP_CONTROL
+               and g.get("scale_check", {}).get("gap_at_scale", 0.0)
+               < g.get("scale_check", {}).get("gap_at_padded_scale", 1.0)
                for g in out.values()):
         fail("V1: the flash kernel differs from its plain version at a "
              "variant's shape (or left the tensor-core route, or the "
              "softcap moved the plain output at the cap by less than "
-             f"{CAP_CONTROL} x the tolerance)")
+             f"{CAP_CONTROL} x the tolerance, or a padded head_dim's "
+             "output lies nearer the padded D's scale)")
     return out
 
 
@@ -2780,18 +2888,22 @@ def flash_bound(bg, r, sq, skv, d, softcap):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_variant_flash_measure() -> dict:
-    """V7: the flash kernel (the tensor-core route), its plain version and
-    ``scaled_dot_product_attention`` timed by CUDA events at the four
-    variants' prefill shapes, beside the bound.  SDPA has no softcap, so
-    at gemma2's shape no library call computes the same function."""
+def phase_variant_flash_measure(archs: tuple = VARIANTS,
+                                tag: str = "V7") -> dict:
+    """V7 (and H2 at zamba2-7b's shape): the flash kernel (the tensor-core
+    route; at zamba2's head_dim 112 the wrapper's pad copies included), its
+    plain version and ``scaled_dot_product_attention`` timed by CUDA events
+    at the variants' prefill shapes, beside the bound (counted at the
+    unpadded head_dim).  SDPA has no softcap, so at gemma2's shape no
+    library call computes the same function."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
 
     out = {}
-    for i, arch in enumerate(VARIANTS):
+    for arch in archs:
+        i = (VARIANTS + (ZAMBA,)).index(arch)
         (bg, r, sq, skv, d), cap, scale = variant_shape(get_config(arch))
         q, k, v = flash_inputs(bg, r, sq, skv, d, torch.bfloat16, 700 + i)
 
@@ -2824,7 +2936,8 @@ def phase_variant_flash_measure() -> dict:
         if cap is not None:
             ops_txt += (f", {row['softcap_ops']:,} softcap operations at the "
                         f"float32 rate")
-        print(f"[V7] flash_attention at {arch}'s prefill {row['shape']} bf16"
+        print(f"[{tag}] flash_attention at {arch}'s prefill {row['shape']} "
+              f"bf16"
               f"{'' if cap is None else f', softcap {cap}'}: {row['route']} "
               f"kernel {ms_a:.4f}, {ms_b:.4f} ms; plain {plain_ms:.4f} ms; "
               f"scaled_dot_product_attention {lib_txt}; bound "
@@ -2833,7 +2946,8 @@ def phase_variant_flash_measure() -> dict:
               f"{row['bound_bytes_ms']:.4f} ms; {ops_txt} = "
               f"{row['bound_ops_ms']:.4f} ms)", flush=True)
         del q, k, v
-    REPORT["variant_flash_measure"] = out
+    REPORT["variant_flash_measure" if tag == "V7"
+           else f"variant_flash_measure_{tag}"] = out
     return out
 
 
@@ -3958,7 +4072,7 @@ def _require_free_card(tag: str) -> None:
           f"draw", flush=True)
     if held > MOE_MEM_BEFORE:
         fail(f"{tag}: {held:,} B still allocated on the card before drawing "
-             f"a moe model")
+             f"a model")
 
 
 def phase_moe_profile(tag: str, cfg, model, prompt, n_tokens: int) -> dict:
@@ -3969,7 +4083,6 @@ def phase_moe_profile(tag: str, cfg, model, prompt, n_tokens: int) -> dict:
     experts'), dispatch/combine and routing (the rest of the moe blocks),
     and the rest; the idle share against each profiled run's own wall."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.models import layers as L
@@ -3999,14 +4112,7 @@ def phase_moe_profile(tag: str, cfg, model, prompt, n_tokens: int) -> dict:
                     if any(n in r[0] for n in FLASH_KERNEL_NAMES))
         core = moe = gemm = 0.0
         ops: dict = {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CPU or not e.kernels:
-                continue
-            own = sum(k.duration for k in e.kernels)
-            up, p = set(), e.cpu_parent
-            while p is not None:
-                up.add(p.name)
-                p = p.cpu_parent
+        for e, own, up in _operator_kernels(prof):
             if "attention core" in up:
                 core += own
             elif "moe block" in up:
@@ -4144,10 +4250,12 @@ def phase_moe_train() -> dict:
     return out
 
 
-def phase_moe_quant_vs_plain(run: dict) -> dict:
-    """M5: both quant kernels against their plain versions on every leaf
-    of the 2-layer olmoe (the 134,217,728-element expert stacks among
-    them), bitwise."""
+def quant_vs_plain_all_leaves(tag: str, run: dict, largest: int) -> dict:
+    """M5 and H5: both quant kernels against their plain versions on every
+    leaf of a trained model's last ``compress_grads`` input (gradient plus
+    error state), bitwise; the largest leaf must have ``largest``
+    elements (the 2-layer olmoe's 134,217,728-element expert stacks, the
+    12-layer zamba2's 114,688,000-element embedding)."""
     import torch
 
     grads, err = run.pop("last_grads"), run.pop("last_err")
@@ -4164,13 +4272,13 @@ def phase_moe_quant_vs_plain(run: dict) -> dict:
     torch.cuda.empty_cache()
     out = dict(leaves=run["n_leaves"], largest_leaf=biggest,
                leaves_with_mismatches=mism, max_abs_err=worst)
-    REPORT["moe_quant_vs_plain"] = out
-    print(f"[M5] ckpt_quant kernels vs plain on all {run['n_leaves']} leaves "
-          f"(largest {biggest:,} elements): {len(mism)} leaves with "
+    REPORT[f"quant_vs_plain_{tag}"] = out
+    print(f"[{tag}] ckpt_quant kernels vs plain on all {run['n_leaves']} "
+          f"leaves (largest {biggest:,} elements): {len(mism)} leaves with "
           f"mismatches; max |kernel - plain| {worst}", flush=True)
-    if mism or biggest != EXPERT_LEAF:
-        fail(f"M5: ckpt_quant kernels differ from their plain versions "
-             f"({mism}) or the expert leaf is not {EXPERT_LEAF:,}")
+    if mism or biggest != largest:
+        fail(f"{tag}: ckpt_quant kernels differ from their plain versions "
+             f"({mism}) or the largest leaf is not {largest:,}")
     return out
 
 
@@ -4210,7 +4318,7 @@ def moe_phases() -> dict:
     if min(launches.values()) < 1 or any(other.values()):
         fail("M5: the moe training main path launched no ckpt_quant kernel, "
              "or launched another kernel")
-    quant_vs_plain = phase_moe_quant_vs_plain(train)
+    quant_vs_plain = quant_vs_plain_all_leaves("M5", train, EXPERT_LEAF)
     torch.cuda.empty_cache()
     quant = phase_quant_measure(EXPERT_LEAF, "M5",
                                 "olmoe-1b-7b's expert stack")
@@ -4219,6 +4327,557 @@ def moe_phases() -> dict:
     return dict(card_vs_cpu=card, serve=serve, train=train,
                 train_launches=launches, quant_vs_plain=quant_vs_plain,
                 quant=quant)
+
+
+# --------------------------------------------------------------------------- #
+# The hybrid family: zamba2-7b served whole, hybrid training
+# --------------------------------------------------------------------------- #
+
+HYBRID_SEQS = (32, 40)      # H1: one SMOKE chunk, and off the chunk grid
+# H3's float32 check at full width: the first 12 layers (two uses of the
+# shared block), 5.0 GB of float32 weights beside the 13.3 GB bf16 model
+ZAMBA_F32_LAYERS = 12
+# H5: zamba2-7b at full width cut to 12 layers (1,255,956,416 parameters,
+# two uses of the shared block; the 81 layers would need ~300 GB at
+# olmo-1b's ~45 bytes a parameter)
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS = 12, 5
+ZAMBA_EMBED_LEAF = 32_000 * 3584   # 114,688,000 float32: 224,000 blocks
+
+
+def _hybrid_smoke_cfg(**change):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(ZAMBA).replace(param_dtype="float32",
+                                           compute_dtype="float32", **change)
+
+
+def phase_hybrid_card_vs_cpu() -> dict:
+    """H1: zamba2 SMOKE in float32 with the kernels on (the SIMT SSD and
+    the SIMT flash kernel at head_dim 16), the card against the CPU from
+    the same CPU-drawn weights: prefill of 32 and 40 tokens and 4
+    teacher-forced decode steps, logits, SSM state, conv carry and K/V
+    within 1e-4, one SSD launch a layer and one flash launch a use of the
+    shared block a prefill.  Then one float32 train step (T2's rule), and
+    on the card remat none, full and dots bitwise the same gradients, the
+    backward run twice bitwise the same."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models import init_params
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    cfg = _hybrid_smoke_cfg(use_flash_kernel=True)
+    n_uses = cfg.n_layers // cfg.shared_attn_every
+    g = torch.Generator().manual_seed(22)
+    toks = torch.randint(0, cfg.vocab, (2, max(HYBRID_SEQS) + 4),
+                         generator=g)
+    models = {dev: init_params(0, cfg, device=dev) for dev in ("cuda", "cpu")}
+    gaps = []
+    _zero(SSD.LAUNCHES_BY_ROUTE)   # the float32 hybrid serving path starts
+    _zero(FA.LAUNCHES_BY_ROUTE)    # here
+    for n in HYBRID_SEQS:
+        res = {dev: _serve_run(m, cfg, toks[:, :n].to(dev),
+                               toks[:, n:n + 4].to(dev),
+                               cache_dtype=torch.float32)
+               for dev, m in models.items()}
+        pairs = list(zip(res["cuda"][0], res["cpu"][0])) + [
+            (res["cuda"][1][part][k], res["cpu"][1][part][k])
+            for part, k in (("ssm", "state"), ("ssm", "conv"), ("kv", "k"),
+                            ("kv", "v"))]
+        gaps += [_gap(a.cpu(), b, OLMO_F32_TOL) for a, b in pairs]
+    by_route = dict(ssd_scan=dict(SSD.LAUNCHES_BY_ROUTE),   # ... and ends
+                    flash_attention=dict(FA.LAUNCHES_BY_ROUTE))   # here
+    errs = [x["max_abs"] for x in gaps]
+    print(f"[H1] zamba2 SMOKE float32, kernels on the card vs plain on the "
+          f"CPU, prompts of {HYBRID_SEQS} tokens: prefill + 4 decode logits, "
+          f"SSM state, conv carry and K/V, max |d| {max(errs):.3g} (tol "
+          f"{OLMO_F32_TOL}); launches by route {by_route}", flush=True)
+    if not all(_ok(x) for x in gaps):
+        fail("H1: zamba2 SMOKE: card and CPU disagree")
+    want = len(HYBRID_SEQS)
+    if by_route["ssd_scan"] != {"mma": 0, "simt": want * cfg.n_layers} or \
+            by_route["flash_attention"] != {"wgmma": 0,
+                                            "simt": want * n_uses}:
+        fail(f"H1: the float32 hybrid prefills launched {by_route}, expected "
+             f"{cfg.n_layers} SIMT SSD and {n_uses} SIMT flash launches a "
+             f"prefill")
+    tcfg = _hybrid_smoke_cfg()
+    batch = SyntheticLM(DataConfig(vocab=tcfg.vocab, seq_len=DENSE_SEQ,
+                                   global_batch=4, seed=2)).batch_at(0)
+    step, _ = step_card_vs_cpu(tcfg, batch)
+    print(f"[H1] zamba2 SMOKE float32 at {DENSE_SEQ} tokens, card vs CPU, one "
+          f"train step: {_step_line(step)}", flush=True)
+    state = init_train_state(0, tcfg, "cuda")
+    tb = _to_device(SyntheticLM(DataConfig(
+        vocab=tcfg.vocab, seq_len=DENSE_SEQ, global_batch=4,
+        seed=2)).batch_at(1), "cuda")
+    grads = {r: compute_grads(state.params, tb,
+                              tcfg.replace(remat=r.split()[0]))[0]
+             for r in ("none", "full", "dots", "none again")}
+    remat = {r: sum(int((grads[r][k] != x).sum())
+                    for k, x in grads["none"].items())
+             for r in ("full", "dots", "none again")}
+    n = sum(x.numel() for x in grads["none"].values())
+    print(f"[H1] zamba2 SMOKE float32 on the card: gradients differing from "
+          f"remat 'none' (of {n:,}): {remat}", flush=True)
+    out = dict(max_abs_err=max(errs), launches_by_route=by_route, step=step,
+               remat_mismatches=remat)
+    REPORT["hybrid_card_vs_cpu"] = out
+    if not step["ok"]:
+        fail(f"H1: zamba2 SMOKE training, card and CPU disagree "
+             f"({step['step_master_worst']})")
+    if any(remat.values()):
+        fail(f"H1: remat (or a second backward) changes the hybrid gradients "
+             f"on the card: {remat}")
+    return out
+
+
+def phase_hybrid_vs_plain(cfg, model, prompt, run) -> dict:
+    """H3: the kernel path against the plain path (``ssd_chunked`` and
+    ``_attention_core``) on the card, prefill + OLMO_FORCED teacher-forced
+    decode logits, by S4's rule: bf16 within LOGIT_TOL + LOGIT_TOL |b|
+    except where the same run's floor -- both kernels' plain versions in
+    their places against the plain path -- crosses it, by at most
+    NOISE_FACTOR times the floor's ratio.  The Mamba2 state carries bf16
+    noise through 81 layers and 13 attentions, so the relative RMS limit
+    follows the floor's the same way (as for moe), and both are reported.
+    float32: the bf16 weights of the first ZAMBA_F32_LAYERS layers cast on
+    the card (float32 KV cache; the SIMT SSD kernel, and
+    ``_attention_core``: no flash kernel takes float32 at head_dim 112),
+    within OLMO_F32_TOL.  The kernel path's prefill also records the
+    flash kernel's q, k, v and output at each use of the shared block:
+    each output is held against ``flash_attention_plain`` on the same
+    inputs at the caller's scale within A1's bf16 tolerance -- the padded
+    D-112 route on the activations the main path gives it, which the
+    81-layer logits can no longer resolve."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models import model as M
+
+    forced = run["tokens"][:, :OLMO_FORCED]
+    uses, launch = [], ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        got = launch(q, k, v, **kw)
+        uses.append((q.clone(), k.clone(), v.clone(), kw, got.clone()))
+        return got
+
+    with mock.patch.object(ops, "flash_attention", recorded):
+        k_out, k_cache = _serve_run(model, cfg, prompt, forced)
+    tol = FLASH_TOL["bfloat16"]
+    flash_uses, n_uses = [], cfg.n_layers // cfg.shared_attn_every
+    while uses:
+        q, k, v, kw, got = uses.pop(0)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        flash_uses.append(dict(shape=tuple(q.shape), scale=kw["scale"],
+                               **_gap(got, want, tol)))
+        del q, k, v, got, want
+    if len(flash_uses) != n_uses:
+        fail(f"H3: {cfg.name}'s prefill called the flash kernel "
+             f"{len(flash_uses)} times, expected {n_uses}")
+    worst = max(flash_uses, key=lambda g: g["max_ratio"])
+    print(f"[H3] {cfg.name} flash kernel vs flash_attention_plain on the "
+          f"q, k, v of the prefill's {len(flash_uses)} shared-block uses "
+          f"{flash_uses[0]['shape']} bf16, scale {flash_uses[0]['scale']:.5f}"
+          f": worst max |d| {worst['max_abs']:.3g} = {worst['max_ratio']:.3f} "
+          f"x ({tol} + {tol}|b|), rel RMS up to "
+          f"{max(g['rel_rms'] for g in flash_uses):.3g}", flush=True)
+    if not all(_ok(g) for g in flash_uses):
+        fail(f"H3: {cfg.name}: the flash kernel at the shared block's uses "
+             f"differs from its plain version (worst {worst})")
+    st_k = k_cache["ssm"]["state"].clone()
+    del k_cache
+    p_out, p_cache = _serve_run(model, cfg.replace(use_flash_kernel=False),
+                                prompt, forced)
+    st_err = float((st_k - p_cache["ssm"]["state"]).abs().max())
+    del p_cache, st_k
+    with mock.patch.object(ops, "ssd_scan", SSD.ssd_scan_plain), \
+            mock.patch.object(ops, "flash_attention",
+                              FA.flash_attention_plain):
+        q_out, _ = _serve_run(model, cfg, prompt, forced)
+    k, p, q = (torch.stack(o) for o in (k_out, p_out, q_out))
+    bf16, floor = _gap(k, p, LOGIT_TOL), _gap(q, p, LOGIT_TOL)
+    bf16["limit_ratio"] = max(1.0, NOISE_FACTOR * floor["max_ratio"])
+    bf16["rms_limit"] = max(LOGIT_TOL, NOISE_FACTOR * floor["rel_rms"])
+    bf16["argmax_agree"] = float((k.argmax(-1) == p.argmax(-1)).float().mean())
+    bf16["decode"] = _gap(k[1:], p[1:], LOGIT_TOL)
+    del k_out, p_out, q_out
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=ZAMBA_F32_LAYERS)
+    model32 = M.HybridLM(cfg32)                    # on the meta device
+    kept = {n for n, _ in model32.named_parameters()}
+    model32.load_state_dict({n: t.float() for n, t in
+                             model.named_parameters() if n in kept},
+                            assign=True)
+    p32, _ = _serve_run(model32, cfg32.replace(use_flash_kernel=False),
+                        prompt, forced, cache_dtype=torch.float32)
+    k32, _ = _serve_run(model32, cfg32, prompt, forced,
+                        cache_dtype=torch.float32)
+    f32 = _gap(torch.stack(k32), torch.stack(p32), OLMO_F32_TOL)
+    del model32, k32, p32
+    torch.cuda.empty_cache()
+    out = dict(bf16=bf16, bf16_plain_vs_plain=floor, bf16_state_err=st_err,
+               f32=f32, f32_layers=ZAMBA_F32_LAYERS, flash_uses=flash_uses)
+    REPORT["hybrid_vs_plain"] = out
+    print(f"[H3] {cfg.name} kernel path vs plain path (ssd_chunked, "
+          f"_attention_core) on the card, prefill + {OLMO_FORCED} "
+          f"teacher-forced decode logits: bf16 rel RMS {bf16['rel_rms']:.4g} "
+          f"(limit {bf16['rms_limit']:.4g}), max |d| {bf16['max_abs']:.4g} = "
+          f"{bf16['max_ratio']:.3f} x ({LOGIT_TOL} + {LOGIT_TOL}|b|) (limit "
+          f"{bf16['limit_ratio']:.3f} x), decode steps alone rel RMS "
+          f"{bf16['decode']['rel_rms']:.4g}, {bf16['decode']['max_ratio']:.3f}"
+          f" x; argmax agree {bf16['argmax_agree']:.3f}, max |dstate| after "
+          f"the last step {st_err:.3g}; noise floor (both plain versions in "
+          f"the kernels' places vs the plain path): rel RMS "
+          f"{floor['rel_rms']:.4g}, max |d| {floor['max_abs']:.4g} = "
+          f"{floor['max_ratio']:.3f} x; float32 at full width, "
+          f"{ZAMBA_F32_LAYERS} layers: max |d| {f32['max_abs']:.3g} = "
+          f"{f32['max_ratio']:.4f} x ({OLMO_F32_TOL} + {OLMO_F32_TOL}|b|)",
+          flush=True)
+    if not (bf16["finite"] and bf16["max_ratio"] <= bf16["limit_ratio"]
+            and bf16["rel_rms"] <= bf16["rms_limit"] and _ok(f32)):
+        fail(f"H3: {cfg.name}: kernel path and plain path disagree")
+    return out
+
+
+def hybrid_bounds(cfg, model, batch: int, prompt: int) -> dict:
+    """The least time of a prefill (the operations at the bf16 tensor
+    rate: every Mamba2 projection, the shared block's projections and MLP
+    at each of its uses, the attention's causal pairs and the SSD's work;
+    against the bytes of the weights) and of a decode step at a cache of
+    ``prompt`` + 3 tokens (the bytes: every Mamba2 block's weights, the
+    shared block's once a use -- its 0.41 GB do not stay in the 50 MB
+    L2 --, the tied embedding; the SSM state and conv carry read and
+    written; the K/V read up to the step's position)."""
+    from repro_torch.models import ssm as SSM
+
+    def nbytes(mod):
+        return sum(p.numel() * p.element_size() for p in mod.parameters())
+
+    def products(mod):
+        return sum(p.numel() for p in mod.parameters() if p.dim() >= 2)
+
+    a, s = cfg.attention, cfg.ssm
+    n_uses = cfg.n_layers // cfg.shared_attn_every
+    tokens = batch * prompt
+    d_inner, nheads, hd = SSM.ssm_dims(cfg)
+    mamba_mm = sum(b.mixer.in_proj.numel() + b.mixer.out_proj.numel()
+                   for b in model.blocks)
+    shared_mm = products(model.shared)
+    _, attn_flops = flash_work(batch * a.n_kv_heads, a.n_heads // a.n_kv_heads,
+                               prompt, prompt, a.head_dim, 2)
+    _, ssd_bf16, ssd_f32 = ssd_work(batch, prompt, nheads, hd, s.d_state,
+                                    s.chunk, 2, False)
+    flops = (2 * tokens * (mamba_mm + n_uses * shared_mm)
+             + n_uses * attn_flops
+             + cfg.n_layers * (ssd_bf16 + ssd_f32)
+             + 2 * batch * cfg.d_model * cfg.vocab)
+    weights = nbytes(model)
+    t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+    prefill = dict(flops=flops, bound_ops_ms=t_ops,
+                   bound_bytes_ms=weights / HBM_BYTES_PER_S * 1e3,
+                   bound_ms=max(t_ops, weights / HBM_BYTES_PER_S * 1e3))
+    conv_dim = d_inner + 2 * s.d_state
+    state = cfg.n_layers * batch * nheads * hd * s.d_state * 4
+    conv = cfg.n_layers * batch * (s.conv_width - 1) * conv_dim * 4
+    kv = n_uses * 2 * batch * a.n_kv_heads * (prompt + 3) * a.head_dim * 2
+    read = (nbytes(model.blocks) + n_uses * nbytes(model.shared)
+            + nbytes(model.embed) + nbytes(model.final_norm))
+    step = read + 2 * (state + conv) + kv
+    decode = dict(weight_bytes=read, state_bytes=2 * (state + conv),
+                  kv_bytes=kv, bytes=step,
+                  bound_ms=step / HBM_BYTES_PER_S * 1e3)
+    return dict(prefill=prefill, decode=decode)
+
+
+def phase_hybrid_profile(cfg, model, prompt, n_tokens: int,
+                         bounds: dict) -> dict:
+    """H4: ``torch.profiler`` over one warm prefill and 5 decode steps of
+    zamba2-7b, the device time split into the SSD kernels, the flash
+    kernel, the Mamba2 mixers' products (the in/out projections) and the
+    rest of the mixers (the conv, gating, gated norm, the decode
+    recurrence), the shared block's products and the rest of it (RoPE,
+    norms, the pad copies, ``_attention_core`` in decode), and the rest;
+    the idle share against each profiled run's own wall; beside the
+    prefill's and a decode step's bounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    real_mixer, real_block = SSM.apply_mamba2, M._apply_dense_block
+
+    def mixer_span(*a, **k):
+        with record_function("mamba2 mixer"):
+            return real_mixer(*a, **k)
+
+    def block_span(*a, **k):
+        with record_function("shared block"):
+            return real_block(*a, **k)
+
+    spans = ("mamba2 mixer", "shared block")
+    gemms = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+    ours = SSD_KERNEL_NAMES + FLASH_KERNEL_NAMES
+
+    def split(prof, steps: int) -> dict:
+        """Kernel microseconds by category: the port's kernels (launched
+        through ctypes, under no torch operator) by name; every other
+        kernel by the span its launching operator runs inside."""
+        rows = [r for r in _kernel_rows(prof) if r[0] not in spans]
+        total = sum(r[1] for r in rows)
+        ssd = sum(r[1] for r in rows
+                  if any(n in r[0] for n in SSD_KERNEL_NAMES))
+        flash = sum(r[1] for r in rows
+                    if any(n in r[0] for n in FLASH_KERNEL_NAMES))
+        part = dict(mamba_products=0.0, mamba_rest=0.0, shared_products=0.0,
+                    shared_rest=0.0, rest=0.0)
+        for e, own, up in _operator_kernels(prof, ours):
+            where = ("mamba" if "mamba2 mixer" in up else
+                     "shared" if "shared block" in up else None)
+            if where is None:
+                part["rest"] += own
+            else:
+                kind = "products" if e.name in gemms else "rest"
+                part[f"{where}_{kind}"] += own
+        ms = dict(device=total, ssd_kernels=ssd, flash=flash, **part)
+        # the kernel rows' total against the operators' sums: what the
+        # profiler filed under no operator, or under two
+        ms["unattributed"] = total - ssd - flash - sum(part.values())
+        return {k: v / 1e3 / steps for k, v in ms.items()}
+
+    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + n_tokens)
+    srv = make_serve_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    with mock.patch.object(SSM, "apply_mamba2", mixer_span), \
+            mock.patch.object(M, "_apply_dense_block", block_span):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, cache = pre(model, {"tokens": prompt})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["prefill"] = dict(split(prof, 1), wall_ms=wall * 1e3,
+                              bound_ms=bounds["prefill"]["bound_ms"])
+        tok = logits[:, -1].argmax(-1)[:, None]
+        steps = 5
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = srv(model, cache, {"tokens": tok})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+        out["decode"] = dict(split(prof, steps), wall_ms=wall * 1e3,
+                             bound_ms=bounds["decode"]["bound_ms"])
+    del cache
+    for part in ("prefill", "decode"):
+        r = out[part]
+        if r["device"] <= 0:
+            r["note"] = "the profiler recorded no device time: not measured"
+        else:
+            r["idle_share"] = 1.0 - r["device"] / r["wall_ms"]
+        unit = "ms" if part == "prefill" else "ms a step"
+        print(f"[H4] {cfg.name} {part} profile ({unit}): device "
+              f"{r['device']:.3f} of {r['wall_ms']:.3f} wall, idle "
+              f"{r.get('idle_share', float('nan')):.1%}; SSD kernels "
+              f"{r['ssd_kernels']:.3f}, flash {r['flash']:.3f}, Mamba2 "
+              f"projections {r['mamba_products']:.3f}, rest of the Mamba2 "
+              f"mixers (conv, gating, norm, recurrence) "
+              f"{r['mamba_rest']:.3f}, shared block products "
+              f"{r['shared_products']:.3f}, rest of the shared block "
+              f"{r['shared_rest']:.3f}, rest {r['rest']:.3f} (kernel rows "
+              f"no operator accounts for {r['unattributed']:.3f}); bound "
+              f"{r['bound_ms']:.3f}", flush=True)
+    return out
+
+
+def hybrid_serve() -> dict:
+    """H3 (main path) and H4: zamba2-7b at full width and depth (81 Mamba2
+    layers, 13 uses of the shared block), drawn on the card by a CUDA
+    generator, bf16: ``greedy_generate`` of 32 tokens after a 1024-token
+    prompt, batch 8, with the SSD and flash counts at 0 just before and
+    read just after -- exactly 81 SSD calls, all ``mma``, and 13 flash
+    launches, all ``wgmma``, in the prefill; none in decode.  Then the
+    timed prefill and decode, the plain path's prefill, the logits against
+    the plain path, the profile and the bounds.  The model is freed
+    after."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+
+    _require_free_card("H3")
+    cfg, model, prompt = dense_setup("H3", ZAMBA)
+    n_uses = cfg.n_layers // cfg.shared_attn_every
+    SSD.LAUNCHES = FA.LAUNCHES = 0      # this serving main path starts here
+    _zero(SSD.LAUNCHES_BY_ROUTE)
+    _zero(FA.LAUNCHES_BY_ROUTE)
+    run = phase_serve(cfg, model, prompt, OLMO_TOKENS)
+    launches = dict(ssd_scan=SSD.LAUNCHES,    # ... and ends here
+                    flash_attention=FA.LAUNCHES)
+    by_route = dict(ssd_scan=dict(SSD.LAUNCHES_BY_ROUTE),
+                    flash_attention=dict(FA.LAUNCHES_BY_ROUTE))
+    print(f"[H3] {ZAMBA} serving main path (greedy_generate, one prefill of "
+          f"{cfg.n_layers} Mamba2 layers and {n_uses} uses of the shared "
+          f"block, {OLMO_TOKENS - 1} decode steps): launches {launches}, by "
+          f"route {by_route}", flush=True)
+    if by_route["ssd_scan"] != {"mma": cfg.n_layers, "simt": 0} or \
+            by_route["flash_attention"] != {"wgmma": n_uses, "simt": 0}:
+        fail(f"H3: {ZAMBA}'s serving main path launched {by_route}, expected "
+             f"{cfg.n_layers} mma SSD calls and {n_uses} wgmma flash "
+             f"launches (prefill only)")
+    out = dict(launches=launches, launches_by_route=by_route)
+    out["serve"] = phase_serve_measure(
+        "H4", cfg, model, prompt, run, OLMO_TOKENS,
+        "ssd_chunked + _attention_core")
+    torch.cuda.empty_cache()
+    out["vs_plain"] = phase_hybrid_vs_plain(cfg, model, prompt, run)
+    bounds = hybrid_bounds(cfg, model, OLMO_BATCH, OLMO_PROMPT)
+    out["bounds"] = bounds
+    out["profile"] = phase_hybrid_profile(cfg, model, prompt, OLMO_TOKENS,
+                                          bounds)
+    pre_s = min(out["serve"]["prefill_s"])
+    step_ms = 1e3 * OLMO_BATCH / out["serve"]["decode_tok_s"]
+    print(f"[H4] {ZAMBA} on {nvidia_smi()}: prefill {pre_s:.4f} s (best warm) "
+          f"against its bound {bounds['prefill']['bound_ms'] / 1e3:.4f} s "
+          f"({bounds['prefill']['flops'] / 1e12:.1f} TFLOP at 989 TFLOP/s); "
+          f"decode {out['serve']['decode_tok_s']:.1f} tokens/s = "
+          f"{step_ms:.2f} ms a step against its bound "
+          f"{bounds['decode']['bound_ms']:.2f} ms "
+          f"({bounds['decode']['bytes'] / 1e9:.2f} GB at 3.35 TB/s: weights "
+          f"{bounds['decode']['weight_bytes'] / 1e9:.2f}, SSM state and conv "
+          f"{bounds['decode']['state_bytes'] / 1e9:.2f}, K/V "
+          f"{bounds['decode']['kv_bytes'] / 1e9:.2f}); peak "
+          f"{run['mem'] / 2**30:.2f} GiB", flush=True)
+    del model, run
+    torch.cuda.empty_cache()
+    REPORT[f"{ZAMBA}_serving"] = out
+    return out
+
+
+def phase_hybrid_train() -> dict:
+    """H5 (main path): zamba2-7b at full width cut to ZAMBA_TRAIN_LAYERS
+    layers (two uses of the shared block), drawn on the card (bf16, remat
+    'dots', ``ssd_chunked`` and ``_attention_core``), ZAMBA_TRAIN_STEPS
+    steps of ``make_train_step`` on SyntheticLM batch 8 x 1024 in
+    TRAIN_MICRO microbatches at AdamW 1e-4: finite losses; step seconds,
+    tokens/s, peak memory.  Then compress_grads three times on the trained
+    model's gradients, the error state carried: one quantize and two
+    dequantize launches a leaf a call, |err| within EF_SLACK."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import training_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (_to_device, init_train_state,
+                                        make_train_step)
+
+    _require_free_card("H5")
+    cfg = training_config(get_config(ZAMBA)).replace(
+        n_layers=ZAMBA_TRAIN_LAYERS, remat="dots")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    step = make_train_step(cfg, AdamWConfig(lr=DENSE_LR), constant(1.0),
+                           n_microbatches=TRAIN_MICRO)
+    secs, losses = [], []
+    for i in range(ZAMBA_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    warm = min(secs[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / warm
+    print(f"[H5] {ZAMBA} at full width, {cfg.n_layers} layers "
+          f"({cfg.n_layers // cfg.shared_attn_every} uses of the shared "
+          f"block): {n_params:,} parameters drawn on the card; "
+          f"{ZAMBA_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{TRAIN_MICRO} microbatches (bf16, remat dots, AdamW {DENSE_LR}): "
+          f"losses {[round(v, 4) for v in losses]}; step "
+          f"{', '.join(f'{s:.4f}' for s in secs)} s, warm {warm:.4f} s = "
+          f"{tok_s:,.0f} tokens/s, peak {peak / 2**30:.2f} GiB", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"H5: hybrid training losses {losses}")
+    out = dict(compress_calls(state.params, cfg, [
+        _to_device(data.batch_at(ZAMBA_TRAIN_STEPS + i), "cuda")
+        for i in range(3)]), n_params=n_params, layers=cfg.n_layers,
+        microbatches=TRAIN_MICRO, step_s=secs, warm_step_s=warm,
+        tokens_per_s=tok_s, peak_bytes=peak, losses=losses)
+    print(f"[H5] compress_grads x3 over {out['n_leaves']} leaves: launches "
+          f"per call {out['compress_launches']}, "
+          f"{', '.join(f'{t:.3f}' for t in out['compress_seconds'])} s, "
+          f"error feedback max |err| / (scale/2) "
+          f"{out['error_feedback_max_ratio']:.7f} (limit {EF_SLACK})",
+          flush=True)
+    _check_compress("H5", out)
+    del state, step
+    return out
+
+
+def hybrid_phases(standalone: bool) -> dict:
+    """H1-H5: the hybrid SMOKE checks; zamba2's kernel shapes (the S1 and
+    V1 cases run here only when ``standalone``: the whole script runs them
+    in S1 and V1) timed beside their bounds; zamba2-7b served whole (the
+    SSD and flash counts at 0 just before its serving main path and read
+    just after, inside :func:`hybrid_serve`); the 12-layer zamba2 trained
+    (the ckpt_quant counts at 0 just before and read just after)."""
+    import torch
+
+    from repro_torch.kernels import (ckpt_quant, flash_attention, sim_step,
+                                     ssd_scan)
+
+    card = phase_hybrid_card_vs_cpu()
+    _lap("H1")
+    if standalone:
+        phase_ssd_kernel_vs_plain(hybrid_only=True)
+        phase_variant_flash_vs_plain((ZAMBA,))
+    ssd = phase_ssd_measure(ZAMBA_SSD_SHAPE, "H2")
+    flash = phase_variant_flash_measure((ZAMBA,), "H2")[ZAMBA]
+    _lap("H2")
+    serve = hybrid_serve()
+    _lap("H3-H4")
+    for k in ckpt_quant.LAUNCHES:   # the hybrid training main path starts here
+        ckpt_quant.LAUNCHES[k] = 0
+    sim_step.LAUNCHES = ssd_scan.LAUNCHES = flash_attention.LAUNCHES = 0
+    train = phase_hybrid_train()
+    launches = dict(ckpt_quant.LAUNCHES)   # ... and ends here
+    other = dict(sim_step=sim_step.LAUNCHES, ssd_scan=ssd_scan.LAUNCHES,
+                 flash_attention=flash_attention.LAUNCHES)
+    REPORT["hybrid_train_main_path_launches"] = dict(launches, **other)
+    print(f"[H5] hybrid training main path: launches {launches} (3 "
+          f"compress_grads calls over {train['n_leaves']} leaves), {other} "
+          f"(training runs ssd_chunked and _attention_core)", flush=True)
+    if min(launches.values()) < 1 or any(other.values()):
+        fail("H5: the hybrid training main path launched no ckpt_quant "
+             "kernel, or launched another kernel")
+    quant_vs_plain = quant_vs_plain_all_leaves("H5", train, ZAMBA_EMBED_LEAF)
+    torch.cuda.empty_cache()
+    _lap("H5")
+    REPORT["hybrid_train"] = train
+    return dict(card_vs_cpu=card, ssd=ssd, flash=flash,
+                serve=serve, train=train, train_launches=launches,
+                quant_vs_plain=quant_vs_plain)
 
 
 # --------------------------------------------------------------------------- #
@@ -4918,6 +5577,13 @@ def main() -> int:
         _dump()
         print(json.dumps({"moe": True, "m5_launches": moe["train_launches"]}))
         return 0
+    if "--hybrid" in sys.argv[1:]:
+        hybrid = hybrid_phases(standalone=True)
+        _dump()
+        print(json.dumps({"hybrid": True,
+                          "h3_launches": hybrid["serve"]["launches_by_route"],
+                          "h5_launches": hybrid["train_launches"]}))
+        return 0
 
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
                                   64 if quick else 128)
@@ -5129,6 +5795,7 @@ def main() -> int:
     phase_ft_example()
     _lap("D3 quant, D4")
     moe = moe_phases()
+    hybrid = hybrid_phases(standalone=False)
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
     fig4_kernel = {name: {"philox_ms": REPORT[name]["kernel"]["philox_ms"],
                           "pregenerated_ms":
@@ -5163,12 +5830,31 @@ def main() -> int:
     tc_by_path = {"olmo-1b": flash_by_route["wgmma"], **{
         arch: r["launches_by_route"]["wgmma"] for arch, r in variants.items()},
         **{arch: moe["serve"][arch]["launches_by_route"]["wgmma"]
-           for arch in MOE_ARCHS}}
+           for arch in MOE_ARCHS},
+        ZAMBA: hybrid["serve"]["launches_by_route"]["flash_attention"][
+            "wgmma"]}
     simt_by_path = {"olmo SMOKE float32 (A2)": a2["launches_by_route"]["simt"],
                     "variants' SMOKE float32 (V2)":
                         v2["launches_by_route"]["simt"],
                     "moe SMOKE float32 (M1)":
-                        moe["card_vs_cpu"]["launches_by_route"]["simt"]}
+                        moe["card_vs_cpu"]["launches_by_route"]["simt"],
+                    "zamba2 SMOKE float32 (H1)":
+                        hybrid["card_vs_cpu"]["launches_by_route"][
+                            "flash_attention"]["simt"]}
+    hybrid_ssd = hybrid["serve"]["launches_by_route"]["ssd_scan"]
+    hv = hybrid["serve"]["vs_plain"]
+    hybrid_logits = {
+        "bf16_rel_rms": hv["bf16"]["rel_rms"],
+        "bf16_rms_limit": hv["bf16"]["rms_limit"],
+        "bf16_max_ratio": hv["bf16"]["max_ratio"],
+        "bf16_floor_max_ratio": hv["bf16_plain_vs_plain"]["max_ratio"],
+        "bf16_floor_rel_rms": hv["bf16_plain_vs_plain"]["rel_rms"],
+        "f32_max_abs": hv["f32"]["max_abs"]}
+    zamba_flash = dict({k: hybrid["flash"][k] for k in (
+        "shape", "scale", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}, max_abs_err=v1[ZAMBA]["max_abs"],
+        scale_check=v1[ZAMBA]["scale_check"],
+        logits_vs_plain_path=hybrid_logits)
     variant_rows = {arch: {
         k: r[k] for k in ("shape", "softcap", "ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms", "library_note")}
@@ -5217,20 +5903,33 @@ def main() -> int:
         "name": "ssd_scan_tc", "route": "cuda", "kernel_route": "mma",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        "path": "mamba2-130m serving prefill (bf16, S3)",
-        "launches": ssd_by_route["mma"],
+        "path": "mamba2-130m and zamba2-7b serving prefills (bf16, S3, H3)",
+        "launches": ssd_by_route["mma"] + hybrid_ssd["mma"],
+        "launches_by_path": {"mamba2-130m (S3)": ssd_by_route["mma"],
+                             "zamba2-7b (H3)": hybrid_ssd["mma"]},
         "max_abs_err": worst_of(ssd_rows, "mma", ("y", "state")),
         "tolerance": {"y_bf16": SSD_Y_TOL, "state": SSD_F32_TOL},
         "logits_vs_plain_path": ssd_logits,
+        "hybrid_logits_vs_plain_path": hybrid_logits,
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "f32_simt_bound_ms": ssd["f32_simt_bound_ms"],
+        "zamba2_shape": {k: hybrid["ssd"][k] for k in (
+            "shape", "ms", "simt_ms", "plain_ms", "bound_ms", "bound_by",
+            "f32_simt_bound_ms")},
         "library_ms": None}, {
         "name": "ssd_scan", "route": "cuda", "kernel_route": "simt",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        "path": "mamba2 serving in float32 (S2: SMOKE prefills)",
-        "launches": s2["launches_by_route"]["simt"],
+        "path": "mamba2 and zamba2 serving in float32 (S2, H1: SMOKE "
+                "prefills)",
+        "launches": (s2["launches_by_route"]["simt"]
+                     + hybrid["card_vs_cpu"]["launches_by_route"][
+                         "ssd_scan"]["simt"]),
+        "launches_by_path": {
+            "mamba2 SMOKE float32 (S2)": s2["launches_by_route"]["simt"],
+            "zamba2 SMOKE float32 (H1)": hybrid["card_vs_cpu"][
+                "launches_by_route"]["ssd_scan"]["simt"]},
         "max_abs_err": worst_of(ssd_rows, "simt", ("y", "state")),
         "tolerance": {"y_bf16": SSD_Y_TOL, "state": SSD_F32_TOL},
         "ms": ssd["simt_ms"], "plain_ms": ssd["plain_ms"],
@@ -5242,19 +5941,25 @@ def main() -> int:
         "replaces": replaces,
         "launches": (quant_launches[f"{name}_blocks"]
                      + dense_quant_launches[f"{name}_blocks"]
-                     + moe["train_launches"][f"{name}_blocks"]),
+                     + moe["train_launches"][f"{name}_blocks"]
+                     + hybrid["train_launches"][f"{name}_blocks"]),
         "launches_by_path": {
             "mamba2-130m training (T3)": quant_launches[f"{name}_blocks"],
             "olmo-1b training (D2)": dense_quant_launches[f"{name}_blocks"],
             "olmoe-1b-7b 2-layer training (M5)":
-                moe["train_launches"][f"{name}_blocks"]},
+                moe["train_launches"][f"{name}_blocks"],
+            "zamba2-7b 12-layer training (H5)":
+                hybrid["train_launches"][f"{name}_blocks"]},
         "launches_per_compress_grads": {
             "mamba2-130m": train_run["compress_launches"][0][f"{name}_blocks"],
             "olmo-1b": dense_run["compress_launches"][0][f"{name}_blocks"],
             "olmoe-1b-7b, 2 layers": moe["train"]["compress_launches"][0][
+                f"{name}_blocks"],
+            "zamba2-7b, 12 layers": hybrid["train"]["compress_launches"][0][
                 f"{name}_blocks"]},
         "max_abs_err": max(quant_worst, dense_quant_worst,
-                           moe["quant_vs_plain"]["max_abs_err"]),
+                           moe["quant_vs_plain"]["max_abs_err"],
+                           hybrid["quant_vs_plain"]["max_abs_err"]),
         "bitwise": True,
         "shape": f"mamba2-130m's embedding leaf, {EMBED_LEAF:,} float32",
         "ms": quant[name]["ms"], "plain_ms": quant[name]["plain_ms"],
@@ -5272,9 +5977,11 @@ def main() -> int:
         "name": "flash_attention_tc", "route": "cuda", "kernel_route": "wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "the dense and moe serving prefills (bf16): olmo-1b (A3), "
-                "gemma2-27b (V3), stablelm-1.6b, starcoder2-3b, qwen2-vl-7b "
-                "(V6), olmoe-1b-7b (M2), deepseek-moe-16b (M3)",
+        "path": "the dense, moe and hybrid serving prefills (bf16): "
+                "olmo-1b (A3), gemma2-27b (V3), stablelm-1.6b, "
+                "starcoder2-3b, qwen2-vl-7b (V6), olmoe-1b-7b (M2), "
+                "deepseek-moe-16b (M3), zamba2-7b (H3, head_dim 112 padded "
+                "to 128)",
         "launches": sum(tc_by_path.values()),
         "launches_by_path": tc_by_path,
         "max_abs_err": max(worst_of(flash_rows, "wgmma", (None,)),
@@ -5287,12 +5994,13 @@ def main() -> int:
         "library_ms": olmo_t["library_ms"],
         "gqa_shape": {k: gqa_t[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
-        "variant_shapes": variant_rows}, {
+        "variant_shapes": variant_rows,
+        "zamba2_shape": zamba_flash}, {
         "name": "flash_attention", "route": "cuda", "kernel_route": "simt",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "dense and moe serving in float32 (A2, V2, M1: SMOKE "
-                "prefills)",
+        "path": "dense, moe and hybrid serving in float32 (A2, V2, M1, H1: "
+                "SMOKE prefills)",
         "launches": sum(simt_by_path.values()),
         "launches_by_path": simt_by_path,
         "max_abs_err": worst_of(flash_rows, "simt", (None,)),

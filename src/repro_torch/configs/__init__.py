@@ -3,10 +3,10 @@ the (arch x shape) cells and the input stand-ins.
 
 Every config is field for field the JAX package's, except that the ported
 serving configs turn ``use_flash_kernel`` on (the port's hand-written
-kernel is their serving path).  The ssm, dense and moe families build,
-serve and train; the hybrid and encdec configs are data only until their
-families are ported (ROADMAP Queue 1 items 9.5, 9.6), and
-``models.init_params`` raises for them.
+kernels are their serving path).  The ssm, dense, moe and hybrid families
+build, serve and train; the encdec config is data only until its family
+is ported (ROADMAP Queue 1 item 9.6), and ``models.init_params`` raises
+for it.
 """
 from __future__ import annotations
 

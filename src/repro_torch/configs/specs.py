@@ -6,7 +6,7 @@ frontends are stubs, as in the JAX package: whisper receives precomputed
 audio frame embeddings, qwen2-vl token ids plus (B, 3, S) M-RoPE position
 triples.  :func:`params_struct` and :func:`cache_struct` build the model
 and the serving cache on the meta device (shapes and dtypes, no
-allocation); both raise for the families not ported yet.
+allocation); both raise for the family not ported yet (encdec).
 """
 from __future__ import annotations
 

@@ -3,10 +3,14 @@
 81L d_model=3584 32H (GQA kv=32) d_ff=14336 vocab=32000, ssm_state=64
 [arXiv:2411.15242; unverified]
 
-Data only: the same values as ``repro/configs/zamba2_7b.py``,
-field for field.
-The hybrid family is not ported yet: ``models.init_params`` raises for it
-(ROADMAP Queue 1 item 9.5).
+The same values as ``repro/configs/zamba2_7b.py`` with one deliberate
+difference: ``CONFIG`` sets ``use_flash_kernel=True``, so the prefill's
+SSD runs through the hand-written CUDA kernel
+(``kernels/csrc/ssd_scan.cu``) and the shared block's attention through
+the flash-attention kernel (``kernels/csrc/flash_attention.cu``, its
+head_dim 112 zero-padded to 128), which is the serving path on the card.
+In the JAX package the knob defaults to off.  ``SMOKE`` keeps the
+default; tests set the knob the same way on both sides.
 """
 from repro_torch.configs.base import AttentionConfig, ModelConfig, RopeConfig, SSMConfig
 
@@ -26,6 +30,7 @@ CONFIG = ModelConfig(
     act="gelu_gated",
     shared_attn_every=6,   # one shared transformer block per 6 Mamba2 layers
     tie_embeddings=True,
+    use_flash_kernel=True,   # the one difference from the JAX config
 )
 
 SMOKE = ModelConfig(

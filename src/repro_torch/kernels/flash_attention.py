@@ -13,7 +13,9 @@ The CUDA source (``csrc/flash_attention.cu``) holds two kernels, and
 :func:`route` picks one from the dtype and head_dim alone:
 
 * ``"wgmma"`` -- bfloat16 with head_dim 64 or 128 (olmo-1b's prefill and
-  every dense serving config): a tensor-core kernel for Hopper.  One block
+  every dense serving config), and bfloat16 with a head_dim that is a
+  multiple of 16 between them (zamba2-7b's 112): a tensor-core kernel for
+  Hopper.  One block
   per (bg, r, 128 query rows): a producer warp loads the q tile once and
   K/V tiles of 128 keys into a two-stage ring by TMA (128-byte swizzle,
   mbarrier completion); two consumer warpgroups of 64 rows each run
@@ -26,6 +28,16 @@ The CUDA source (``csrc/flash_attention.cu``) holds two kernels, and
   kernel, one block of 256 threads per (bg, r, 64-row q block), products
   on the float32 SIMT units from shared memory.  The float32 parity paths
   run it.
+
+A bfloat16 head_dim strictly between 64 and 128 (:func:`padded_head_dim`)
+is zero-padded along D to 128 by the wrapper, run by the D-128 tensor-core
+kernel and sliced back: the zero columns add nothing to q k^T, and v's
+come out as zero columns that are cut off.  The scale is the caller's
+(1/sqrt(112) for zamba2), never one recomputed from the padded D.  The
+pad copies are part of the call and of its measured time.  :func:`takes`
+says whether any kernel takes a dtype and head_dim; the model asks it
+before it routes a call here, so a shape no kernel takes (float32 at
+head_dim 112, float16) runs the plain attention by its shape.
 
 Both take any Sq and Skv and read q, k and v through their strides (unit
 stride along D, every other stride a multiple of 16 bytes, else ``_rows``
@@ -60,15 +72,35 @@ LAUNCHES = 0                                # launches of either kernel
 LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
 HEAD_DIMS = (16, 32, 64, 128)   # head_dim the kernel takes
 TC_HEAD_DIMS = (64, 128)        # head_dim the tensor-core kernel takes
+PAD_TO = 128    # bf16 head_dim strictly between 64 and 128 is padded to it
 NEG_INF = -1e30
+
+
+def padded_head_dim(dtype: torch.dtype, head_dim: int) -> int:
+    """The head_dim the kernel runs a call at: PAD_TO for bfloat16 with a
+    head_dim that is a multiple of 16 strictly between 64 and 128 (the
+    wrapper zero-pads D), else ``head_dim`` itself."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 \
+            and TC_HEAD_DIMS[0] < head_dim < PAD_TO:
+        return PAD_TO
+    return head_dim
+
+
+def takes(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a kernel takes q, k and v of this dtype and head_dim:
+    bfloat16 or float32 at a head_dim of HEAD_DIMS, or bfloat16 at one
+    :func:`padded_head_dim` pads."""
+    return dtype in (torch.float32, torch.bfloat16) \
+        and padded_head_dim(dtype, head_dim) in HEAD_DIMS
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel a call of this dtype and head_dim takes: ``"wgmma"``
-    (the tensor-core kernel: bfloat16 with head_dim 64 or 128) or
-    ``"simt"`` (the float32 SIMT kernel: float32, and head_dim 16 or
-    32)."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+    (the tensor-core kernel: bfloat16 with head_dim 64 or 128, or one
+    padded to 128) or ``"simt"`` (the float32 SIMT kernel: float32, and
+    head_dim 16 or 32)."""
+    if dtype == torch.bfloat16 and \
+            padded_head_dim(dtype, head_dim) in TC_HEAD_DIMS:
         return "wgmma"
     return "simt"
 
@@ -115,11 +147,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(BG, R, Sq, k.shape[1]) == 0:
         raise ValueError(f"empty operand: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if not takes(q.dtype, D):
+        raise ValueError(f"the flash kernel takes head_dim in {HEAD_DIMS} "
+                         f"(bfloat16 also a multiple of 16 between "
+                         f"{TC_HEAD_DIMS[0]} and {PAD_TO}, padded), got {D} "
+                         f"in {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"k and v must have q's dtype {q.dtype}, got "
                          f"{k.dtype} and {v.dtype}")
@@ -179,8 +213,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors: one launch of the CUDA kernel (raises if it cannot be
     built or launched, or if the operands are not what it takes; operands
-    it cannot read in place are copied contiguous first).  CPU tensors:
-    :func:`flash_attention_plain`.  :func:`route` names the kernel.
+    it cannot read in place are copied contiguous first; a head_dim that
+    :func:`padded_head_dim` pads is zero-padded before the launch and the
+    output sliced back).  CPU tensors: :func:`flash_attention_plain`.
+    :func:`route` names the kernel.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
@@ -196,8 +232,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "torch.inference_mode, or run the plain attention "
             "(use_flash_kernel=False)")
     _check(q, k, v, softcap)
-    return _launch(q, k, v, route(q.dtype, q.shape[-1]), scale=scale,
-                   causal=causal, softcap=softcap)
+    D = q.shape[-1]
+    pad = padded_head_dim(q.dtype, D) - D
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    o = _launch(q, k, v, route(q.dtype, D), scale=scale, causal=causal,
+                softcap=softcap)
+    return o[..., :D] if pad else o
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, how: str, *,

@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         [--smoke] --batch 4 --prompt-len 16 --tokens 32 [--device cpu]
 
-Takes every arch of the registry; the families not ported yet (hybrid,
-encdec) raise with their ROADMAP item.  Runs on CUDA unless
+Takes every arch of the registry; the family not ported yet (encdec)
+raises with its ROADMAP item.  Runs on CUDA unless
 ``--device cpu`` is given (and raises where there is no card).
 Parameters come from the port's init with a generator of seed 0 on the
 run's device (on the card the draws are made there: a 27 B model drawn on

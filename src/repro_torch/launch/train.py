@@ -20,15 +20,14 @@ default the measured seconds count).  Without ``--ckpt-dir`` the images go
 to a fresh temporary directory that is removed at the end; with it,
 replicas go to ``DIR_rep0``, ... beside it.
 
-The ssm, dense and moe families train (mamba2-130m; olmo-1b,
+The ssm, dense, moe and hybrid families train (mamba2-130m; olmo-1b,
 gemma2-27b, stablelm-1.6b, starcoder2-3b, qwen2-vl-7b; olmoe-1b-7b,
-deepseek-moe-16b).  Neither hand-written kernel of
+deepseek-moe-16b; zamba2-7b).  Neither hand-written kernel of
 their serving paths has a backward, so training runs the SSD through
 ``ssd_chunked`` and attention through ``_attention_core``, as the JAX
 package trains them: a config with ``use_flash_kernel=True`` (the port's
 serving ``CONFIG``) is trained with the knob off, and the entry point says
-so.  The hybrid and encdec archs are refused, naming their ROADMAP
-item.
+so.  The encdec arch is refused, naming its ROADMAP item (9.6).
 """
 from __future__ import annotations
 
@@ -101,9 +100,8 @@ def training_config(cfg: ModelConfig) -> ModelConfig:
     yet are refused."""
     require_trainable_family(cfg)
     if cfg.use_flash_kernel:
-        kernel, plain = serving_kernel(cfg)
-        print(f"use_flash_kernel=False: training runs {plain} (the {kernel} "
-              f"has no backward)")
+        why, plain = serving_kernel(cfg)
+        print(f"use_flash_kernel=False: training runs {plain} ({why})")
         cfg = dataclasses.replace(cfg, use_flash_kernel=False)
     return cfg
 

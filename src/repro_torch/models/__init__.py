@@ -1,8 +1,9 @@
 """Model library of the port (the ssm family: mamba2; the dense family:
 olmo, gemma2, stablelm, starcoder2, qwen2-vl; the moe family: olmoe,
-deepseek-moe)."""
+deepseek-moe; the hybrid family: zamba2)."""
 from repro_torch.models.model import (
     DenseLM,
+    HybridLM,
     Mamba2LM,
     decode_step,
     forward,
@@ -13,5 +14,5 @@ from repro_torch.models.model import (
     prefill,
 )
 
-__all__ = ["DenseLM", "Mamba2LM", "decode_step", "forward", "from_reference",
+__all__ = ["DenseLM", "HybridLM", "Mamba2LM", "decode_step", "forward", "from_reference",
            "init_cache", "init_params", "loss_fn", "prefill"]

@@ -26,13 +26,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import div
+from repro_torch.kernels import flash_attention as FA
 
 Params = Mapping[str, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
-# the dtypes the flash kernels take; float16 runs _attention_core
-FLASH_DTYPES = (torch.bfloat16, torch.float32)
 NEG_INF = -1e30
 INV_127 = 1.0 / 127.0   # the int8 KV scale's factor (rounded to float32)
 NORMS = ("rmsnorm", "rmsnorm_one", "layernorm", "layernorm_nobias",
@@ -265,16 +264,18 @@ def _attention_core(qg, k, v, *, scale, softcap, causal, sliding_window,
 def flash_route(cfg: ModelConfig, *, causal: bool, q_offset: int, seq: int,
                 layer_is_local: bool) -> bool:
     """Whether the attention of a call runs through the flash kernel: the
-    knob is on, the compute dtype is one the kernels take (bfloat16 or
-    float32), the mask is causal, the queries start at position 0 (a
-    prefill, or a forward without a cache) and no sliding window is
-    narrower than the prompt.  Everything else (float16, decode, a
-    prefill behind earlier tokens) runs :func:`_attention_core`."""
+    knob is on, a kernel takes the compute dtype and head_dim
+    (``flash_attention.takes``: bfloat16 or float32 at head_dim 16, 32, 64
+    or 128, and bfloat16 at a multiple of 16 between 64 and 128), the mask
+    is causal, the queries start at position 0 (a prefill, or a forward
+    without a cache) and no sliding window is narrower than the prompt.
+    Everything else (float16, float32 at head_dim 112, decode, a prefill
+    behind earlier tokens) runs :func:`_attention_core`."""
     a = cfg.attention
     narrow = (a.sliding_window is not None and layer_is_local
               and a.sliding_window < seq)
     return bool(cfg.use_flash_kernel
-                and _dtype(cfg.compute_dtype) in FLASH_DTYPES
+                and FA.takes(_dtype(cfg.compute_dtype), a.head_dim)
                 and causal and q_offset == 0 and not narrow)
 
 

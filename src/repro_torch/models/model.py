@@ -1,54 +1,64 @@
 """Model assembly of the port: init / forward / prefill / decode for the
 ssm family (the Mamba2 stack, attention-free), the dense family (the
-pre-norm transformer: GQA attention + MLP) and the moe family (the same
+pre-norm transformer: GQA attention + MLP), the moe family (the same
 transformer with a mixture-of-experts block, ``models/moe.py``, in place
-of the MLP).
+of the MLP) and the hybrid family (zamba2: a Mamba2 stack with one shared
+transformer block applied after every ``shared_attn_every`` layers).
 
 The port of ``repro/models/model.py`` for ``family`` ``"ssm"``,
-``"dense"`` and ``"moe"``.  Each stack is an ``nn.Module`` (:class:`Mamba2LM`,
-:class:`DenseLM`: embedding, a ``ModuleList`` of blocks looped in Python,
-final norm); the JAX version's ``lax.scan`` over stacked parameters has no
+``"dense"``, ``"moe"`` and ``"hybrid"``.  Each stack is an ``nn.Module``
+(:class:`Mamba2LM`, :class:`DenseLM`, :class:`HybridLM`: embedding, a
+``ModuleList`` of blocks looped in Python, final norm; the hybrid model
+also holds ``shared``, one :class:`DenseBlock` whose weights every use
+shares); the JAX version's ``lax.scan`` over stacked parameters has no
 counterpart here.  Its remat does, when autograd records the forward
 (training): with ``cfg.remat == "full"`` each block runs under
 ``torch.utils.checkpoint.checkpoint``; with ``"dots"`` under torch's
 selective checkpointing with :func:`remat_dots_policy`, which saves the
 outputs of the block's products with no batch dimension (the projections)
 and recomputes the rest, as ``jax.checkpoint_policies.
-checkpoint_dots_with_no_batch_dims`` does.  :func:`loss_fn` is the training
-loss, plus the moe block's load-balancing loss averaged over the layers.
-The hybrid and encdec families wait for later slices (ROADMAP Queue 1
-item 9) and raise.  The dense family covers every dense config
+checkpoint_dots_with_no_batch_dims`` does.  In the hybrid stack only the
+Mamba2 blocks are recomputed; the shared block runs outside the
+checkpoint, as in the JAX package, and its gradient is the sum over its
+uses.  :func:`loss_fn` is the training loss, plus the moe block's
+load-balancing loss averaged over the layers.  The encdec family waits
+for a later slice (ROADMAP Queue 1 item 9.6) and raises.  The dense
+family covers every dense config
 of the registry: olmo-1b, gemma2-27b (alternating local/global windows,
 both softcaps, ``(1 + scale)`` rmsnorms and post-block norms),
 stablelm-1.6b (LayerNorm with bias, partial RoPE, an untied head),
 starcoder2-3b (LayerNorm, plain GELU, a sliding window) and qwen2-vl-7b
 (M-RoPE over (B, 3, S) positions; text gives three equal streams); the
 moe family olmoe-1b-7b (64 experts, top-8) and deepseek-moe-16b (64
-routed top-6 and 2 shared experts).
+routed top-6 and 2 shared experts); the hybrid family zamba2-7b (81
+Mamba2 layers, the shared block after every 6: 13 uses and 3 remainder
+layers).
 
 Parameters are built frozen (``requires_grad=False``), as serving wants
 them; the training entry points (``repro_torch.train.step``) turn
 ``requires_grad`` on.  Parameter names follow the JAX pytree:
 ``embed.tok``, ``blocks.<i>.norm.scale``, ``blocks.<i>.mixer.<name>``
-(ssm), ``blocks.<i>.attn.wq``, ``blocks.<i>.mlp.w_up``, ... (dense; the
-non-parametric norms hold no leaves, LayerNorm adds ``bias``),
-``blocks.<i>.moe.router``, ``blocks.<i>.moe.w_up``, ... (moe),
+(ssm, hybrid), ``blocks.<i>.attn.wq``, ``blocks.<i>.mlp.w_up``, ...
+(dense; the non-parametric norms hold no leaves, LayerNorm adds
+``bias``), ``blocks.<i>.moe.router``, ``blocks.<i>.moe.w_up``, ... (moe),
 ``blocks.<i>.post_attn_norm`` / ``post_mlp_norm`` (gemma2),
-``final_norm.scale``, ``embed.unembed`` (an untied head);
+``shared.attn_norm.scale``, ``shared.attn.wq``, ``shared.mlp.w_up``, ...
+(hybrid), ``final_norm.scale``, ``embed.unembed`` (an untied head);
 :func:`from_reference` carries the JAX package's ``init_params`` pytree
-(as numpy arrays, layer-stacked ``(L, ...)`` leaves under ``blocks``)
-across dtype for dtype.
+(as numpy arrays, layer-stacked ``(L, ...)`` leaves under ``blocks``, the
+hybrid's ``shared`` leaves unstacked) across dtype for dtype.
 
 The serving caches mirror the JAX ones.  ssm: ``{"ssm": {"state": (L, B,
-h, p, n), "conv": (L, B, W-1, conv_dim)}, "index": int}``; the SSM state
-and conv carry are float32 whatever ``cache_dtype`` prefill is given, as
-in the JAX package.  dense and moe: ``{"kv": {"k", "v": (L, B, G,
+h, p, n), "conv": (L, B, W-1, conv_dim)}, "index": int}``, written in
+place layer by layer; the SSM state and conv carry are float32 whatever
+``cache_dtype`` prefill is given, as in the JAX package.  dense and moe: ``{"kv": {"k", "v": (L, B, G,
 max_seq, hd)},
 "index": int}`` in ``cache_dtype``, written in place layer by layer (the
 JAX decode path's ``layer_index`` form); with ``kv_cache_quant`` the K/V
 are int8 codes beside float32 ``k_scale``/``v_scale`` of (L, B, G,
-max_seq), whatever ``cache_dtype``.  Entry points run on CUDA unless
-given ``device="cpu"``.
+max_seq), whatever ``cache_dtype``.  hybrid: both, the ``"ssm"`` part for
+all L layers and the ``"kv"`` part for the ``L // shared_attn_every``
+uses of the shared block, both written in place.  Entry points run on CUDA unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -74,11 +84,11 @@ from repro_torch.models import ssm as SSM
 Cache = Dict[str, Any]
 
 
-FAMILIES = ("ssm", "dense", "moe")
+FAMILIES = ("ssm", "dense", "moe", "hybrid")
 # the families of the transformer stack (DenseLM)
 ATTENTION_FAMILIES = ("dense", "moe")
 # The families still to port, by their ROADMAP Queue 1 item.
-MISSING_FAMILIES = {"hybrid": "9.5", "encdec": "9.6"}
+MISSING_FAMILIES = {"encdec": "9.6"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -89,6 +99,10 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet; only "
             f"{FAMILIES} are (ROADMAP Queue 1 item {item})")
+    if cfg.family == "hybrid" and cfg.post_block_norm:
+        raise ValueError(
+            "a hybrid config with post_block_norm: the JAX package's shared "
+            "block (_shared_block) applies no post-block norms")
     L.check_ported(cfg)
 
 
@@ -170,13 +184,35 @@ class DenseLM(nn.Module):
         self.final_norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
 
 
-LM = Union[Mamba2LM, DenseLM]
+class HybridLM(nn.Module):
+    """The hybrid (zamba2) language model's parameters: embedding, the
+    shared transformer block (one :class:`DenseBlock`: attention and the
+    gated MLP, each behind a norm), the Mamba2 blocks and the final norm
+    (run by :func:`forward`), drawn in that order.  ``gen`` None builds it
+    on the meta device, to be loaded (:func:`from_reference`)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        _require_ported(cfg)
+        self.cfg = cfg
+        dev = device if gen is not None else "meta"
+        self.embed = _norm(L.init_embedding(gen, cfg), dev)
+        self.shared = DenseBlock(cfg, gen, device)
+        self.blocks = nn.ModuleList(Mamba2Block(cfg, gen, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
+
+
+LM = Union[Mamba2LM, DenseLM, HybridLM]
+_CLASSES = {"ssm": Mamba2LM, "dense": DenseLM, "moe": DenseLM,
+            "hybrid": HybridLM}
 
 
 def model_class(cfg: ModelConfig) -> Type[nn.Module]:
     """The module class of ``cfg``'s family."""
     _require_ported(cfg)
-    return Mamba2LM if cfg.family == "ssm" else DenseLM
+    return _CLASSES[cfg.family]
 
 
 def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
@@ -231,24 +267,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``dtype`` do not enter it (the SSM cache has no sequence axis and is
     float32).  dense and moe: zeroed K and V of (L, B, G, max_seq, hd) in
     ``dtype``; with ``kv_cache_quant``, int8 K and V codes and float32
-    scales of (L, B, G, max_seq) set to 1 (``dtype`` does not enter)."""
+    scales of (L, B, G, max_seq) set to 1 (``dtype`` does not enter).
+    hybrid: the ssm family's cache for its L layers and the K/V for the
+    ``L // shared_attn_every`` uses of the shared block."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    if cfg.family in ATTENTION_FAMILIES:
+
+    def kv(n_layers: int) -> Dict[str, torch.Tensor]:
         a = cfg.attention
-        shape = (cfg.n_layers, batch, a.n_kv_heads, max_seq, a.head_dim)
+        shape = (n_layers, batch, a.n_kv_heads, max_seq, a.head_dim)
         if cfg.kv_cache_quant:
-            kv = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                  "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                  "k_scale": torch.ones(shape[:4], device=dev),
-                  "v_scale": torch.ones(shape[:4], device=dev)}
-        else:
-            kv = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        return {"kv": kv, "index": 0}
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.ones(shape[:4], device=dev),
+                    "v_scale": torch.ones(shape[:4], device=dev)}
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    if cfg.family in ATTENTION_FAMILIES:
+        return {"kv": kv(cfg.n_layers), "index": 0}
     one = SSM.init_ssm_cache(cfg, batch, device=dev)
     st = {k: v[None].repeat(cfg.n_layers, *([1] * v.dim()))
           for k, v in one.items()}
+    if cfg.family == "hybrid":
+        return {"ssm": st, "kv": kv(cfg.n_layers // cfg.shared_attn_every),
+                "index": 0}
     return {"ssm": st, "index": 0}
 
 
@@ -362,23 +405,64 @@ def _dense_stack(params: DenseLM, x, cfg: ModelConfig, *, positions,
     return x, kv_cache, aux_tot
 
 
+def _mamba_layer(params: Union[Mamba2LM, HybridLM], i: int, x, *,
+                 ssm_cache=None, remat: str = "none", use_kernel=False):
+    """Mamba2 block ``i`` of the ssm or hybrid stack.  With a cache
+    (prefill and decode alike) its slice of the stacked SSM state and conv
+    carry is written in place; without one the block is recomputed in the
+    backward as ``remat`` says."""
+    bp = params.blocks[i]
+    if ssm_cache is not None:
+        x, out = bp(x, cache={k: v[i] for k, v in ssm_cache.items()},
+                    use_kernel=use_kernel)
+        for k, v in out.items():
+            ssm_cache[k][i].copy_(v)
+        return x
+    if remat != "none":
+        return _checkpointed(remat, bp, x, use_kernel=use_kernel)[0]
+    return bp(x, use_kernel=use_kernel)[0]
+
+
 def _ssm_stack(params: Mamba2LM, x, cfg: ModelConfig, *, ssm_cache=None,
                use_kernel=False):
-    if ssm_cache is None:
-        remat = _remat(cfg)
-        for bp in params.blocks:
-            if remat != "none":
-                x, _ = _checkpointed(remat, bp, x, use_kernel=use_kernel)
-            else:
-                x, _ = bp(x, use_kernel=use_kernel)
-        return x, None
-    new = {k: [] for k in ssm_cache}
-    for i, bp in enumerate(params.blocks):
-        layer_cache = {k: v[i] for k, v in ssm_cache.items()}
-        x, out = bp(x, cache=layer_cache, use_kernel=use_kernel)
-        for k in new:
-            new[k].append(out[k])
-    return x, {k: torch.stack(v) for k, v in new.items()}
+    """The Mamba2 block stack.  Returns (x, the cache written in place)."""
+    remat = _remat(cfg) if ssm_cache is None else "none"
+    for i in range(len(params.blocks)):
+        x = _mamba_layer(params, i, x, ssm_cache=ssm_cache, remat=remat,
+                         use_kernel=use_kernel)
+    return x, ssm_cache
+
+
+def _hybrid_stack(params: HybridLM, x, cfg: ModelConfig, *, positions,
+                  ssm_cache=None, kv_cache=None, cache_index=None,
+                  use_kernel=False):
+    """Zamba2: for each of the ``n_layers // shared_attn_every`` groups,
+    its Mamba2 blocks, then the shared block (the same weights each use,
+    the same ``positions``, the g-th slice of the stacked KV cache); after
+    the last group the remainder layers.  With a cache (prefill and decode
+    alike) each layer's SSM state and conv carry and each use's K/V are
+    written in place.  Under autograd ``cfg.remat`` recomputes the Mamba2
+    blocks only; the shared block runs plainly, as the JAX package's
+    ``_hybrid_stack`` runs it outside ``_maybe_remat``.
+
+    Returns (x, ssm cache, kv cache)."""
+    every = cfg.shared_attn_every
+    remat = _remat(cfg) if ssm_cache is None else "none"
+
+    def mamba(i: int, x):
+        return _mamba_layer(params, i, x, ssm_cache=ssm_cache, remat=remat,
+                            use_kernel=use_kernel)
+
+    for g in range(cfg.n_layers // every):
+        for i in range(g * every, (g + 1) * every):
+            x = mamba(i, x)
+        x, kv_cache, _ = _apply_dense_block(
+            params.shared, x, cfg, positions=positions, layer_is_local=False,
+            cache=kv_cache, cache_index=cache_index,
+            layer_index=None if kv_cache is None else g)
+    for i in range(cfg.n_layers // every * every, cfg.n_layers):
+        x = mamba(i, x)
+    return x, ssm_cache, kv_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -394,20 +478,20 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
     layers, without a cache and in a decode step (empty for a prefill and
     for the other families).
 
-    batch: {'tokens': (B, S) integer; dense: optional 'positions', (B, S)
-    or, for M-RoPE, (B, 3, S)}.  Without positions they count from the
-    cache's index (0 without a cache); an M-RoPE model given (B, S)
-    positions runs three equal streams (text).  With ``cache`` the call is
-    a serving step writing at ``cache['index']``; ``last_only`` computes
-    logits for the final position only (prefill -- avoids a (B, S, V)
-    tensor).
+    batch: {'tokens': (B, S) integer; dense, moe, hybrid: optional
+    'positions', (B, S) or, for M-RoPE, (B, 3, S)}.  Without positions
+    they count from the cache's index (0 without a cache); an M-RoPE model
+    given (B, S) positions runs three equal streams (text).  With
+    ``cache`` the call is a serving step writing at ``cache['index']``;
+    ``last_only`` computes logits for the final position only (prefill --
+    avoids a (B, S, V) tensor).
     """
     _require_ported(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(params.embed, tokens, cfg)
     new_cache, aux = None, {}
-    if cfg.family in ATTENTION_FAMILIES:
-        cache_index = int(cache["index"]) if cache is not None else 0
+    cache_index = int(cache["index"]) if cache is not None else 0
+    if cfg.family != "ssm":
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
@@ -417,11 +501,21 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
                 and positions.dim() == 2:
             positions = positions[:, None, :].expand(
                 positions.shape[0], 3, positions.shape[1])
+    if cfg.family in ATTENTION_FAMILIES:
         kv = cache["kv"] if cache is not None else None
         x, new_kv, aux = _dense_stack(params, x, cfg, positions=positions,
                                       kv_cache=kv, cache_index=cache_index)
         if cache is not None:
             new_cache = {"kv": new_kv,
+                         "index": cache_index + tokens.shape[1]}
+    elif cfg.family == "hybrid":
+        x, new_ssm, new_kv = _hybrid_stack(
+            params, x, cfg, positions=positions,
+            ssm_cache=cache["ssm"] if cache is not None else None,
+            kv_cache=cache["kv"] if cache is not None else None,
+            cache_index=cache_index, use_kernel=cfg.use_flash_kernel)
+        if cache is not None:
+            new_cache = {"ssm": new_ssm, "kv": new_kv,
                          "index": cache_index + tokens.shape[1]}
     else:
         ssm_c = cache["ssm"] if cache is not None else None
@@ -502,11 +596,16 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 def reference_state(params_np: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The JAX ``init_params`` pytree flattened to the port's parameter
-    names (layer-stacked leaves split per layer; a non-parametric norm's
-    empty dict gives no name)."""
+    names (layer-stacked leaves split per layer; the hybrid's ``shared``
+    leaves, one block, under ``shared.<part>.<leaf>``; a non-parametric
+    norm's empty dict gives no name)."""
     _require_ported(cfg)
     out = {f"{part}.{k}": v for part in ("embed", "final_norm")
            for k, v in params_np[part].items()}
+    if cfg.family == "hybrid":
+        out.update({f"shared.{part}.{k}": v
+                    for part, leaves in params_np["shared"].items()
+                    for k, v in leaves.items()})
     for part, leaves in params_np["blocks"].items():
         for k, v in leaves.items():
             for i in range(cfg.n_layers):

@@ -9,9 +9,9 @@ parameters (an ``nn.Module``, ``requires_grad``) and the optimizer state
 are updated in place and returned; a caller that needs the old state keeps
 a :meth:`TrainState.clone`.
 
-The ssm, dense and moe families train.  Neither hand-written kernel of
-their serving paths has a backward, in the JAX package or here: training
-runs the SSD through ``ssd_chunked`` and attention through
+The ssm, dense, moe and hybrid families train.  Neither hand-written
+kernel of their serving paths has a backward, in the JAX package or here:
+training runs the SSD through ``ssd_chunked`` and attention through
 ``_attention_core`` under autograd (as the JAX package trains attention),
 so a config with ``use_flash_kernel=True`` is refused.  A moe step
 averages the blocks' ``moe_aux_loss`` and ``moe_dropped_frac`` over the
@@ -77,30 +77,33 @@ class TrainState(NamedTuple):
 
 
 def require_trainable_family(cfg: ModelConfig) -> None:
-    """Training is ported for every ported family (ssm, dense and moe);
-    the others raise naming their ROADMAP item."""
+    """Training is ported for every ported family (ssm, dense, moe and
+    hybrid); the others raise naming their ROADMAP item."""
     M._require_ported(cfg)
 
 
 def serving_kernel(cfg: ModelConfig) -> Tuple[str, str]:
-    """The hand-written kernel ``use_flash_kernel`` turns on for ``cfg``'s
-    family, which has no backward, and the plain path training runs in its
-    place."""
+    """Why training turns ``use_flash_kernel`` off for ``cfg``'s family --
+    the clause naming the hand-written kernels the knob turns on, which
+    have no backward -- and the plain paths training runs in their place."""
     if cfg.family in M.ATTENTION_FAMILIES:
-        return "flash-attention kernel", "_attention_core"
-    return "SSD kernel", "ssd_chunked"
+        return ("the flash-attention kernel has no backward",
+                "_attention_core")
+    if cfg.family == "hybrid":
+        return ("the SSD kernel and the flash-attention kernel have no "
+                "backward", "ssd_chunked and _attention_core")
+    return "the SSD kernel has no backward", "ssd_chunked"
 
 
 def require_trainable(cfg: ModelConfig) -> None:
     """Refuse a config that training cannot run faithfully."""
     require_trainable_family(cfg)
     if cfg.use_flash_kernel:
-        kernel, plain = serving_kernel(cfg)
+        why, plain = serving_kernel(cfg)
         raise ValueError(
-            f"training needs use_flash_kernel=False: the {kernel} has no "
-            f"backward (in the JAX package or in the port), so training "
-            f"runs {plain}; pass dataclasses.replace(cfg, "
-            f"use_flash_kernel=False)")
+            f"training needs use_flash_kernel=False: {why} (in the JAX "
+            f"package or in the port), so training runs {plain}; pass "
+            f"dataclasses.replace(cfg, use_flash_kernel=False)")
 
 
 def _named(params: M.LM) -> Dict[str, torch.Tensor]:

@@ -373,6 +373,7 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed, with_init):
     (2, 512, 4, 64, 128, 256, torch.bfloat16),    # two full chunks
     (2, 384, 3, 32, 64, 128, torch.bfloat16),     # three chunks, p 32, n 64
     (1, 96, 2, 16, 16, 32, torch.float32),        # small head, ragged tile
+    (2, 512, 8, 64, 64, 256, torch.bfloat16),     # zamba2's p, n and Q
 ])
 def test_ssd_kernel_matches_plain_version_on_card(b, s, h, p, n, chunk,
                                                   dtype, with_init):
@@ -1171,6 +1172,151 @@ def test_moe_backward_is_deterministic_and_remat_free_on_card(arch):
                                         init_train_state)
 
     cfg = _moe_cfg(arch, use_flash_kernel=False)
+    state = init_train_state(0, cfg, "cuda")
+    batch = _to_device(_dense_batch(cfg, 1), "cuda")
+    out = {r: compute_grads(state.params, batch,
+                            cfg.replace(remat=r.split()[0]))[0]
+           for r in ("none", "none again", "full", "dots")}
+    for r in ("none again", "full", "dots"):
+        for k, g in out["none"].items():
+            assert torch.equal(out[r][k], g), (r, k)
+
+
+HYBRID = "zamba2-7b"
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_head_dim_112_pads_and_keeps_the_callers_scale():
+    """zamba2's head_dim 112 in bf16: padded to 128 for the tensor-core
+    kernel and sliced back, within 2e-2 of the plain version at the
+    caller's scale 1/sqrt(112); q is scaled so the scores have a standard
+    deviation of 4, where the plain output at 1/sqrt(128) lies farther
+    from the kernel's than the plain output at 1/sqrt(112) does, by more
+    than the tolerance.  float32 at head_dim 112 is refused (no kernel
+    takes it; the model runs _attention_core there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+
+    d, tol = 112, 2e-2
+    scale = d ** -0.5
+    q, k, v = _flash_inputs(4, 2, 300, 300, d, torch.bfloat16, 47)
+    q = (q.float() * (4.0 / (scale * d ** 0.5))).to(q.dtype)
+    assert FA.route(q.dtype, d) == "wgmma"
+    before = FA.LAUNCHES_BY_ROUTE["wgmma"]
+    out = FA.flash_attention(q, k, v, scale=scale)
+    right = FA.flash_attention_plain(q, k, v, scale=scale).float()
+    wrong = FA.flash_attention_plain(q, k, v, scale=128 ** -0.5).float()
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES_BY_ROUTE["wgmma"] == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), right, rtol=tol, atol=tol)
+    gap_right = float((out.float() - right).abs().max())
+    gap_wrong = float((out.float() - wrong).abs().max())
+    assert gap_wrong > gap_right + tol, (gap_right, gap_wrong)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(*(t.float() for t in (q, k, v)), scale=scale)
+
+
+def _hybrid_cfg(**change):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(HYBRID).replace(param_dtype="float32",
+                                            compute_dtype="float32",
+                                            **change)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prompt", [32, 40])
+def test_hybrid_smoke_card_equals_cpu(prompt):
+    """H1's serving check: zamba2 SMOKE in float32 with the kernels on
+    (SIMT SSD, SIMT flash at head_dim 16), from the same CPU-drawn
+    weights, prefill and 4 teacher-forced decode steps, the card against
+    the CPU: logits, SSM state, conv carry and K/V within 1e-4; one SSD
+    launch a Mamba2 layer and one flash launch a use of the shared block,
+    in the prefill only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = _hybrid_cfg(use_flash_kernel=True)
+    toks = torch.randint(0, cfg.vocab, (2, prompt + 4),
+                         generator=torch.Generator().manual_seed(13))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = init_params(0, cfg, device=dev)
+        t = toks.to(dev)
+        ssd, fa = SSD.LAUNCHES, FA.LAUNCHES
+        with torch.inference_mode():
+            logits, cache = prefill(m, t[:, :prompt], cfg, prompt + 4,
+                                    cache_dtype=torch.float32)
+            logs = [logits]
+            for i in range(4):
+                logits, cache = decode_step(m, cache,
+                                            t[:, prompt + i:][:, :1], cfg)
+                logs.append(logits)
+        n_uses = cfg.n_layers // cfg.shared_attn_every
+        want = (cfg.n_layers, n_uses) if dev == "cuda" else (0, 0)
+        assert (SSD.LAUNCHES - ssd, FA.LAUNCHES - fa) == want
+        out[dev] = (logs, cache)
+    (lg, cg), (lc, cc) = out["cuda"], out["cpu"]
+    for a, b in zip(lg, lc):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    for part, k in (("ssm", "state"), ("ssm", "conv"), ("kv", "k"),
+                    ("kv", "v")):
+        torch.testing.assert_close(cg[part][k].cpu(), cc[part][k],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hybrid_smoke_train_step_card_equals_cpu():
+    """One float32 SMOKE train step from the same seeded weights on the
+    card and the CPU, held as the dense configs' are (T2's rule)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (compute_grads, init_train_state,
+                                        make_train_step)
+
+    cfg = _hybrid_cfg()
+    batch = _dense_batch(cfg)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    states = {dev: init_train_state(0, cfg, dev) for dev in ("cuda", "cpu")}
+    grads = {dev: compute_grads(st.params, {k: v.to(dev) for k, v
+                                            in tb.items()}, cfg)[0]
+             for dev, st in states.items()}
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k].cpu(), g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()) + 1e-6)
+    lr = 1e-3
+    out = {dev: make_train_step(cfg, AdamWConfig(lr=lr), constant(1.0))(
+        st, batch) for dev, st in states.items()}
+    loss = {dev: float(m["loss"]) for dev, (_, m) in out.items()}
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-5 * abs(loss["cpu"])
+    n_tiny = 0
+    for k, w in out["cpu"][0].opt.master.items():
+        d = (out["cuda"][0].opt.master[k].cpu() - w).abs()
+        tiny = (grads["cpu"][k].abs() < 1e-6) & (grads["cpu"][k] != 0)
+        n_tiny += int(tiny.sum())
+        assert bool((d[~tiny] <= 1e-5 * w.abs()[~tiny] + 1e-6).all()), k
+        assert bool((d[tiny] <= 0.05 * lr).all()), k
+    assert n_tiny < 1e-2 * sum(g.numel() for g in grads["cpu"].values())
+
+
+@pytest.mark.cuda
+def test_hybrid_backward_is_deterministic_and_remat_free_on_card():
+    """The shared block's gradient sums its two uses: on the card the
+    backward run twice gives the same gradients bit for bit, and remat
+    'full' and 'dots' (the Mamba2 blocks recomputed) give those of
+    'none'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    cfg = _hybrid_cfg()
     state = init_train_state(0, cfg, "cuda")
     batch = _to_device(_dense_batch(cfg, 1), "cuda")
     out = {r: compute_grads(state.params, batch,

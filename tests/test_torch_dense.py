@@ -378,12 +378,12 @@ def test_embedding_scaling_follows_the_norm():
                1e-6)
 
 
-# The families not ported yet; the layer options these cases once listed
-# beside them are ported and held to the JAX package in
-# tests/test_torch_variants.py, the moe family in tests/test_torch_moe.py.
-# The ids stay those the cases had.
+# The family not ported yet; the layer options these cases once listed
+# beside it are ported and held to the JAX package in
+# tests/test_torch_variants.py, the moe family in tests/test_torch_moe.py,
+# the hybrid family in tests/test_torch_hybrid.py.  The id stays the one
+# the case had.
 @pytest.mark.parametrize("change", [
-    pytest.param(dict(family="hybrid"), id="change9"),
     pytest.param(dict(family="encdec"), id="change10"),
 ])
 def test_unported_options_raise(change):
@@ -394,8 +394,7 @@ def test_unported_options_raise(change):
         T_models.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("family,item", [("hybrid", "9.5"),
-                                         ("encdec", "9.6")])
+@pytest.mark.parametrize("family,item", [("encdec", "9.6")])
 def test_training_refuses_the_unported_families(family, item):
     cfg = T_cfg.get_smoke_config(ARCH).replace(family=family)
     for refuse in (lambda: T_train.init_train_state(0, cfg, device="cpu"),
@@ -414,9 +413,9 @@ def test_dense_training_refuses_the_flash_kernel(capsys):
     assert not T_launch_train.training_config(
         T_cfg.get_config(ARCH)).use_flash_kernel
     assert "flash-attention kernel has no backward" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9.5"):
-        T_launch_train.main(["--arch", "zamba2-7b", "--smoke", "--device",
-                             "cpu", "--steps", "1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9.6"):
+        T_launch_train.main(["--arch", "whisper-large-v3", "--smoke",
+                             "--device", "cpu", "--steps", "1"])
 
 
 def test_launch_serve_runs_olmo_on_cpu(capsys):

@@ -241,7 +241,7 @@ def test_configs_match_reference_but_for_the_kernel_knob():
         T_cfg.get_config("mamba3-130m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T_models.init_params(0, T_cfg.get_smoke_config(ARCH).replace(
-            family="hybrid"), device="cpu")
+            family="encdec"), device="cpu")
 
 
 def test_entry_points_default_to_cuda():

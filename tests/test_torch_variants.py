@@ -21,10 +21,11 @@ across by ``from_reference``:
   identical K/V, a decode step over one cache, the prefill's codes;
 * the registry: all ten configs field for field but for
   ``use_flash_kernel``, the (arch x shape) cells, the input stand-ins,
-  ``params_struct`` of the eight ported-family configs at full size (both
-  abstract: no weights allocated; the moe configs' float32 routers and
-  parameter counts) and ``cache_struct``; the hybrid and encdec families
-  raise with their ROADMAP item;
+  ``params_struct`` of the nine ported-family configs at full size (both
+  abstract: no weights allocated; the moe configs' float32 routers and the
+  parameter counts of gemma2, the moe configs and zamba2, whose shared
+  block is one unstacked subtree) and ``cache_struct``; the encdec family
+  raises with its ROADMAP item;
 * seeded draws: a seed still gives the CPU's draws bit for bit.
 
 The JAX serving functions run jitted, as the JAX package's entry point
@@ -58,8 +59,9 @@ from repro_torch.serve import step as T_step
 
 ARCHS = ("gemma2-27b", "stablelm-1.6b", "starcoder2-3b", "qwen2-vl-7b")
 PORTED = ("mamba2-130m", "olmo-1b") + ARCHS + ("olmoe-1b-7b",
-                                                "deepseek-moe-16b")
-UNPORTED = {"zamba2-7b": "9.5", "whisper-large-v3": "9.6"}
+                                                "deepseek-moe-16b",
+                                                "zamba2-7b")
+UNPORTED = {"whisper-large-v3": "9.6"}
 BATCH, N_DECODE = 2, 8
 TOLS = {"float32": 1e-4, "bfloat16": 5e-2}
 QUANT_TOL = 0.15       # tests/test_kv_quant.py: int8 K/V against the full forward
@@ -564,9 +566,14 @@ def test_params_struct_matches_reference(arch):
     assert all(p.device.type == "meta" for p in model.parameters())
     n = sum(p.numel() for p in model.parameters())
     want_n = {"gemma2-27b": 27_227_128_320, "olmoe-1b-7b": 6_919_096_320,
-              "deepseek-moe-16b": 16_879_568_896}
+              "deepseek-moe-16b": 16_879_568_896,
+              "zamba2-7b": 6_636_442_832}
     if arch in want_n:
         assert n == want_n[arch]
+    if tcfg.family == "hybrid":     # the 12-layer depth cut keeps 2 uses
+        cut = T_cfg.params_struct(tcfg.replace(n_layers=12))
+        assert sum(p.numel() for p in cut.parameters()) == 1_255_956_416
+        assert got["shared.attn.wq"] == ((3584, 32, 112), "bfloat16")
     if tcfg.family == "moe":
         assert got["blocks.0.moe.router"][1] == "float32"
 
