@@ -4,6 +4,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks (to V2)
     python3 chip_smoke.py --moe      # build + the moe phases (M1-M5)
     python3 chip_smoke.py --hybrid   # build + the hybrid phases (H1-H5)
+    python3 chip_smoke.py --encdec   # build + the encdec phases (E1-E5)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
@@ -374,15 +375,62 @@ H5. main path: zamba2-7b at full width cut to 12 layers (1,255,956,416
    three times on its gradients (119 quantize + 238 dequantize launches a
    call, |err| within EF_SLACK), both quant kernels bitwise their plain
    versions on every leaf (the 114,688,000-element embedding among them);
+E1. across devices, the encdec family: whisper SMOKE in float32 with the
+   kernel on (the SIMT flash kernel at head_dim 16, unmasked in the
+   encoder and the cross-attention), from the same CPU-drawn weights and
+   frames: prefill of 8 and 13 decoder tokens over 16 frames and 4
+   teacher-forced decode steps, logits, self K/V and cross K/V within
+   1e-4, exactly 6 flash launches a prefill (2 encoder, 2 decoder self, 2
+   cross) and none in decode; one float32 train step on a batch with
+   frames by T2's rule; remat 'none', 'full' and 'dots' and a second
+   backward bitwise the same gradients on the card;
+E2. whisper-large-v3's kernel shapes: the flash kernel against its plain
+   version at the encoder's unmasked (160, 1, 1500, 1500, 64), the
+   cross-attention's unmasked (160, 1, 128, 1500, 64) and the decoder's
+   causal (160, 1, 128, 128, 64), bf16 (the tensor-core route; the first
+   two are in A1's list too), A1's tolerance; each timed by CUDA events
+   beside the plain version, ``scaled_dot_product_attention`` with the
+   same mask and the bound (operations at the encoder's, bytes at the
+   cross-attention's);
+E3. main path: ``repro_torch.serve`` on the full whisper-large-v3 (32
+   encoder and 32 decoder layers, d_model 1280, 1,534,809,600 parameters
+   drawn on the card, bf16), frames (8, 1500, 1280) from seed 2 as
+   ``launch.serve`` draws them: ``greedy_generate`` of 32 tokens after a
+   128-token decoder prompt, batch 8 -- exactly 96 flash launches a
+   prefill (32 unmasked encoder, 32 causal decoder self, 32 unmasked
+   cross), all ``wgmma``, none in decode; each of the 96 calls against
+   ``flash_attention_plain`` on its own q, k, v within A1's bf16
+   tolerance; the logits against the plain path (``_attention_core`` and
+   the plain cross-attention) by S4's floor rule; float32 on the first 8
+   encoder and 8 decoder layers within 1e-4;
+E4. whisper-large-v3's numbers beside the card's name and power limit:
+   the timed prefill and decode, peak memory, the plain path's prefill;
+   ``torch.profiler`` over one warm prefill and 5 decode steps, the device
+   time split into the encoder's products, flash, the cross K/V
+   projections, the decoder's products and the rest, the idle share; the
+   flash calls split into the encoder's, the cross-attention's and the
+   decoder's self-attention's by CUDA events in a prefill of their own;
+   the prefill beside its operations bound and a decode step beside its
+   read bound;
+E5. main path: whisper-large-v3 at full width cut to 16 + 16 layers
+   (800,601,600 parameters, drawn on the card, bf16, remat 'dots',
+   ``_attention_core`` and the plain cross-attention), 5 steps of
+   ``make_train_step`` on SyntheticLM tokens 8 x 448 with seeded frames
+   (8, 1500, 1280) in 2 microbatches, AdamW 1e-4: finite losses, step
+   seconds, decoder tokens/s, frames/s, peak; compress_grads three times
+   on its gradients (421 quantize + 842 dequantize launches a call, |err|
+   within EF_SLACK), both quant kernels bitwise their plain versions on
+   every leaf and timed at the 66,388,480-element embedding leaf beside
+   their plain versions, the bound and ``torch.dequantize``;
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
    the serving prefills for the tensor-core kernels (the flash kernel's
-   by model, the moe and hybrid models' too; the SSD kernel's by model),
-   the float32 SMOKE prefills of S2/A2/V2/M1/H1 for the SIMT ones,
-   sim_step's main path and the workflow path's, the quant kernels' by
-   training path (T3, D2, M5, H5) --, error,
-   times, bound; the flash kernel's at the variants' shapes, the quant
-   kernels' at the expert leaf too), the card's name and power
-   limit, and the final result line.  ``[t]`` lines give the seconds of
+   by model, the moe, hybrid and encdec models' too; the SSD kernel's by
+   model), the float32 SMOKE prefills of S2/A2/V2/M1/H1/E1 for the SIMT
+   ones, sim_step's main path and the workflow path's, the quant kernels'
+   by training path (T3, D2, M5, H5, E5) --, error,
+   times, bound; the flash kernel's at the variants' and whisper's
+   shapes, the quant kernels' at the expert and whisper's embedding leaf
+   too), the card's name and power limit, and the final result line.  ``[t]`` lines give the seconds of
    each group of phases.
 
 Any failed phase exits non-zero before the result line is printed.
@@ -1570,11 +1618,19 @@ def sweep_bound(p, active: int, fp64_per_step: int,
                 else "operations")
 
 
+# Phase 7's G3 comparisons run at most this many steps (the cells still
+# running then are censored alike on both sides): the heterogeneity sweep
+# runs 5,376 steps, and its plain step on the card ~35 s of them; the
+# offload and shock sweeps end within it
+SWEEP_VS_PLAIN_MAX_STEPS = 2048
+
+
 def phase_sweeps_vs_plain(sweep_cells: dict) -> dict:
     """Phase 7 for G3's variants: each sweep's batch through run_cells with
-    the kernel and with the plain step on the card (every BatchResult field
-    equal), then one 256-step chunk of it by CUDA events on both routes,
-    beside the plain step's chunk and the bound."""
+    the kernel and with the plain step on the card, for at most
+    SWEEP_VS_PLAIN_MAX_STEPS steps (every BatchResult field equal), then
+    one 256-step chunk of it by CUDA events on both routes, beside the
+    plain step's chunk and the bound."""
     import torch
 
     from repro_torch.kernels import sim_step
@@ -1587,8 +1643,8 @@ def phase_sweeps_vs_plain(sweep_cells: dict) -> dict:
         flags = engine.batch_flags(cells, p_np)
         key = _flag_key(flags)
         t0 = time.monotonic()
-        a = run_cells(cells, step="fused")
-        b = run_cells(cells, step="scan")
+        a, b = (run_cells(cells, step=st, max_steps=SWEEP_VS_PLAIN_MAX_STEPS)
+                for st in ("fused", "scan"))
         diff = _result_diff(a, b)
         vs_sec = time.monotonic() - t0
         print(f"[7] {name} sweep, kernel vs plain step on the card: "
@@ -1753,10 +1809,16 @@ def phase_ssd_kernel_vs_plain(hybrid_only: bool = False) -> float:
     return worst
 
 
-def _serve_run(model, cfg, prompt, forced, cache_dtype=None):
-    """Prefill + teacher-forced decode steps: the last-position logits of
-    each and the caches (the KV cache, where there is one, in
-    ``cache_dtype``, default bf16)."""
+def _prompt_batch(prompt, frames=None) -> dict:
+    """A prefill batch: the prompt, and the encdec model's frames."""
+    return {"tokens": prompt} if frames is None else {"tokens": prompt,
+                                                      "frames": frames}
+
+
+def _serve_run(model, cfg, prompt, forced, cache_dtype=None, frames=None):
+    """Prefill (of the encdec model: with its ``frames``) + teacher-forced
+    decode steps: the last-position logits of each and the caches (the KV
+    cache, where there is one, in ``cache_dtype``, default bf16)."""
     import torch
 
     from repro_torch.serve.step import make_prefill_step, make_serve_step
@@ -1764,7 +1826,7 @@ def _serve_run(model, cfg, prompt, forced, cache_dtype=None):
     pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + forced.shape[1],
                             cache_dtype=cache_dtype or torch.bfloat16)
     srv = make_serve_step(cfg)
-    logits, cache = pre(model, {"tokens": prompt})
+    logits, cache = pre(model, _prompt_batch(prompt, frames))
     out = [logits[:, -1]]
     first_cache = cache
     for k in range(forced.shape[1]):
@@ -1837,16 +1899,17 @@ def serve_setup():
     return cfg, model, prompt
 
 
-def phase_serve(cfg, model, prompt, n_tokens: int) -> dict:
+def phase_serve(cfg, model, prompt, n_tokens: int, frames=None) -> dict:
     """A serving main path: greedy_generate on the full config (the
-    kernel path)."""
+    kernel path; the encdec model after its encoder's pass over
+    ``frames``)."""
     import torch
 
     from repro_torch.serve import greedy_generate
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    out = greedy_generate(model, cfg, prompt, n_tokens)
+    out = greedy_generate(model, cfg, prompt, n_tokens, frames=frames)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     mem = torch.cuda.max_memory_allocated()
@@ -1858,16 +1921,17 @@ def phase_serve(cfg, model, prompt, n_tokens: int) -> dict:
 
 
 def phase_serve_measure(tag: str, cfg, model, prompt, run, n_tokens: int,
-                        plain_path: str) -> dict:
+                        plain_path: str, frames=None) -> dict:
     """Prefill seconds and decode tokens/s through the step factories (warm),
     then the plain path's prefill (``use_flash_kernel=False``: mamba2's
     ssd_chunked, the dense family's _attention_core) on the same
-    parameters and prompt."""
+    parameters and prompt (and the encdec model's frames)."""
     import torch
 
     from repro_torch.serve.step import make_prefill_step, make_serve_step
 
     batch, n_prompt = prompt.shape
+    inputs = _prompt_batch(prompt, frames)
     max_seq = n_prompt + n_tokens
     pre = make_prefill_step(cfg, max_seq=max_seq)
     srv = make_serve_step(cfg)
@@ -1875,7 +1939,7 @@ def phase_serve_measure(tag: str, cfg, model, prompt, run, n_tokens: int,
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        logits, cache = pre(model, {"tokens": prompt})
+        logits, cache = pre(model, inputs)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
     tok = logits[:, -1].argmax(-1)[:, None]
@@ -1895,7 +1959,7 @@ def phase_serve_measure(tag: str, cfg, model, prompt, run, n_tokens: int,
     for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        plain_pre(model, {"tokens": prompt})
+        plain_pre(model, inputs)
         torch.cuda.synchronize()
         plain_times.append(time.monotonic() - t0)
     plain_times = plain_times[1:]
@@ -2163,11 +2227,25 @@ def phase_ssd_measure(sh: dict = SERVE_SHAPE, tag: str = "S6") -> dict:
 OLMO = "olmo-1b"
 OLMO_BATCH, OLMO_PROMPT, OLMO_TOKENS, OLMO_FORCED = 8, 1024, 32, 4
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py's
+# bf16 also holds the relative RMS gap: at 1,500 unit-normal keys (D 64,
+# scale 1/8) an output element's standard deviation is ~sqrt(e/1500) =
+# 0.043, about half of 2e-2 + 2e-2|b|, so the elementwise bound alone
+# passes an output scaled by a few percent.  Sound wgmma runs read
+# 0.9e-3-2.4e-3; the zero-filled keys of a part tile left visible read
+# ~1.4e-2 at 1,500 keys (padded_keys_control)
+FLASH_BF16_RMS = 1e-2
 OLMO_F32_TOL = 1e-4    # float32 logits and caches (card vs CPU, A4 float32)
 # (BG, R, Sq, Skv, D) of the timed shapes: olmo-1b's prefill at batch 8
 # (16 heads, kv 16) and starcoder2-3b's 24 heads over kv 2 at batch 8
 FLASH_OLMO_SHAPE = (128, 1, 1024, 1024, 128)
 FLASH_GQA_SHAPE = (16, 12, 1024, 1024, 128)
+# whisper-large-v3's prefill at batch 8 (20 heads, kv 20, head_dim 64):
+# the encoder's unmasked self-attention over 1,500 frames (11 kv tiles of
+# 128 and one of 92), the cross-attention of a 128-token prompt over them,
+# and the decoder's causal self-attention
+FLASH_WHISPER_ENC_SHAPE = (160, 1, 1500, 1500, 64)
+FLASH_WHISPER_CROSS_SHAPE = (160, 1, 128, 1500, 64)
+FLASH_WHISPER_SELF_SHAPE = (160, 1, 128, 128, 64)
 
 
 def flash_inputs(bg, r, sq, skv, d, dtype, seed):
@@ -2211,6 +2289,29 @@ def softcap_effect(q, k, v, kw, tol) -> dict:
     s = torch.einsum("rsd,td->rst", q[0].float(), k[0].float()) * kw["scale"]
     return dict(control_ratio=_gap(free, capped, tol)["max_ratio"],
                 max_score=float(s.abs().max()))
+
+
+def _flash_ok(g: dict, dtype) -> bool:
+    """A flash output within FLASH_TOL of its plain version, and bf16 also
+    within FLASH_BF16_RMS relative RMS."""
+    return _ok(g) and ("bfloat16" not in str(dtype)
+                       or g["rel_rms"] <= FLASH_BF16_RMS)
+
+
+def padded_keys_control(q, k, v, kw, want, tol) -> dict:
+    """A planted fault for an unmasked call whose Skv is not a multiple of
+    the 128-key tile: the plain attention over Skv rounded up to a
+    multiple of 128 with the padded keys (k = v = 0, as TMA fills them)
+    left visible, against the plain output ``want``, as :func:`_gap`
+    gives it; ``_flash_ok`` must reject it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    pad = -k.shape[1] % 128
+    ctl = FA.flash_attention_plain(q, F.pad(k, (0, 0, 0, pad)),
+                                   F.pad(v, (0, 0, 0, pad)), **kw)
+    return dict(_gap(ctl, want, tol), padded_keys=pad)
 
 
 def flash_work(bg, r, sq, skv, d, elt_bytes, causal=True):
@@ -2268,7 +2369,11 @@ def phase_flash_kernel_vs_plain() -> float:
               ("D 16", (4, 4, 24, 24, 16), bf16, True, 50.0),
               ("D 32", (2, 3, 70, 70, 32), f32, True, None),
               ("olmo-1b prefill", FLASH_OLMO_SHAPE, bf16, True, None),
-              ("GQA serving", FLASH_GQA_SHAPE, bf16, True, None)]
+              ("GQA serving", FLASH_GQA_SHAPE, bf16, True, None),
+              ("whisper encoder, no mask", FLASH_WHISPER_ENC_SHAPE, bf16,
+               False, None),
+              ("whisper cross, no mask", FLASH_WHISPER_CROSS_SHAPE, bf16,
+               False, None)]
     worst, rows = 0.0, []
     for i, (name, (bg, r, sq, skv, d), dt, causal, cap) in enumerate(cases):
         q, k, v = flash_inputs(bg, r, sq, skv, d, dt, 400 + i)
@@ -2293,7 +2398,8 @@ def phase_flash_kernel_vs_plain() -> float:
             g["zero_rows"] = dead
             g["zero_rows_exact"] = bool((out[:, :, :dead] == 0).all()) and \
                 bool((want[:, :, :dead] == 0).all())
-            ok = _ok(g) and g["zero_rows_exact"] and out.dtype == dt and \
+            ok = _flash_ok(g, dt) and g["zero_rows_exact"] and \
+                out.dtype == dt and \
                 effect.get("control_ratio", CAP_CONTROL) >= CAP_CONTROL
             worst = max(worst, g["max_abs"])
             rows.append(dict(case=name, shape=(bg, r, sq, skv, d),
@@ -2304,15 +2410,17 @@ def phase_flash_kernel_vs_plain() -> float:
                   f"{'' if causal else ', no mask'}"
                   f"{'' if cap is None else f', softcap {cap}'}: max |d| "
                   f"{g['max_abs']:.3g} = {g['max_ratio']:.3f} x ({tol} + "
-                  f"{tol}|b|){f', {dead} zero rows exact' if dead else ''}"
+                  f"{tol}|b|), rel RMS {g['rel_rms']:.3g}"
+                  f"{f', {dead} zero rows exact' if dead else ''}"
                   + (f"; scores up to {effect['max_score']:.0f}, the "
                      f"softcap moves the plain output "
                      f"{effect['control_ratio']:.0f} x the tolerance"
                      if effect else ""), flush=True)
     REPORT["flash_kernel_vs_plain"] = rows
     if not all(r["ok"] for r in rows):
-        fail("flash_attention kernel differs from its plain version (or "
-             "a softcap case's softcap moved the plain output by less than "
+        fail("flash_attention kernel differs from its plain version (bf16 "
+             f"also by relative RMS, limit {FLASH_BF16_RMS}; or a softcap "
+             "case's softcap moved the plain output by less than "
              f"{CAP_CONTROL} x the tolerance)")
     if {r["route"] for r in rows} != {"wgmma", "simt"}:
         fail("A1 did not run both flash_attention kernels")
@@ -2493,14 +2601,15 @@ def phase_dense_vs_plain(tag: str, cfg, model, prompt, run,
     return out
 
 
-def _sdpa(q, k, v, scale):
+def _sdpa(q, k, v, scale, causal=True):
     """One PyTorch call computing the same attention (the library
     yardstick; never used by the port): q (BG, R, S, D) against k, v as
-    (BG, 1, S, D), causal (top-left equals bottom-right at Sq = Skv)."""
+    (BG, 1, S, D), causal (top-left equals bottom-right at Sq = Skv) or
+    unmasked."""
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(q, k[:, None], v[:, None],
-                                          is_causal=True, scale=scale,
+                                          is_causal=causal, scale=scale,
                                           enable_gqa=q.shape[1] > 1)
 
 
@@ -2604,7 +2713,7 @@ def flash_layers(cfg, prompt: int) -> int:
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
-    return sum(L.flash_route(cfg, causal=True, q_offset=0, seq=prompt,
+    return sum(L.flash_route(cfg, q_offset=0, seq=prompt,
                              layer_is_local=M._layer_is_local_static(cfg, i))
                for i in range(cfg.n_layers))
 
@@ -2795,9 +2904,9 @@ def phase_variants_card_vs_cpu() -> dict:
     return out
 
 
-def dense_setup(tag: str, arch: str):
+def dense_setup(tag: str, arch: str, prompt_len: int = OLMO_PROMPT):
     """The full config, drawn on the card by a CUDA generator (seed 0), and
-    a prompt from a CPU generator (seed 1)."""
+    a prompt of ``prompt_len`` tokens from a CPU generator (seed 1)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2812,7 +2921,7 @@ def dense_setup(tag: str, arch: str):
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     g = torch.Generator().manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_PROMPT),
+    prompt = torch.randint(0, cfg.vocab, (OLMO_BATCH, prompt_len),
                            generator=g).cuda()
     n_params = sum(p.numel() for p in model.parameters())
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -2873,12 +2982,12 @@ def serve_variant(tag: str, arch: str, f32_layers=None,
     return out
 
 
-def flash_bound(bg, r, sq, skv, d, softcap):
+def flash_bound(bg, r, sq, skv, d, softcap, causal=True):
     """Bytes, tensor-core operations and softcap float32 operations of
-    the attention, and the least time: the larger of the bytes at the
-    memory rate and the operations at their rates (the tensor-core
-    products and the softcap's float32 work may overlap)."""
-    nbytes, flops = flash_work(bg, r, sq, skv, d, 2)
+    the attention (causal or unmasked), and the least time: the larger of
+    the bytes at the memory rate and the operations at their rates (the
+    tensor-core products and the softcap's float32 work may overlap)."""
+    nbytes, flops = flash_work(bg, r, sq, skv, d, 2, causal)
     cap_ops = SOFTCAP_OPS * flops // (4 * d) if softcap is not None else 0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / BF16_TC_OPS_PER_S, cap_ops / FP32_OPS_PER_S) * 1e3
@@ -3105,12 +3214,12 @@ def step_card_vs_cpu(cfg, batch) -> tuple:
 
     from repro_torch.train.optimizer import AdamWConfig, adamw_update
     from repro_torch.train.schedule import constant
-    from repro_torch.train.step import (compute_grads, init_train_state,
-                                        make_train_step)
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state, make_train_step)
 
     states = {dev: init_train_state(0, cfg, dev) for dev in ("cuda", "cpu")}
     states["cuda"].load_tree(states["cpu"].tree())     # the same weights
-    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    tb = _to_device(batch, "cpu")          # the encdec frames stay float
     g_cpu, _ = compute_grads(states["cpu"].params, tb, cfg)
     g_own, _ = compute_grads(states["cuda"].params,
                              {k: v.cuda() for k, v in tb.items()}, cfg)
@@ -4881,6 +4990,721 @@ def hybrid_phases(standalone: bool) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# The encdec family: whisper-large-v3 served whole, encdec training
+# --------------------------------------------------------------------------- #
+
+WHISPER = "whisper-large-v3"
+ENCDEC_SEQS = (8, 13)       # E1: decoder prompts over SMOKE's 16 frames
+# E3: batch 8, a 128-token decoder prompt (whisper's decoder conditions on
+# up to 224 tokens of earlier text within its 448-token context), 32
+# greedy tokens; the frames (8, 1500, 1280) from seed 2
+WHISPER_PROMPT = 128
+# E3's float32 check at full width: the first 4 encoder and 4 decoder
+# layers (0.47 GB of float32 weights beside the 3.07 GB bf16 model; 4 + 4,
+# not 8 + 8, to keep the whole script inside its time limit)
+WHISPER_F32_LAYERS = 4
+# E5: full width cut to 16 + 16 layers (800,601,600 parameters): the whole
+# model's training state at ~45 bytes a parameter (D2's olmo-1b measure) would
+# be ~69 GB before activations.  8 x 448 decoder tokens (whisper's context)
+# over 8 x 1,500 frames
+WHISPER_TRAIN_LAYERS, WHISPER_TRAIN_STEPS, WHISPER_TRAIN_SEQ = 16, 5, 448
+WHISPER_EMBED_LEAF = 51_866 * 1280   # 66,388,480 float32: 129,665 blocks
+
+
+def _encdec_smoke_cfg(**change):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(WHISPER).replace(param_dtype="float32",
+                                             compute_dtype="float32",
+                                             **change)
+
+
+def phase_encdec_card_vs_cpu() -> dict:
+    """E1: whisper SMOKE in float32 with the kernel on (the SIMT flash
+    kernel at head_dim 16, unmasked in the encoder and the
+    cross-attention), the card against the CPU from the same CPU-drawn
+    weights and frames: prefill of 8 and 13 decoder tokens over 16 frames
+    and 4 teacher-forced decode steps, logits, self K/V and cross K/V
+    within 1e-4, exactly 6 flash launches a prefill (2 encoder, 2 decoder
+    self, 2 cross) and none in decode.  Then one float32 train step on a
+    batch with frames (T2's rule), and on the card remat none, full and
+    dots and a second backward bitwise the same gradients."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    cfg = _encdec_smoke_cfg(use_flash_kernel=True)
+    g = torch.Generator().manual_seed(23)
+    toks = torch.randint(0, cfg.vocab, (2, max(ENCDEC_SEQS) + 4),
+                         generator=g)
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g)
+    models = {dev: init_params(0, cfg, device=dev) for dev in ("cuda", "cpu")}
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    gaps = []
+    _zero(FA.LAUNCHES_BY_ROUTE)    # the float32 encdec serving path starts here
+    for n in ENCDEC_SEQS:
+        res = {dev: _serve_run(m, cfg, toks[:, :n].to(dev),
+                               toks[:, n:n + 4].to(dev),
+                               cache_dtype=torch.float32,
+                               frames=frames.to(dev))
+               for dev, m in models.items()}
+        (lg, cg), (lc, cc) = res["cuda"], res["cpu"]
+        pairs = list(zip(lg, lc)) + [(cg["kv"][k], cc["kv"][k])
+                                     for k in ("k", "v")] + [
+            (cg[k], cc[k]) for k in ("cross_k", "cross_v")]
+        gaps += [_gap(a.cpu(), b, OLMO_F32_TOL) for a, b in pairs]
+    by_route = dict(FA.LAUNCHES_BY_ROUTE)    # ... and ends here
+    errs = [x["max_abs"] for x in gaps]
+    print(f"[E1] whisper SMOKE float32, kernel on the card vs plain on the "
+          f"CPU, decoder prompts of {ENCDEC_SEQS} tokens over "
+          f"{cfg.enc_seq} frames: prefill + 4 decode logits, self K/V and "
+          f"cross K/V, max |d| {max(errs):.3g} (tol {OLMO_F32_TOL}); flash "
+          f"launches by route {by_route}", flush=True)
+    if not all(_ok(x) for x in gaps):
+        fail("E1: whisper SMOKE: card and CPU disagree")
+    want = len(ENCDEC_SEQS) * per_prefill
+    if by_route != {"wgmma": 0, "simt": want}:
+        fail(f"E1: the float32 encdec prefills launched {by_route}, expected "
+             f"{per_prefill} SIMT launches a prefill ({cfg.n_enc_layers} "
+             f"encoder, {cfg.n_layers} decoder self, {cfg.n_layers} cross) "
+             f"and none in decode")
+    tcfg = _encdec_smoke_cfg()
+
+    def batch_at(i):
+        b = SyntheticLM(DataConfig(vocab=tcfg.vocab, seq_len=DENSE_SEQ,
+                                   global_batch=4, seed=2)).batch_at(i)
+        b["frames"] = torch.randn((4, tcfg.enc_seq, tcfg.d_model),
+                                  generator=g).numpy()
+        return b
+
+    step, _ = step_card_vs_cpu(tcfg, batch_at(0))
+    print(f"[E1] whisper SMOKE float32 at {DENSE_SEQ} decoder tokens, card vs "
+          f"CPU, one train step: {_step_line(step)}", flush=True)
+    state = init_train_state(0, tcfg, "cuda")
+    tb = _to_device(batch_at(1), "cuda")
+    grads = {r: compute_grads(state.params, tb,
+                              tcfg.replace(remat=r.split()[0]))[0]
+             for r in ("none", "full", "dots", "none again")}
+    remat = {r: sum(int((grads[r][k] != x).sum())
+                    for k, x in grads["none"].items())
+             for r in ("full", "dots", "none again")}
+    n = sum(x.numel() for x in grads["none"].values())
+    print(f"[E1] whisper SMOKE float32 on the card: gradients differing from "
+          f"remat 'none' (of {n:,}): {remat}", flush=True)
+    out = dict(max_abs_err=max(errs), launches_by_route=by_route, step=step,
+               remat_mismatches=remat)
+    REPORT["encdec_card_vs_cpu"] = out
+    if not step["ok"]:
+        fail(f"E1: whisper SMOKE training, card and CPU disagree "
+             f"({step['step_master_worst']})")
+    if any(remat.values()):
+        fail(f"E1: remat (or a second backward) changes the encdec gradients "
+             f"on the card: {remat}")
+    return out
+
+
+def phase_encdec_flash() -> dict:
+    """E2: the flash kernel at whisper-large-v3's three prefill shapes --
+    the encoder's unmasked (160, 1, 1500, 1500, 64), the cross-attention's
+    unmasked (160, 1, 128, 1500, 64) and the decoder's causal (160, 1,
+    128, 128, 64), bf16: the tensor-core route -- against its plain
+    version within A1's bf16 tolerance and FLASH_BF16_RMS, each unmasked
+    shape also against its planted fault (:func:`padded_keys_control`),
+    which the same check must reject; then timed by CUDA events beside
+    the plain version, ``scaled_dot_product_attention`` with the same mask
+    (the yardstick) and the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    tol = FLASH_TOL["bfloat16"]
+    out = {}
+    for i, (name, shape, causal) in enumerate((
+            ("encoder", FLASH_WHISPER_ENC_SHAPE, False),
+            ("cross", FLASH_WHISPER_CROSS_SHAPE, False),
+            ("decoder self", FLASH_WHISPER_SELF_SHAPE, True))):
+        bg, r, sq, skv, d = shape
+        q, k, v = flash_inputs(bg, r, sq, skv, d, torch.bfloat16, 800 + i)
+        kw = dict(scale=d ** -0.5, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        before = FA.LAUNCHES_BY_ROUTE["wgmma"]
+        got = FA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        g = _gap(got, want, tol)
+        launched = FA.LAUNCHES_BY_ROUTE["wgmma"] - before
+        ctl = None if causal else padded_keys_control(q, k, v, kw, want, tol)
+
+        def kern():
+            return FA.flash_attention(q, k, v, **kw)
+
+        ms_a = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 3)
+        ms_b = cuda_ms(kern, 20)
+        lib_gap = _gap(_sdpa(q, k, v, kw["scale"], causal), got, tol)
+        lib_ms = cuda_ms(lambda: _sdpa(q, k, v, kw["scale"], causal), 20)
+        row = dict(shape=shape, causal=causal, route=FA.route(q.dtype, d),
+                   launched_wgmma=launched, max_abs_err=g["max_abs"],
+                   gap=g, ms=min(ms_a, ms_b), ms_runs=[ms_a, ms_b],
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_equals_kernel=_ok(lib_gap), library_gap=lib_gap,
+                   padded_keys_control=ctl,
+                   control_rejected=ctl is None or not _flash_ok(
+                       ctl, torch.bfloat16),
+                   **flash_bound(bg, r, sq, skv, d, None, causal))
+        row["ok"] = _flash_ok(g, torch.bfloat16) and launched == 1 and \
+            row["route"] == "wgmma" and row["control_rejected"]
+        out[name] = row
+        planted = "" if ctl is None else (
+            f"; planted fault (the {ctl['padded_keys']} zero keys of the "
+            f"last tile visible) max |d| {ctl['max_abs']:.3g} = "
+            f"{ctl['max_ratio']:.3f} x, rel RMS {ctl['rel_rms']:.3g}: "
+            f"{'rejected' if row['control_rejected'] else 'PASSED'}")
+        print(f"[E2] flash_attention {row['route']} kernel at whisper's "
+              f"{name} {shape} bf16, {'causal' if causal else 'no mask'}: "
+              f"vs plain max |d| {g['max_abs']:.3g} = {g['max_ratio']:.3f} x "
+              f"({tol} + {tol}|b|), rel RMS {g['rel_rms']:.3g} (limit "
+              f"{FLASH_BF16_RMS}){planted}; kernel {ms_a:.4f}, "
+              f"{ms_b:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms (equals the kernel within {tol}: "
+              f"{_ok(lib_gap)}, max |d| {lib_gap['max_abs']:.3g}); bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['bytes']:,} B at 3.35 TB/s = "
+              f"{row['bound_bytes_ms']:.4f} ms, {row['flops']:,} flop at the "
+              f"bf16 tensor rate = {row['bound_ops_ms']:.4f} ms)", flush=True)
+        del q, k, v, want, got
+    REPORT["encdec_flash"] = out
+    if not all(r["ok"] for r in out.values()):
+        fail("E2: the flash kernel differs from its plain version at a "
+             "whisper shape (or left the tensor-core route, or the check "
+             "passed the planted fault)")
+    return out
+
+
+def phase_encdec_vs_plain(cfg, model, prompt, frames, run) -> dict:
+    """E3: the kernel path against the plain path (``_attention_core`` and
+    the plain cross-attention) on the card, prefill + OLMO_FORCED
+    teacher-forced decode logits, by S4's rule: bf16 within LOGIT_TOL +
+    LOGIT_TOL |b| except where the same run's floor --
+    ``flash_attention_plain`` in the kernel's place against the plain
+    path -- crosses it, by at most NOISE_FACTOR times the floor's ratio;
+    relative RMS within LOGIT_TOL, or NOISE_FACTOR times the floor's where
+    the floor's is larger (as for moe and hybrid).  The kernel path's
+    prefill also holds each of its flash calls against
+    ``flash_attention_plain`` on the same q, k, v within A1's bf16
+    tolerance and FLASH_BF16_RMS: 32 encoder calls (unmasked), then a
+    decoder self-attention (causal) and a cross-attention (unmasked) a
+    layer.  float32: the bf16
+    weights of the first WHISPER_F32_LAYERS encoder and decoder layers cast
+    on the card (float32 caches; the SIMT kernel), within OLMO_F32_TOL."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    forced = run["tokens"][:, :OLMO_FORCED]
+    tol = FLASH_TOL["bfloat16"]
+    calls, launch = [], ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        got = launch(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        calls.append(dict(sq=q.shape[2], skv=k.shape[1],
+                          causal=kw["causal"], **_gap(got, want, tol)))
+        return got
+
+    with mock.patch.object(ops, "flash_attention", recorded):
+        k_out, _ = _serve_run(model, cfg, prompt, forced, frames=frames)
+    T, S, E, L = cfg.enc_seq, prompt.shape[1], cfg.n_enc_layers, cfg.n_layers
+    order = [(c["sq"], c["skv"], c["causal"]) for c in calls]
+    want_order = [(T, T, False)] * E + [(S, S, True), (S, T, False)] * L
+    worst = max(calls, key=lambda c: c["max_ratio"])
+    worst_rms = max(calls, key=lambda c: c["rel_rms"])
+    kinds, rms = {}, {}
+    for c, key in zip(calls, ["encoder"] * E + ["self", "cross"] * L):
+        kinds.setdefault(key, []).append(c["max_ratio"])
+        rms.setdefault(key, []).append(c["rel_rms"])
+    print(f"[E3] {cfg.name} flash kernel vs flash_attention_plain on the q, "
+          f"k, v of each of the prefill's {len(calls)} calls (bf16): worst "
+          f"max |d| {worst['max_abs']:.3g} = {worst['max_ratio']:.3f} x "
+          f"({tol} + {tol}|b|) at {worst['sq']} x {worst['skv']}"
+          f"{'' if worst['causal'] else ' unmasked'}; worst ratio by kind "
+          f"{ {k: round(max(v), 4) for k, v in kinds.items()} }; worst rel "
+          f"RMS {worst_rms['rel_rms']:.3g} (limit {FLASH_BF16_RMS}), by kind "
+          f"{ {k: float(f'{max(v):.3g}') for k, v in rms.items()} }",
+          flush=True)
+    if order != want_order:
+        fail(f"E3: {cfg.name}'s prefill called the flash kernel as "
+             f"{order[:4]}... ({len(order)} calls), expected {E} unmasked "
+             f"encoder calls, then a causal self and an unmasked cross call "
+             f"for each of {L} decoder layers")
+    if not all(_flash_ok(c, torch.bfloat16) for c in calls):
+        fail(f"E3: {cfg.name}: the flash kernel at a prefill call differs "
+             f"from its plain version (worst {worst}, {worst_rms})")
+    p_out, _ = _serve_run(model, cfg.replace(use_flash_kernel=False), prompt,
+                          forced, frames=frames)
+    with mock.patch.object(ops, "flash_attention", FA.flash_attention_plain):
+        q_out, _ = _serve_run(model, cfg, prompt, forced, frames=frames)
+    k, p, q = (torch.stack(o) for o in (k_out, p_out, q_out))
+    bf16, floor = _gap(k, p, LOGIT_TOL), _gap(q, p, LOGIT_TOL)
+    bf16["limit_ratio"] = max(1.0, NOISE_FACTOR * floor["max_ratio"])
+    bf16["rms_limit"] = max(LOGIT_TOL, NOISE_FACTOR * floor["rel_rms"])
+    bf16["argmax_agree"] = float((k.argmax(-1) == p.argmax(-1)).float().mean())
+    bf16["decode"] = _gap(k[1:], p[1:], LOGIT_TOL)
+    del k_out, p_out, q_out
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=WHISPER_F32_LAYERS,
+                        n_enc_layers=WHISPER_F32_LAYERS)
+    model32 = M.EncDecLM(cfg32)                    # on the meta device
+    kept = {n for n, _ in model32.named_parameters()}
+    model32.load_state_dict({n: t.float() for n, t in
+                             model.named_parameters() if n in kept},
+                            assign=True)
+    p32, _ = _serve_run(model32, cfg32.replace(use_flash_kernel=False),
+                        prompt, forced, cache_dtype=torch.float32,
+                        frames=frames)
+    k32, _ = _serve_run(model32, cfg32, prompt, forced,
+                        cache_dtype=torch.float32, frames=frames)
+    f32 = _gap(torch.stack(k32), torch.stack(p32), OLMO_F32_TOL)
+    del model32, k32, p32
+    torch.cuda.empty_cache()
+    out = dict(bf16=bf16, bf16_plain_vs_plain=floor, f32=f32,
+               f32_layers=WHISPER_F32_LAYERS, flash_calls=len(calls),
+               flash_worst=worst, flash_worst_rms=worst_rms,
+               flash_worst_ratio_by_kind={k: max(v) for k, v in kinds.items()},
+               flash_worst_rms_by_kind={k: max(v) for k, v in rms.items()})
+    REPORT["encdec_vs_plain"] = out
+    print(f"[E3] {cfg.name} kernel path vs plain path (_attention_core, the "
+          f"plain cross-attention) on the card, prefill + {OLMO_FORCED} "
+          f"teacher-forced decode logits: bf16 rel RMS {bf16['rel_rms']:.4g} "
+          f"(limit {bf16['rms_limit']:.4g}), max |d| {bf16['max_abs']:.4g} = "
+          f"{bf16['max_ratio']:.3f} x ({LOGIT_TOL} + {LOGIT_TOL}|b|) (limit "
+          f"{bf16['limit_ratio']:.3f} x), decode steps alone rel RMS "
+          f"{bf16['decode']['rel_rms']:.4g}, {bf16['decode']['max_ratio']:.3f}"
+          f" x; argmax agree {bf16['argmax_agree']:.3f}; noise floor "
+          f"(flash_attention_plain in the kernel's place vs the plain path): "
+          f"rel RMS {floor['rel_rms']:.4g}, max |d| {floor['max_abs']:.4g} = "
+          f"{floor['max_ratio']:.3f} x; float32 at full width, "
+          f"{WHISPER_F32_LAYERS} + {WHISPER_F32_LAYERS} layers: max |d| "
+          f"{f32['max_abs']:.3g} = {f32['max_ratio']:.4f} x ({OLMO_F32_TOL} "
+          f"+ {OLMO_F32_TOL}|b|)", flush=True)
+    if not (bf16["finite"] and bf16["max_ratio"] <= bf16["limit_ratio"]
+            and bf16["rel_rms"] <= bf16["rms_limit"] and _ok(f32)):
+        fail(f"E3: {cfg.name}: kernel path and plain path disagree")
+    return out
+
+
+def whisper_bounds(cfg, model, batch: int, prompt: int) -> dict:
+    """The least time of a prefill (the operations at the bf16 tensor
+    rate: the encoder's projections and MLPs over batch x enc_seq frames,
+    its unmasked attention, the cross K/V projections of those frames,
+    the decoder's projections and MLPs over batch x prompt tokens, its
+    causal self-attention and the cross-attention over the frames, the
+    last position's logits; against the bytes: the weights and frames
+    read, the cross K/V cache written) and of a decode step at a cache of
+    ``prompt`` + 3 tokens (the bytes: the decoder's weights, the
+    cross-attention's norm, ``wq`` and ``wo`` -- a decode step reads the
+    cached cross K/V, not ``wk`` and ``wv`` -- and the tied embedding,
+    the cached cross K/V and the self K/V up to the step's position,
+    read)."""
+    def nbytes(mod):
+        return sum(p.numel() * p.element_size() for p in mod.parameters())
+
+    def products(mod):
+        return sum(p.numel() for p in mod.parameters() if p.dim() >= 2)
+
+    a = cfg.attention
+    T, hd, L, E = cfg.enc_seq, a.head_dim, cfg.n_layers, cfg.n_enc_layers
+    bg, r = batch * a.n_kv_heads, a.n_heads // a.n_kv_heads
+    enc_tokens, dec_tokens = batch * T, batch * prompt
+    cross_kv = sum(c.attn["wk"].numel() + c.attn["wv"].numel()
+                   for c in model.cross)
+    cross_qo = sum(c.attn["wq"].numel() + c.attn["wo"].numel()
+                   for c in model.cross)
+    parts = dict(
+        encoder_products=2 * enc_tokens * products(model.enc_blocks),
+        encoder_attention=E * flash_work(bg, r, T, T, hd, 2, False)[1],
+        cross_kv_products=2 * enc_tokens * cross_kv,
+        decoder_products=2 * dec_tokens * (products(model.blocks) + cross_qo),
+        decoder_self_attention=L * flash_work(bg, r, prompt, prompt, hd,
+                                              2)[1],
+        cross_attention=L * flash_work(bg, r, prompt, T, hd, 2, False)[1],
+        logits=2 * batch * cfg.d_model * cfg.vocab)
+    flops = sum(parts.values())
+    cross_cache = 2 * L * bg * T * hd * 2
+    moved = nbytes(model) + enc_tokens * cfg.d_model * 2 + cross_cache
+    t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    prefill = dict(flops=flops, parts=parts, bytes=moved,
+                   bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+                   bound_ms=max(t_ops, t_bytes))
+    read = (nbytes(model.blocks) + nbytes(model.embed)
+            + nbytes(model.final_norm) + sum(
+                nbytes(c.norm) + (c.attn["wq"].numel() + c.attn["wo"].numel())
+                * c.attn["wq"].element_size() for c in model.cross))
+    kv = 2 * L * bg * (prompt + 3) * hd * 2
+    step = read + cross_cache + kv
+    decode = dict(weight_bytes=read, cross_kv_bytes=cross_cache, kv_bytes=kv,
+                  bytes=step, bound_ms=step / HBM_BYTES_PER_S * 1e3)
+    return dict(prefill=prefill, decode=decode)
+
+
+def flash_ms_by_kind(cfg, model, inputs, max_seq: int) -> dict:
+    """Device ms of the flash calls of one warm prefill by kind -- the
+    encoder's (unmasked), the decoder's self-attention (causal) and the
+    cross-attention (unmasked) -- each call timed by a pair of CUDA events
+    around its launch; the calls come in a fixed order (the encoder's
+    ``n_enc_layers`` first, then a self and a cross call a decoder layer),
+    which their masks confirm."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.step import make_prefill_step
+
+    pre = make_prefill_step(cfg, max_seq=max_seq)
+    calls, launch = [], ops.flash_attention
+
+    def timed(q, k, v, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = launch(q, k, v, **kw)
+        b.record()
+        calls.append((kw["causal"], a, b))
+        return out
+
+    with mock.patch.object(ops, "flash_attention", timed):
+        pre(model, inputs)
+    torch.cuda.synchronize()
+    kinds = ["encoder"] * cfg.n_enc_layers + ["self", "cross"] * cfg.n_layers
+    if [c for c, _, _ in calls] != [k == "self" for k in kinds]:
+        fail(f"E4: the prefill's flash calls came as "
+             f"{[c for c, _, _ in calls][:6]}... ({len(calls)}), expected "
+             f"{cfg.n_enc_layers} unmasked, then causal and unmasked in turn")
+    out = {k: 0.0 for k in ("encoder", "self", "cross")}
+    for kind, (_, a, b) in zip(kinds, calls):
+        out[kind] += a.elapsed_time(b)
+    return out
+
+
+def phase_encdec_profile(cfg, model, prompt, frames, n_tokens: int,
+                         bounds: dict) -> dict:
+    """E4: ``torch.profiler`` over one warm prefill and 5 decode steps of
+    whisper-large-v3, the device time split into the encoder's products,
+    the flash kernel, the cross K/V projections, the decoder's products
+    (its projections, the cross-attention's q and output projections, the
+    MLPs; in decode also the plain attention's products), the rest of the
+    encoder, the rest of the decoder and the rest; the idle share against
+    each profiled run's own wall; beside the prefill's and a decode step's
+    bounds.  The flash kernel runs under no torch operator, so no span
+    claims its launches: :func:`flash_ms_by_kind` splits them into the
+    encoder's, the cross-attention's and the decoder's self-attention's
+    by CUDA events in a prefill of their own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    spans = {"encoder": M._encoder, "cross kv": M._cross_kv,
+             "decoder layer": M._decoder_layer}
+
+    def span(name, real):
+        def wrapped(*a, **k):
+            with record_function(name):
+                return real(*a, **k)
+        return wrapped
+
+    gemms = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+    def split(prof, steps: int) -> dict:
+        rows = [r for r in _kernel_rows(prof) if r[0] not in spans]
+        total = sum(r[1] for r in rows)
+        flash = [r for r in rows
+                 if any(n in r[0] for n in FLASH_KERNEL_NAMES)]
+        part = dict(flash=sum(r[1] for r in flash), encoder_products=0.0,
+                    cross_kv_products=0.0, decoder_products=0.0,
+                    encoder_rest=0.0, decoder_rest=0.0, rest=0.0)
+        for e, own, up in _operator_kernels(prof, FLASH_KERNEL_NAMES):
+            if "cross kv" in up:
+                part["cross_kv_products"] += own
+            elif "encoder" in up:
+                part["encoder_products" if e.name in gemms
+                     else "encoder_rest"] += own
+            elif "decoder layer" in up:
+                part["decoder_products" if e.name in gemms
+                     else "decoder_rest"] += own
+            else:
+                part["rest"] += own
+        ms = dict(device=total, **part)
+        # the kernel rows' total against the parts: what the profiler
+        # filed under no operator, or under two
+        ms["unattributed"] = total - sum(part.values())
+        ms = {k: v / 1e3 / steps for k, v in ms.items()}
+        ms["flash_launches"] = sum(r[2] for r in flash) // steps
+        return ms
+
+    inputs = {"tokens": prompt, "frames": frames}
+    max_seq = prompt.shape[1] + n_tokens
+    pre = make_prefill_step(cfg, max_seq=max_seq)
+    srv = make_serve_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    patches = [mock.patch.object(M, fn.__name__, span(name, fn))
+               for name, fn in spans.items()]
+    for p in patches:
+        p.start()
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, cache = pre(model, inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["prefill"] = dict(split(prof, 1), wall_ms=wall * 1e3,
+                              bound_ms=bounds["prefill"]["bound_ms"])
+        tok = logits[:, -1].argmax(-1)[:, None]
+        steps = 5
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = srv(model, cache, {"tokens": tok})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+        out["decode"] = dict(split(prof, steps), wall_ms=wall * 1e3,
+                             bound_ms=bounds["decode"]["bound_ms"])
+    finally:
+        for p in patches:
+            p.stop()
+    del cache
+    out["prefill"]["flash_by_kind_events"] = flash_ms_by_kind(
+        cfg, model, inputs, max_seq)
+    for part in ("prefill", "decode"):
+        r = out[part]
+        if r["device"] <= 0:
+            r["note"] = "the profiler recorded no device time: not measured"
+        else:
+            r["idle_share"] = 1.0 - r["device"] / r["wall_ms"]
+        unit = "ms" if part == "prefill" else "ms a step"
+        kinds = r.get("flash_by_kind_events")
+        by_kind = "" if kinds is None else (
+            f" (by CUDA events in a prefill of their own: encoder "
+            f"{kinds['encoder']:.3f}, cross {kinds['cross']:.3f}, decoder "
+            f"self {kinds['self']:.3f})")
+        print(f"[E4] {cfg.name} {part} profile ({unit}): device "
+              f"{r['device']:.3f} of {r['wall_ms']:.3f} wall, idle "
+              f"{r.get('idle_share', float('nan')):.1%}; encoder products "
+              f"{r['encoder_products']:.3f}, flash {r['flash']:.3f} "
+              f"({r['flash_launches']} launches){by_kind}, cross K/V "
+              f"projections {r['cross_kv_products']:.3f}, decoder products "
+              f"{r['decoder_products']:.3f}, rest of the encoder "
+              f"{r['encoder_rest']:.3f}, rest of the decoder "
+              f"{r['decoder_rest']:.3f}, rest {r['rest']:.3f} (kernel rows "
+              f"no operator accounts for {r['unattributed']:.3f}); bound "
+              f"{r['bound_ms']:.3f}", flush=True)
+    return out
+
+
+def whisper_serve() -> dict:
+    """E3 (main path) and E4: whisper-large-v3 at full width and depth
+    (32 encoder and 32 decoder layers), drawn on the card by a CUDA
+    generator, bf16, the frames (8, 1500, 1280) from seed 2 as
+    ``launch.serve`` draws them: ``greedy_generate`` of 32 tokens after a
+    128-token decoder prompt, batch 8, with the flash counts at 0 just
+    before and read just after -- exactly 96 launches in the prefill (32
+    encoder, 32 decoder self, 32 cross), all ``wgmma``, none in decode.
+    Then the timed prefill and decode, the plain path's prefill, the
+    logits and each flash call against the plain path, the profile and the
+    bounds.  The model is freed after."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import audio_frames
+
+    _require_free_card("E3")
+    cfg, model, prompt = dense_setup("E3", WHISPER, WHISPER_PROMPT)
+    frames = audio_frames(cfg, prompt.shape[0]).cuda()
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    FA.LAUNCHES = 0                 # this serving main path starts here
+    _zero(FA.LAUNCHES_BY_ROUTE)
+    run = phase_serve(cfg, model, prompt, OLMO_TOKENS, frames)
+    launches = FA.LAUNCHES          # ... and ends here
+    by_route = dict(FA.LAUNCHES_BY_ROUTE)
+    print(f"[E3] {WHISPER} serving main path (greedy_generate, one prefill of "
+          f"{cfg.n_enc_layers} encoder and {cfg.n_layers} decoder layers over "
+          f"{tuple(frames.shape)} frames, {OLMO_TOKENS - 1} decode steps): "
+          f"{launches} flash_attention launches, by route {by_route}",
+          flush=True)
+    if launches != per_prefill or by_route != {"wgmma": per_prefill,
+                                               "simt": 0}:
+        fail(f"E3: {WHISPER}'s serving main path launched {by_route}, "
+             f"expected {per_prefill} wgmma flash launches (prefill only)")
+    out = dict(launches=launches, launches_by_route=by_route)
+    out["serve"] = phase_serve_measure(
+        "E4", cfg, model, prompt, run, OLMO_TOKENS,
+        "_attention_core + plain cross-attention", frames)
+    torch.cuda.empty_cache()
+    out["vs_plain"] = phase_encdec_vs_plain(cfg, model, prompt, frames, run)
+    bounds = whisper_bounds(cfg, model, prompt.shape[0], prompt.shape[1])
+    out["bounds"] = bounds
+    out["profile"] = phase_encdec_profile(cfg, model, prompt, frames,
+                                          OLMO_TOKENS, bounds)
+    pre_s = min(out["serve"]["prefill_s"])
+    step_ms = 1e3 * prompt.shape[0] / out["serve"]["decode_tok_s"]
+    print(f"[E4] {WHISPER} on {nvidia_smi()}: prefill {pre_s:.4f} s (best "
+          f"warm; plain path {min(out['serve']['plain_prefill_s']):.4f} s) "
+          f"against its bound {bounds['prefill']['bound_ms'] / 1e3:.4f} s "
+          f"({bounds['prefill']['flops'] / 1e12:.2f} TFLOP at 989 TFLOP/s: "
+          f"{ {k: round(v / 1e12, 3) for k, v in bounds['prefill']['parts'].items()} }"
+          f"); decode {out['serve']['decode_tok_s']:.1f} tokens/s = "
+          f"{step_ms:.2f} ms a step against its bound "
+          f"{bounds['decode']['bound_ms']:.2f} ms "
+          f"({bounds['decode']['bytes'] / 1e9:.2f} GB at 3.35 TB/s: weights "
+          f"{bounds['decode']['weight_bytes'] / 1e9:.2f}, cross K/V "
+          f"{bounds['decode']['cross_kv_bytes'] / 1e9:.2f}, self K/V "
+          f"{bounds['decode']['kv_bytes'] / 1e9:.2f}); peak "
+          f"{run['mem'] / 2**30:.2f} GiB", flush=True)
+    del model, run, frames
+    torch.cuda.empty_cache()
+    REPORT[f"{WHISPER}_serving"] = out
+    return out
+
+
+def phase_encdec_train() -> dict:
+    """E5 (main path): whisper-large-v3 at full width cut to
+    WHISPER_TRAIN_LAYERS encoder and decoder layers, drawn on the card
+    (bf16, remat 'dots', ``_attention_core`` and the plain
+    cross-attention), WHISPER_TRAIN_STEPS steps of ``make_train_step`` on
+    SyntheticLM tokens TRAIN_BATCH x WHISPER_TRAIN_SEQ with seeded frames
+    (TRAIN_BATCH, 1500, 1280) in TRAIN_MICRO microbatches at AdamW 1e-4:
+    finite losses; step seconds, decoder tokens/s, frames/s, peak memory.
+    Then compress_grads three times on the trained model's gradients, the
+    error state carried: one quantize and two dequantize launches a leaf a
+    call, |err| within EF_SLACK."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.serve import audio_frames
+    from repro_torch.launch.train import training_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (_to_device, init_train_state,
+                                        make_train_step)
+
+    _require_free_card("E5")
+    cfg = training_config(get_config(WHISPER)).replace(
+        n_layers=WHISPER_TRAIN_LAYERS, n_enc_layers=WHISPER_TRAIN_LAYERS,
+        remat="dots")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=WHISPER_TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+
+    def batch_at(i):
+        return dict(data.batch_at(i), frames=audio_frames(
+            cfg, TRAIN_BATCH, seed=100 + i).cuda())
+
+    step = make_train_step(cfg, AdamWConfig(lr=DENSE_LR), constant(1.0),
+                           n_microbatches=TRAIN_MICRO)
+    secs, losses = [], []
+    for i in range(WHISPER_TRAIN_STEPS):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    warm = min(secs[1:])
+    tok_s = TRAIN_BATCH * WHISPER_TRAIN_SEQ / warm
+    frames_s = TRAIN_BATCH * cfg.enc_seq / warm
+    print(f"[E5] {WHISPER} at full width, {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers: {n_params:,} parameters drawn on the "
+          f"card; {WHISPER_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{WHISPER_TRAIN_SEQ} decoder tokens over {TRAIN_BATCH} x "
+          f"{cfg.enc_seq} frames in {TRAIN_MICRO} microbatches (bf16, remat "
+          f"dots, AdamW {DENSE_LR}): losses {[round(v, 4) for v in losses]}; "
+          f"step {', '.join(f'{s:.4f}' for s in secs)} s, warm {warm:.4f} s "
+          f"= {tok_s:,.0f} decoder tokens/s, {frames_s:,.0f} frames/s, peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"E5: encdec training losses {losses}")
+    out = dict(compress_calls(state.params, cfg, [
+        _to_device(batch_at(WHISPER_TRAIN_STEPS + i), "cuda")
+        for i in range(3)]), n_params=n_params,
+        layers=(cfg.n_enc_layers, cfg.n_layers), microbatches=TRAIN_MICRO,
+        step_s=secs, warm_step_s=warm, tokens_per_s=tok_s,
+        frames_per_s=frames_s, peak_bytes=peak, losses=losses)
+    print(f"[E5] compress_grads x3 over {out['n_leaves']} leaves: launches "
+          f"per call {out['compress_launches']}, "
+          f"{', '.join(f'{t:.3f}' for t in out['compress_seconds'])} s, "
+          f"error feedback max |err| / (scale/2) "
+          f"{out['error_feedback_max_ratio']:.7f} (limit {EF_SLACK})",
+          flush=True)
+    _check_compress("E5", out)
+    del state, step
+    return out
+
+
+def encdec_phases() -> dict:
+    """E1-E5: the encdec SMOKE checks; whisper's kernel shapes against the
+    plain version and timed (the first two also in A1 in the whole
+    script); whisper-large-v3 served whole (the flash counts at 0 just
+    before its serving main path and read just after, inside
+    :func:`whisper_serve`); the 16 + 16-layer whisper trained (the
+    ckpt_quant counts at 0 just before and read just after) and both quant
+    kernels timed at its embedding leaf."""
+    import torch
+
+    from repro_torch.kernels import (ckpt_quant, flash_attention, sim_step,
+                                     ssd_scan)
+
+    card = phase_encdec_card_vs_cpu()
+    _lap("E1")
+    flash = phase_encdec_flash()
+    _lap("E2")
+    serve = whisper_serve()
+    _lap("E3-E4")
+    for k in ckpt_quant.LAUNCHES:   # the encdec training main path starts here
+        ckpt_quant.LAUNCHES[k] = 0
+    sim_step.LAUNCHES = ssd_scan.LAUNCHES = flash_attention.LAUNCHES = 0
+    train = phase_encdec_train()
+    launches = dict(ckpt_quant.LAUNCHES)   # ... and ends here
+    other = dict(sim_step=sim_step.LAUNCHES, ssd_scan=ssd_scan.LAUNCHES,
+                 flash_attention=flash_attention.LAUNCHES)
+    REPORT["encdec_train_main_path_launches"] = dict(launches, **other)
+    print(f"[E5] encdec training main path: launches {launches} (3 "
+          f"compress_grads calls over {train['n_leaves']} leaves), {other} "
+          f"(training runs _attention_core and the plain cross-attention)",
+          flush=True)
+    if min(launches.values()) < 1 or any(other.values()):
+        fail("E5: the encdec training main path launched no ckpt_quant "
+             "kernel, or launched another kernel")
+    quant_vs_plain = quant_vs_plain_all_leaves("E5", train,
+                                               WHISPER_EMBED_LEAF)
+    torch.cuda.empty_cache()
+    quant = phase_quant_measure(WHISPER_EMBED_LEAF, "E5",
+                                "whisper-large-v3's embedding leaf")
+    _lap("E5")
+    REPORT["encdec_train"] = train
+    return dict(card_vs_cpu=card, flash=flash, serve=serve, train=train,
+                train_launches=launches, quant_vs_plain=quant_vs_plain,
+                quant=quant)
+
+
+# --------------------------------------------------------------------------- #
 # The workflow digital twin (sim/workflow.py, exec/) and the policy service
 # --------------------------------------------------------------------------- #
 
@@ -5584,6 +6408,13 @@ def main() -> int:
                           "h3_launches": hybrid["serve"]["launches_by_route"],
                           "h5_launches": hybrid["train_launches"]}))
         return 0
+    if "--encdec" in sys.argv[1:]:
+        encdec = encdec_phases()
+        _dump()
+        print(json.dumps({"encdec": True,
+                          "e3_launches": encdec["serve"]["launches_by_route"],
+                          "e5_launches": encdec["train_launches"]}))
+        return 0
 
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
                                   64 if quick else 128)
@@ -5796,6 +6627,7 @@ def main() -> int:
     _lap("D3 quant, D4")
     moe = moe_phases()
     hybrid = hybrid_phases(standalone=False)
+    encdec = encdec_phases()
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
     fig4_kernel = {name: {"philox_ms": REPORT[name]["kernel"]["philox_ms"],
                           "pregenerated_ms":
@@ -5832,7 +6664,8 @@ def main() -> int:
         **{arch: moe["serve"][arch]["launches_by_route"]["wgmma"]
            for arch in MOE_ARCHS},
         ZAMBA: hybrid["serve"]["launches_by_route"]["flash_attention"][
-            "wgmma"]}
+            "wgmma"],
+        WHISPER: encdec["serve"]["launches_by_route"]["wgmma"]}
     simt_by_path = {"olmo SMOKE float32 (A2)": a2["launches_by_route"]["simt"],
                     "variants' SMOKE float32 (V2)":
                         v2["launches_by_route"]["simt"],
@@ -5840,7 +6673,9 @@ def main() -> int:
                         moe["card_vs_cpu"]["launches_by_route"]["simt"],
                     "zamba2 SMOKE float32 (H1)":
                         hybrid["card_vs_cpu"]["launches_by_route"][
-                            "flash_attention"]["simt"]}
+                            "flash_attention"]["simt"],
+                    "whisper SMOKE float32 (E1)":
+                        encdec["card_vs_cpu"]["launches_by_route"]["simt"]}
     hybrid_ssd = hybrid["serve"]["launches_by_route"]["ssd_scan"]
     hv = hybrid["serve"]["vs_plain"]
     hybrid_logits = {
@@ -5855,6 +6690,17 @@ def main() -> int:
         "library_ms")}, max_abs_err=v1[ZAMBA]["max_abs"],
         scale_check=v1[ZAMBA]["scale_check"],
         logits_vs_plain_path=hybrid_logits)
+    ev = encdec["serve"]["vs_plain"]
+    whisper_flash = {name: {k: r[k] for k in (
+        "shape", "causal", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms")} for name, r in encdec["flash"].items()}
+    whisper_flash["logits_vs_plain_path"] = {
+        "bf16_rel_rms": ev["bf16"]["rel_rms"],
+        "bf16_rms_limit": ev["bf16"]["rms_limit"],
+        "bf16_max_ratio": ev["bf16"]["max_ratio"],
+        "bf16_floor_max_ratio": ev["bf16_plain_vs_plain"]["max_ratio"],
+        "f32_max_abs": ev["f32"]["max_abs"],
+        "prefill_calls_worst_ratio": ev["flash_worst_ratio_by_kind"]}
     variant_rows = {arch: {
         k: r[k] for k in ("shape", "softcap", "ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms", "library_note")}
@@ -5942,24 +6788,30 @@ def main() -> int:
         "launches": (quant_launches[f"{name}_blocks"]
                      + dense_quant_launches[f"{name}_blocks"]
                      + moe["train_launches"][f"{name}_blocks"]
-                     + hybrid["train_launches"][f"{name}_blocks"]),
+                     + hybrid["train_launches"][f"{name}_blocks"]
+                     + encdec["train_launches"][f"{name}_blocks"]),
         "launches_by_path": {
             "mamba2-130m training (T3)": quant_launches[f"{name}_blocks"],
             "olmo-1b training (D2)": dense_quant_launches[f"{name}_blocks"],
             "olmoe-1b-7b 2-layer training (M5)":
                 moe["train_launches"][f"{name}_blocks"],
             "zamba2-7b 12-layer training (H5)":
-                hybrid["train_launches"][f"{name}_blocks"]},
+                hybrid["train_launches"][f"{name}_blocks"],
+            "whisper-large-v3 16 + 16-layer training (E5)":
+                encdec["train_launches"][f"{name}_blocks"]},
         "launches_per_compress_grads": {
             "mamba2-130m": train_run["compress_launches"][0][f"{name}_blocks"],
             "olmo-1b": dense_run["compress_launches"][0][f"{name}_blocks"],
             "olmoe-1b-7b, 2 layers": moe["train"]["compress_launches"][0][
                 f"{name}_blocks"],
             "zamba2-7b, 12 layers": hybrid["train"]["compress_launches"][0][
-                f"{name}_blocks"]},
+                f"{name}_blocks"],
+            "whisper-large-v3, 16 + 16 layers": encdec["train"][
+                "compress_launches"][0][f"{name}_blocks"]},
         "max_abs_err": max(quant_worst, dense_quant_worst,
                            moe["quant_vs_plain"]["max_abs_err"],
-                           hybrid["quant_vs_plain"]["max_abs_err"]),
+                           hybrid["quant_vs_plain"]["max_abs_err"],
+                           encdec["quant_vs_plain"]["max_abs_err"]),
         "bitwise": True,
         "shape": f"mamba2-130m's embedding leaf, {EMBED_LEAF:,} float32",
         "ms": quant[name]["ms"], "plain_ms": quant[name]["plain_ms"],
@@ -5970,6 +6822,10 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms")}),
         "olmoe_expert_leaf": dict(n=EXPERT_LEAF, bound_by="bytes", **{
             k: moe["quant"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}),
+        "whisper_embedding_leaf": dict(n=WHISPER_EMBED_LEAF,
+                                       bound_by="bytes", **{
+            k: encdec["quant"][name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms")})}
         for name, replaces in (
             ("quantize", "src/repro/kernels/ckpt_quant.py:28"),
@@ -5977,15 +6833,18 @@ def main() -> int:
         "name": "flash_attention_tc", "route": "cuda", "kernel_route": "wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "the dense, moe and hybrid serving prefills (bf16): "
-                "olmo-1b (A3), gemma2-27b (V3), stablelm-1.6b, "
+        "path": "the dense, moe, hybrid and encdec serving prefills "
+                "(bf16): olmo-1b (A3), gemma2-27b (V3), stablelm-1.6b, "
                 "starcoder2-3b, qwen2-vl-7b (V6), olmoe-1b-7b (M2), "
                 "deepseek-moe-16b (M3), zamba2-7b (H3, head_dim 112 padded "
-                "to 128)",
+                "to 128), whisper-large-v3 (E3: 32 unmasked encoder, 32 "
+                "causal decoder and 32 unmasked cross-attention calls)",
         "launches": sum(tc_by_path.values()),
         "launches_by_path": tc_by_path,
         "max_abs_err": max(worst_of(flash_rows, "wgmma", (None,)),
-                           max(g["max_abs"] for g in v1.values())),
+                           max(g["max_abs"] for g in v1.values()),
+                           max(r["max_abs_err"]
+                               for r in encdec["flash"].values())),
         "tolerance": FLASH_TOL, "logits_vs_plain_path": flash_logits,
         "shape": FLASH_OLMO_SHAPE, "ms": olmo_t["ms"],
         "plain_ms": olmo_t["plain_ms"], "bound_ms": olmo_t["bound_ms"],
@@ -5995,12 +6854,13 @@ def main() -> int:
         "gqa_shape": {k: gqa_t[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
         "variant_shapes": variant_rows,
-        "zamba2_shape": zamba_flash}, {
+        "zamba2_shape": zamba_flash,
+        "whisper_shapes": whisper_flash}, {
         "name": "flash_attention", "route": "cuda", "kernel_route": "simt",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
-        "path": "dense, moe and hybrid serving in float32 (A2, V2, M1, H1: "
-                "SMOKE prefills)",
+        "path": "dense, moe, hybrid and encdec serving in float32 (A2, V2, "
+                "M1, H1, E1: SMOKE prefills)",
         "launches": sum(simt_by_path.values()),
         "launches_by_path": simt_by_path,
         "max_abs_err": worst_of(flash_rows, "simt", (None,)),

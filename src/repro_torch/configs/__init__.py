@@ -1,12 +1,10 @@
 """Architecture registry of the port: the ten configs of ``repro.configs``,
 the (arch x shape) cells and the input stand-ins.
 
-Every config is field for field the JAX package's, except that the ported
+Every config is field for field the JAX package's, except that the
 serving configs turn ``use_flash_kernel`` on (the port's hand-written
-kernels are their serving path).  The ssm, dense, moe and hybrid families
-build, serve and train; the encdec config is data only until its family
-is ported (ROADMAP Queue 1 item 9.6), and ``models.init_params`` raises
-for it.
+kernels are their serving path).  Every family builds, serves and trains:
+ssm, dense, moe, hybrid and encdec.
 """
 from __future__ import annotations
 

@@ -3,10 +3,12 @@
 
 ``*_input_specs`` give each input's ``(shape, dtype)``.  Modality
 frontends are stubs, as in the JAX package: whisper receives precomputed
-audio frame embeddings, qwen2-vl token ids plus (B, 3, S) M-RoPE position
-triples.  :func:`params_struct` and :func:`cache_struct` build the model
-and the serving cache on the meta device (shapes and dtypes, no
-allocation); both raise for the family not ported yet (encdec).
+audio frame embeddings ('frames', (B, enc_seq, d_model) bf16, for a train
+step and a prefill; a decode step reads the cached cross K/V instead),
+qwen2-vl token ids plus (B, 3, S) M-RoPE position triples.
+:func:`params_struct` and :func:`cache_struct` build the model and the
+serving cache on the meta device (shapes and dtypes, no allocation), for
+every family.
 """
 from __future__ import annotations
 

@@ -8,10 +8,15 @@ precomputed frame embeddings (B, enc_seq, d_model).  n_layers counts the
 DECODER layers per the assignment; the encoder mirrors it (whisper-large
 has 32 encoder + 32 decoder layers).
 
-Data only: the same values as ``repro/configs/whisper_large_v3.py``,
-field for field.
-The encdec family is not ported yet: ``models.init_params`` raises for it
-(ROADMAP Queue 1 item 9.6).
+The same values as ``repro/configs/whisper_large_v3.py`` with one
+deliberate difference: ``CONFIG`` sets ``use_flash_kernel=True``, so the
+prefill's attention -- the encoder's unmasked self-attention, the
+decoder's causal self-attention and its cross-attention over the
+encoder's 1,500 frames -- runs through the hand-written CUDA
+flash-attention kernel (``kernels/csrc/flash_attention.cu``), which is
+the serving path on the card.  In the JAX package the knob defaults to
+off.  ``SMOKE`` keeps the default; tests set the knob the same way on
+both sides.
 """
 from repro_torch.configs.base import AttentionConfig, ModelConfig, RopeConfig
 
@@ -30,6 +35,7 @@ CONFIG = ModelConfig(
     act="gelu",
     frontend="audio_frames",
     tie_embeddings=True,
+    use_flash_kernel=True,   # the one difference from the JAX config
 )
 
 SMOKE = ModelConfig(

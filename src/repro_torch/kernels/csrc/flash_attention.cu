@@ -64,6 +64,10 @@
 // Both read q, k and v through their batch, head and row strides (unit
 // stride along D, every other stride a multiple of 16 bytes), and take any
 // Sq and Skv: rows and keys past the ends are zero-filled and masked.
+// Unmasked (causal = 0: whisper's encoder and cross-attention), every
+// block and warpgroup runs all ceil(Skv / tile) key tiles whatever Sq,
+// the block order is immaterial, and only the tile that holds Skv (1,500
+// keys: 11 tiles of 128 and one of 92) takes the mask.
 //
 // Bound on the H100.  At olmo-1b's prefill shape (BG 128, R 1, Sq = Skv =
 // 1024, D 128, bf16) the causal work is 4 D flop per visible (i, j) pair,

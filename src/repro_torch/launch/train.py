@@ -20,14 +20,17 @@ default the measured seconds count).  Without ``--ckpt-dir`` the images go
 to a fresh temporary directory that is removed at the end; with it,
 replicas go to ``DIR_rep0``, ... beside it.
 
-The ssm, dense, moe and hybrid families train (mamba2-130m; olmo-1b,
+The ssm, dense, moe and hybrid archs train here (mamba2-130m; olmo-1b,
 gemma2-27b, stablelm-1.6b, starcoder2-3b, qwen2-vl-7b; olmoe-1b-7b,
 deepseek-moe-16b; zamba2-7b).  Neither hand-written kernel of
 their serving paths has a backward, so training runs the SSD through
 ``ssd_chunked`` and attention through ``_attention_core``, as the JAX
 package trains them: a config with ``use_flash_kernel=True`` (the port's
 serving ``CONFIG``) is trained with the knob off, and the entry point says
-so.  The encdec arch is refused, naming its ROADMAP item (9.6).
+so.  The encdec arch (whisper-large-v3) is refused: its loss needs the
+audio frames, ``SyntheticLM`` makes tokens only, and the JAX entry point
+feeds none either.  ``repro_torch.train.step.make_train_step`` trains it
+on a batch that carries 'frames'.
 """
 from __future__ import annotations
 
@@ -108,8 +111,15 @@ def training_config(cfg: ModelConfig) -> ModelConfig:
 
 def build(args) -> Tuple[FaultTolerantTrainer, AsyncCheckpointer]:
     """The trainer and checkpointer the command line describes."""
-    dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{args.arch}: an encdec train step needs batch['frames'] (the "
+            f"audio frame embeddings), and SyntheticLM makes tokens only; "
+            f"the JAX entry point feeds none either.  Train it through "
+            f"repro_torch.train.step.make_train_step with frames in the "
+            f"batch")
+    dev = resolve_device(args.device)
     cfg = training_config(cfg)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch)

@@ -1,8 +1,9 @@
-"""Layer library of the port: ``repro/models/layers.py`` for the ported
-families -- the norms (rmsnorm, gemma's ``(1 + scale)`` rmsnorm,
+"""Layer library of the port: ``repro/models/layers.py`` for every
+family -- the norms (rmsnorm, gemma's ``(1 + scale)`` rmsnorm,
 LayerNorm with and without bias, the non-parametric LayerNorm), RoPE,
-partial RoPE and M-RoPE, GQA attention over a serving cache (bfloat16 or
-float32, or int8 codes with float32 per-(token, head) scales), the MLPs,
+partial RoPE and M-RoPE, GQA attention, causal or unmasked, over a
+serving cache (bfloat16 or float32, or int8 codes with float32
+per-(token, head) scales), the audio-frames frontend (a stub), the MLPs,
 tied or untied embedding and unembedding and the final logit softcap, in
 bfloat16, float32 and float16.
 
@@ -37,7 +38,9 @@ INV_127 = 1.0 / 127.0   # the int8 KV scale's factor (rounded to float32)
 NORMS = ("rmsnorm", "rmsnorm_one", "layernorm", "layernorm_nobias",
          "nonparametric")
 ACTS = ("silu_gated", "gelu_gated", "gelu")
-FRONTENDS = ("none", "patches")   # 'audio_frames' comes with the encdec family
+# 'audio_frames' is a stub, as in the JAX package: the encdec model takes
+# the frames pre-embedded, (B, enc_seq, d_model)
+FRONTENDS = ("none", "patches", "audio_frames")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -47,14 +50,11 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a layer option the port does not have yet: the
-    audio-frames frontend (it comes with the encdec family, ROADMAP Queue
-    1 item 9.6); and for an unknown dtype, norm or activation."""
+    """Raise for an unknown dtype, frontend, norm or activation."""
     _dtype(cfg.param_dtype)
     _dtype(cfg.compute_dtype)
     if cfg.frontend not in FRONTENDS:
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported yet (ROADMAP Queue 1)")
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
     if cfg.norm not in NORMS:
         raise ValueError(f"unknown norm {cfg.norm!r}")
     if cfg.act not in ACTS:
@@ -261,22 +261,25 @@ def _attention_core(qg, k, v, *, scale, softcap, causal, sliding_window,
                       for c in range(0, S, q_chunk)], dim=3)
 
 
-def flash_route(cfg: ModelConfig, *, causal: bool, q_offset: int, seq: int,
+def flash_route(cfg: ModelConfig, *, q_offset: int, seq: int,
                 layer_is_local: bool) -> bool:
     """Whether the attention of a call runs through the flash kernel: the
     knob is on, a kernel takes the compute dtype and head_dim
     (``flash_attention.takes``: bfloat16 or float32 at head_dim 16, 32, 64
-    or 128, and bfloat16 at a multiple of 16 between 64 and 128), the mask
-    is causal, the queries start at position 0 (a prefill, or a forward
-    without a cache) and no sliding window is narrower than the prompt.
-    Everything else (float16, float32 at head_dim 112, decode, a prefill
-    behind earlier tokens) runs :func:`_attention_core`."""
+    or 128, and bfloat16 at a multiple of 16 between 64 and 128), the
+    queries start at position 0 (a prefill, or a forward without a cache:
+    the keys are the call's own) and no sliding window is narrower than
+    the prompt.  Causal or not, the mask is then the kernel's: bottom-right
+    causal over the call's own keys, or none (the encoder's
+    self-attention and the cross-attention).  Everything else (float16,
+    float32 at head_dim 112, decode, a prefill behind earlier tokens) runs
+    :func:`_attention_core`."""
     a = cfg.attention
     narrow = (a.sliding_window is not None and layer_is_local
               and a.sliding_window < seq)
     return bool(cfg.use_flash_kernel
                 and FA.takes(_dtype(cfg.compute_dtype), a.head_dim)
-                and causal and q_offset == 0 and not narrow)
+                and q_offset == 0 and not narrow)
 
 
 def multi_head_attention(
@@ -306,10 +309,11 @@ def multi_head_attention(
 
     With ``cfg.use_flash_kernel`` and :func:`flash_route` true, the
     attention runs through ``kernels.ops.flash_attention`` on the prompt's
-    own K and V (as read back through the cache's dtype): over them it is
-    the attention ``_attention_core`` computes over the whole cache with
-    the slots past the prompt masked.  The kernel's causal mask is
-    bottom-right aligned, so it is never given the longer cache buffer.
+    own K and V (as read back through the cache's dtype), with this call's
+    ``causal``: over them it is the attention ``_attention_core`` computes
+    over the whole cache with the slots past the prompt masked.  The
+    kernel's causal mask is bottom-right aligned, so it is never given the
+    longer cache buffer.
     """
     from repro_torch.kernels import ops
 
@@ -369,11 +373,11 @@ def multi_head_attention(
 
     scale = a.query_scale if a.query_scale is not None else \
         1.0 / math.sqrt(hd)
-    if flash_route(cfg, causal=causal, q_offset=q_offset, seq=S,
+    if flash_route(cfg, q_offset=q_offset, seq=S,
                    layer_is_local=layer_is_local):
         ctx = ops.flash_attention(
             q.reshape(B * G, rep, S, hd), k_own.reshape(B * G, S, hd),
-            v_own.reshape(B * G, S, hd), scale=scale, causal=True,
+            v_own.reshape(B * G, S, hd), scale=scale, causal=causal,
             softcap=a.softcap)
     else:
         k_all, v_all = read_all()

@@ -2,16 +2,20 @@
 ssm family (the Mamba2 stack, attention-free), the dense family (the
 pre-norm transformer: GQA attention + MLP), the moe family (the same
 transformer with a mixture-of-experts block, ``models/moe.py``, in place
-of the MLP) and the hybrid family (zamba2: a Mamba2 stack with one shared
-transformer block applied after every ``shared_attn_every`` layers).
+of the MLP), the hybrid family (zamba2: a Mamba2 stack with one shared
+transformer block applied after every ``shared_attn_every`` layers) and
+the encdec family (whisper: an encoder of dense blocks with unmasked
+self-attention over the stub frontend's frame embeddings, and a causal
+decoder whose layers add cross-attention over the encoder's output).
 
-The port of ``repro/models/model.py`` for ``family`` ``"ssm"``,
-``"dense"``, ``"moe"`` and ``"hybrid"``.  Each stack is an ``nn.Module``
-(:class:`Mamba2LM`, :class:`DenseLM`, :class:`HybridLM`: embedding, a
-``ModuleList`` of blocks looped in Python, final norm; the hybrid model
-also holds ``shared``, one :class:`DenseBlock` whose weights every use
-shares); the JAX version's ``lax.scan`` over stacked parameters has no
-counterpart here.  Its remat does, when autograd records the forward
+The port of ``repro/models/model.py`` for every family.  Each stack is an
+``nn.Module`` (:class:`Mamba2LM`, :class:`DenseLM`, :class:`HybridLM`,
+:class:`EncDecLM`: embedding, a ``ModuleList`` of blocks looped in
+Python, final norm; the hybrid model also holds ``shared``, one
+:class:`DenseBlock` whose weights every use shares; the encdec model
+``enc_blocks``, ``enc_norm`` and ``cross``, one :class:`CrossBlock` a
+decoder layer); the JAX version's ``lax.scan`` over stacked parameters
+has no counterpart here.  Its remat does, when autograd records the forward
 (training): with ``cfg.remat == "full"`` each block runs under
 ``torch.utils.checkpoint.checkpoint``; with ``"dots"`` under torch's
 selective checkpointing with :func:`remat_dots_policy`, which saves the
@@ -20,10 +24,11 @@ and recomputes the rest, as ``jax.checkpoint_policies.
 checkpoint_dots_with_no_batch_dims`` does.  In the hybrid stack only the
 Mamba2 blocks are recomputed; the shared block runs outside the
 checkpoint, as in the JAX package, and its gradient is the sum over its
-uses.  :func:`loss_fn` is the training loss, plus the moe block's
-load-balancing loss averaged over the layers.  The encdec family waits
-for a later slice (ROADMAP Queue 1 item 9.6) and raises.  The dense
-family covers every dense config
+uses.  In the encdec stack each encoder block and each decoder layer
+(self-attention, cross-attention and MLP) is recomputed.
+:func:`loss_fn` is the training loss, plus the moe block's
+load-balancing loss averaged over the layers.  The dense family covers
+every dense config
 of the registry: olmo-1b, gemma2-27b (alternating local/global windows,
 both softcaps, ``(1 + scale)`` rmsnorms and post-block norms),
 stablelm-1.6b (LayerNorm with bias, partial RoPE, an untied head),
@@ -32,7 +37,8 @@ starcoder2-3b (LayerNorm, plain GELU, a sliding window) and qwen2-vl-7b
 moe family olmoe-1b-7b (64 experts, top-8) and deepseek-moe-16b (64
 routed top-6 and 2 shared experts); the hybrid family zamba2-7b (81
 Mamba2 layers, the shared block after every 6: 13 uses and 3 remainder
-layers).
+layers); the encdec family whisper-large-v3 (32 encoder and 32 decoder
+layers, 1,500 frames).
 
 Parameters are built frozen (``requires_grad=False``), as serving wants
 them; the training entry points (``repro_torch.train.step``) turn
@@ -43,10 +49,13 @@ them; the training entry points (``repro_torch.train.step``) turn
 ``bias``), ``blocks.<i>.moe.router``, ``blocks.<i>.moe.w_up``, ... (moe),
 ``blocks.<i>.post_attn_norm`` / ``post_mlp_norm`` (gemma2),
 ``shared.attn_norm.scale``, ``shared.attn.wq``, ``shared.mlp.w_up``, ...
-(hybrid), ``final_norm.scale``, ``embed.unembed`` (an untied head);
+(hybrid), ``enc_blocks.<i>.attn.wq``, ``enc_norm.scale``,
+``cross.<i>.norm.scale``, ``cross.<i>.attn.wk``, ... (encdec),
+``final_norm.scale``, ``embed.unembed`` (an untied head);
 :func:`from_reference` carries the JAX package's ``init_params`` pytree
-(as numpy arrays, layer-stacked ``(L, ...)`` leaves under ``blocks``, the
-hybrid's ``shared`` leaves unstacked) across dtype for dtype.
+(as numpy arrays, layer-stacked ``(L, ...)`` leaves under ``blocks``,
+``enc_blocks`` and ``cross``, the hybrid's ``shared`` leaves unstacked)
+across dtype for dtype.
 
 The serving caches mirror the JAX ones.  ssm: ``{"ssm": {"state": (L, B,
 h, p, n), "conv": (L, B, W-1, conv_dim)}, "index": int}``, written in
@@ -58,11 +67,16 @@ JAX decode path's ``layer_index`` form); with ``kv_cache_quant`` the K/V
 are int8 codes beside float32 ``k_scale``/``v_scale`` of (L, B, G,
 max_seq), whatever ``cache_dtype``.  hybrid: both, the ``"ssm"`` part for
 all L layers and the ``"kv"`` part for the ``L // shared_attn_every``
-uses of the shared block, both written in place.  Entry points run on CUDA unless given ``device="cpu"``.
+uses of the shared block, both written in place.  encdec: the dense
+``"kv"`` for the decoder's self-attention, and ``"cross_k"`` and
+``"cross_v"`` of (L, B, G, enc_seq, hd) in ``cache_dtype``, written once
+by the prefill and read by every decode step.  Entry points run on CUDA
+unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
 import functools
+import math
 import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple, Type, Union
 
@@ -84,25 +98,23 @@ from repro_torch.models import ssm as SSM
 Cache = Dict[str, Any]
 
 
-FAMILIES = ("ssm", "dense", "moe", "hybrid")
+FAMILIES = ("ssm", "dense", "moe", "hybrid", "encdec")
 # the families of the transformer stack (DenseLM)
 ATTENTION_FAMILIES = ("dense", "moe")
-# The families still to port, by their ROADMAP Queue 1 item.
-MISSING_FAMILIES = {"encdec": "9.6"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        item = MISSING_FAMILIES.get(cfg.family)
-        if item is None:
-            raise ValueError(f"unknown family {cfg.family!r}")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet; only "
-            f"{FAMILIES} are (ROADMAP Queue 1 item {item})")
+        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid" and cfg.post_block_norm:
         raise ValueError(
             "a hybrid config with post_block_norm: the JAX package's shared "
             "block (_shared_block) applies no post-block norms")
+    if cfg.family == "encdec" and cfg.post_block_norm:
+        raise ValueError(
+            "an encdec config with post_block_norm: the JAX package's "
+            "encoder and decoder layers (_encoder, _decoder_stack) apply no "
+            "post-block norms")
     L.check_ported(cfg)
 
 
@@ -204,9 +216,54 @@ class HybridLM(nn.Module):
         self.final_norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
 
 
-LM = Union[Mamba2LM, DenseLM, HybridLM]
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config the encoder's blocks are built and run under, as the JAX
+    package's ``cfg.replace(family="dense")``."""
+    return cfg.replace(family="dense")
+
+
+class CrossBlock(nn.Module):
+    """One decoder layer's cross-attention parameters: the norm before it
+    and the projections ``wq``, ``wk``, ``wv``, ``wo`` (``attn``, shaped
+    as self-attention's)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        dev = device if gen is not None else "meta"
+        self.norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
+        self.attn = _norm(L.init_attention(gen, cfg), dev)
+
+
+class EncDecLM(nn.Module):
+    """The encdec (whisper) model's parameters: embedding, the encoder's
+    ``n_enc_layers`` dense blocks and its final norm, one
+    :class:`CrossBlock` and one decoder :class:`DenseBlock` a decoder
+    layer, and the final norm (run by :func:`forward`), drawn in that
+    order.  ``gen`` None builds it on the meta device, to be loaded
+    (:func:`from_reference`)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        _require_ported(cfg)
+        self.cfg = cfg
+        dev = device if gen is not None else "meta"
+        enc_cfg = _encoder_cfg(cfg)
+        self.embed = _norm(L.init_embedding(gen, cfg), dev)
+        self.enc_blocks = nn.ModuleList(DenseBlock(enc_cfg, gen, device)
+                                        for _ in range(cfg.n_enc_layers))
+        self.enc_norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
+        self.cross = nn.ModuleList(CrossBlock(cfg, gen, device)
+                                   for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(DenseBlock(cfg, gen, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _norm(L.init_norm(gen, cfg, cfg.d_model), dev)
+
+
+LM = Union[Mamba2LM, DenseLM, HybridLM, EncDecLM]
 _CLASSES = {"ssm": Mamba2LM, "dense": DenseLM, "moe": DenseLM,
-            "hybrid": HybridLM}
+            "hybrid": HybridLM, "encdec": EncDecLM}
 
 
 def model_class(cfg: ModelConfig) -> Type[nn.Module]:
@@ -241,12 +298,13 @@ def _apply_ssm_block(bp: Mamba2Block, x, cfg: ModelConfig, *, cache=None,
 
 
 def _apply_dense_block(bp: DenseBlock, x, cfg: ModelConfig, *, positions,
-                       layer_is_local: bool, cache=None, cache_index=None,
-                       layer_index=None):
+                       layer_is_local: bool, causal: bool = True, cache=None,
+                       cache_index=None, layer_index=None):
     h = L.apply_norm(bp.attn_norm, x, cfg)
     attn_out, new_cache = L.multi_head_attention(
         bp.attn, h, cfg, positions=positions, layer_is_local=layer_is_local,
-        cache=cache, cache_index=cache_index, layer_index=layer_index)
+        causal=causal, cache=cache, cache_index=cache_index,
+        layer_index=layer_index)
     if cfg.post_block_norm:
         attn_out = L.apply_norm(bp.post_attn_norm, attn_out, cfg)
     x = x + attn_out
@@ -269,7 +327,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``dtype``; with ``kv_cache_quant``, int8 K and V codes and float32
     scales of (L, B, G, max_seq) set to 1 (``dtype`` does not enter).
     hybrid: the ssm family's cache for its L layers and the K/V for the
-    ``L // shared_attn_every`` uses of the shared block."""
+    ``L // shared_attn_every`` uses of the shared block.  encdec: the
+    decoder's K/V as the dense family's, and the cross-attention's
+    ``cross_k`` and ``cross_v`` of (L, B, G, enc_seq, hd) in ``dtype``,
+    zeroed, written once by the prefill."""
     _require_ported(cfg)
     dev = resolve_device(device)
 
@@ -286,6 +347,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
     if cfg.family in ATTENTION_FAMILIES:
         return {"kv": kv(cfg.n_layers), "index": 0}
+    if cfg.family == "encdec":
+        a = cfg.attention
+        shape = (cfg.n_layers, batch, a.n_kv_heads, cfg.enc_seq, a.head_dim)
+        return {"kv": kv(cfg.n_layers),
+                "cross_k": torch.zeros(shape, dtype=dtype, device=dev),
+                "cross_v": torch.zeros(shape, dtype=dtype, device=dev),
+                "index": 0}
     one = SSM.init_ssm_cache(cfg, batch, device=dev)
     st = {k: v[None].repeat(cfg.n_layers, *([1] * v.dim()))
           for k, v in one.items()}
@@ -465,6 +533,132 @@ def _hybrid_stack(params: HybridLM, x, cfg: ModelConfig, *, positions,
     return x, ssm_cache, kv_cache
 
 
+def _encoder(params: EncDecLM, frames, cfg: ModelConfig, *,
+             remat: str = "none"):
+    """Whisper's encoder over the stub frame embeddings (B, enc_seq,
+    d_model): dense blocks with unmasked self-attention (whisper has no
+    RoPE, so the positions enter nothing), each recomputed in the backward
+    as ``remat`` says, then ``enc_norm``."""
+    enc_cfg = _encoder_cfg(cfg)
+    x = frames.to(L._dtype(cfg.compute_dtype))
+    kw = dict(positions=torch.arange(x.shape[1], device=x.device)[None, :],
+              layer_is_local=False, causal=False)
+    for bp in params.enc_blocks:
+        if remat != "none":
+            x = _checkpointed(remat, _apply_dense_block, bp, x, enc_cfg,
+                              **kw)[0]
+        else:
+            x = _apply_dense_block(bp, x, enc_cfg, **kw)[0]
+    return L.apply_norm(params.enc_norm, x, cfg)
+
+
+def _cross_kv(p: L.Params, enc_out, cfg: ModelConfig):
+    """The encoder output projected to one layer's cross-attention K and V,
+    (B, G, enc_seq, hd) in the compute dtype (once a request: a prefill
+    caches them)."""
+    a = cfg.attention
+    cdt = L._dtype(cfg.compute_dtype)
+    B, T, d = enc_out.shape
+    e = enc_out.to(cdt)
+
+    def proj(w):
+        return (e @ w.to(cdt).reshape(d, a.n_kv_heads * a.head_dim)).reshape(
+            B, T, a.n_kv_heads, a.head_dim).transpose(1, 2)
+
+    return proj(p["wk"]), proj(p["wv"])
+
+
+def _cross_attention(p: L.Params, x, k, v, cfg: ModelConfig, *,
+                     flash: bool = False):
+    """Unmasked GQA attention of the decoder's (B, S, D) ``x`` over the
+    encoder's K and V (B, G, enc_seq, hd), read in the compute dtype.  The
+    plain form is the JAX package's step for step: scores multiplied in
+    the compute dtype, cast to float32 and divided by sqrt(hd), softmax,
+    probabilities cast back before the product with v.  ``flash``: the
+    scores and the softmax run through ``kernels.ops.flash_attention``
+    with ``causal=False`` (float32 scores and probabilities in the
+    kernel)."""
+    from repro_torch.kernels import ops
+
+    a = cfg.attention
+    cdt = L._dtype(cfg.compute_dtype)
+    B, S, d = x.shape
+    G, hd = a.n_kv_heads, a.head_dim
+    rep = a.n_heads // G
+    q = (x.to(cdt) @ p["wq"].to(cdt).reshape(d, a.n_heads * hd)).reshape(
+        B, S, a.n_heads, hd).transpose(1, 2)
+    k, v = k.to(cdt), v.to(cdt)
+    T = k.shape[2]
+    if flash:
+        ctx = ops.flash_attention(
+            q.reshape(B * G, rep, S, hd), k.reshape(B * G, T, hd),
+            v.reshape(B * G, T, hd), scale=1.0 / math.sqrt(hd), causal=False)
+    else:
+        s = torch.einsum("bgrsk,bgtk->bgrst", q.reshape(B, G, rep, S, hd),
+                         k).float()
+        probs = torch.softmax(div(s, math.sqrt(hd)), dim=-1).to(cdt)
+        ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v)
+    ctx = ctx.reshape(B, a.n_heads, S, hd)
+    out = torch.einsum("bhsk,hkd->bsd", ctx, p["wo"].to(cdt))
+    return out.to(x.dtype)
+
+
+def _decoder_layer(bp: DenseBlock, cp: CrossBlock, x, cfg: ModelConfig, *,
+                   positions, enc_out=None, cross=None, flash=False,
+                   kv_cache=None, cache_index=None, layer_index=None):
+    """One decoder layer: causal self-attention, cross-attention over the
+    encoder (its K/V projected from ``enc_out``, or the cached ``cross``
+    pair), the MLP, each behind its norm, as the JAX layer (no post-block
+    norms: :func:`_require_ported` refuses them for encdec).  Returns (x,
+    cross K, cross V)."""
+    h = L.apply_norm(bp.attn_norm, x, cfg)
+    attn_out, _ = L.multi_head_attention(
+        bp.attn, h, cfg, positions=positions, cache=kv_cache,
+        cache_index=cache_index, layer_index=layer_index)
+    x = x + attn_out
+    h = L.apply_norm(cp.norm, x, cfg)
+    ck, cv = cross if cross is not None else _cross_kv(cp.attn, enc_out, cfg)
+    x = x + _cross_attention(cp.attn, h, ck, cv, cfg, flash=flash)
+    h = L.apply_norm(bp.mlp_norm, x, cfg)
+    return x + L.apply_mlp(bp.mlp, h, cfg), ck, cv
+
+
+def _decoder_stack(params: EncDecLM, x, cfg: ModelConfig, *, positions,
+                   enc_out=None, cache: Optional[Cache] = None,
+                   cache_index: int = 0):
+    """Whisper's decoder in its three forms.  Training (no cache): each
+    layer projects the cross K/V from ``enc_out`` and is recomputed in
+    the backward as ``cfg.remat`` says.  Prefill (a cache and
+    ``enc_out``): the same, with each layer's self K/V written into the
+    stacked cache in place and its cross K/V copied into ``cross_k`` /
+    ``cross_v`` (rounded to the cache's dtype; this call's cross-attention
+    uses the unrounded projection, as the JAX prefill does).  Decode (a
+    cache and no ``enc_out``): the cross-attention reads the cached K/V
+    through the cache's dtype.  Outside decode, with the kernel knob on,
+    the cross-attention runs through the flash kernel (``causal=False``)
+    wherever the self-attention's route takes the dtype and head_dim."""
+    decode = enc_out is None
+    remat = _remat(cfg) if cache is None else "none"
+    flash = not decode and L.flash_route(cfg, q_offset=0, seq=x.shape[1],
+                                         layer_is_local=False)
+    for i, (bp, cp) in enumerate(zip(params.blocks, params.cross)):
+        kw = dict(positions=positions, enc_out=enc_out, flash=flash)
+        if remat != "none":
+            x = _checkpointed(remat, _decoder_layer, bp, cp, x, cfg, **kw)[0]
+            continue
+        cross = (cache["cross_k"][i], cache["cross_v"][i]) if decode \
+            else None
+        x, ck, cv = _decoder_layer(
+            bp, cp, x, cfg, cross=cross,
+            kv_cache=None if cache is None else cache["kv"],
+            cache_index=cache_index,
+            layer_index=None if cache is None else i, **kw)
+        if cache is not None and not decode:
+            cache["cross_k"][i].copy_(ck)
+            cache["cross_v"][i].copy_(cv)
+    return x
+
+
 # --------------------------------------------------------------------------- #
 # Public API
 # --------------------------------------------------------------------------- #
@@ -478,13 +672,17 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
     layers, without a cache and in a decode step (empty for a prefill and
     for the other families).
 
-    batch: {'tokens': (B, S) integer; dense, moe, hybrid: optional
-    'positions', (B, S) or, for M-RoPE, (B, 3, S)}.  Without positions
-    they count from the cache's index (0 without a cache); an M-RoPE model
-    given (B, S) positions runs three equal streams (text).  With
-    ``cache`` the call is a serving step writing at ``cache['index']``;
-    ``last_only`` computes logits for the final position only (prefill --
-    avoids a (B, S, V) tensor).
+    batch: {'tokens': (B, S) integer; dense, moe, hybrid, encdec: optional
+    'positions', (B, S) or, for M-RoPE, (B, 3, S); encdec: 'frames' (B,
+    enc_seq, d_model), the stub frontend's frame embeddings}.  Without
+    positions they count from the cache's index (0 without a cache); an
+    M-RoPE model given (B, S) positions runs three equal streams (text).
+    With ``cache`` the call is a serving step writing at
+    ``cache['index']``; for encdec a step with 'frames' is the prefill (the
+    encoder runs and its cross K/V are cached) and one without is a decode
+    step over the cached cross K/V, whatever its length; without a cache
+    'frames' are required.  ``last_only`` computes logits for the final
+    position only (prefill -- avoids a (B, S, V) tensor).
     """
     _require_ported(cfg)
     tokens = batch["tokens"]
@@ -517,6 +715,19 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
         if cache is not None:
             new_cache = {"ssm": new_ssm, "kv": new_kv,
                          "index": cache_index + tokens.shape[1]}
+    elif cfg.family == "encdec":
+        frames = batch.get("frames")
+        if frames is None and cache is None:
+            raise ValueError("an encdec forward without a cache needs "
+                             "batch['frames'] (B, enc_seq, d_model)")
+        enc_out = None if frames is None else _encoder(
+            params, frames, cfg, remat=_remat(cfg) if cache is None
+            else "none")
+        x = _decoder_stack(params, x, cfg, positions=positions,
+                           enc_out=enc_out, cache=cache,
+                           cache_index=cache_index)
+        if cache is not None:
+            new_cache = dict(cache, index=cache_index + tokens.shape[1])
     else:
         ssm_c = cache["ssm"] if cache is not None else None
         x, new_ssm = _ssm_stack(params, x, cfg, ssm_cache=ssm_c,
@@ -550,22 +761,29 @@ def loss_fn(params: LM, batch: Mapping[str, torch.Tensor],
     return total, {"loss": total, "ce": ce, **aux}
 
 
-def _batch(tokens: torch.Tensor,
-           positions: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _batch(tokens: torch.Tensor, positions: Optional[torch.Tensor],
+           frames: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     batch = {"tokens": tokens}
     if positions is not None:
         batch["positions"] = positions
+    if frames is not None:
+        batch["frames"] = frames
     return batch
 
 
 def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
-            max_seq: int, *, positions: Optional[torch.Tensor] = None,
+            max_seq: int, *, frames: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Cache]:
-    """Run the prompt through the model, returning (last_logits, cache)."""
+    """Run the prompt (encdec: and the ``frames`` through the encoder)
+    through the model, returning (last_logits, cache)."""
+    if cfg.family == "encdec" and frames is None:
+        raise ValueError("an encdec prefill needs frames (B, enc_seq, "
+                         "d_model)")
     cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                        device=tokens.device)
-    logits, cache, _ = forward(params, _batch(tokens, positions), cfg,
-                               cache=cache, last_only=True)
+    logits, cache, _ = forward(params, _batch(tokens, positions, frames),
+                               cfg, cache=cache, last_only=True)
     return logits, cache
 
 
@@ -596,20 +814,26 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 def reference_state(params_np: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The JAX ``init_params`` pytree flattened to the port's parameter
-    names (layer-stacked leaves split per layer; the hybrid's ``shared``
-    leaves, one block, under ``shared.<part>.<leaf>``; a non-parametric
-    norm's empty dict gives no name)."""
+    names (layer-stacked leaves split per layer: ``blocks`` and, encdec,
+    ``enc_blocks`` and ``cross``; the hybrid's ``shared`` leaves, one
+    block, under ``shared.<part>.<leaf>``; a non-parametric norm's empty
+    dict gives no name)."""
     _require_ported(cfg)
-    out = {f"{part}.{k}": v for part in ("embed", "final_norm")
+    flat, stacks = ("embed", "final_norm"), {"blocks": cfg.n_layers}
+    if cfg.family == "encdec":
+        flat += ("enc_norm",)
+        stacks.update(enc_blocks=cfg.n_enc_layers, cross=cfg.n_layers)
+    out = {f"{part}.{k}": v for part in flat
            for k, v in params_np[part].items()}
     if cfg.family == "hybrid":
         out.update({f"shared.{part}.{k}": v
                     for part, leaves in params_np["shared"].items()
                     for k, v in leaves.items()})
-    for part, leaves in params_np["blocks"].items():
-        for k, v in leaves.items():
-            for i in range(cfg.n_layers):
-                out[f"blocks.{i}.{part}.{k}"] = v[i]
+    for name, n in stacks.items():
+        for part, leaves in params_np[name].items():
+            for k, v in leaves.items():
+                for i in range(n):
+                    out[f"{name}.{i}.{part}.{k}"] = v[i]
     return out
 
 

@@ -6,7 +6,9 @@ against the cache (the SSM state, or the dense family's KV cache, which
 is written in place).  A batch holds 'tokens' and, for an M-RoPE model
 (qwen2-vl), optionally 'positions' of (B, 3, S) (prefill) or (B, 3, 1)
 (decode), as ``configs.specs.input_specs`` gives them; without them the
-positions count from the cache's index.  The steps run eagerly under
+positions count from the cache's index.  An encdec (whisper) prefill
+batch also holds 'frames' (B, enc_seq, d_model): the encoder runs once
+there and its cross K/V go into the cache, which the decode steps read.  The steps run eagerly under
 ``torch.inference_mode``; there is no ``jit`` to build.  A dense cache
 made by these steps is an inference tensor: continue it with these steps
 (or under ``torch.inference_mode``), since PyTorch refuses an in-place
@@ -26,7 +28,7 @@ from repro_torch.models.model import (LM, decode_step, forward, init_cache,
 def make_prefill_step(cfg: ModelConfig, max_seq: int,
                       cache_dtype=torch.bfloat16) -> Callable:
     """(params, batch) -> (last_logits, cache).  batch: {'tokens': (B, S)},
-    optionally 'positions'."""
+    optionally 'positions'; encdec: 'frames' (B, enc_seq, d_model)."""
 
     @torch.inference_mode()
     def prefill_step(params: LM, batch: Dict[str, torch.Tensor]):
@@ -55,13 +57,11 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
 def greedy_generate(params: LM, cfg: ModelConfig, prompt: torch.Tensor,
                     n_steps: int, max_seq: Optional[int] = None,
                     frames: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Simple greedy decoding loop: (B, S) prompt -> (B, n_steps) tokens."""
-    if frames is not None:
-        raise NotImplementedError("frames (the encdec family) are not "
-                                  "ported yet (ROADMAP Queue 1)")
+    """Simple greedy decoding loop: (B, S) prompt -> (B, n_steps) tokens
+    (encdec: after the encoder's pass over ``frames``)."""
     B, S = prompt.shape
     max_seq = max_seq or (S + n_steps)
-    logits, cache = prefill(params, prompt, cfg, max_seq)
+    logits, cache = prefill(params, prompt, cfg, max_seq, frames=frames)
     out = [torch.argmax(logits[:, -1], dim=-1)]
     for _ in range(n_steps - 1):
         logits, cache = decode_step(params, cache, out[-1][:, None], cfg)

@@ -9,11 +9,14 @@ parameters (an ``nn.Module``, ``requires_grad``) and the optimizer state
 are updated in place and returned; a caller that needs the old state keeps
 a :meth:`TrainState.clone`.
 
-The ssm, dense, moe and hybrid families train.  Neither hand-written
-kernel of their serving paths has a backward, in the JAX package or here:
-training runs the SSD through ``ssd_chunked`` and attention through
-``_attention_core`` under autograd (as the JAX package trains attention),
-so a config with ``use_flash_kernel=True`` is refused.  A moe step
+Every family trains: ssm, dense, moe, hybrid and encdec.  Neither
+hand-written kernel of their serving paths has a backward, in the JAX
+package or here: training runs the SSD through ``ssd_chunked`` and
+attention through ``_attention_core`` (encdec: its cross-attention
+through the plain form) under autograd, as the JAX package trains them,
+so a config with ``use_flash_kernel=True`` is refused.  An encdec batch
+carries 'frames' (B, enc_seq, d_model) beside the tokens and labels; the
+microbatch split slices every entry along the batch, frames too.  A moe step
 averages the blocks' ``moe_aux_loss`` and ``moe_dropped_frac`` over the
 microbatches with the loss.  ``grad_constraint`` and
 ``zero1_grads_in_scan`` (the ZeRO-1 sharding of the gradients) wait for
@@ -77,8 +80,7 @@ class TrainState(NamedTuple):
 
 
 def require_trainable_family(cfg: ModelConfig) -> None:
-    """Training is ported for every ported family (ssm, dense, moe and
-    hybrid); the others raise naming their ROADMAP item."""
+    """Training is ported for every family; an unknown one raises."""
     M._require_ported(cfg)
 
 
@@ -89,6 +91,9 @@ def serving_kernel(cfg: ModelConfig) -> Tuple[str, str]:
     if cfg.family in M.ATTENTION_FAMILIES:
         return ("the flash-attention kernel has no backward",
                 "_attention_core")
+    if cfg.family == "encdec":
+        return ("the flash-attention kernel has no backward",
+                "_attention_core and the plain cross-attention")
     if cfg.family == "hybrid":
         return ("the SSD kernel and the flash-attention kernel have no "
                 "backward", "ssd_chunked and _attention_core")
@@ -152,9 +157,15 @@ def _zero_metrics(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
 
 
 def _to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                               else v).to(device=device, dtype=torch.long)
-            for k, v in batch.items()}
+    """The batch as tensors on ``device``: the integer entries (tokens,
+    labels, positions) as int64, the encdec 'frames' in their own floating
+    dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = v if torch.is_tensor(v) else M._tensor(np.asarray(v))
+        out[k] = t.to(device=device, dtype=t.dtype if t.is_floating_point()
+                      else torch.long)
+    return out
 
 
 def compute_grads(params: M.LM, batch: Mapping[str, torch.Tensor],
@@ -182,7 +193,8 @@ def make_train_step(
 ) -> Callable[[TrainState, Mapping[str, Any]],
               Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step.  ``batch``: ``{'tokens', 'labels'}`` (B, S)
-    integer arrays or tensors, moved to the parameters' device."""
+    integer arrays or tensors (encdec: and 'frames' (B, enc_seq,
+    d_model)), moved to the parameters' device."""
     require_trainable(cfg)
     if grad_constraint is not None or zero1_grads_in_scan:
         raise NotImplementedError(

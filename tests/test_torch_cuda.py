@@ -870,7 +870,7 @@ def _flash_layers(cfg, prompt: int) -> int:
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
-    return sum(L.flash_route(cfg, causal=True, q_offset=0, seq=prompt,
+    return sum(L.flash_route(cfg, q_offset=0, seq=prompt,
                              layer_is_local=M._layer_is_local_static(cfg, i))
                for i in range(cfg.n_layers))
 
@@ -1319,6 +1319,177 @@ def test_hybrid_backward_is_deterministic_and_remat_free_on_card():
     cfg = _hybrid_cfg()
     state = init_train_state(0, cfg, "cuda")
     batch = _to_device(_dense_batch(cfg, 1), "cuda")
+    out = {r: compute_grads(state.params, batch,
+                            cfg.replace(remat=r.split()[0]))[0]
+           for r in ("none", "none again", "full", "dots")}
+    for r in ("none again", "full", "dots"):
+        for k, g in out["none"].items():
+            assert torch.equal(out[r][k], g), (r, k)
+
+
+# --------------------------------------------------------------------------- #
+# The encdec family (whisper)
+# --------------------------------------------------------------------------- #
+
+ENCDEC = "whisper-large-v3"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bg,r,sq,skv,d,dtype", [
+    (4, 1, 1500, 1500, 64, torch.bfloat16),   # whisper's encoder
+    (4, 1, 128, 1500, 64, torch.bfloat16),    # its cross-attention
+    (3, 2, 37, 150, 16, torch.float32),       # SIMT, off the grid
+    (3, 2, 150, 37, 16, torch.float32),       # Sq > Skv: every row sees all
+])
+def test_flash_kernel_unmasked_at_whispers_shapes_on_card(bg, r, sq, skv, d,
+                                                          dtype):
+    """The kernel's non-causal route: every key visible to every row,
+    whatever Sq and Skv (1,500 keys: 11 full tiles of 128 and one of 92,
+    whose columns past Skv must still be masked), within A1's tolerance
+    of its plain version, bf16 also within 1e-2 relative RMS; no row is
+    zero.  bf16 over 1,500 keys: the same check rejects the fault most
+    likely there, the last tile's 36 zero-filled keys left visible (the
+    plain attention over 1,536 keys, the padded ones zero)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(bg, r, sq, skv, d, dtype, 43)
+    before = FA.LAUNCHES
+    out = FA.flash_attention(q, k, v, scale=d ** -0.5, causal=False)
+    want = FA.flash_attention_plain(q, k, v, scale=d ** -0.5, causal=False)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert bool((out.float().abs().amax(-1) > 0).all())
+    if dtype == torch.bfloat16:
+        def rel_rms(a):
+            return float((a.float() - want.float()).square().mean().sqrt()
+                         / want.float().square().mean().sqrt())
+
+        assert rel_rms(out) <= 1e-2
+        pad = -skv % 128
+        planted = FA.flash_attention_plain(
+            q, torch.nn.functional.pad(k, (0, 0, 0, pad)),
+            torch.nn.functional.pad(v, (0, 0, 0, pad)), scale=d ** -0.5,
+            causal=False)
+        assert rel_rms(planted) > 1e-2
+    # the causal call on the same inputs differs: the mask matters here
+    causal = FA.flash_attention_plain(q, k, v, scale=d ** -0.5, causal=True)
+    assert not torch.allclose(causal.float(), want.float(), rtol=tol,
+                              atol=tol)
+
+
+def _encdec_cfg(**change):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(ENCDEC).replace(param_dtype="float32",
+                                            compute_dtype="float32", **change)
+
+
+def _encdec_batch(cfg, step: int = 0):
+    batch = _dense_batch(cfg, step)
+    g = torch.Generator().manual_seed(50 + step)
+    batch["frames"] = torch.randn((4, cfg.enc_seq, cfg.d_model),
+                                  generator=g).numpy()
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prompt", [8, 13])
+def test_encdec_smoke_card_equals_cpu(prompt):
+    """E1's serving check: whisper SMOKE in float32 with the kernel on
+    (the SIMT kernel at head_dim 16, unmasked in the encoder and the
+    cross-attention), from the same CPU-drawn weights and frames, prefill
+    and 4 teacher-forced decode steps, the card against the CPU: logits,
+    self K/V and cross K/V within 1e-4; 6 flash launches a prefill (2
+    encoder, 2 self, 2 cross), none in decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = _encdec_cfg(use_flash_kernel=True)
+    g = torch.Generator().manual_seed(14)
+    toks = torch.randint(0, cfg.vocab, (2, prompt + 4), generator=g)
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = init_params(0, cfg, device=dev)
+        t = toks.to(dev)
+        fa = FA.LAUNCHES_BY_ROUTE["simt"]
+        with torch.inference_mode():
+            logits, cache = prefill(m, t[:, :prompt], cfg, prompt + 4,
+                                    frames=frames.to(dev),
+                                    cache_dtype=torch.float32)
+            n_pre = FA.LAUNCHES_BY_ROUTE["simt"] - fa
+            logs = [logits]
+            for i in range(4):
+                logits, cache = decode_step(m, cache,
+                                            t[:, prompt + i:][:, :1], cfg)
+                logs.append(logits)
+        want = 2 * cfg.n_layers + cfg.n_enc_layers if dev == "cuda" else 0
+        assert n_pre == FA.LAUNCHES_BY_ROUTE["simt"] - fa == want
+        out[dev] = (logs, cache)
+    (lg, cg), (lc, cc) = out["cuda"], out["cpu"]
+    for a, b in zip(lg, lc):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    for a, b in ((cg["kv"]["k"], cc["kv"]["k"]), (cg["kv"]["v"], cc["kv"]["v"]),
+                 (cg["cross_k"], cc["cross_k"]),
+                 (cg["cross_v"], cc["cross_v"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_encdec_smoke_train_step_card_equals_cpu():
+    """One float32 SMOKE train step on a batch with frames, from the same
+    seeded weights on the card and the CPU, held as the dense configs'
+    are (T2's rule)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state, make_train_step)
+
+    cfg = _encdec_cfg()
+    batch = _encdec_batch(cfg)
+    states = {dev: init_train_state(0, cfg, dev) for dev in ("cuda", "cpu")}
+    grads = {dev: compute_grads(st.params, _to_device(batch, dev), cfg)[0]
+             for dev, st in states.items()}
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k].cpu(), g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()) + 1e-6)
+    lr = 1e-3
+    out = {dev: make_train_step(cfg, AdamWConfig(lr=lr), constant(1.0),
+                                n_microbatches=2)(st, batch)
+           for dev, st in states.items()}
+    loss = {dev: float(m["loss"]) for dev, (_, m) in out.items()}
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-5 * abs(loss["cpu"])
+    n_tiny = 0
+    for k, w in out["cpu"][0].opt.master.items():
+        d = (out["cuda"][0].opt.master[k].cpu() - w).abs()
+        tiny = (grads["cpu"][k].abs() < 1e-6) & (grads["cpu"][k] != 0)
+        n_tiny += int(tiny.sum())
+        assert bool((d[~tiny] <= 1e-5 * w.abs()[~tiny] + 1e-6).all()), k
+        assert bool((d[tiny] <= 0.05 * lr).all()), k
+    assert n_tiny < 1e-2 * sum(g.numel() for g in grads["cpu"].values())
+
+
+@pytest.mark.cuda
+def test_encdec_backward_is_deterministic_and_remat_free_on_card():
+    """On the card the backward run twice gives the same gradients bit for
+    bit, and remat 'full' and 'dots' (each encoder block and decoder layer
+    recomputed) give those of 'none'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state)
+
+    cfg = _encdec_cfg()
+    state = init_train_state(0, cfg, "cuda")
+    batch = _to_device(_encdec_batch(cfg, 1), "cuda")
     out = {r: compute_grads(state.params, batch,
                             cfg.replace(remat=r.split()[0]))[0]
            for r in ("none", "none again", "full", "dots")}

@@ -378,30 +378,38 @@ def test_embedding_scaling_follows_the_norm():
                1e-6)
 
 
-# The family not ported yet; the layer options these cases once listed
-# beside it are ported and held to the JAX package in
-# tests/test_torch_variants.py, the moe family in tests/test_torch_moe.py,
-# the hybrid family in tests/test_torch_hybrid.py.  The id stays the one
-# the case had.
+# The encdec family, once refused here, builds from a dense config: the
+# case keeps its id (the layer options the list once held are ported and
+# held to the JAX package in tests/test_torch_variants.py, the moe family
+# in tests/test_torch_moe.py, the hybrid family in
+# tests/test_torch_hybrid.py, the encdec family in
+# tests/test_torch_encdec.py).
 @pytest.mark.parametrize("change", [
-    pytest.param(dict(family="encdec"), id="change10"),
+    pytest.param(dict(family="encdec", n_enc_layers=2, enc_seq=16),
+                 id="change10"),
 ])
-def test_unported_options_raise(change):
+def test_encdec_family_builds_from_the_dense_config(change):
     cfg = T_cfg.get_smoke_config(ARCH).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        T_models.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        T_models.init_cache(cfg, 1, 8, device="cpu")
+    model = T_models.init_params(0, cfg, device="cpu")
+    assert isinstance(model, T_models.EncDecLM)
+    assert len(model.enc_blocks) == 2 and len(model.cross) == cfg.n_layers
+    cache = T_models.init_cache(cfg, 1, 8, device="cpu")
+    a = cfg.attention
+    assert tuple(cache["cross_k"].shape) == (cfg.n_layers, 1, a.n_kv_heads,
+                                             16, a.head_dim)
+    assert tuple(cache["kv"]["k"].shape) == (cfg.n_layers, 1, a.n_kv_heads,
+                                             8, a.head_dim)
 
 
-@pytest.mark.parametrize("family,item", [("encdec", "9.6")])
-def test_training_refuses_the_unported_families(family, item):
-    cfg = T_cfg.get_smoke_config(ARCH).replace(family=family)
-    for refuse in (lambda: T_train.init_train_state(0, cfg, device="cpu"),
-                   lambda: T_train.require_trainable(cfg)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            refuse()
+@pytest.mark.parametrize("family", ["encdec"])
+def test_training_takes_the_encdec_family(family):
+    cfg = T_cfg.get_smoke_config(ARCH).replace(family=family, n_enc_layers=1,
+                                               enc_seq=8)
+    state = T_train.init_train_state(0, cfg, device="cpu")
+    assert isinstance(state.params, T_models.EncDecLM)
+    T_train.require_trainable(cfg)
+    assert set(state.opt.master) == {k for k, _
+                                     in state.params.named_parameters()}
 
 
 def test_dense_training_refuses_the_flash_kernel(capsys):
@@ -413,7 +421,8 @@ def test_dense_training_refuses_the_flash_kernel(capsys):
     assert not T_launch_train.training_config(
         T_cfg.get_config(ARCH)).use_flash_kernel
     assert "flash-attention kernel has no backward" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9.6"):
+    # the encdec arch needs frames, which SyntheticLM does not make
+    with pytest.raises(ValueError, match="needs batch\\['frames'\\]"):
         T_launch_train.main(["--arch", "whisper-large-v3", "--smoke",
                              "--device", "cpu", "--steps", "1"])
 

@@ -117,15 +117,20 @@ def test_prefill_of_prompt_off_the_chunk_grid_pads_for_the_kernel():
     _close(lt, lr, 1e-4)
 
 
-# What the port still lacks (the norms, an untied head and the logit
-# softcap, which stood here once, are ported: tests/test_torch_variants.py;
-# the moe family: tests/test_torch_moe.py; float16: below).
+# The layer options once refused here are ported (the norms, an untied
+# head and the logit softcap: tests/test_torch_variants.py; the moe
+# family: tests/test_torch_moe.py; float16: below; the audio frontend and
+# the encdec family: tests/test_torch_encdec.py): the same calls build.
 @pytest.mark.parametrize("change", [dict(frontend="audio_frames"),
-                                    dict(family="encdec")])
-def test_unported_layer_options_raise(change):
+                                    dict(family="encdec", n_enc_layers=1,
+                                         enc_seq=8, d_ff=128)])
+def test_audio_frontend_and_encdec_family_build(change):
     cfg = T_cfg.get_smoke_config(ARCH).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        T_models.init_params(0, cfg, device="cpu")
+    model = T_models.init_params(0, cfg, device="cpu")
+    assert isinstance(model, T_models.EncDecLM if cfg.family == "encdec"
+                      else T_models.Mamba2LM)
+    with pytest.raises(ValueError, match="unknown frontend"):
+        T_models.init_params(0, cfg.replace(frontend="video"), device="cpu")
 
 
 @pytest.mark.parametrize("kernel", [True, False])
@@ -142,7 +147,7 @@ def test_float16_forward_matches_reference(arch, kernel):
     rcfg = R_cfg.get_smoke_config(arch).replace(**kw)
     tcfg = T_cfg.get_smoke_config(arch).replace(use_flash_kernel=kernel,
                                                 **kw)
-    assert not T_layers.flash_route(tcfg, causal=True, q_offset=0, seq=32,
+    assert not T_layers.flash_route(tcfg, q_offset=0, seq=32,
                                     layer_is_local=False)
     params = _np_tree(R_models.init_params(jax.random.key(2), rcfg))
     model = T_models.from_reference(params, tcfg, device="cpu")
@@ -239,9 +244,9 @@ def test_configs_match_reference_but_for_the_kernel_knob():
     assert T_cfg.ARCH_IDS == R_cfg.ARCH_IDS
     with pytest.raises(KeyError, match="unknown arch"):
         T_cfg.get_config("mamba3-130m")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T_models.init_params(0, T_cfg.get_smoke_config(ARCH).replace(
-            family="encdec"), device="cpu")
+    assert isinstance(T_models.init_params(
+        0, T_cfg.get_smoke_config("whisper-large-v3"), device="cpu"),
+        T_models.EncDecLM)
 
 
 def test_entry_points_default_to_cuda():

@@ -21,11 +21,11 @@ across by ``from_reference``:
   identical K/V, a decode step over one cache, the prefill's codes;
 * the registry: all ten configs field for field but for
   ``use_flash_kernel``, the (arch x shape) cells, the input stand-ins,
-  ``params_struct`` of the nine ported-family configs at full size (both
-  abstract: no weights allocated; the moe configs' float32 routers and the
-  parameter counts of gemma2, the moe configs and zamba2, whose shared
-  block is one unstacked subtree) and ``cache_struct``; the encdec family
-  raises with its ROADMAP item;
+  ``params_struct`` of all ten configs at full size (both abstract: no
+  weights allocated; the moe configs' float32 routers and the parameter
+  counts of gemma2, the moe configs, zamba2, whose shared block is one
+  unstacked subtree, and whisper, whose ``enc_blocks`` and ``cross`` are
+  stacked) and ``cache_struct``; every family of the registry is ported;
 * seeded draws: a seed still gives the CPU's draws bit for bit.
 
 The JAX serving functions run jitted, as the JAX package's entry point
@@ -60,8 +60,8 @@ from repro_torch.serve import step as T_step
 ARCHS = ("gemma2-27b", "stablelm-1.6b", "starcoder2-3b", "qwen2-vl-7b")
 PORTED = ("mamba2-130m", "olmo-1b") + ARCHS + ("olmoe-1b-7b",
                                                 "deepseek-moe-16b",
-                                                "zamba2-7b")
-UNPORTED = {"whisper-large-v3": "9.6"}
+                                                "zamba2-7b",
+                                                "whisper-large-v3")
 BATCH, N_DECODE = 2, 8
 TOLS = {"float32": 1e-4, "bfloat16": 5e-2}
 QUANT_TOL = 0.15       # tests/test_kv_quant.py: int8 K/V against the full forward
@@ -538,15 +538,19 @@ def test_input_specs_match_reference(arch):
                             T_cfg.ShapeConfig("x", 8, 1, "score"))
 
 
-def _flat_struct(tree, n_layers: int) -> dict:
+def _flat_struct(tree, n_layers: int, n_enc_layers: int = 0) -> dict:
     """The JAX pytree of ShapeDtypeStructs under the port's parameter names
-    (layer-stacked leaves split per layer): name -> (shape, dtype name)."""
+    (layer-stacked leaves split per layer: ``blocks`` and ``cross`` by
+    ``n_layers``, ``enc_blocks`` by ``n_enc_layers``): name -> (shape,
+    dtype name)."""
+    stacked = {"blocks": n_layers, "cross": n_layers,
+               "enc_blocks": n_enc_layers}
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         keys = [p.key for p in path]
-        if keys[0] == "blocks":
-            for i in range(n_layers):
-                name = ".".join(["blocks", str(i)] + keys[1:])
+        if keys[0] in stacked:
+            for i in range(stacked[keys[0]]):
+                name = ".".join([keys[0], str(i)] + keys[1:])
                 out[name] = (leaf.shape[1:], leaf.dtype.name)
         else:
             out[".".join(keys)] = (leaf.shape, leaf.dtype.name)
@@ -558,7 +562,8 @@ def test_params_struct_matches_reference(arch):
     """The full config, abstractly on both sides (jax.eval_shape; the meta
     device): every parameter's name, shape and dtype."""
     rcfg, tcfg = R_cfg.get_config(arch), T_cfg.get_config(arch)
-    want = _flat_struct(R_cfg.params_struct(rcfg), rcfg.n_layers)
+    want = _flat_struct(R_cfg.params_struct(rcfg), rcfg.n_layers,
+                        rcfg.n_enc_layers)
     model = T_cfg.params_struct(tcfg)
     got = {k: (tuple(p.shape), str(p.dtype).split(".")[-1])
            for k, p in model.named_parameters()}
@@ -567,7 +572,8 @@ def test_params_struct_matches_reference(arch):
     n = sum(p.numel() for p in model.parameters())
     want_n = {"gemma2-27b": 27_227_128_320, "olmoe-1b-7b": 6_919_096_320,
               "deepseek-moe-16b": 16_879_568_896,
-              "zamba2-7b": 6_636_442_832}
+              "zamba2-7b": 6_636_442_832,
+              "whisper-large-v3": 1_534_809_600}
     if arch in want_n:
         assert n == want_n[arch]
     if tcfg.family == "hybrid":     # the 12-layer depth cut keeps 2 uses
@@ -576,6 +582,11 @@ def test_params_struct_matches_reference(arch):
         assert got["shared.attn.wq"] == ((3584, 32, 112), "bfloat16")
     if tcfg.family == "moe":
         assert got["blocks.0.moe.router"][1] == "float32"
+    if tcfg.family == "encdec":     # the 16 + 16 training cut
+        cut = T_cfg.params_struct(tcfg.replace(n_layers=16, n_enc_layers=16))
+        assert sum(p.numel() for p in cut.parameters()) == 800_601_600
+        assert len(list(cut.parameters())) == 421
+        assert got["cross.31.attn.wk"] == ((1280, 20, 64), "bfloat16")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -597,20 +608,22 @@ def test_cache_struct_matches_reference(arch):
             assert str(t.dtype).split(".")[-1] == leaf.dtype.name, keys
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise_with_their_item(arch):
+def test_every_family_of_the_registry_is_ported():
+    """Nothing is left unported: every arch's family builds, caches and
+    serves (whisper-large-v3, the last, since the encdec family)."""
+    assert set(PORTED) == set(R_cfg.ARCH_IDS)
+    assert {T_cfg.get_config(a).family for a in R_cfg.ARCH_IDS} == set(
+        T_model.FAMILIES)
+    arch = "whisper-large-v3"
     cfg = T_cfg.get_smoke_config(arch)
-    match = f"ROADMAP Queue 1 item {UNPORTED[arch]}"
-    with pytest.raises(NotImplementedError, match=match):
-        T_models.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        T_models.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        T_cfg.params_struct(T_cfg.get_config(arch))
-    with pytest.raises(NotImplementedError, match=match):
-        T_cfg.cache_struct(T_cfg.get_config(arch), 1, 8)
-    with pytest.raises(NotImplementedError, match=match):
-        T_launch.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    assert isinstance(T_models.init_params(0, cfg, device="cpu"),
+                      T_models.EncDecLM)
+    assert T_models.init_cache(cfg, 1, 8, device="cpu")["index"] == 0
+    assert isinstance(T_cfg.params_struct(T_cfg.get_config(arch)),
+                      T_models.EncDecLM)
+    assert T_cfg.cache_struct(T_cfg.get_config(arch), 1, 8)[
+        "cross_k"].device.type == "meta"
+    T_launch.main(["--arch", arch, "--smoke", "--device", "cpu"])
 
 
 # --------------------------------------------------------------------------- #
