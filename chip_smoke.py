@@ -5,6 +5,7 @@
     python3 chip_smoke.py --moe      # build + the moe phases (M1-M5)
     python3 chip_smoke.py --hybrid   # build + the hybrid phases (H1-H5)
     python3 chip_smoke.py --encdec   # build + the encdec phases (E1-E5)
+    python3 chip_smoke.py --shard    # build + cell sharding and ZeRO-1 (C1-Z2)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
@@ -31,7 +32,8 @@ Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 G1. across devices, the per-peer estimator form: a mixed batch (gossip
    at fanout 1, 3 and 8 with k = 2, 8, 16 and 32, isolated, pooled, fixed,
    oracle, a heterogeneous mix, a shock, a store cell, a class-pooled cell;
-   macro-stepping on) through the plain step on the card against the CPU
+   2 h of work a cell; macro-stepping on) through the plain step on the
+   card against the CPU
    with parity draws -- counts exact, floats within 1e-9 relative, no
    sim_step launch; and the Philox per-peer observation rows made on the
    card against those made on the CPU, bit for bit;
@@ -138,7 +140,8 @@ S4. the same parameters and prompt with ``use_flash_kernel=False`` (the
    the FP64 instruction rate, Philox's 32-bit integer operations at the
    INT32 rate; the pre-generated route's bound beside it); run_cells'
    host stages; G3's three sweep batches the same way (run_cells with the
-   kernel against the plain step, every field equal; a 256-step chunk on
+   kernel against the plain step for at most 1,024 steps, every field
+   equal; a 256-step chunk on
    both routes beside the plain step's and the bound: bytes against the
    step's and Box-Muller's FP64 instructions and Philox's INT32
    operations);
@@ -207,7 +210,7 @@ D3. dense training numbers: warm step seconds, tokens/s and 6 N tokens/s
    both quant kernels at olmo-1b's embedding leaf (103,022,592 float32)
    beside their plain versions, bound and torch.dequantize;
 D4. ``python -m repro_torch.launch.fault_tolerant_training --preset ci
-   --device cuda --steps 20`` as a subprocess: exit 0, every policy line,
+   --device cuda --steps 12`` as a subprocess: exit 0, every policy line,
    ``MATCH``;
 A1. both flash_attention kernels against their plain torch version on
    the card: the kernel each case's route names (bf16 at head_dim 64 and
@@ -374,7 +377,8 @@ H5. main path: zamba2-7b at full width cut to 12 layers (1,255,956,416
    1e-4: finite losses, step seconds, tokens/s, peak; compress_grads
    three times on its gradients (119 quantize + 238 dequantize launches a
    call, |err| within EF_SLACK), both quant kernels bitwise their plain
-   versions on every leaf (the 114,688,000-element embedding among them);
+   versions on every leaf and timed at the 114,688,000-element embedding
+   leaf beside their plain versions, the bound and ``torch.dequantize``;
 E1. across devices, the encdec family: whisper SMOKE in float32 with the
    kernel on (the SIMT flash kernel at head_dim 16, unmasked in the
    encoder and the cross-attention), from the same CPU-drawn weights and
@@ -422,15 +426,40 @@ E5. main path: whisper-large-v3 at full width cut to 16 + 16 layers
    within EF_SLACK), both quant kernels bitwise their plain versions on
    every leaf and timed at the 66,388,480-element embedding leaf beside
    their plain versions, the bound and ``torch.dequantize``;
+C1. main path sharded over a device mesh (``run_cells(mesh=...)``, the
+   sim_step counts at 0 just before C1 and read after C2): the fleet grid
+   at data extents 1, 2, 3 and 4 x cuda:0 (3 pads the batch with
+   born-finished copies), every ``BatchResult`` field and n_steps bitwise
+   the unsharded run's and shards x chunks sim_step launches, the seconds
+   at 1 and 4 shards; Fig. 4 static's 216 cells over 5 shards on the
+   numpy parity route (the pre-generated route), bitwise; G1's per-peer
+   batch over 3 shards, ``step="scan"``, one 64-step chunk, bitwise;
+C2. phase 4's 64 cells on parity draws over a mesh of (cuda:0, cpu),
+   512 steps deep: the card's shard (the kernel) bitwise the unsharded run
+   on the card, the CPU's (the plain step) by phase 4's rule;
+Z1. ZeRO-1 at SMOKE in float32 (olmo, olmoe) on the card: data meshes of
+   2 and 4 x cuda:0 with and without ``zero1_grads_in_scan``, a step the
+   norm does not clip and one it does, against the unsharded step with
+   as many microbatches -- bitwise unclipped, within 1e-6 relative
+   (grad_norm too) clipped; a 4-shard state's checkpoint image equal to
+   the unsharded one's and restored into the pieces; a (cuda:0, cpu) mesh
+   (a replica and half the state on each) by T2's rule;
+Z2. olmo-1b at full width, D2's configuration (clipping off): the
+   unsharded step with 4 microbatches, then 4 x cuda:0 with one
+   microbatch a shard and 2 x cuda:0 x 2 microbatches under
+   ``zero1_grads_in_scan``, each bitwise the unsharded step by per-leaf
+   sha256 of ``tree()`` made on the host; step seconds and peaks beside
+   D3's;
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
    the serving prefills for the tensor-core kernels (the flash kernel's
    by model, the moe, hybrid and encdec models' too; the SSD kernel's by
    model), the float32 SMOKE prefills of S2/A2/V2/M1/H1/E1 for the SIMT
    ones, sim_step's main path and the workflow path's, the quant kernels'
-   by training path (T3, D2, M5, H5, E5) --, error,
+   by training path (T3, D2, M5, H5, E5), sim_step's sharded launches
+   (C1, C2) --, error,
    times, bound; the flash kernel's at the variants' and whisper's
-   shapes, the quant kernels' at the expert and whisper's embedding leaf
-   too), the card's name and power limit, and the final result line.  ``[t]`` lines give the seconds of
+   shapes, the quant kernels' at the expert and zamba2's and whisper's
+   embedding leaves too), the card's name and power limit, and the final result line.  ``[t]`` lines give the seconds of
    each group of phases.
 
 Any failed phase exits non-zero before the result line is printed.
@@ -1099,7 +1128,7 @@ def phase_fleet_measure(run: dict) -> dict:
     torch.cuda.synchronize()
     stages["run_chunks_s"] = time.monotonic() - t
     t = time.monotonic()
-    engine._result(s_run, p_np, steps)
+    engine._result([s_run], p_np, steps)
     stages["result_s"] = time.monotonic() - t
     # One chunk: both routes against the plain step, bitwise; the plain
     # step's count of the cell-steps this data needs sets the bound.
@@ -1262,7 +1291,9 @@ def perpeer_cells():
     mix = PeerClassMix((PeerClass("stable"),
                         PeerClass("volatile", hazard_mult=3.0, speed=0.7,
                                   uplink_mult=0.5)), (0.6, 0.4))
-    kw = dict(work=4 * 3600.0, V=20.0, T_d=50.0, max_wall_time=16 * 3600.0)
+    # 2 h of work a cell (4 h until C1-Z2 needed the time): 1,408 steps
+    # instead of 1,664 -- the censored fixed-interval cell sets the depth
+    kw = dict(work=2 * 3600.0, V=20.0, T_d=50.0, max_wall_time=16 * 3600.0)
     ad = dict(kind="adaptive", prior_mu=1 / 32000.0, prior_v=20.0)
 
     def gossip(fan, period=300.0):
@@ -1620,9 +1651,10 @@ def sweep_bound(p, active: int, fp64_per_step: int,
 
 # Phase 7's G3 comparisons run at most this many steps (the cells still
 # running then are censored alike on both sides): the heterogeneity sweep
-# runs 5,376 steps, and its plain step on the card ~35 s of them; the
-# offload and shock sweeps end within it
-SWEEP_VS_PLAIN_MAX_STEPS = 2048
+# runs 5,376 steps, its plain step on the card ~35 s of them; at 2,048 the
+# heterogeneity and shock comparisons took 14.5 and 13.4 s, so 1,024 (the
+# offload sweep's whole run) makes room for C1-Z2
+SWEEP_VS_PLAIN_MAX_STEPS = 1024
 
 
 def phase_sweeps_vs_plain(sweep_cells: dict) -> dict:
@@ -3237,30 +3269,45 @@ def step_card_vs_cpu(cfg, batch) -> tuple:
            for dev in states}
     loss = {dev: float(m["loss"]) for dev, (_, m) in out.items()}
     loss_rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    res = dict(loss_cuda=loss["cuda"], loss_cpu=loss["cpu"],
+               loss_rel_err=loss_rel, grad_max_ratio=grad_ratio,
+               adamw_max_ratio=opt_ratio,
+               **master_rule(out["cpu"][0].opt.master,
+                             out["cuda"][0].opt.master, g_cpu, g_own,
+                             opt.lr))
+    res["ok"] = res["ok"] and not (loss_rel > STEP_TOL or grad_ratio > 1.0
+                                   or opt_ratio > 1.0)
+    return res, g_cpu
+
+
+def master_rule(want: dict, got: dict, g_ref: dict, g_other: dict,
+                lr: float) -> dict:
+    """T2's rule for a whole step's master: ``got`` within STEP_TOL
+    relative + 1e-6 of ``want``, except the elements of a nonzero
+    reference gradient below ADAM_TINY_GRAD (under 1% of them), held to
+    ADAM_TINY_STEP lr.  ``g_other``: the other side's gradient, reported
+    beside the worst elements."""
     beyond, n_tiny, tiny_max, worst = 0, 0, 0.0, []
-    for k, w in out["cpu"][0].opt.master.items():
-        d = (out["cuda"][0].opt.master[k].cpu() - w).abs()
-        tiny = (g_cpu[k].abs() < ADAM_TINY_GRAD) & (g_cpu[k] != 0)
+    for k, w in want.items():
+        w = w.cpu()
+        d = (got[k].cpu() - w).abs()
+        g = g_ref[k].cpu()
+        tiny = (g.abs() < ADAM_TINY_GRAD) & (g != 0)
         bad = (d > STEP_TOL * w.abs() + 1e-6) & ~tiny
         beyond += int(bad.sum())
         n_tiny += int(tiny.sum())
         if tiny.any():
             tiny_max = max(tiny_max, float(d[tiny].max()))
-        worst += [(float(d.reshape(-1)[i]), k, float(g_cpu[k].reshape(-1)[i]),
-                   float(g_own[k].reshape(-1)[i].cpu()))
+        worst += [(float(d.reshape(-1)[i]), k, float(g.reshape(-1)[i]),
+                   float(g_other[k].reshape(-1)[i].cpu()))
                   for i in bad.reshape(-1).nonzero()[:4, 0].tolist()]
-    n_params = sum(t.numel() for t in g_cpu.values())
-    res = dict(loss_cuda=loss["cuda"], loss_cpu=loss["cpu"],
-               loss_rel_err=loss_rel, grad_max_ratio=grad_ratio,
-               adamw_max_ratio=opt_ratio, step_master_beyond_tol=beyond,
-               step_master_tiny=n_tiny, step_master_tiny_max_abs=tiny_max,
-               step_master_worst=sorted(worst, reverse=True)[:8],
-               n_params=n_params, lr=opt.lr)
-    res["ok"] = not (loss_rel > STEP_TOL or grad_ratio > 1.0
-                     or opt_ratio > 1.0 or beyond
-                     or n_tiny >= 1e-2 * n_params
-                     or tiny_max > ADAM_TINY_STEP * opt.lr)
-    return res, g_cpu
+    n_params = sum(t.numel() for t in g_ref.values())
+    return dict(step_master_beyond_tol=beyond, step_master_tiny=n_tiny,
+                step_master_tiny_max_abs=tiny_max,
+                step_master_worst=sorted(worst, reverse=True)[:8],
+                n_params=n_params, lr=lr,
+                ok=not (beyond or n_tiny >= 1e-2 * n_params
+                        or tiny_max > ADAM_TINY_STEP * lr))
 
 
 def _step_line(res: dict) -> str:
@@ -3513,9 +3560,9 @@ DENSE_V, DENSE_TD = 20.0, 30.0
 # olmo-1b's losses ran 11.06, 8.04, 17.96, 12.65, ... (my first chip run)
 DENSE_LR = 1e-4
 OLMO_EMBED_LEAF = 50_304 * 2048   # 103,022,592 elements: 201,216 blocks
-# D4's steps: the preset's 40 took 60.9 s on the card (my second chip run);
-# 20 keep the script near 900 s
-FT_STEPS = 20
+# D4's steps: the preset's 40 took 60.9 s on the card, 20 took 35.9 s;
+# 12 (still MATCH on the CPU) make room for C1-Z2
+FT_STEPS = 12
 
 
 def _dense_smoke_cfg(arch: str):
@@ -4982,11 +5029,13 @@ def hybrid_phases(standalone: bool) -> dict:
              "kernel, or launched another kernel")
     quant_vs_plain = quant_vs_plain_all_leaves("H5", train, ZAMBA_EMBED_LEAF)
     torch.cuda.empty_cache()
+    quant = phase_quant_measure(ZAMBA_EMBED_LEAF, "H5",
+                                "zamba2-7b's embedding leaf")
     _lap("H5")
     REPORT["hybrid_train"] = train
     return dict(card_vs_cpu=card, ssd=ssd, flash=flash,
                 serve=serve, train=train, train_launches=launches,
-                quant_vs_plain=quant_vs_plain)
+                quant_vs_plain=quant_vs_plain, quant=quant)
 
 
 # --------------------------------------------------------------------------- #
@@ -6379,6 +6428,453 @@ def phase_policy_scale() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Cell sharding and ZeRO-1 over a device mesh (C1-Z2)
+# --------------------------------------------------------------------------- #
+
+SHARD_EXTENTS = (1, 2, 3, 4)   # C1: the fleet grid's data extents (3 pads)
+FIG4_SHARDS = 5                # C1: Fig. 4 static's 216 cells (pads to 220)
+PERPEER_SHARDS = 3
+# C1's per-peer comparison runs one 64-step chunk of G1's batch (the plain
+# per-peer step costs ~13 ms a step and shard on the card)
+PERPEER_SHARD_STEPS = 64
+# C2's depth: phase 4's cells run ~6,600 steps, ~5 ms a step of the plain
+# step for the CPU's shard; C2 stops at 512 (the cells still running are
+# censored alike on both sides)
+CARD_CPU_STEPS = 512
+Z1_ARCHS = (OLMO, "olmoe-1b-7b")
+Z1_CLIPS = (1e6, 1e-3)         # Z1: a step the norm does not clip, one it does
+# Z2: D2's olmo-1b with clipping off, so that the bitwise contract applies
+# (Z1 holds a clipped step at SMOKE)
+Z2_CLIP = 1e9
+
+
+def _data_mesh(devices: list):
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((len(devices),), ("data",), devices)
+
+
+def _result_slice(r, sl):
+    """The BatchResult ``r`` restricted to the cells ``sl``."""
+    import dataclasses
+
+    return dataclasses.replace(r, **{
+        f.name: getattr(r, f.name)[sl] for f in dataclasses.fields(r)
+        if f.name != "n_steps"})
+
+
+def _sharded_run(tag: str, cells, want, n: int, **kw) -> dict:
+    """``run_cells`` of ``cells`` over ``n`` x cuda:0 against the unsharded
+    result ``want``: every field and n_steps bitwise; the seconds and the
+    sim_step launches of the sharded run."""
+    import torch
+
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import run_cells
+
+    before = sim_step.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = run_cells(cells, mesh=_data_mesh(["cuda:0"] * n), **kw)
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    diff = _result_diff(want, got)
+    out = dict(shards=n, seconds=sec, n_steps=got.n_steps,
+               launches=sim_step.LAUNCHES - before, mismatches=diff)
+    print(f"[C1] {tag} over {n} x cuda:0: {got.n_steps} steps in {sec:.4f} s, "
+          f"{out['launches']} sim_step launches; mismatches per field "
+          f"{ {k: v for k, v in diff.items() if v} or 'none'}", flush=True)
+    if any(diff.values()):
+        fail(f"C1: {tag} over {n} shards differs from the unsharded run")
+    return out
+
+
+def phase_cells_sharded(fleet_res=None) -> dict:
+    """C1, main path sharded: the fleet grid (10,000 class-pooled cells, the
+    Philox route) over data meshes of 1-4 x cuda:0, each bitwise the
+    unsharded run with shards x chunks sim_step launches; Fig. 4 static's
+    216 cells over 5 shards on the numpy parity route (the pre-generated
+    route); G1's per-peer batch over 3 shards, ``step="scan"``."""
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import engine, run_cells
+    from repro_torch.sim.experiments import fig4_static_entries, grid_cells
+
+    cells = fleet_cells(10_000)
+    if fleet_res is None:
+        fleet_res = run_cells(cells, step="fused", mesh=None)
+    chunks = -(-fleet_res.n_steps // engine.DEFAULT_CHUNK)
+    fleet = {n: _sharded_run("fleet grid", cells, fleet_res, n, step="fused")
+             for n in SHARD_EXTENTS}
+    bad = {n: r["launches"] for n, r in fleet.items()
+           if r["launches"] != n * chunks}
+    if bad:
+        fail(f"C1: fleet launches {bad}, expected shards x {chunks} chunks")
+    print(f"[C1] the fleet grid's run_cells on one card: "
+          f"{fleet[1]['seconds']:.4f} s at 1 shard, "
+          f"{fleet[4]['seconds']:.4f} s at 4 (the shards' chunks run one "
+          f"after another on one card)", flush=True)
+    f4 = grid_cells(fig4_static_entries(), **FIG4_KW)
+    want = run_cells(f4, draws="numpy", mesh=None)
+    by_route = dict(sim_step.LAUNCHES_BY_ROUTE)
+    fig4 = _sharded_run("Fig. 4 static (numpy draws)", f4, want,
+                        FIG4_SHARDS, draws="numpy")
+    pre = sim_step.LAUNCHES_BY_ROUTE["pregenerated"] - by_route["pregenerated"]
+    f4_chunks = -(-want.n_steps // engine.DEFAULT_CHUNK)
+    if pre != fig4["launches"] or pre != FIG4_SHARDS * f4_chunks:
+        fail(f"C1: Fig. 4 over {FIG4_SHARDS} shards made {fig4['launches']} "
+             f"launches ({pre} pre-generated), expected "
+             f"{FIG4_SHARDS * f4_chunks} on the pre-generated route")
+    pp = perpeer_cells()
+    kw = dict(device="cuda", draws="numpy", step="scan",
+              chunk=PERPEER_SHARD_STEPS, max_steps=PERPEER_SHARD_STEPS)
+    want = run_cells(pp, mesh=None, **kw)
+    kw.pop("device")
+    perpeer = _sharded_run("G1's per-peer batch (plain step)", pp, want,
+                           PERPEER_SHARDS, **kw)
+    if perpeer["launches"]:
+        fail("C1: a per-peer batch launched the sim_step kernel")
+    out = dict(fleet=fleet, fleet_chunks=chunks, fig4_static=fig4,
+               perpeer=perpeer)
+    REPORT["cells_sharded"] = out
+    return out
+
+
+def phase_cells_card_and_cpu() -> dict:
+    """C2: phase 4's 64 cells on parity draws, CARD_CPU_STEPS steps deep,
+    over a mesh of (cuda:0, cpu) against the unsharded run on the card: the
+    card's shard (the kernel) bitwise, the CPU's (the plain step) by phase
+    4's rule."""
+    from repro_torch.kernels import sim_step
+    from repro_torch.sim import run_cells
+
+    cells = mixed_cells(64)
+    kw = dict(draws="numpy", chunk=128, max_steps=CARD_CPU_STEPS)
+    want = run_cells(cells, device="cuda", **kw)
+    before = sim_step.LAUNCHES
+    got = run_cells(cells, mesh=_data_mesh(["cuda:0", "cpu"]), **kw)
+    launches = sim_step.LAUNCHES - before
+    card = _result_diff(_result_slice(want, slice(0, 32)),
+                        _result_slice(got, slice(0, 32)))
+    bad, rel = _results_close(_result_slice(got, slice(32, None)),
+                              _result_slice(want, slice(32, None)))
+    out = dict(card_mismatches=card, cpu_count_mismatch=bad,
+               cpu_max_rel_err=rel, n_steps=(want.n_steps, got.n_steps),
+               launches=launches)
+    REPORT["cells_card_and_cpu"] = out
+    print(f"[C2] 64 cells over (cuda:0, cpu), parity draws, against the "
+          f"unsharded run on the card: the card's 32 cells' mismatches "
+          f"{ {k: v for k, v in card.items() if v} or 'none'}; the CPU's 32: "
+          f"count mismatches {bad}, max rel err {rel:.3g}; steps "
+          f"{want.n_steps} / {got.n_steps}; {launches} sim_step launches "
+          f"(the card's shard)", flush=True)
+    if any(card.values()) or bad or rel > 1e-9 or not launches:
+        fail("C2: the (cuda:0, cpu) mesh disagrees with the unsharded run")
+    return out
+
+
+def _tree_gap(want: dict, got: dict, rtol: float) -> tuple:
+    """(leaves that differ bitwise, leaves beyond ``rtol`` relative above a
+    floor of ``rtol`` x the leaf's largest value)."""
+    import torch
+
+    differ, beyond = [], []
+    for k, w in want.items():
+        g = got[k]
+        if not torch.equal(w, g):
+            differ.append(k)
+            w, g = w.detach().double(), g.detach().double().to(w.device)
+            floor = rtol * float(w.abs().max())
+            if bool(((g - w).abs() > rtol * w.abs() + floor).any()):
+                beyond.append(k)
+    return differ, beyond
+
+
+def _zero1_step(cfg, opt, batch, devices: list, m: int, in_scan: bool):
+    from repro_torch.train.optimizer import zero1_grad_constraint
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        shard_train_state, zero1_specs)
+
+    mesh = _data_mesh(devices)
+    state = shard_train_state(init_train_state(0, cfg, devices[0]), mesh)
+    c = zero1_grad_constraint(mesh, zero1_specs(cfg, mesh).master)
+    return make_train_step(cfg, opt, constant(1.0), n_microbatches=m,
+                           grad_constraint=c,
+                           zero1_grads_in_scan=in_scan)(state, batch)
+
+
+def phase_zero1_smoke() -> dict:
+    """Z1: ZeRO-1 at SMOKE in float32 (olmo, olmoe) on the card: data
+    meshes of 2 and 4 x cuda:0, with and without ``zero1_grads_in_scan``,
+    against the unsharded step with as many microbatches -- bitwise where
+    the norm does not clip, within 1e-6 relative (grad_norm too) where it
+    clips; a sharded state's checkpoint image equal to the unsharded one's
+    (manifest and arrays) and restored into the pieces; a (cuda:0, cpu)
+    mesh by T2's rule."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import store
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import make_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state, make_train_step,
+                                        shard_train_state)
+
+    out = {}
+    for arch in Z1_ARCHS:
+        cfg = _dense_smoke_cfg(arch)
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                       global_batch=8, seed=4)).batch_at(0)
+        rows = []
+        for clip in Z1_CLIPS:
+            opt = AdamWConfig(lr=1e-3, grad_clip=clip)
+            want, wm = make_train_step(cfg, opt, constant(1.0),
+                                       n_microbatches=4)(
+                init_train_state(0, cfg, "cuda"), batch)
+            clipped = float(wm["grad_norm"]) > clip
+            wt = want.tree()
+            for n, m in ((2, 2), (4, 1)):
+                for in_scan in (False, True):
+                    got, gm = _zero1_step(cfg, opt, batch, ["cuda:0"] * n, m,
+                                          in_scan)
+                    differ, beyond = _tree_gap(wt, got.tree(), 1e-6)
+                    gn = abs(float(gm["grad_norm"]) - float(wm["grad_norm"])
+                             ) / float(wm["grad_norm"])
+                    rows.append(dict(clip=clip, clipped=clipped, shards=n,
+                                     microbatches=m, in_scan=in_scan,
+                                     leaves_not_bitwise=len(differ),
+                                     leaves_beyond_1e6=beyond,
+                                     grad_norm_rel=gn))
+                    if beyond or gn > 1e-6 or (differ and not clipped):
+                        fail(f"Z1: {arch} over {n} x cuda:0 x {m} "
+                             f"microbatches (in scan {in_scan}, clipped "
+                             f"{clipped}): {len(differ)} leaves not bitwise, "
+                             f"beyond 1e-6 {beyond[:4]}, grad_norm rel {gn}")
+        out[arch] = dict(rows=rows)
+        print(f"[Z1] {arch} SMOKE float32: {len(rows)} sharded steps; "
+              f"unclipped bitwise: "
+              f"{all(r['leaves_not_bitwise'] == 0 for r in rows if not r['clipped'])}; "
+              f"clipped: leaves not bitwise "
+              f"{[r['leaves_not_bitwise'] for r in rows if r['clipped']]}, "
+              f"grad_norm rel "
+              f"{max(r['grad_norm_rel'] for r in rows):.3g} (<= 1e-6)",
+              flush=True)
+    # the checkpoint image of a sharded state and its restore
+    cfg = _dense_smoke_cfg(OLMO)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=8, seed=4)).batch_at(0)
+    opt = AdamWConfig(lr=1e-3, grad_clip=Z1_CLIPS[0])
+    want, _ = make_train_step(cfg, opt, constant(1.0), n_microbatches=4)(
+        init_train_state(0, cfg, "cuda"), batch)
+    got, _ = _zero1_step(cfg, opt, batch, ["cuda:0"] * 4, 1, False)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        a = store.save_pytree(f"{tmp}/whole", 1, want.tree())
+        b = store.save_pytree(f"{tmp}/sharded", 1, got.tree())
+        same = (Path(a, "manifest.json").read_bytes()
+                == Path(b, "manifest.json").read_bytes())
+        for i in range(4):
+            with np.load(f"{a}/shard_{i}.npz") as x, \
+                    np.load(f"{b}/shard_{i}.npz") as y:
+                same &= x.files == y.files and all(
+                    x[f].tobytes() == y[f].tobytes() for f in x.files)
+        fresh = shard_train_state(init_train_state(1, cfg, "cuda"),
+                                  make_mesh((4,), ("data",), ["cuda:0"] * 4))
+        fresh.load_tree(store.load_pytree(b, fresh.tree()))
+    restored = all(torch.equal(fresh.tree()[k], v)
+                   for k, v in want.tree().items())
+    pieces = all(torch.equal(piece, sl)
+                 for k, v in fresh.opt.master.items()
+                 for piece, sl in v.slices(want.opt.master[k]))
+    out["image"] = dict(equal=same, restored=restored, pieces=pieces)
+    print(f"[Z1] olmo SMOKE, a 4-shard state's checkpoint image equals the "
+          f"unsharded one's: {same}; restored into a sharded state: "
+          f"{restored}, every piece its slice: {pieces}", flush=True)
+    if not (same and restored and pieces):
+        fail("Z1: the sharded state's checkpoint image or its restore")
+    # a mesh of two devices: a replica and half the state on each
+    want, wm = make_train_step(cfg, opt, constant(1.0), n_microbatches=2)(
+        init_train_state(0, cfg, "cuda"), batch)
+    got, gm = _zero1_step(cfg, opt, batch, ["cuda:0", "cpu"], 1, True)
+    ref = init_train_state(0, cfg, "cuda")
+    g_ref, _ = compute_grads(ref.params, _to_device(batch, "cuda"), cfg)
+    devs = sorted({str(t.device) for v in got.opt.master.values()
+                   for t in v.shards})
+    res = master_rule(want.opt.master,
+                      {k: v.gather("cuda") for k, v in got.opt.master.items()},
+                      g_ref, g_ref, opt.lr)
+    loss_rel = abs(float(gm["loss"]) - float(wm["loss"])) / abs(
+        float(wm["loss"]))
+    res.update(loss_rel_err=loss_rel, devices=devs,
+               replicas=len({id(r) for r in got.replicas}))
+    out["card_and_cpu"] = res
+    print(f"[Z1] olmo SMOKE over (cuda:0, cpu), in-scan accumulator, "
+          f"against the unsharded card step: loss rel {loss_rel:.3g}; "
+          f"master {res['step_master_beyond_tol']} of {res['n_params']:,} "
+          f"beyond {STEP_TOL}|b| + 1e-6, {res['step_master_tiny']} of a tiny "
+          f"gradient within {res['step_master_tiny_max_abs']:.3g}; pieces on "
+          f"{devs}, {res['replicas']} replicas", flush=True)
+    if not res["ok"] or loss_rel > STEP_TOL or len(devs) != 2 \
+            or res["replicas"] != 2:
+        fail(f"Z1: the (cuda:0, cpu) mesh by T2's rule: "
+             f"{res['step_master_worst']}")
+    REPORT["zero1_smoke"] = out
+    return out
+
+
+HASH_CHUNK = 1 << 28   # Z2: bytes a pinned staging buffer holds
+HASH_BUFFERS = 8
+
+
+def _host_hashes(state) -> dict:
+    """sha256 of each leaf of ``state.tree()`` (gathered whole), made on the
+    host: each leaf's bytes come over in chunks through a pool of pinned
+    staging buffers (non-blocking copies) and are hashed on the host in
+    order, a leaf's chunks on one thread (hashlib releases the GIL)."""
+    import hashlib
+    import queue
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    tree = state.tree()
+    free = queue.Queue()
+    for _ in range(HASH_BUFFERS):
+        free.put(torch.empty(HASH_CHUNK, dtype=torch.uint8, pin_memory=True))
+    hashes = {k: hashlib.sha256() for k in tree}
+    lanes = [ThreadPoolExecutor(1) for _ in range(HASH_BUFFERS)]
+
+    def update(h, buf, n, ev):
+        ev.synchronize()
+        h.update(buf[:n].numpy())
+        free.put(buf)
+
+    done = []
+    try:
+        for i, (k, t) in enumerate(tree.items()):
+            u8 = t.detach().reshape(-1).view(torch.uint8)
+            for o in range(0, u8.numel(), HASH_CHUNK):
+                n = min(HASH_CHUNK, u8.numel() - o)
+                buf = free.get()
+                buf[:n].copy_(u8[o:o + n], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+                done.append(lanes[i % len(lanes)].submit(update, hashes[k],
+                                                         buf, n, ev))
+        for f in done:
+            f.result()
+    finally:
+        for lane in lanes:
+            lane.shutdown()
+    return {k: h.hexdigest() for k, h in hashes.items()}
+
+
+def phase_zero1_olmo() -> dict:
+    """Z2: olmo-1b at full width (D2's configuration: 16 layers, 8 x 1024,
+    AdamW 1e-4, the weights drawn on the card by a CUDA generator of seed
+    0; clipping off): the unsharded step with 4 microbatches first (its
+    per-leaf host hashes kept, the state freed), then 4 x cuda:0 with one
+    microbatch a shard and 2 x cuda:0 with 2 microbatches under
+    ``zero1_grads_in_scan`` -- both bitwise the unsharded step by the
+    hashes; the step seconds and peaks beside D3's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.train import training_config
+    from repro_torch.train.optimizer import AdamWConfig, zero1_grad_constraint
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        shard_train_state, zero1_specs)
+
+    _require_free_card("Z2")
+    cfg = training_config(get_config(OLMO))
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH)).batch_at(0)
+    opt = AdamWConfig(lr=DENSE_LR, grad_clip=Z2_CLIP)
+
+    def state0():
+        return init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, "cuda")
+
+    runs = {}
+    for name, n, m, in_scan in (("unsharded, 4 microbatches", 0, 4, False),
+                                ("4 x cuda:0, 1 microbatch a shard", 4, 1,
+                                 False),
+                                ("2 x cuda:0 x 2 microbatches, in scan", 2,
+                                 2, True)):
+        state, c = state0(), None
+        if n:
+            mesh = make_mesh((n,), ("data",), ["cuda:0"] * n)
+            state = shard_train_state(state, mesh)
+            c = zero1_grad_constraint(mesh, zero1_specs(cfg, mesh).master)
+        step = make_train_step(cfg, opt, constant(1.0), n_microbatches=m,
+                               grad_constraint=c, zero1_grads_in_scan=in_scan)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        sec = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.monotonic()
+        hashes = _host_hashes(state)
+        runs[name] = dict(step_s=sec, peak_gib=peak / 2**30,
+                          grad_norm=float(metrics["grad_norm"]),
+                          loss=float(metrics["loss"]), hashes=hashes,
+                          hash_s=time.monotonic() - t0)
+        del state, step, metrics
+        torch.cuda.empty_cache()
+    want = runs["unsharded, 4 microbatches"]["hashes"]
+    for name, r in runs.items():
+        r["leaves_differ"] = [k for k, h in r.pop("hashes").items()
+                              if h != want[k]]
+        print(f"[Z2] olmo-1b, {name}: step {r['step_s']:.3f} s (first step, "
+              f"cold), peak {r['peak_gib']:.2f} GiB, loss {r['loss']:.5f}, "
+              f"grad_norm {r['grad_norm']:.5f}; host hashes of "
+              f"{len(want)} leaves in {r['hash_s']:.1f} s, "
+              f"{len(r['leaves_differ'])} differ from the unsharded step's",
+              flush=True)
+    d3 = REPORT.get("dense_train", {})
+    if "median_step_s" in d3:
+        print(f"[Z2] D3 in this run: a warm step {d3['median_step_s']:.3f} s "
+              f"of 8 x 1024 in 2 microbatches, peak "
+              f"{d3.get('peak_bytes', 0) / 2**30:.2f} GiB", flush=True)
+    REPORT["zero1_olmo"] = runs
+    if any(r["leaves_differ"] for r in runs.values()):
+        fail("Z2: a sharded olmo-1b step is not bitwise the unsharded step")
+    return runs
+
+
+def shard_phases(fleet_res=None) -> dict:
+    """C1-Z2 with the sim_step counts at 0 just before the sharded cell
+    paths and read just after."""
+    import torch
+
+    from repro_torch.kernels import sim_step
+
+    sim_step.LAUNCHES = 0          # the sharded cell paths start here
+    _zero(sim_step.LAUNCHES_BY_ROUTE)
+    cells = phase_cells_sharded(fleet_res)
+    card_cpu = phase_cells_card_and_cpu()
+    launches = dict(total=sim_step.LAUNCHES,   # ... and end here
+                    by_route=dict(sim_step.LAUNCHES_BY_ROUTE))
+    REPORT["sharded_cells_launches"] = launches
+    _lap("C1-C2")
+    zero1 = phase_zero1_smoke()
+    _lap("Z1")
+    olmo = phase_zero1_olmo()
+    torch.cuda.empty_cache()
+    _lap("Z2")
+    return dict(cells=cells, card_and_cpu=card_cpu, launches=launches,
+                zero1=zero1, olmo=olmo)
+
+
 def main() -> int:
     import torch
 
@@ -6414,6 +6910,12 @@ def main() -> int:
         print(json.dumps({"encdec": True,
                           "e3_launches": encdec["serve"]["launches_by_route"],
                           "e5_launches": encdec["train_launches"]}))
+        return 0
+    if "--shard" in sys.argv[1:]:
+        shard = shard_phases()
+        _dump()
+        print(json.dumps({"shard": True, "c1_launches": {
+            n: r["launches"] for n, r in shard["cells"]["fleet"].items()}}))
         return 0
 
     worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
@@ -6625,6 +7127,7 @@ def main() -> int:
                                       "olmo-1b's embedding leaf")
     phase_ft_example()
     _lap("D3 quant, D4")
+    shard = shard_phases(fleet_run["res"])
     moe = moe_phases()
     hybrid = hybrid_phases(standalone=False)
     encdec = encdec_phases()
@@ -6731,6 +7234,14 @@ def main() -> int:
             "bound_fp64_ms", "bound_bytes_ms", "pregenerated_ms")}
             for key, r in wf_vs_plain.items()},
         "gossip_sweep_launches": [r["launches"] for r in gossip["runs"]],
+        "sharded_launches": {
+            "fleet grid (C1), by shard count": {
+                n: r["launches"] for n, r in shard["cells"]["fleet"].items()},
+            f"Fig. 4 static over {FIG4_SHARDS} shards (C1, pre-generated)":
+                shard["cells"]["fig4_static"]["launches"],
+            "64 cells over (cuda:0, cpu) (C2, the card's shard)":
+                shard["card_and_cpu"]["launches"],
+            "total": shard["launches"]["total"]},
         "max_abs_err": max(worst, fleet["max_abs_err"]), "bitwise": True,
         "shape": "fleet grid, 10,000 cells, one 256-step chunk",
         "ms": fleet["kernel_ms_per_chunk"],
@@ -6822,6 +7333,9 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms")}),
         "olmoe_expert_leaf": dict(n=EXPERT_LEAF, bound_by="bytes", **{
             k: moe["quant"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}),
+        "zamba2_embedding_leaf": dict(n=ZAMBA_EMBED_LEAF, bound_by="bytes", **{
+            k: hybrid["quant"][name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms")}),
         "whisper_embedding_leaf": dict(n=WHISPER_EMBED_LEAF,
                                        bound_by="bytes", **{

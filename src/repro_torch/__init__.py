@@ -9,6 +9,8 @@ SSD chunked scan as a hand-written CUDA kernel
 (:mod:`repro_torch.kernels.ssd_scan`), and the dense family's serving
 (olmo-1b to gemma2-27b) whose prefill attention runs a hand-written CUDA
 flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`).
+A cell batch shards over a device mesh and the AdamW state over its data
+axis (ZeRO-1) through :mod:`repro_torch.distributed`.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -17,6 +17,10 @@ intrinsics (``__fdiv_rn``, ``__fmul_rn``, ``rintf``) and needs no flag.
 flags.  ``SOURCES`` lists every source.  The file name carries a hash of
 the source and the flags, so an edited source is rebuilt.  ``BUILD_LOG[name]`` keeps the build
 seconds and the ``-Xptxas -v`` report (registers, spills).
+
+Every wrapper launches through :func:`launch`, which makes the operands'
+device current for the call: the CUDA runtime launches on its current
+device, which need not be the one a shard lives on (``cuda:1``).
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -100,3 +106,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def launch(fn: Callable[..., int], device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` -- a library's C launch function -- with
+    ``device`` current and its current stream as the last argument;
+    returns the function's error code."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

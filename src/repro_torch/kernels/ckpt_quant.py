@@ -38,6 +38,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0}
 MAX_BLOCK = 4096
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -79,8 +81,6 @@ def _check_block(n: int, block: int) -> int:
 
 
 def _lib():
-    from repro_torch.kernels import build
-
     lib = build.load("ckpt_quant")
     if not getattr(lib, "_typed", False):
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -116,13 +116,17 @@ def quantize_blocks(x: torch.Tensor, block: int = 512
     if x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"x must be contiguous float32 or bfloat16, got "
                          f"{x.dtype}")
+    return _launch_quantize(x, n_blocks, block)
+
+
+def _launch_quantize(x: torch.Tensor, n_blocks: int, block: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty(n_blocks, dtype=torch.float32, device=x.device)
     lib = _lib()
-    rc = lib.ckpt_quantize_launch(
-        x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-        int(x.dtype == torch.bfloat16), n_blocks, block,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    rc = build.launch(lib.ckpt_quantize_launch, x.device, x.data_ptr(),
+                      q.data_ptr(), scales.data_ptr(),
+                      int(x.dtype == torch.bfloat16), n_blocks, block)
     _raise_on(lib, rc, "quantize_blocks")
     LAUNCHES["quantize_blocks"] += 1
     return q, scales
@@ -151,12 +155,16 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor, block: int = 512,
             or q.data_ptr() % 4):
         raise ValueError("codes must be contiguous 4-byte-aligned int8 and "
                          "scales contiguous float32")
+    return _launch_dequantize(q, scales, n_blocks, block, dtype)
+
+
+def _launch_dequantize(q: torch.Tensor, scales: torch.Tensor, n_blocks: int,
+                       block: int, dtype: torch.dtype) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=dtype, device=q.device)
     lib = _lib()
-    rc = lib.ckpt_dequantize_launch(
-        q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        int(dtype == torch.bfloat16), n_blocks, block,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    rc = build.launch(lib.ckpt_dequantize_launch, q.device, q.data_ptr(),
+                      scales.data_ptr(), out.data_ptr(),
+                      int(dtype == torch.bfloat16), n_blocks, block)
     _raise_on(lib, rc, "dequantize_blocks")
     LAUNCHES["dequantize_blocks"] += 1
     return out

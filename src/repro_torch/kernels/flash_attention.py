@@ -68,6 +68,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
+
 LAUNCHES = 0                                # launches of either kernel
 LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
 HEAD_DIMS = (16, 32, 64, 128)   # head_dim the kernel takes
@@ -186,8 +188,6 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _lib():
-    from repro_torch.kernels import build
-
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -253,18 +253,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, how: str, *,
     BG, R, Sq, D = q.shape
     o = torch.empty((BG, R, Sq, D), dtype=q.dtype, device=q.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     (q_bg, q_r, q_s, _), (k_bg, k_s, _), (v_bg, v_s, _) = (
         _strides(q), _strides(k), _strides(v))
     common = (BG, R, Sq, k.shape[1], D, q_bg, q_r, q_s, k_bg, k_s, v_bg,
               v_s, float(scale), int(bool(causal)),
-              float(softcap) if softcap is not None else 0.0, stream)
+              float(softcap) if softcap is not None else 0.0)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     if how == "wgmma":
-        rc = lib.flash_attention_tc_launch(*ptrs, *common)
+        rc = build.launch(lib.flash_attention_tc_launch, q.device, *ptrs,
+                          *common)
     else:
-        rc = lib.flash_attention_launch(
-            *ptrs, int(q.dtype == torch.bfloat16), *common)
+        rc = build.launch(lib.flash_attention_launch, q.device, *ptrs,
+                          int(q.dtype == torch.bfloat16), *common)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel ({how}) launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")

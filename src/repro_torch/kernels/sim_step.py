@@ -24,9 +24,11 @@ one of two routes, picked by the draw source alone:
   in blocks of 32 threads.
 
 Each warp leaves the step loop as soon as all 32 of its cells are
-finished (``__all_sync``).  :func:`run_chunks` is the engine's loop: on the
-card it packs the parameters and the state once, keeps the packed state
-on the card across chunks, reads completion from its ``finished`` row and
+finished (``__all_sync``).  :func:`run_shards` is the engine's loop over
+the shards of a cell batch (:func:`run_chunks` the one-shard case): on the
+card it packs each shard's parameters and state once, keeps the packed
+state on the shard's device across chunks, reads completion from its
+``finished`` row -- one count a chunk, summed over the shards -- and
 unpacks once at the end.
 
 What bounds it on an H100: at the fleet grid's shape the few hundred FP64
@@ -62,6 +64,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.device import F64
+from repro_torch.kernels import build
 from repro_torch.sim import engine as _eng
 from repro_torch.sim.draws import PhiloxDraws, n_draws
 
@@ -239,8 +242,6 @@ def _check_seeds(seeds: torch.Tensor, B: int, step0: int) -> None:
 
 
 def _lib():
-    from repro_torch.kernels import build
-
     lib = build.load("sim_step")
     if not getattr(lib, "_typed", False):
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -277,15 +278,15 @@ def _launch(params: tuple, state: torch.Tensor, taken: torch.Tensor, *,
     if B == 0 or n == 0:
         return
     lib = _lib()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    rc = lib.sim_step_launch(
+    rc = build.launch(
+        lib.sim_step_launch, state.device,
         pf.data_ptr(), p4.data_ptr(), hmean.data_ptr(), sdpeer.data_ptr(),
         hmean.shape[1], trace_t.data_ptr(), trace_mtbf.data_ptr(),
         trace_t.shape[1], state.data_ptr(),
         None if draws is None else draws.data_ptr(),
         None if seeds is None else seeds.data_ptr(), step0,
         taken.data_ptr(), B, n, n_draws(any_pm), float(macro_threshold),
-        int(any_store), int(any_het), int(any_shock), int(any_pm), stream)
+        int(any_store), int(any_het), int(any_shock), int(any_pm))
     if rc != 0:
         raise RuntimeError(f"sim_step kernel launch failed: "
                            f"{lib.sim_step_error_string(rc).decode()}")
@@ -324,16 +325,20 @@ def philox_draws(src: PhiloxDraws, step0: int, n: int) -> torch.Tensor:
     CPU tensors: ``src.at``, its plain version)."""
     if src.device.type == "cpu":
         return src.at(step0, n)
-    B = src.seeds.shape[0]
-    _check_seeds(src.seeds, B, step0)
-    out = torch.empty(n, n_draws(src.any_pm), B, dtype=F64,
-                      device=src.device)
+    _check_seeds(src.seeds, src.seeds.shape[0], step0)
+    return _launch_philox_draws(src.seeds, step0, n, src.any_pm)
+
+
+def _launch_philox_draws(seeds: torch.Tensor, step0: int, n: int,
+                         any_pm: bool) -> torch.Tensor:
+    B = seeds.shape[0]
+    out = torch.empty(n, n_draws(any_pm), B, dtype=F64, device=seeds.device)
     if B == 0 or n == 0:
         return out
     lib = _lib()
-    rc = lib.sim_step_philox_draws(
-        src.seeds.data_ptr(), step0, n, int(src.any_pm), out.data_ptr(), B,
-        torch.cuda.current_stream(src.device).cuda_stream)
+    rc = build.launch(lib.sim_step_philox_draws, seeds.device,
+                      seeds.data_ptr(), step0, n, int(any_pm),
+                      out.data_ptr(), B)
     if rc != 0:
         raise RuntimeError(f"philox_draws kernel launch failed: "
                            f"{lib.sim_step_error_string(rc).decode()}")
@@ -372,47 +377,89 @@ def fused_chunk(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
     return unpack_state(state), taken
 
 
+class _Shard:
+    """One shard of a lockstep run: its state, parameters and draw source on
+    its own device.  On the kernel route it keeps the packed parameters, the
+    packed state and its ``taken`` buffer for the whole run."""
+
+    def __init__(self, s: _eng._State, p: _eng._Params, src, plain: bool,
+                 kw: dict):
+        self.kw = kw
+        self.kernel = not plain and s.t.device.type == "cuda"
+        self.src = src
+        if not self.kernel:
+            self.s, self.p = s, p
+            self.per_peer = kw.get("peer_axis", 1) > 1
+            return
+        _check_state(s, p, s.t.device)
+        self.params, self.state = pack_params(p), pack_state(s)
+        self.taken = _taken(s.t.shape[0], s.t.device)
+        self.philox = isinstance(src, PhiloxDraws)
+
+    def step(self, n: int) -> None:
+        if not self.kernel:
+            obs = self.src.next_obs(n) if self.per_peer else None
+            self.s, _ = fused_chunk_ref(self.s, self.p, self.src.next(n),
+                                        obs=obs, **self.kw)
+        elif self.philox:
+            launch_philox(self.params, self.state, self.src.seeds,
+                          self.src.skip(n), n, self.taken, **self.kw)
+        else:
+            launch(self.params, self.state, self.src.next(n), self.taken,
+                   **self.kw)
+
+    def unfinished(self) -> torch.Tensor:
+        """The shard's count of unfinished cells, a 0-dim tensor on its
+        device (no host sync)."""
+        if self.kernel:
+            return (self.state[FINISHED_ROW] == 0.0).sum()
+        return (~self.s.finished).sum()
+
+    def result(self) -> _eng._State:
+        return unpack_state(self.state) if self.kernel else self.s
+
+
+def run_shards(shards, *, chunk: int, max_steps: int,
+               macro_threshold: float, plain: bool = False, **flags):
+    """Step every shard -- a ``(state, params, draw source)`` triple on its
+    own device -- ``chunk`` steps at a time, in lockstep, until every cell
+    of every shard is finished or ``max_steps`` steps have run; returns the
+    shards' final states and the steps run (the same for every shard).
+
+    Each chunk launches every shard's chunk on that shard's device and
+    stream, then reduces one global unfinished count: each shard's count,
+    summed on the first shard's device (the reference's ``psum`` of its
+    sharded chunk), read by the host once a chunk.
+
+    A shard of CUDA tensors (``plain`` false) runs the kernel, with its
+    parameters and state packed once, the packed state kept on its device
+    across chunks and one unpack at the end; a :class:`PhiloxDraws` source
+    draws in the kernel, any other hands over its pre-generated draws.  A
+    shard of CPU tensors, or ``plain``: :func:`fused_chunk_ref` on
+    ``src.next`` draws (and ``src.next_obs`` rows for a per-peer batch,
+    ``peer_axis`` > 1, which only this route takes).
+    """
+    kw = dict(macro_threshold=macro_threshold, **flags)
+    run = [_Shard(s, p, src, plain, kw) for s, p, src in shards]
+    dev0 = shards[0][0].t.device
+    steps = 0
+    while steps < max_steps:
+        n = min(chunk, max_steps - steps)
+        for sh in run:
+            sh.step(n)
+        steps += n
+        if int(sum(sh.unfinished().to(dev0) for sh in run)) == 0:
+            break
+    return [sh.result() for sh in run], steps
+
+
 def run_chunks(s: _eng._State, p: _eng._Params, src, *, chunk: int,
                max_steps: int, macro_threshold: float, plain: bool = False,
                **flags):
-    """Step the batch ``chunk`` steps at a time until every cell is finished
-    or ``max_steps`` steps have run; returns the final state and the steps
-    run.
-
-    CUDA tensors (``plain`` false): the kernel, with the parameters and the
-    state packed once, the packed state kept on the card across chunks,
-    completion read from its ``finished`` row, and one unpack at the end;
-    a :class:`PhiloxDraws` source draws in the kernel, any other source
-    hands over its pre-generated draws.  CPU tensors or ``plain``:
-    :func:`fused_chunk_ref` on ``src.next`` draws (and ``src.next_obs``
-    rows for a per-peer batch, ``peer_axis`` > 1, which only this branch
-    takes).
-    """
-    kw = dict(macro_threshold=macro_threshold, **flags)
-    steps = 0
-    if plain or s.t.device.type == "cpu":
-        per_peer = flags.get("peer_axis", 1) > 1
-        while steps < max_steps:
-            n = min(chunk, max_steps - steps)
-            obs = src.next_obs(n) if per_peer else None
-            s, _ = fused_chunk_ref(s, p, src.next(n), obs=obs, **kw)
-            steps += n
-            if bool(s.finished.all()):
-                break
-        return s, steps
-    _check_state(s, p, s.t.device)
-    params, state = pack_params(p), pack_state(s)
-    taken = _taken(s.t.shape[0], s.t.device)
-    finished = state[FINISHED_ROW]
-    philox = isinstance(src, PhiloxDraws)
-    while steps < max_steps:
-        n = min(chunk, max_steps - steps)
-        if philox:
-            launch_philox(params, state, src.seeds, src.skip(n), n, taken,
-                          **kw)
-        else:
-            launch(params, state, src.next(n), taken, **kw)
-        steps += n
-        if bool((finished != 0.0).all()):
-            break
-    return unpack_state(state), steps
+    """:func:`run_shards` of one shard: step the batch ``chunk`` steps at a
+    time until every cell is finished or ``max_steps`` steps have run;
+    returns the final state and the steps run."""
+    (s,), steps = run_shards([(s, p, src)], chunk=chunk, max_steps=max_steps,
+                             macro_threshold=macro_threshold, plain=plain,
+                             **flags)
+    return s, steps

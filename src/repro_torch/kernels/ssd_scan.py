@@ -59,6 +59,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 LAUNCHES = 0                             # calls that launched a kernel
 LAUNCHES_BY_ROUTE = {"mma": 0, "simt": 0}
 MAX_P = 64      # head_dim the kernel takes
@@ -187,8 +189,6 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _lib():
-    from repro_torch.kernels import build
-
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -247,7 +247,6 @@ def _launch(x, dt, A, B, C, initial_state, Q: int, how: str
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     init_ptr = initial_state.data_ptr() if initial_state is not None else None
     if how == "mma":
         x, B, C = _aligned(x), _aligned(B), _aligned(C)
@@ -256,20 +255,22 @@ def _launch(x, dt, A, B, C, initial_state, Q: int, how: str
         cum = torch.empty((b, nc, h, Q), **f32)
         sloc = torch.empty((b, nc, h, p, n), **f32)
         state_in = torch.empty((b, nc, h, p, n), **f32)
-        rc = lib.ssd_scan_tc_launch(
+        rc = build.launch(
+            lib.ssd_scan_tc_launch, x.device,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), init_ptr, y.data_ptr(), final.data_ptr(),
             cum.data_ptr(), sloc.data_ptr(), state_in.data_ptr(), b, s, h,
             p, n, Q, x.stride(0), x.stride(1),
             dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
-            C.stride(0), C.stride(1), stream)
+            C.stride(0), C.stride(1))
     else:
-        rc = lib.ssd_scan_launch(
+        rc = build.launch(
+            lib.ssd_scan_launch, x.device,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), init_ptr, y.data_ptr(), final.data_ptr(),
             int(x.dtype == torch.bfloat16), b, s, h, p, n, Q, x.stride(0),
             x.stride(1), dt.stride(0), dt.stride(1), B.stride(0),
-            B.stride(1), C.stride(0), C.stride(1), stream)
+            B.stride(1), C.stride(0), C.stride(1))
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel ({how}) launch failed: "
                            f"{lib.ssd_scan_error_string(rc).decode()}")

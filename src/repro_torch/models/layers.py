@@ -218,6 +218,17 @@ def init_attention(gen: Optional[torch.Generator],
     }
 
 
+def attention_param_specs() -> Dict[str, tuple]:
+    """Logical axes of :func:`init_attention`'s leaves (see
+    :func:`repro_torch.models.model.param_logical_specs`)."""
+    return {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+
+
 def _attn_mask(q_pos: torch.Tensor, kv_len: int, *, causal: bool,
                sliding_window: Optional[int], local_flag: bool,
                kv_valid_len: Optional[int]) -> torch.Tensor:
@@ -407,6 +418,13 @@ def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig,
     return p
 
 
+def mlp_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    specs = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if cfg.act.endswith("gated"):
+        specs["w_gate"] = ("embed", "mlp")
+    return specs
+
+
 def activate(cfg: ModelConfig, up: torch.Tensor,
              gate: Optional[torch.Tensor]) -> torch.Tensor:
     """The MLP's hidden activation: ``silu(gate) * up``, ``gelu(gate) *
@@ -446,6 +464,13 @@ def init_embedding(gen: Optional[torch.Generator],
         p["unembed"] = truncated_normal_init(
             gen, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model), dt)
     return p
+
+
+def embedding_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    specs = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("embed", "vocab")
+    return specs
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor,

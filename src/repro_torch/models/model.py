@@ -363,6 +363,142 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return {"ssm": st, "index": 0}
 
 
+def cache_logical_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical sharding specs matching :func:`init_cache`'s structure (the
+    cache keeps the JAX package's stacked ``(L, ...)`` layout)."""
+    kv_spec = {"k": ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+               "v": ("layers", "batch", "kv_heads", "kv_seq", "head_dim")}
+    if cfg.kv_cache_quant:
+        kv_spec = dict(kv_spec,
+                       k_scale=("layers", "batch", "kv_heads", "kv_seq"),
+                       v_scale=("layers", "batch", "kv_heads", "kv_seq"))
+    idx = ()
+    if cfg.family in ATTENTION_FAMILIES:
+        return {"kv": kv_spec, "index": idx}
+    ssm_spec = {"state": ("layers", "batch", None, None, "state"),
+                "conv": ("layers", "batch", None, "inner")}
+    if cfg.family == "ssm":
+        return {"ssm": ssm_spec, "index": idx}
+    if cfg.family == "hybrid":
+        return {"ssm": ssm_spec, "kv": kv_spec, "index": idx}
+    if cfg.family == "encdec":
+        cross = ("layers", "batch", "kv_heads", None, "head_dim")
+        return {"kv": kv_spec, "cross_k": cross, "cross_v": cross,
+                "index": idx}
+    raise ValueError(cfg.family)
+
+
+# --------------------------------------------------------------------------- #
+# Logical sharding specs of the parameters -- resolved against a mesh by
+# distributed.sharding's rules; the ZeRO-1 state (train/optimizer.py) widens
+# them with the data axis.
+# --------------------------------------------------------------------------- #
+
+def _norm_spec(cfg: ModelConfig) -> Dict[str, tuple]:
+    if cfg.norm in ("rmsnorm", "rmsnorm_one", "layernorm_nobias"):
+        return {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {}  # nonparametric
+
+
+def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """One block's specs (the JAX stacked leaf's without its leading
+    ``"layers"``)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return {"norm": _norm_spec(cfg), "mixer": SSM.mamba2_param_specs()}
+    spec: Dict[str, Any] = {
+        "attn_norm": _norm_spec(cfg),
+        "attn": L.attention_param_specs(),
+        "mlp_norm": _norm_spec(cfg),
+    }
+    if cfg.family == "moe":
+        spec["moe"] = MOE.moe_param_specs(cfg)
+    else:
+        spec["mlp"] = L.mlp_param_specs(cfg)
+    if cfg.post_block_norm:
+        spec["post_attn_norm"] = _norm_spec(cfg)
+        spec["post_mlp_norm"] = _norm_spec(cfg)
+    return spec
+
+
+def _flat_specs(prefix: str, tree: Dict[str, Any]) -> Dict[str, tuple]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_specs(f"{prefix}{k}.", v))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def param_logical_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of every parameter, keyed by the port's parameter
+    names (``named_parameters()``): a per-layer leaf (``blocks.3.attn.wq``)
+    takes the JAX stacked leaf's spec without its leading ``"layers"``."""
+    _require_ported(cfg)
+    specs = _flat_specs("embed.", L.embedding_param_specs(cfg))
+    stacks = [("blocks", cfg.n_layers, _block_spec(cfg))]
+    if cfg.family == "encdec":
+        stacks += [("enc_blocks", cfg.n_enc_layers,
+                    _block_spec(_encoder_cfg(cfg))),
+                   ("cross", cfg.n_layers,
+                    {"norm": _norm_spec(cfg),
+                     "attn": L.attention_param_specs()})]
+        specs.update(_flat_specs("enc_norm.", _norm_spec(cfg)))
+    if cfg.family == "hybrid":
+        specs.update(_flat_specs("shared.", {
+            "attn_norm": _norm_spec(cfg),
+            "attn": L.attention_param_specs(),
+            "mlp_norm": _norm_spec(cfg),
+            "mlp": L.mlp_param_specs(cfg),
+        }))
+    for name, n, block in stacks:
+        for i in range(n):
+            specs.update(_flat_specs(f"{name}.{i}.", block))
+    specs.update(_flat_specs("final_norm.", _norm_spec(cfg)))
+    return specs
+
+
+def sharding_dims(cfg: ModelConfig, global_batch: int,
+                  kv_seq: Optional[int] = None,
+                  q_seq: Optional[int] = None) -> Dict[str, int]:
+    """Dimension sizes for distributed.sharding.resolve_rules divisibility.
+
+    For the SSM 'inner' axis multiple tensors share the logical name with
+    different sizes (in_proj out, conv channels, d_inner); the gcd is used
+    so one rule fits all of them.
+    """
+    a = cfg.attention
+    dims = {
+        "batch": global_batch,
+        "heads": a.n_heads,
+        "kv_heads": a.n_kv_heads,
+        "head_dim": a.head_dim,
+        "vocab": cfg.vocab,
+        "embed": cfg.d_model,
+        "seq": kv_seq or 0,
+        "kv_seq": kv_seq or 0,
+        # query-sequence length: equals seq for train/prefill, 1 for decode
+        "q_seq": q_seq if q_seq is not None else 0,
+    }
+    if cfg.family == "moe":
+        m = cfg.moe
+        dims["experts"] = m.n_experts
+        dims["mlp"] = (m.n_shared * (m.shared_dff or m.expert_dff)
+                       if m.n_shared else 0)
+    else:
+        dims["mlp"] = cfg.d_ff
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        nheads = di // s.head_dim
+        in_proj_out = 2 * di + 2 * s.d_state + nheads
+        conv_dim = di + 2 * s.d_state
+        dims["inner"] = math.gcd(math.gcd(in_proj_out, conv_dim), di)
+    return dims
+
+
 def _remat(cfg: ModelConfig) -> str:
     """How each block is recomputed in the backward (the JAX package's
     ``_maybe_remat``): ``cfg.remat`` when autograd records the forward,

@@ -78,6 +78,23 @@ def init_moe(gen: Optional[torch.Generator],
     return p
 
 
+def moe_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical axes of :func:`init_moe`'s leaves."""
+    specs = {
+        "router": ("embed", None),
+        "w_up": ("experts", "embed", None),
+        "w_down": ("experts", None, "embed"),
+    }
+    if cfg.act.endswith("gated"):
+        specs["w_gate"] = ("experts", "embed", None)
+    if cfg.moe.n_shared > 0:
+        specs["shared_up"] = ("embed", "mlp")
+        specs["shared_down"] = ("mlp", "embed")
+        if cfg.act.endswith("gated"):
+            specs["shared_gate"] = ("embed", "mlp")
+    return specs
+
+
 def _capacity(cfg: ModelConfig, group: int) -> int:
     m = cfg.moe
     c = int(math.ceil(group * m.top_k * m.capacity_factor / m.n_experts))

@@ -87,6 +87,20 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tenso
     }
 
 
+def mamba2_param_specs() -> Dict[str, tuple]:
+    """Logical axes of :func:`init_mamba2`'s leaves."""
+    return {
+        "in_proj": ("embed", "inner"),
+        "conv_w": (None, "inner"),
+        "conv_b": ("inner",),
+        "a_log": (None,),
+        "dt_bias": (None,),
+        "d_skip": (None,),
+        "norm_scale": ("inner",),
+        "out_proj": ("inner", "embed"),
+    }
+
+
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     s = cfg.ssm
     d_inner, _, _ = ssm_dims(cfg)

@@ -13,8 +13,9 @@ held to the reference's numpy backend step by step.
 Three things differ from the reference:
 
 * **Execution.** :func:`run_cells` is a chunked host loop
-  (:func:`repro_torch.kernels.sim_step.run_chunks`) that advances the
-  batch ``chunk`` steps at a time through the hand-written CUDA kernel on
+  (:func:`repro_torch.kernels.sim_step.run_shards`) that advances the
+  batch -- or its shards over a device mesh, in lockstep -- ``chunk``
+  steps at a time through the hand-written CUDA kernel on
   the card (``step="fused"``, the default) or through its plain torch
   version :func:`repro_torch.kernels.sim_step.fused_chunk_ref`
   (``step="scan"``, and always for CPU tensors).  The kernel draws the
@@ -89,6 +90,11 @@ _POIS_SWITCH = 6.0  # switch to the clipped-normal approximation above this
 _CLS_CAP = 4      # max peer classes whose replica holders a store cell can
                   # carry (per-class availability columns in the step); also
                   # the class axis of the class-pooled estimator moments
+_CPU_LANES = 64   # a batch on the CPU is padded to a multiple of this many
+                  # cells (born finished): PyTorch's CPU kernels take
+                  # exp/log on whole SIMD vectors (SLEEF) and a loop's tail
+                  # through libm, which round differently in the last bit,
+                  # so a cell's bits would depend on its place in the batch
 _EXACT_AGG_MAX = 4096  # watch sizes up to this use exact per-slot class
                        # aggregates in _pack; larger fleets take the O(1)
                        # closed forms (O(1/n) quota discretization error)
@@ -1103,10 +1109,53 @@ def batch_flags(cells: Sequence[CellSpec], p: _Params) -> dict:
                     for c, pm in zip(cells, p.pm_on)) else 1)
 
 
+def _cell_shards(mesh, device, B: int):
+    """The devices the cell batch shards over and its padded size ``Bp``
+    (the reference's ``_run_jax``): ``mesh`` "auto" takes
+    :func:`~repro_torch.distributed.mesh.cell_mesh` when the run is on CUDA
+    and more than one card is present, ``None`` never shards, a ``Mesh``
+    shards over its data axes as ``resolve_rules(mesh, {"cell": Bp})``
+    resolves them, ``Bp`` being ``B`` rounded up to a multiple of the mesh's
+    size.  Returns ``([device], B)`` for an unsharded run."""
+    from repro_torch.distributed.mesh import Mesh, cell_mesh
+    from repro_torch.distributed.sharding import resolve_rules
+
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', None or a Mesh, got "
+                             f"{mesh!r}")
+        dev = resolve_device(device)
+        mesh = (cell_mesh() if dev.type == "cuda"
+                and torch.cuda.device_count() > 1 else None)
+        if mesh is None:
+            return [dev], B
+    elif mesh is None:
+        return [resolve_device(device)], B
+    elif not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be 'auto', None or a Mesh, got "
+                        f"{type(mesh).__name__}")
+    if mesh.devices is None:
+        raise ValueError("run_cells needs a mesh with devices, got an "
+                         "abstract one")
+    if device is not None:
+        want = torch.device(device)
+        if any(d.type != want.type or (want.index is not None
+                                       and d.index != want.index)
+               for d in mesh.devices):
+            raise ValueError(f"device {want} disagrees with the mesh's "
+                             f"devices {[str(d) for d in mesh.devices]}")
+    Bp = -(-B // mesh.size) * mesh.size
+    axes = resolve_rules(mesh, {"cell": Bp}).physical("cell")
+    if axes is None:
+        return [mesh.devices[0]], B
+    return mesh.devices_along(axes), Bp
+
+
 def run_cells(cells: Sequence[CellSpec], *, device=None,
               max_steps: int = 400_000, macro_threshold: float = 0.05,
               peer_form: str = "auto", chunk: int = DEFAULT_CHUNK,
-              step: str = "fused", draws: str = "philox") -> BatchResult:
+              step: str = "fused", draws: str = "philox",
+              mesh="auto") -> BatchResult:
     """Simulate every cell to completion (or censoring) and return a batch.
 
     ``device``: ``None`` runs on CUDA (and raises without a card);
@@ -1128,11 +1177,26 @@ def run_cells(cells: Sequence[CellSpec], *, device=None,
     ``draws``: "philox" (device stream; the fused step on the card draws
     it inside the kernel) or "numpy" (replays the reference numpy backend's
     streams, pre-generated; :mod:`repro_torch.sim.draws`).
+    ``mesh``: cell-batch sharding -- "auto" (over
+    :func:`~repro_torch.distributed.mesh.cell_mesh`, every card, when the
+    run is on CUDA and more than one card is present; else unsharded),
+    ``None`` (unsharded), or a :class:`~repro_torch.distributed.mesh.Mesh`
+    whose data axes the ``cell`` logical axis is resolved against (a
+    ``device`` that disagrees with its devices raises).  The batch is
+    padded to a multiple of the mesh's size with copies of the last cell,
+    born finished; the packed batch is split contiguously, one shard a
+    data position, each with its own draw source on its device (both
+    sources are keyed per cell, so a cell's trajectory does not depend on
+    its shard), and the shards step in lockstep
+    (:func:`repro_torch.kernels.sim_step.run_shards`).  The result is the
+    unsharded run's, field for field and in ``n_steps``.  A batch (or
+    shard) on the CPU is padded further to a multiple of ``_CPU_LANES``
+    cells, born finished, so that every cell takes the same SIMD path
+    whatever its place in the batch.
     """
     from repro_torch.kernels import sim_step
     from repro_torch.sim.draws import make_draws
 
-    dev = resolve_device(device)
     if step not in ("scan", "fused"):
         raise ValueError(f"unknown step {step!r}")
     chunk = int(chunk)
@@ -1144,18 +1208,41 @@ def run_cells(cells: Sequence[CellSpec], *, device=None,
         raise ValueError(
             "step='fused' supports batches with no per-peer-form cells "
             "(pooled or class-pooled estimators only); use step='scan'")
-    p = from_reference(p_np, device=dev)
-    s = _init_state(p, flags["peer_axis"])
-    src = make_draws(draws, [c.seed for c in cells], flags["any_pm"], dev,
-                     flags["peer_axis"])
-    s, steps = sim_step.run_chunks(
-        s, p, src, chunk=chunk, max_steps=max_steps,
-        macro_threshold=float(macro_threshold), plain=step == "scan", **flags)
-    return _result(s, p_np, steps)
+    B = len(cells)
+    devs, Bp = _cell_shards(mesh, device, B)
+    seeds = np.asarray([c.seed for c in cells], dtype=np.int64)
+    per = Bp // len(devs)
+    shards, keep = [], []
+    for j, dev in enumerate(devs):
+        # cells j*per .. (j+1)*per - 1 of the batch padded to Bp, then (on
+        # the CPU) to a multiple of _CPU_LANES; every copy of the last cell
+        # is born finished
+        n = per + (-per % _CPU_LANES if dev.type == "cpu" else 0)
+        idx = j * per + np.arange(n)
+        born = (idx >= B) | (np.arange(n) >= per)
+        idx = np.minimum(idx, min((j + 1) * per, B) - 1)
+        p = from_reference(_Params(*(a[idx] for a in p_np)), device=dev)
+        s = _init_state(p, flags["peer_axis"])
+        if born.any():
+            s = s._replace(finished=s.finished | torch.as_tensor(
+                born, device=dev))
+        shards.append((s, p, make_draws(draws, seeds[idx], flags["any_pm"],
+                                        dev, flags["peer_axis"])))
+        keep.append(per)
+    states, steps = sim_step.run_shards(
+        shards, chunk=chunk, max_steps=max_steps,
+        macro_threshold=float(macro_threshold), plain=step == "scan",
+        **flags)
+    return _result([_State(*(x[:n] for x in s)) for s, n in zip(states, keep)],
+                   p_np, steps)
 
 
-def _result(s: _State, p: _Params, steps: int) -> BatchResult:
-    h = _State(*(x.cpu().numpy() for x in s))
+def _result(states: Sequence[_State], p: _Params, steps: int) -> BatchResult:
+    """The batch's result from its shards' final states, in order (the
+    padding past ``p``'s cells sliced off)."""
+    B = p.k.shape[0]
+    h = _State(*(np.concatenate([x.cpu().numpy() for x in xs])[:B]
+                 for xs in zip(*states)))
     completed = ~(h.censored | ~h.finished)
     return BatchResult(
         wall_time=h.t - p.t0,

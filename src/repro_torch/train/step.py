@@ -18,9 +18,23 @@ so a config with ``use_flash_kernel=True`` is refused.  An encdec batch
 carries 'frames' (B, enc_seq, d_model) beside the tokens and labels; the
 microbatch split slices every entry along the batch, frames too.  A moe step
 averages the blocks' ``moe_aux_loss`` and ``moe_dropped_frac`` over the
-microbatches with the loss.  ``grad_constraint`` and
-``zero1_grads_in_scan`` (the ZeRO-1 sharding of the gradients) wait for
-ROADMAP Queue 1 item 6 and raise.
+microbatches with the loss.
+
+ZeRO-1 (:func:`shard_train_state`): the AdamW state is split over a mesh's
+data axis (``train/optimizer.py``), and each batch device (the positions of
+the mesh's data axes) gets a replica of the working parameters -- one a
+device, so on one card every position shares one.  The step then splits
+the global batch contiguously over the batch devices and each part into
+``n_microbatches``, and adds every microbatch's float32 gradient into one
+accumulator in global microbatch order (device-major, as one unsharded
+loop over all the microbatches would), divides by their count, updates
+the state piece by piece and casts each piece into every replica.  So a
+split batch steps bitwise as the unsplit one with as many microbatches,
+except through the global norm (see ``train/optimizer.py``).
+``grad_constraint`` (:func:`~repro_torch.train.optimizer.
+zero1_grad_constraint`) puts the accumulated gradients into the ZeRO-1
+layout before the update; with ``zero1_grads_in_scan`` the accumulator
+itself lives in that layout and takes each microbatch's slices.
 """
 from __future__ import annotations
 
@@ -31,52 +45,130 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.mesh import Mesh, data_axes
+from repro_torch.distributed.sharding import resolve_rules
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import (
     AdamWConfig,
     AdamWState,
+    Sharded,
     adamw_update,
+    data_devices,
     global_norm,
     init_adamw,
     params_from_master,
+    shard_state,
+    zero1_grad_constraint,
+    zero1_state_shardings,
 )
 
 _OPT_PARTS = ("master", "m", "v")
 
 
+def _copy_model(params: M.LM, device) -> M.LM:
+    """A copy of the working parameters on ``device`` (``nn.Parameter``
+    leaves, requiring grad), sharing no storage with ``params``."""
+    cfg = params.cfg
+    out = M.model_class(cfg)(cfg)               # on the meta device
+    out.load_state_dict({k: p.detach().to(device, copy=True) for k, p
+                         in params.named_parameters()},
+                        strict=True, assign=True)
+    return out.requires_grad_(True)
+
+
 class TrainState(NamedTuple):
     params: M.LM         # param_dtype (bf16) working copy, requires grad
-    opt: AdamWState      # fp32 master + moments
+    opt: AdamWState      # fp32 master + moments (ZeRO-1: Sharded leaves)
+    # ZeRO-1: the working parameters of each batch device, in mesh order
+    # (one module a device; ``params`` is the first); () unsharded
+    replicas: Tuple[M.LM, ...] = ()
+
+    def modules(self) -> list:
+        """The distinct working-parameter modules: one a batch device."""
+        out = []
+        for m in self.replicas or (self.params,):
+            if not any(m is o for o in out):
+                out.append(m)
+        return out
 
     def tree(self) -> Dict[str, torch.Tensor]:
         """The state as one flat mapping (the checkpoint layout):
-        ``params/<name>``, ``opt/step``, ``opt/{master,m,v}/<name>``."""
+        ``params/<name>``, ``opt/step``, ``opt/{master,m,v}/<name>``; a
+        sharded leaf is gathered whole, so the image does not depend on
+        the mesh."""
         out = {f"params/{k}": p for k, p in self.params.named_parameters()}
         out["opt/step"] = self.opt.step
         for part in _OPT_PARTS:
-            out.update({f"opt/{part}/{k}": t
+            out.update({f"opt/{part}/{k}": t.gather()
+                        if isinstance(t, Sharded) else t
                         for k, t in getattr(self.opt, part).items()})
         return out
 
     @torch.no_grad()
     def load_tree(self, tree: Mapping[str, torch.Tensor]) -> "TrainState":
-        """Copy a :meth:`tree` mapping into this state in place."""
-        for k, t in self.tree().items():
-            t.copy_(tree[k])
+        """Copy a :meth:`tree` mapping into this state in place (into
+        every replica, and into the pieces of a sharded leaf)."""
+        for rep in self.modules():
+            for k, p in rep.named_parameters():
+                p.copy_(tree[f"params/{k}"])
+        self.opt.step.copy_(tree["opt/step"])
+        for part in _OPT_PARTS:
+            for k, t in getattr(self.opt, part).items():
+                whole = tree[f"opt/{part}/{k}"]
+                for piece, sl in (t.slices(whole) if isinstance(t, Sharded)
+                                  else ((t, whole),)):
+                    piece.copy_(sl)
         return self
 
     def clone(self) -> "TrainState":
         """A copy that shares no storage with this state."""
-        cfg = self.params.cfg
-        params = M.model_class(cfg)(cfg)            # on the meta device
-        params.load_state_dict({k: p.detach().clone() for k, p
-                                in self.params.named_parameters()},
-                               strict=True, assign=True)
-        params.requires_grad_(True)
-        parts = {p: {k: t.clone() for k, t in getattr(self.opt, p).items()}
+        copies = {id(m): _copy_model(m, next(m.parameters()).device)
+                  for m in self.modules()}
+        parts = {p: {k: t.map(torch.clone) if isinstance(t, Sharded)
+                     else t.clone()
+                     for k, t in getattr(self.opt, p).items()}
                  for p in _OPT_PARTS}
-        return TrainState(params, AdamWState(step=self.opt.step.clone(),
-                                             **parts))
+        return TrainState(copies[id(self.params)],
+                          AdamWState(step=self.opt.step.clone(), **parts),
+                          tuple(copies[id(m)] for m in self.replicas))
+
+
+def zero1_specs(cfg: ModelConfig, mesh: Mesh) -> AdamWState:
+    """The ZeRO-1 specs of ``cfg``'s AdamW state on ``mesh``: the
+    parameters' logical specs (``models.model.param_logical_specs``)
+    resolved by the mesh's rules, widened by ``zero1_spec``."""
+    rules = resolve_rules(mesh, M.sharding_dims(cfg, 0))
+    shapes = {k: tuple(p.shape) for k, p
+              in M.model_class(cfg)(cfg).named_parameters()}
+    return zero1_state_shardings(
+        {k: rules.spec(ls) for k, ls in M.param_logical_specs(cfg).items()},
+        shapes, mesh)
+
+
+def batch_devices(mesh: Mesh) -> list:
+    """The devices a ZeRO-1 step splits the global batch over: the
+    positions of the mesh's data axes (pod, data), in mesh order."""
+    data_devices(mesh)                      # refuses a model axis > 1
+    return mesh.devices_along(data_axes(mesh))
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """``state`` with its AdamW state split ZeRO-1-style over ``mesh``'s
+    data axis (:func:`~repro_torch.train.optimizer.shard_state`: by copy,
+    each whole leaf dropped from ``state`` once split) and a replica of
+    the working parameters on each batch device (``state.params`` itself
+    where it already lies there)."""
+    cfg = state.params.cfg
+    constraint = zero1_grad_constraint(mesh, zero1_specs(cfg, mesh).master)
+    opt = shard_state(state.opt, constraint)
+    have = next(state.params.parameters()).device
+    mods = {have: state.params}
+    reps = []
+    for dev in batch_devices(mesh):
+        if dev not in mods:
+            mods[dev] = _copy_model(state.params, dev)
+        reps.append(mods[dev])
+    return TrainState(reps[0], opt, tuple(reps))
 
 
 def require_trainable_family(cfg: ModelConfig) -> None:
@@ -182,6 +274,17 @@ def compute_grads(params: M.LM, batch: Mapping[str, torch.Tensor],
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
+def _accumulate(acc: Dict[str, Any], grads: Mapping[str, torch.Tensor]
+                ) -> None:
+    """``acc += grads`` in float32, leaf by leaf, in place; a
+    :class:`Sharded` accumulator takes each piece's slice."""
+    for k, g in grads.items():
+        a = acc[k]
+        for piece, sl in (a.slices(g) if isinstance(a, Sharded)
+                          else ((a, g),)):
+            piece += sl.to(piece.device).float()
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: AdamWConfig,
@@ -194,44 +297,69 @@ def make_train_step(
               Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step.  ``batch``: ``{'tokens', 'labels'}`` (B, S)
     integer arrays or tensors (encdec: and 'frames' (B, enc_seq,
-    d_model)), moved to the parameters' device."""
+    d_model)), moved to the parameters' device -- for a ZeRO-1 state,
+    split over its batch devices, each part moved to its own.
+
+    ``grad_constraint`` (optional) re-shards the accumulated gradients
+    (ZeRO-1 layout) before the optimizer consumes them: a callable from
+    ``{name: float32 gradient}`` (any subset of the names) to the layout,
+    as :func:`~repro_torch.train.optimizer.zero1_grad_constraint` builds
+    it.  By default it is applied once after the microbatch loop;
+    ``zero1_grads_in_scan`` additionally keeps the accumulator itself in
+    that layout (smaller, at the cost of a slice-add a leaf and
+    microbatch)."""
     require_trainable(cfg)
-    if grad_constraint is not None or zero1_grads_in_scan:
-        raise NotImplementedError(
-            "grad_constraint / zero1_grads_in_scan (ZeRO-1 sharding of the "
-            "gradients) are not ported yet (ROADMAP Queue 1 item 6)")
+    in_scan = grad_constraint is not None and zero1_grads_in_scan
 
     def train_step(state: TrainState, batch: Mapping[str, Any]):
         dev = state.opt.step.device
-        batch = _to_device(batch, dev)
-        if n_microbatches > 1:
-            b = batch["tokens"].shape[0]
-            if b % n_microbatches:
-                raise ValueError(f"batch {b} % n_microbatches "
-                                 f"{n_microbatches} != 0")
-            mb = b // n_microbatches
-            g_sum = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                     for k, p in state.params.named_parameters()}
-            m_sum = _zero_metrics(cfg, dev)
-            for i in range(n_microbatches):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                grads, metrics = compute_grads(state.params, micro, cfg)
-                for k, g in grads.items():
-                    g_sum[k] += g.float()
-                m_sum = {k: m_sum[k] + metrics[k] for k in m_sum}
-            n = torch.tensor(float(n_microbatches), device=dev)
-            grads = {k: g / n for k, g in g_sum.items()}
-            metrics = {k: v / n for k, v in m_sum.items()}
+        reps = state.replicas or (state.params,)
+        n_total = len(reps) * n_microbatches
+        if n_total == 1:
+            grads, metrics = compute_grads(state.params,
+                                           _to_device(batch, dev), cfg)
         else:
-            grads, metrics = compute_grads(state.params, batch, cfg)
+            b = batch["tokens"].shape[0]
+            if b % n_total:
+                raise ValueError(
+                    f"batch {b} % (batch devices {len(reps)} x "
+                    f"n_microbatches {n_microbatches}) != 0")
+            mb = b // n_total
+            g_sum = {}
+            for k, p in state.params.named_parameters():
+                zero = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                # one whole leaf at a time into the layout
+                g_sum.update(grad_constraint({k: zero}) if in_scan
+                             else {k: zero})
+            m_sum = _zero_metrics(cfg, dev)
+            per = mb * n_microbatches
+            for j, rep in enumerate(reps):
+                part = _to_device({k: v[j * per:(j + 1) * per]
+                                   for k, v in batch.items()},
+                                  next(rep.parameters()).device)
+                for i in range(n_microbatches):
+                    micro = {k: v[i * mb:(i + 1) * mb]
+                             for k, v in part.items()}
+                    grads, metrics = compute_grads(rep, micro, cfg)
+                    _accumulate(g_sum, grads)
+                    m_sum = {k: m_sum[k] + metrics[k].to(dev)
+                             for k in m_sum}
+            n = torch.tensor(float(n_total), device=dev)
+            grads = {k: g.map(lambda t: t / n.to(t.device))
+                     if isinstance(g, Sharded) else g / n
+                     for k, g in g_sum.items()}
+            metrics = {k: v / n for k, v in m_sum.items()}
 
+        if grad_constraint is not None:
+            grads = grad_constraint(grads)
         lr_scale = schedule(state.opt.step)
         master, new_opt = adamw_update(opt_cfg, grads, state.opt, lr_scale)
-        params_from_master(master, _named(state.params))
+        for rep in state.modules():
+            params_from_master(master, _named(rep))
         metrics = dict(metrics)
         metrics["grad_norm"] = global_norm(grads)
         metrics["lr_scale"] = torch.as_tensor(lr_scale, dtype=torch.float32)
         metrics["step"] = new_opt.step.float()
-        return TrainState(params=state.params, opt=new_opt), metrics
+        return state._replace(opt=new_opt), metrics
 
     return train_step

@@ -1496,3 +1496,259 @@ def test_encdec_backward_is_deterministic_and_remat_free_on_card():
     for r in ("none again", "full", "dots"):
         for k, g in out["none"].items():
             assert torch.equal(out[r][k], g), (r, k)
+
+
+# ------------------------------------------------ cell sharding and ZeRO-1
+def _mesh(devices):
+    from repro_torch.distributed import make_mesh
+
+    return make_mesh((len(devices),), ("data",), devices)
+
+
+def _fields_equal(a, b, sl=slice(None)):
+    import numpy as np
+
+    for f in ("wall_time", "work_required", "n_checkpoints", "n_failures",
+              "wasted_work", "checkpoint_time", "restore_time", "completed",
+              "server_bytes", "n_server_restores", "n_peer_restores"):
+        assert np.array_equal(getattr(a, f)[sl], getattr(b, f)[sl]), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draws", ["philox", "numpy"])
+def test_sharded_cells_bitwise_on_one_card(draws):
+    """C1 at a small size: extents 1-4 of cuda:0 (3 pads), the kernel on
+    both routes, bitwise the unsharded run, shards x chunks launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    cells = _cells(70)
+    kw = dict(draws=draws, chunk=64, max_steps=512)
+    want = TE.run_cells(cells, mesh=None, **kw)
+    chunks = -(-want.n_steps // 64)
+    for n in (1, 2, 3, 4):
+        before = TK.LAUNCHES
+        got = TE.run_cells(cells, mesh=_mesh(["cuda:0"] * n), **kw)
+        _fields_equal(want, got)
+        assert got.n_steps == want.n_steps
+        assert TK.LAUNCHES - before == n * chunks
+
+
+@pytest.mark.cuda
+def test_sharded_perpeer_cells_bitwise_on_one_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    pol = PolicyConfig(kind="adaptive", prior_mu=1 / 3000.0, prior_v=20.0,
+                       regime="gossip", gossip_period=300.0)
+    cells = [CellSpec(scenario=scenario("constant", mtbf=3000.0),
+                      policy=pol, k=k, seed=s, work=3600.0, V=20.0, T_d=50.0)
+             for k in (4, 16) for s in range(3)]
+    kw = dict(step="scan", chunk=32, max_steps=96)
+    want = TE.run_cells(cells, mesh=None, **kw)
+    before = TK.LAUNCHES
+    _fields_equal(want, TE.run_cells(cells, mesh=_mesh(["cuda:0"] * 4),
+                                     **kw))
+    assert TK.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cells_over_the_card_and_the_cpu():
+    """C2 at a small size: the card's shard bitwise, the CPU's within
+    phase 4's rule (counts exact, floats 1e-9 relative)."""
+    import numpy as np
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    cells = _cells(40)
+    kw = dict(draws="numpy", chunk=64, max_steps=256)
+    want = TE.run_cells(cells, mesh=None, **kw)
+    got = TE.run_cells(cells, mesh=_mesh(["cuda:0", "cpu"]), **kw)
+    _fields_equal(want, got, slice(0, 20))
+    for f in ("n_checkpoints", "n_failures", "completed"):
+        assert np.array_equal(getattr(want, f), getattr(got, f)), f
+    for f in ("wall_time", "wasted_work", "restore_time", "server_bytes"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-9, atol=0)
+
+
+def _zero1(cfg, opt, batch, devices, m, in_scan):
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import schedule as SCH
+    from repro_torch.train import step as STEP
+
+    mesh = _mesh(devices)
+    state = STEP.shard_train_state(STEP.init_train_state(0, cfg, devices[0]),
+                                   mesh)
+    c = OPT.zero1_grad_constraint(mesh, STEP.zero1_specs(cfg, mesh).master)
+    return STEP.make_train_step(cfg, opt, SCH.constant(1.0),
+                                n_microbatches=m, grad_constraint=c,
+                                zero1_grads_in_scan=in_scan)(state, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "olmoe-1b-7b"])
+def test_zero1_split_batch_equals_unsplit_batch_on_card(arch):
+    """Z1 at SMOKE: data extent n x m microbatches against n*m unsharded
+    on cuda:0 -- bitwise unclipped, 1e-6 relative (above 1e-6 of the
+    leaf's largest value) clipped."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import schedule as SCH
+    from repro_torch.train import step as STEP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                         compute_dtype="float32",
+                                         use_flash_kernel=False)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=8, seed=4)).batch_at(0)
+    for clip in (1e6, 1e-3):
+        opt = OPT.AdamWConfig(lr=1e-3, grad_clip=clip)
+        want, wm = STEP.make_train_step(cfg, opt, SCH.constant(1.0),
+                                        n_microbatches=4)(
+            STEP.init_train_state(0, cfg, "cuda"), batch)
+        for n, m, in_scan in ((2, 2, False), (2, 2, True), (4, 1, True)):
+            got, gm = _zero1(cfg, opt, batch, ["cuda:0"] * n, m, in_scan)
+            torch.testing.assert_close(gm["grad_norm"], wm["grad_norm"],
+                                       rtol=1e-6, atol=0)
+            a, b = want.tree(), got.tree()
+            for k in a:
+                if clip < 1:
+                    floor = 1e-6 * float(a[k].detach().abs().max())
+                    torch.testing.assert_close(b[k], a[k], rtol=1e-6,
+                                               atol=floor)
+                else:
+                    assert torch.equal(a[k], b[k]), (n, m, in_scan, k)
+
+
+@pytest.mark.cuda
+def test_zero1_over_the_card_and_the_cpu():
+    """A replica and half the state on each of (cuda:0, cpu): the step
+    within T2's master rule of the unsharded step on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import schedule as SCH
+    from repro_torch.train import step as STEP
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    cfg = get_smoke_config("olmo-1b").replace(
+        param_dtype="float32", compute_dtype="float32", use_flash_kernel=False)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=8, seed=4)).batch_at(0)
+    opt = OPT.AdamWConfig(lr=1e-3, grad_clip=1e6)
+    want, wm = STEP.make_train_step(cfg, opt, SCH.constant(1.0),
+                                    n_microbatches=2)(
+        STEP.init_train_state(0, cfg, "cuda"), batch)
+    got, gm = _zero1(cfg, opt, batch, ["cuda:0", "cpu"], 1, True)
+    assert len({id(r) for r in got.replicas}) == 2
+    assert {str(t.device) for v in got.opt.master.values()
+            for t in v.shards} == {"cuda:0", "cpu"}
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-5 * abs(
+        float(wm["loss"]))
+    g, _ = STEP.compute_grads(STEP.init_train_state(0, cfg, "cuda").params,
+                              STEP._to_device(batch, "cuda"), cfg)
+    tiny_n, total = 0, 0
+    for k, w in want.opt.master.items():
+        d = (got.opt.master[k].gather("cuda") - w).abs()
+        tiny = (g[k].abs() < 1e-6) & (g[k] != 0)
+        assert not bool(((d > 1e-5 * w.abs() + 1e-6) & ~tiny).any()), k
+        assert not tiny.any() or float(d[tiny].max()) <= 0.05 * opt.lr, k
+        tiny_n, total = tiny_n + int(tiny.sum()), total + w.numel()
+    assert tiny_n < 1e-2 * total
+
+
+@pytest.mark.cuda
+def test_every_kernel_launches_on_its_tensors_card():
+    """With two or more cards, each kernel on tensors of the last card (the
+    current device left at cuda:0) against its plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from repro_torch.kernels import ckpt_quant as Q
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    assert torch.cuda.current_device() == 0
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(4096, generator=g, device=dev)
+    q, s = Q.quantize_blocks(x, 512)
+    qp, sp = Q.quantize_blocks_plain(x, 512)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    assert torch.equal(Q.dequantize_blocks(q, s, 512),
+                       Q.dequantize_blocks_plain(q, s, 512))
+    qkv = [t.to(dev) for t in _flash_inputs(2, 2, 128, 128, 64,
+                                            torch.bfloat16, 41)]
+    torch.testing.assert_close(
+        FA.flash_attention(*qkv, scale=0.125).float(),
+        FA.flash_attention_plain(*qkv, scale=0.125).float(),
+        rtol=2e-2, atol=2e-2)
+    x, dt, A, B, C, _ = [t.to(dev) if t is not None else None for t in
+                         _ssd_inputs(2, 512, 4, 64, 128, torch.bfloat16, 21,
+                                     False)]
+    y, st = SSD.ssd_scan(x, dt, A, B, C, chunk=256)
+    y_p, st_p = SSD.ssd_scan_plain(x, dt, A, B, C, chunk=256)
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(st, st_p, rtol=1e-4, atol=1e-4)
+    cells = _cells(70)
+    p = TE.from_reference(TE._pack(cells), device=dev)
+    s0 = TE._init_state(p, 1)
+    d = PhiloxDraws([c.seed for c in cells], True, dev).next(64)
+    a, ta = TK.fused_chunk(s0, p, d, macro_threshold=0.05, **FLAGS)
+    b, tb = TK.fused_chunk_ref(s0, p, d, macro_threshold=0.05, **FLAGS)
+    assert torch.equal(ta, tb)
+    for name, u, w in zip(a._fields, a, b):
+        assert torch.equal(u, w) or bool(
+            (torch.isnan(u) & torch.isnan(w) | (u == w)).all()), name
+    assert torch.equal(TK.philox_draws(PhiloxDraws([c.seed for c in cells],
+                                                   True, dev), 0, 8),
+                       PhiloxDraws([c.seed for c in cells], True,
+                                   dev).at(0, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draws", ["philox", "numpy"])
+def test_sharded_cells_over_every_card(draws):
+    """mesh='auto' with two or more cards: one shard a card, bitwise the
+    unsharded run on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cells = _cells(70)
+    kw = dict(draws=draws, chunk=64, max_steps=512)
+    want = TE.run_cells(cells, mesh=None, **kw)
+    n = torch.cuda.device_count()
+    before = TK.LAUNCHES
+    got = TE.run_cells(cells, mesh="auto", **kw)
+    _fields_equal(want, got)
+    assert got.n_steps == want.n_steps
+    assert TK.LAUNCHES - before == n * -(-want.n_steps // 64)
+
+
+@pytest.mark.cuda
+def test_zero1_over_every_card():
+    """A replica and a piece of the state on each card: bitwise the
+    unsharded step on cuda:0 with as many microbatches (the norm does not
+    clip)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import schedule as SCH
+    from repro_torch.train import step as STEP
+
+    n = torch.cuda.device_count()
+    cfg = get_smoke_config("olmo-1b").replace(
+        param_dtype="float32", compute_dtype="float32", use_flash_kernel=False)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=2 * n, seed=4)).batch_at(0)
+    opt = OPT.AdamWConfig(lr=1e-3, grad_clip=1e6)
+    want, _ = STEP.make_train_step(cfg, opt, SCH.constant(1.0),
+                                   n_microbatches=n)(
+        STEP.init_train_state(0, cfg, "cuda:0"), batch)
+    got, _ = _zero1(cfg, opt, batch, [f"cuda:{i}" for i in range(n)], 1,
+                    True)
+    assert len({id(r) for r in got.replicas}) == n
+    for k, v in want.tree().items():
+        assert torch.equal(v, got.tree()[k].to(v.device)), k

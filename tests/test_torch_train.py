@@ -293,10 +293,20 @@ def test_training_refuses_the_ssd_kernel():
     _, tcfg = _cfgs("float32", use_flash_kernel=True)
     with pytest.raises(ValueError, match="use_flash_kernel=False"):
         T_step.make_train_step(tcfg, T_opt.AdamWConfig(), T_sched.constant())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        T_step.make_train_step(tcfg.replace(use_flash_kernel=False),
-                               T_opt.AdamWConfig(), T_sched.constant(),
-                               grad_constraint=lambda g: g)
+    # grad_constraint (ZeRO-1, tests/test_torch_distributed.py) is taken:
+    # an identity constraint, in the microbatch loop too, steps as none
+    tcfg = tcfg.replace(use_flash_kernel=False)
+    batch = _torch_batch(_batch(tcfg))
+    out = []
+    for kw in ({}, dict(grad_constraint=lambda g: g),
+               dict(grad_constraint=lambda g: g, zero1_grads_in_scan=True)):
+        step = T_step.make_train_step(tcfg, T_opt.AdamWConfig(),
+                                      T_sched.constant(), n_microbatches=2,
+                                      **kw)
+        out.append(step(T_step.init_train_state(0, tcfg, "cpu"), batch)[0])
+    for st in out[1:]:
+        for k, v in out[0].tree().items():
+            assert torch.equal(v, st.tree()[k]), k
 
 
 # ----------------------------------------------------------------- data
