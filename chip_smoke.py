@@ -468,6 +468,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -558,7 +559,8 @@ WORKFLOW_VARIANTS = ("0000", "1100", "0010", "1010", "1110")
 TWIN_SEEDS = 8            # W1: seeds of each DAG, card and CPU
 WF_SEEDS = 4096           # W2: seeds a stage on the card (Philox draws)
 WF_CPU_SEEDS = 64         # W2: the CPU run it is held to (numpy draws)
-EXEC_SEEDS = 4            # W3: pinned schedule seeds executed per DAG
+EXEC_SEEDS = 2            # W3: pinned schedule seeds executed per DAG
+                          # (4 until TP1-DR1 needed the time)
 POWER_DIM = 2048          # W4: PowerIterTask's matrix (float32, 16 MiB)
 POLICY_TEMPLATE = dict(k=8.0, window=32, prior_mu=1.0 / 7200.0)
 # P2: benchmarks/policy_service_bench.py's policy_session_replay (full mode)
@@ -1021,10 +1023,14 @@ def chunk_times(cells, reps: int = 20) -> dict:
     return out
 
 
+FIG4_VS_PLAIN_MAX_STEPS = 1024   # to the end (1,536 / 2,048) until TP1-DR1
+
+
 def phase_fig4_vs_plain() -> None:
     """The Fig. 4 batches (216 cells each) through run_cells with the kernel
-    and with the plain step on the card: every BatchResult field equal;
-    then the kernel's time a chunk at that batch (both routes)."""
+    and with the plain step on the card, over FIG4_VS_PLAIN_MAX_STEPS
+    steps: every BatchResult field equal; then the kernel's time a chunk
+    at that batch (both routes)."""
     from repro_torch.sim import engine, run_cells
     from repro_torch.sim.experiments import (fig4_dynamic_entries,
                                              fig4_static_entries, grid_cells)
@@ -1034,8 +1040,8 @@ def phase_fig4_vs_plain() -> None:
         cells = grid_cells(entries, **FIG4_KW)
         key = _flag_key(engine.batch_flags(cells, engine._pack(cells)))
         t0 = time.monotonic()
-        a = run_cells(cells, step="fused")
-        b = run_cells(cells, step="scan")
+        a = run_cells(cells, step="fused", max_steps=FIG4_VS_PLAIN_MAX_STEPS)
+        b = run_cells(cells, step="scan", max_steps=FIG4_VS_PLAIN_MAX_STEPS)
         diff = _result_diff(a, b)
         REPORT[name]["vs_plain"] = dict(cells=len(cells), variant=key,
                                         mismatches=diff,
@@ -1291,9 +1297,9 @@ def perpeer_cells():
     mix = PeerClassMix((PeerClass("stable"),
                         PeerClass("volatile", hazard_mult=3.0, speed=0.7,
                                   uplink_mult=0.5)), (0.6, 0.4))
-    # 2 h of work a cell (4 h until C1-Z2 needed the time): 1,408 steps
-    # instead of 1,664 -- the censored fixed-interval cell sets the depth
-    kw = dict(work=2 * 3600.0, V=20.0, T_d=50.0, max_wall_time=16 * 3600.0)
+    # 1 h of work a cell (4 h until C1-Z2 needed the time, 2 h until
+    # TP1-DR1 did) -- the censored fixed-interval cell sets the depth
+    kw = dict(work=1 * 3600.0, V=20.0, T_d=50.0, max_wall_time=16 * 3600.0)
     ad = dict(kind="adaptive", prior_mu=1 / 32000.0, prior_v=20.0)
 
     def gossip(fan, period=300.0):
@@ -1433,9 +1439,10 @@ def phase_gossip_sweep() -> dict:
     draws (a per-peer batch: the plain step, no sim_step launch).  Every
     cell completes; isolated's mean wall exceeds pooled's and gossip every
     300 s lies within 10% of pooled in each scenario.  Steps, seconds and
-    seconds a step of a cold and a warm run; then ``torch.profiler`` over
-    the first 32 steps of a warm run of the same batch (device time by
-    kernel, kernels a step, idle share)."""
+    seconds a step of one (cold) run -- a warm repeat ran beside it until
+    TP1-DR1 needed the time; then ``torch.profiler`` over the first 32
+    steps of a warm run of the same batch (device time by kernel, kernels
+    a step, idle share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1449,7 +1456,7 @@ def phase_gossip_sweep() -> dict:
             fanouts=PF.GOSSIP_FANOUTS, mtbf0=PF.GOSSIP_MTBF, **PF.GOSSIP_KW)
 
     runs = []
-    for _ in range(2):
+    for _ in range(1):
         sim_step.LAUNCHES = 0
         with _Captured() as cap:
             t0 = time.monotonic()
@@ -1466,9 +1473,8 @@ def phase_gossip_sweep() -> dict:
     print(f"[G2] gossip_fidelity_sweep (main path): {len(cells)} cells, "
           f"{len(rows)} rows; cold {runs[0]['seconds']:.2f} s / "
           f"{runs[0]['steps']} steps ({runs[0]['s_per_step'] * 1e3:.2f} "
-          f"ms/step), warm {runs[1]['seconds']:.2f} s / {runs[1]['steps']} "
-          f"steps ({runs[1]['s_per_step'] * 1e3:.2f} ms/step); sim_step "
-          f"launches {[r['launches'] for r in runs]}", flush=True)
+          f"ms/step); sim_step launches {[r['launches'] for r in runs]}",
+          flush=True)
     for r in out["rows"]:
         print(f"    {r[0]:11s} {r[1]:8s} {r[2]:6.0f} {r[3]} wall "
               f"{r[4]:.1f} s inflation {r[5]:+.2f}% completed {r[6]:.3f}",
@@ -1654,7 +1660,7 @@ def sweep_bound(p, active: int, fp64_per_step: int,
 # runs 5,376 steps, its plain step on the card ~35 s of them; at 2,048 the
 # heterogeneity and shock comparisons took 14.5 and 13.4 s, so 1,024 (the
 # offload sweep's whole run) makes room for C1-Z2
-SWEEP_VS_PLAIN_MAX_STEPS = 1024
+SWEEP_VS_PLAIN_MAX_STEPS = 512    # 1,024 until TP1-DR1 needed the time
 
 
 def phase_sweeps_vs_plain(sweep_cells: dict) -> dict:
@@ -6875,6 +6881,691 @@ def shard_phases(fleet_res=None) -> dict:
                 zero1=zero1, olmo=olmo)
 
 
+# --------------------------------------------------------------------------- #
+# Tensor parallelism over a model axis (TP1-TP4) and the dry run on the card
+# (DR1)
+# --------------------------------------------------------------------------- #
+
+TP_SMOKE_ARCHS = (OLMO, GEMMA, OLMOE, DEEPSEEK)
+TP_EXTENTS = (2, 4)      # TP1/TP2: model extents over cuda:0 repeated
+TP_SEQ, TP_FORCED = 32, 4   # TP1: prompt tokens and teacher-forced steps
+TP_TRAIN_LAYERS = 8      # TP4: olmo-1b's depth cut (the unsplit and the
+                         # split state and step side by side on one card)
+TP_TRAIN_STEPS = 3
+TP_LOSS_REL, TP_GNORM_REL = 1e-2, 5e-2   # TP4: bf16 step against unsplit
+TP_MOE_F32_LAYERS = 4    # TP3: olmoe's float32 check (27.7 GB at 16 layers)
+TP_DECODE_STEPS = 8      # TP2/TP3: decode steps timed beside the greedy run
+DR_PEAK_RANGE = (0.8, 1.25)   # DR1: card peak / the dry run's estimate
+
+
+def _model_mesh(shape, dev: str = "cuda"):
+    """A (data, model) mesh repeating one device."""
+    from repro_torch.distributed.mesh import Mesh
+
+    return Mesh(shape, ("data", "model"), [dev] * math.prod(shape))
+
+
+def _tp_serve(model, cfg, prompt, forced, cache_dtype=None):
+    """:func:`_serve_run` of a whole or split model: the logits stacked,
+    and the KV cache in the unsplit layout."""
+    import torch
+
+    out, cache = _serve_run(model, cfg, prompt, forced, cache_dtype)
+    if getattr(model, "is_split", False):
+        cache = model.gather_cache(cache)
+    return torch.stack(out), cache
+
+
+def _cache_gap(a, b, tol) -> dict:
+    return max((_gap(a["kv"][n], b["kv"][n], tol) for n in ("k", "v")),
+               key=lambda g: g["max_ratio"])
+
+
+def _shards_equal(routes: list, m: int) -> bool:
+    """Each moe layer call of a split model routes once a shard, in model
+    order: the m routes of a call must be bitwise equal."""
+    import torch
+
+    return len(routes) % m == 0 and all(
+        torch.equal(routes[i].expert_ids, routes[i + j].expert_ids)
+        and torch.equal(routes[i].kept, routes[i + j].kept)
+        for i in range(0, len(routes), m) for j in range(1, m))
+
+
+def _split_grads(split, cfg, batch) -> dict:
+    """Every piece's gradients of the split loss (data index 0)."""
+    from repro_torch.models import model as M
+
+    for p in split.modules():
+        p.zero_grad(set_to_none=True)
+    import torch
+    with torch.enable_grad():
+        loss, _ = M._split_loss(split, batch, cfg, 0)
+        loss.backward()
+    out = {(j, k): p.grad.clone() for j, piece in split.group(0)
+           for k, p in piece.named_parameters()}
+    for p in split.modules():
+        p.zero_grad(set_to_none=True)
+    return out
+
+
+def tp_step_vs_unsplit(cfg, batch, dev: str = "cuda") -> dict:
+    """One float32 train step over (data 2, model 2) of ``dev`` against the
+    unsplit step with as many microbatches (4), by T2's rule: the loss
+    within STEP_TOL relative, grad_norm likewise, and the whole step's
+    master by :func:`master_rule` (the unsplit gradients as reference)."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (_to_device, compute_grads,
+                                        init_train_state, make_train_step,
+                                        shard_train_state)
+
+    opt = AdamWConfig(lr=1e-3)
+    whole = init_train_state(0, cfg, dev)
+    split = shard_train_state(init_train_state(0, cfg, dev),
+                              _model_mesh((2, 2), dev))
+    # the reference gradient is the mean of the 4 microbatches' (a moe
+    # gradient of the whole batch differs: its aux loss is the batch's)
+    micro = [{k: v[i * 2:(i + 1) * 2] for k, v in
+              _to_device(batch, dev).items()} for i in range(4)]
+    g_ref = {}
+    for mb in micro:
+        for k, t in compute_grads(whole.params, mb, cfg)[0].items():
+            g_ref[k] = g_ref[k] + t.float() if k in g_ref else t.float()
+    g_ref = {k: t / 4 for k, t in g_ref.items()}
+    want, wm = make_train_step(cfg, opt, constant(1.0), n_microbatches=4)(
+        whole, batch)
+    got, gm = make_train_step(cfg, opt, constant(1.0), n_microbatches=2)(
+        split, batch)
+    a, b = want.tree(), got.tree()
+    layout = all(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
+                 for k in a) and a.keys() == b.keys()
+    rel = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+           for k in ("loss", "grad_norm")}
+    res = dict(loss=float(gm["loss"]), loss_unsplit=float(wm["loss"]),
+               loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
+               image_layout_equal=layout, **master_rule(
+                   {k[len("opt/master/"):]: v for k, v in a.items()
+                    if k.startswith("opt/master/")},
+                   {k[len("opt/master/"):]: v for k, v in b.items()
+                    if k.startswith("opt/master/")}, g_ref, g_ref, opt.lr))
+    res["ok"] = res["ok"] and layout and max(rel.values()) <= STEP_TOL
+    return res
+
+
+def phase_tp_smoke(dev: str = "cuda") -> dict:
+    """TP1: four SMOKE configs in float32 with the kernel on, split over
+    (1, 2) and (1, 4) of ``dev`` (4 where the heads divide), against the
+    CPU's split run and the card's unsplit run: prefill of TP_SEQ tokens
+    and TP_FORCED teacher-forced decode steps, logits and the KV caches
+    within OLMO_F32_TOL; moe routes bitwise equal on every shard and
+    against the unsplit run.  Then one train step over (2, 2) of olmo and
+    olmoe SMOKE against the unsplit step (T2's rule), and remat none, full
+    and dots and a second backward bitwise on ``dev``."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+
+    tol = OLMO_F32_TOL
+    FA.LAUNCHES = 0
+    _zero(FA.LAUNCHES_BY_ROUTE)
+    rows, bad = {}, []
+    for arch in TP_SMOKE_ARCHS:
+        cfg = get_smoke_config(arch).replace(
+            param_dtype="float32", compute_dtype="float32",
+            use_flash_kernel=True)
+        here, cpu = init_params(0, cfg, device=dev), \
+            init_params(0, cfg, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        prompt = torch.randint(0, cfg.vocab, (4, TP_SEQ), generator=g)
+        forced = torch.randint(0, cfg.vocab, (4, TP_FORCED), generator=g)
+        with RouteSpy() as r_whole:
+            lw, cw = _tp_serve(here, cfg, prompt.to(dev), forced.to(dev),
+                               torch.float32)
+        for m in TP_EXTENTS:
+            rules = TP.split_rules(cfg, _model_mesh((1, m), dev))
+            if TP.unsupported_axes(cfg, rules):
+                rows[f"{arch} m={m}"] = dict(
+                    skipped=f"the rules put {TP.unsupported_axes(cfg, rules)}"
+                            f" on the model axis")
+                continue
+            card = TP.split_model(here, _model_mesh((1, m), dev))
+            host = TP.split_model(cpu, _model_mesh((1, m), "cpu"))
+            with RouteSpy() as r_card:
+                lc, cc = _tp_serve(card, cfg, prompt.to(dev), forced.to(dev),
+                                   torch.float32)
+            lp, cp = _tp_serve(host, cfg, prompt, forced, torch.float32)
+            row = dict(vs_cpu=_gap(lc.cpu(), lp, tol),
+                       cache_vs_cpu=_cache_gap(
+                           {"kv": {n: t.cpu() for n, t in cc["kv"].items()}},
+                           cp, tol),
+                       vs_unsplit=_gap(lc, lw, tol),
+                       cache_vs_unsplit=_cache_gap(cc, cw, tol))
+            ok = all(_ok(g) for g in row.values())
+            if cfg.family == "moe":
+                row["routes_equal_on_shards"] = _shards_equal(r_card.routes,
+                                                             m)
+                row["routes_equal_to_unsplit"] = all(
+                    torch.equal(a.expert_ids, b.expert_ids)
+                    and torch.equal(a.kept, b.kept) for a, b in
+                    zip(r_card.routes[::m], r_whole.routes)) and \
+                    len(r_card.routes) == m * len(r_whole.routes)
+                ok = ok and row["routes_equal_on_shards"] and \
+                    row["routes_equal_to_unsplit"]
+            row["ok"] = ok
+            rows[f"{arch} m={m}"] = row
+            print(f"[TP1] {arch} SMOKE float32 split over (1, {m}): logits "
+                  f"vs the CPU's split run {row['vs_cpu']['max_abs']:.3g}, "
+                  f"vs the unsplit run {row['vs_unsplit']['max_abs']:.3g}; "
+                  f"caches {row['cache_vs_cpu']['max_abs']:.3g} / "
+                  f"{row['cache_vs_unsplit']['max_abs']:.3g} (tol {tol})"
+                  + (f"; routes equal on the shards "
+                     f"{row['routes_equal_on_shards']}, to the unsplit run "
+                     f"{row['routes_equal_to_unsplit']}"
+                     if cfg.family == "moe" else ""), flush=True)
+            if not ok:
+                bad.append(f"{arch} m={m}")
+    launches = dict(FA.LAUNCHES_BY_ROUTE)
+    steps = {}
+    for arch in (OLMO, OLMOE):
+        cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                             compute_dtype="float32")
+        g = torch.Generator().manual_seed(4)
+        tok = torch.randint(0, cfg.vocab, (8, TP_SEQ), generator=g)
+        res = tp_step_vs_unsplit(cfg, {"tokens": tok,
+                                       "labels": tok.roll(-1, 1)}, dev)
+        steps[arch] = res
+        print(f"[TP1] {arch} SMOKE train step over (data 2, model 2) vs the "
+              f"unsplit step (4 microbatches): loss {res['loss']:.7f} vs "
+              f"{res['loss_unsplit']:.7f} (rel {res['loss_rel_err']:.3g}), "
+              f"grad_norm rel {res['grad_norm_rel_err']:.3g} (tol "
+              f"{STEP_TOL}); whole step's master: "
+              f"{res['step_master_beyond_tol']} of {res['n_params']:,} beyond "
+              f"{STEP_TOL}|b| + 1e-6, {res['step_master_tiny']} tiny within "
+              f"{res['step_master_tiny_max_abs']:.3g}; image layout equal "
+              f"{res['image_layout_equal']}", flush=True)
+        if not res["ok"]:
+            bad.append(f"{arch} train step")
+    # remat none, full, dots and a second backward: bitwise
+    cfg = get_smoke_config(OLMO).replace(param_dtype="float32",
+                                         compute_dtype="float32")
+    split = TP.split_model(init_params(0, cfg, device=dev).requires_grad_(
+        True), _model_mesh((1, 2), dev))
+    g = torch.Generator().manual_seed(5)
+    tok = torch.randint(0, cfg.vocab, (4, TP_SEQ), generator=g).to(dev)
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+    grads = {r: _split_grads(split, cfg.replace(remat=r), batch)
+             for r in ("none", "full", "dots")}
+    again = _split_grads(split, cfg, batch)
+    remat_ok = all(torch.equal(grads["none"][k], grads[r][k])
+                   for r in ("full", "dots") for k in grads["none"]) and \
+        all(torch.equal(grads["none"][k], again[k]) for k in again)
+    print(f"[TP1] olmo SMOKE split over (1, 2): remat none, full, dots and a "
+          f"second backward bitwise the same: {remat_ok}; flash launches "
+          f"{launches}", flush=True)
+    if not remat_ok:
+        bad.append("remat")
+    out = dict(rows=rows, steps=steps, remat_bitwise=remat_ok,
+               launches_by_route=launches)
+    REPORT["tp_smoke"] = out
+    if bad:
+        fail(f"TP1: the split SMOKE runs disagree: {bad}")
+    return out
+
+
+def _record_calls(model, cfg, prompt, forced):
+    """The kernel path's logits with each flash call of the prefill held
+    against its plain version on the call's own q, k, v."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    tol = FLASH_TOL["bfloat16"]
+    calls, launch = [], ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        got = launch(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        calls.append(dict(shape=tuple(q.shape), **_gap(got, want, tol)))
+        return got
+
+    with mock.patch.object(ops, "flash_attention", recorded):
+        logits, _ = _tp_serve(model, cfg, prompt, forced)
+    return logits, calls
+
+
+def _floor_rule(got, want, floor, moe: bool) -> dict:
+    """S4's rule: ``got`` against ``want`` within LOGIT_TOL + LOGIT_TOL |b|
+    except where the same run's floor crosses it, by NOISE_FACTOR times
+    the floor's ratio; relative RMS within LOGIT_TOL (moe: or
+    NOISE_FACTOR times the floor's)."""
+    g = _gap(got, want, LOGIT_TOL)
+    g["limit_ratio"] = max(1.0, NOISE_FACTOR * floor["max_ratio"])
+    g["rms_limit"] = max(LOGIT_TOL, NOISE_FACTOR * floor["rel_rms"]) \
+        if moe else LOGIT_TOL
+    g["ok"] = g["finite"] and g["max_ratio"] <= g["limit_ratio"] and \
+        g["rel_rms"] <= g["rms_limit"]
+    return g
+
+
+def _tp_flash_shard_times(cfg, m: int) -> dict:
+    """One shard's flash call at the split prefill's shape (B·G/m, R,
+    1024, D), bf16: the kernel, its plain version and SDPA by CUDA events,
+    beside the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    a = cfg.attention
+    bg, r = OLMO_BATCH * a.n_kv_heads // m, a.n_heads // a.n_kv_heads
+    d, s = a.head_dim, OLMO_PROMPT
+    q, k, v = flash_inputs(bg, r, s, s, d, torch.bfloat16, 600 + m)
+    scale = d ** -0.5
+    got = FA.flash_attention(q, k, v, scale=scale)
+    gap = _gap(got, FA.flash_attention_plain(q, k, v, scale=scale),
+               FLASH_TOL["bfloat16"])
+    ms = min(cuda_ms(lambda: FA.flash_attention(q, k, v, scale=scale), 20)
+             for _ in range(2))
+    plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                        scale=scale), 3)
+    lib_ms = cuda_ms(lambda: _sdpa(q, k, v, scale), 20)
+    b = flash_bound(bg, r, s, s, d, None)
+    return dict(shape=(bg, r, s, s, d), ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], max_abs_err=gap["max_abs"],
+                ok=_flash_ok(gap, torch.bfloat16))
+
+
+def _serve_numbers(cfg, params, prompt, n_tokens: int) -> dict:
+    """Prefill seconds (3 warm runs) and decode tokens/s (``n_tokens`` - 1
+    greedy steps) of a whole or split model."""
+    import torch
+
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + n_tokens)
+    srv = make_serve_step(cfg)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, cache = pre(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n_tokens - 1):
+        logits, cache = srv(params, cache, {"tokens": tok})
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    dec = time.monotonic() - t0
+    return dict(prefill_s=times,
+                decode_tok_s=prompt.shape[0] * (n_tokens - 1) / dec)
+
+
+def phase_tp_olmo() -> dict:
+    """TP2: olmo-1b served whole at model extents 2 and 4 of cuda:0 (batch
+    8, prompt 1024, 32 greedy tokens): exactly 16·m ``wgmma`` flash
+    launches a prefill and none in decode; each shard's prefill call
+    against its plain version on its own q, k, v (A1's bf16 rule); bf16
+    logits against the unsplit kernel path by S4's floor rule (the floor:
+    the unsplit kernel path against the unsplit plain path); float32 at
+    m = 2 within OLMO_F32_TOL.  The prefill seconds and decode tokens/s
+    at m = 1, 2 and 4 (no claim: on one card the shards run one after
+    another), each shard call's time beside its bound, the peak."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    _require_free_card("TP2")
+    cfg = get_config(OLMO)
+    assert cfg.use_flash_kernel
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_PROMPT),
+                           generator=g).cuda()
+    forced = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_FORCED),
+                           generator=g).cuda()
+    whole, _ = _tp_serve(model, cfg, prompt, forced)
+    plain, _ = _tp_serve(model, cfg.replace(use_flash_kernel=False), prompt,
+                         forced)
+    floor = _gap(whole, plain, LOGIT_TOL)
+    rows, bad = {}, []
+    for m in (1,) + TP_EXTENTS:
+        params = model if m == 1 else TP.split_model(
+            model, _model_mesh((1, m)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FA.LAUNCHES = 0      # this extent's serving main path starts here
+        _zero(FA.LAUNCHES_BY_ROUTE)
+        run = phase_serve(cfg, params, prompt, OLMO_TOKENS)
+        launches = dict(FA.LAUNCHES_BY_ROUTE)   # ... and ends here
+        total = FA.LAUNCHES
+        row = dict(launches_by_route=launches, peak_bytes=run["mem"],
+                   greedy_wall_s=run["wall"],
+                   **_serve_numbers(cfg, params, prompt, TP_DECODE_STEPS))
+        want = cfg.n_layers * m
+        if launches["wgmma"] != want or total != want:
+            bad.append(f"m={m}: launches {launches}, expected {want} wgmma")
+        if m > 1:
+            logits, calls = _record_calls(params, cfg, prompt, forced)
+            worst = max(calls, key=lambda c: c["max_ratio"])
+            row["calls"] = len(calls)
+            row["call_worst"] = {k: worst[k] for k in (
+                "shape", "max_abs", "max_ratio", "rel_rms")}
+            row["calls_ok"] = len(calls) == want and all(
+                _flash_ok(c, torch.bfloat16) for c in calls)
+            row["bf16"] = _floor_rule(logits, whole, floor, moe=False)
+            row["shard_call"] = _tp_flash_shard_times(cfg, m)
+            if not (row["calls_ok"] and row["bf16"]["ok"]
+                    and row["shard_call"]["ok"]):
+                bad.append(f"m={m}: calls {row['call_worst']}, logits "
+                           f"{row['bf16']}")
+            del params
+        rows[m] = row
+        sc = row.get("shard_call")
+        print(f"[TP2] olmo-1b over (1, {m}) of cuda:0: flash launches "
+              f"{launches} (expected {want} wgmma), prefill "
+              f"{', '.join(f'{t:.4f}' for t in row['prefill_s'])} s, decode "
+              f"{row['decode_tok_s']:.1f} tok/s, peak "
+              f"{row['peak_bytes'] / 2**30:.2f} GiB"
+              + ("" if m == 1 else
+                 f"; {row['calls']} shard calls vs plain: worst "
+                 f"{row['call_worst']['max_ratio']:.3f} x (2e-2 + 2e-2|b|), "
+                 f"rel RMS {row['call_worst']['rel_rms']:.3g}; bf16 logits vs "
+                 f"the unsplit kernel path: max {row['bf16']['max_ratio']:.3f}"
+                 f" x (limit {row['bf16']['limit_ratio']:.3f}), rel RMS "
+                 f"{row['bf16']['rel_rms']:.4g}; floor (unsplit kernel vs "
+                 f"plain) {floor['max_ratio']:.3f} x, rel RMS "
+                 f"{floor['rel_rms']:.4g}; shard call {sc['shape']}: kernel "
+                 f"{sc['ms']:.4f} ms, plain {sc['plain_ms']:.4f}, SDPA "
+                 f"{sc['library_ms']:.4f}, bound {sc['bound_ms']:.4f} "
+                 f"({sc['bound_by']})"), flush=True)
+        torch.cuda.empty_cache()
+    # float32 at m = 2: the bf16 weights cast on the card, float32 caches
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model32 = M.DenseLM(cfg32)
+    model32.load_state_dict({n: t.float() for n, t in
+                             model.named_parameters()}, assign=True)
+    del model
+    torch.cuda.empty_cache()
+    w32, _ = _tp_serve(model32, cfg32, prompt, forced, torch.float32)
+    s32 = TP.split_model(model32, _model_mesh((1, 2)))
+    l32, _ = _tp_serve(s32, cfg32, prompt, forced, torch.float32)
+    f32 = _gap(l32, w32, OLMO_F32_TOL)
+    print(f"[TP2] olmo-1b float32 over (1, 2) vs unsplit: max |d| "
+          f"{f32['max_abs']:.3g} = {f32['max_ratio']:.4f} x ({OLMO_F32_TOL} "
+          f"+ {OLMO_F32_TOL}|b|)", flush=True)
+    if not _ok(f32):
+        bad.append(f"float32 {f32}")
+    del model32, s32
+    torch.cuda.empty_cache()
+    out = dict(rows=rows, floor=floor, f32=f32)
+    REPORT["tp_olmo"] = out
+    if bad:
+        fail(f"TP2: {bad}")
+    return out
+
+
+def phase_tp_olmoe() -> dict:
+    """TP3: olmoe-1b-7b served whole at model extent 2 (32 experts a
+    shard): exactly 32 ``wgmma`` flash launches a prefill; every layer
+    call's routes bitwise equal on the two shards; bf16 logits against
+    the unsplit kernel path by S4's floor rule with moe's relative RMS
+    (M2's), the route gaps to the unsplit run reported beside the floor's;
+    float32 at TP_MOE_F32_LAYERS layers on the unsplit run's routes, each
+    differing own choice a near tie (MOE_F32_NEAR_TIE), logits within
+    OLMO_F32_TOL."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    _require_free_card("TP3")
+    cfg = get_config(OLMOE)
+    m = 2
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_PROMPT),
+                           generator=g).cuda()
+    forced = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_FORCED),
+                           generator=g).cuda()
+    with RouteSpy() as r_whole:
+        whole, _ = _tp_serve(model, cfg, prompt, forced)
+    with RouteSpy() as r_plain:
+        plain, _ = _tp_serve(model, cfg.replace(use_flash_kernel=False),
+                             prompt, forced)
+    floor = _gap(whole, plain, LOGIT_TOL)
+    split = TP.split_model(model, _model_mesh((1, m)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.LAUNCHES = 0          # the split moe serving main path starts here
+    _zero(FA.LAUNCHES_BY_ROUTE)
+    run = phase_serve(cfg, split, prompt, OLMO_TOKENS)
+    launches = dict(FA.LAUNCHES_BY_ROUTE)       # ... and ends here
+    total = FA.LAUNCHES
+    numbers = _serve_numbers(cfg, split, prompt, TP_DECODE_STEPS)
+    with RouteSpy() as r_split:
+        logits, _ = _tp_serve(split, cfg, prompt, forced)
+    shards_equal = _shards_equal(r_split.routes, m)
+    bf16 = _floor_rule(logits, whole, floor, moe=True)
+    routes = dict(split_vs_unsplit=route_gaps(r_split.routes[::m],
+                                              r_whole.routes),
+                  floor=route_gaps(r_whole.routes, r_plain.routes))
+    del split, r_whole, r_plain, r_split
+    # float32 at a few layers, on the unsplit run's routes
+    n32 = min(TP_MOE_F32_LAYERS, cfg.n_layers)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=n32)
+    model32 = M.DenseLM(cfg32)
+    kept = {n for n, _ in model32.named_parameters()}
+    model32.load_state_dict({n: t.float() for n, t in
+                             model.named_parameters() if n in kept},
+                            assign=True)
+    del model
+    torch.cuda.empty_cache()
+    with RouteSpy() as r32:
+        w32, _ = _tp_serve(model32, cfg32, prompt, forced, torch.float32)
+    s32 = TP.split_model(model32, _model_mesh((1, m)))
+    with RouteSpy(force=[r.expert_ids for r in r32.routes
+                         for _ in range(m)]) as k32:
+        l32, _ = _tp_serve(s32, cfg32, prompt, forced, torch.float32)
+    f32 = _gap(l32, w32, OLMO_F32_TOL)
+    f32_routes = route_gaps(k32.own[::m], r32.routes)
+    del model32, s32, r32, k32
+    torch.cuda.empty_cache()
+    out = dict(launches_by_route=launches, peak_bytes=run["mem"],
+               greedy_wall_s=run["wall"], shards_equal=shards_equal,
+               bf16=bf16, floor=floor, routes=routes, f32=f32,
+               f32_routes=f32_routes, f32_layers=n32, **numbers)
+    REPORT["tp_olmoe"] = out
+    print(f"[TP3] olmoe-1b-7b over (1, {m}) of cuda:0: flash launches "
+          f"{launches} (expected {m * cfg.n_layers} wgmma), prefill "
+          f"{', '.join(f'{t:.4f}' for t in numbers['prefill_s'])} s, decode "
+          f"{numbers['decode_tok_s']:.1f} tok/s, peak "
+          f"{run['mem'] / 2**30:.2f} GiB; routes bitwise equal on the shards "
+          f"{shards_equal}; bf16 logits vs the unsplit kernel path max "
+          f"{bf16['max_ratio']:.3f} x (limit {bf16['limit_ratio']:.3f}), rel "
+          f"RMS {bf16['rel_rms']:.4g} (limit {bf16['rms_limit']:.4g}); route "
+          f"claims on another expert than the unsplit run's: "
+          f"{routes['split_vs_unsplit']['moved_share']:.3g} (floor, unsplit "
+          f"kernel vs plain: {routes['floor']['moved_share']:.3g}); float32 "
+          f"at {n32} layers on the unsplit routes: max |d| "
+          f"{f32['max_abs']:.3g} = {f32['max_ratio']:.4f} x, differing own "
+          f"choices' largest relative gap {f32_routes['worst_rel_gap']:.3g}",
+          flush=True)
+    want = m * cfg.n_layers
+    if launches["wgmma"] != want or total != want or not shards_equal \
+            or not bf16["ok"] or not _ok(f32) \
+            or f32_routes["worst_rel_gap"] > MOE_F32_NEAR_TIE:
+        fail(f"TP3: launches {launches}, shards equal {shards_equal}, bf16 "
+             f"{bf16}, float32 {f32}, float32 routes {f32_routes}")
+    return out
+
+
+def phase_tp_train() -> dict:
+    """TP4: olmo-1b at full width (TP_TRAIN_LAYERS layers) trained over
+    (data 2, model 2) of cuda:0, D2's configuration with clipping off:
+    one step's loss and grad_norm against the unsplit step with as many
+    microbatches (TP_LOSS_REL, TP_GNORM_REL), TP_TRAIN_STEPS steps with
+    finite losses, and the split state's image in the unsplit layout
+    (names, shapes, dtypes)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        shard_train_state)
+
+    _require_free_card("TP4")
+    cfg = get_config(OLMO).replace(n_layers=TP_TRAIN_LAYERS,
+                                   use_flash_kernel=False)
+    opt = AdamWConfig(lr=DENSE_LR, grad_clip=1e9)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+    split = shard_train_state(state.clone(), _model_mesh((2, 2)))
+    g = torch.Generator().manual_seed(7)
+    tok = torch.randint(0, cfg.vocab, (OLMO_BATCH, OLMO_PROMPT), generator=g)
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state, wm = make_train_step(cfg, opt, constant(1.0), n_microbatches=4)(
+        state, batch)
+    torch.cuda.synchronize()
+    whole_s = time.monotonic() - t0
+    layout = {k: (tuple(v.shape), v.dtype) for k, v in state.tree().items()}
+    want = {k: float(wm[k]) for k in ("loss", "grad_norm")}
+    del state
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt, constant(1.0), n_microbatches=2)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, first = [], [], None
+    for i in range(TP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        split, m = step(split, batch)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+        if first is None:
+            first = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    peak = torch.cuda.max_memory_allocated()
+    image = {k: (tuple(v.shape), v.dtype) for k, v in split.tree().items()}
+    rel = {k: abs(first[k] - want[k]) / abs(want[k]) for k in want}
+    out = dict(layers=cfg.n_layers, split=first, unsplit=want, rel=rel,
+               losses=losses, step_s=times, unsplit_step_s=whole_s,
+               peak_bytes=peak, image_layout_equal=image == layout,
+               image_leaves=len(image))
+    REPORT["tp_train"] = out
+    print(f"[TP4] olmo-1b at {cfg.n_layers} layers over (data 2, model 2) "
+          f"of cuda:0, 8 x 1024 as 2 microbatches a data position: loss "
+          f"{first['loss']:.5f} vs unsplit {want['loss']:.5f} (rel "
+          f"{rel['loss']:.3g}, tol {TP_LOSS_REL}), grad_norm "
+          f"{first['grad_norm']:.5f} vs {want['grad_norm']:.5f} (rel "
+          f"{rel['grad_norm']:.3g}, tol {TP_GNORM_REL}); losses {losses}; "
+          f"step {', '.join(f'{t:.3f}' for t in times)} s (unsplit, cold "
+          f"{whole_s:.3f} s), peak {peak / 2**30:.2f} GiB; image of "
+          f"{len(image)} leaves in the unsplit layout: {image == layout}",
+          flush=True)
+    del split
+    torch.cuda.empty_cache()
+    if not (rel["loss"] <= TP_LOSS_REL and rel["grad_norm"] <= TP_GNORM_REL
+            and all(math.isfinite(x) for x in losses) and image == layout):
+        fail(f"TP4: {out}")
+    return out
+
+
+def phase_dryrun_on_card() -> dict:
+    """DR1: the dry run for a (1, 1) mesh of cuda:0 at A3's prefill shape
+    (olmo-1b, 8 x 1024) and D3's train shape (8 x 1024 in 2
+    microbatches), on the meta device and then the same programs on the
+    card under the same counter: the card's FLOPs (the flash kernel
+    reporting its work) equal to the meta count, and the card's peak
+    allocation within DR_PEAK_RANGE of the estimate.  Then one production
+    cell on meta (gemma2-27b decode_32k, single pod)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+
+    _require_free_card("DR1")
+    mesh = _model_mesh((1, 1))
+    rows, bad = {}, []
+    for shape, micro in ((ShapeConfig("a3_prefill", OLMO_PROMPT, OLMO_BATCH,
+                                      "prefill"), None),
+                         (ShapeConfig("d3_train", OLMO_PROMPT, OLMO_BATCH,
+                                      "train"), 2)):
+        meta = D.run_cell(OLMO, None, shape=shape, mesh=mesh,
+                          n_microbatches=micro)
+        card = D.run_cell(OLMO, None, shape=shape, mesh=mesh,
+                          n_microbatches=micro, device="cuda")
+        torch.cuda.empty_cache()
+        est = meta["memory_per_device"]["peak_estimate_bytes"]
+        ratio = card["device_peak_bytes"] / est
+        row = dict(meta_flops=meta["cost"]["dot_flops"],
+                   card_flops=card["cost"]["dot_flops"],
+                   kernel_flops=card["cost"]["kernel_flops"],
+                   peak_estimate_bytes=est,
+                   card_peak_bytes=card["device_peak_bytes"],
+                   card_held_bytes=card["device_held_bytes"],
+                   peak_ratio=ratio, meta_s=meta["run_seconds"],
+                   card_s=card["run_seconds"],
+                   meta_bytes=meta["cost"]["bytes_accessed"],
+                   card_bytes=card["cost"]["bytes_accessed"],
+                   memory=meta["memory_per_device"])
+        rows[shape.name] = row
+        print(f"[DR1] olmo-1b {shape.name} on a (1, 1) mesh: dot FLOPs meta "
+              f"{row['meta_flops']:,.0f}, card {row['card_flops']:,.0f} "
+              f"(the flash kernel reporting {row['kernel_flops']:,.0f}); "
+              f"bytes meta {row['meta_bytes']:,.0f}, card "
+              f"{row['card_bytes']:,.0f}; peak on the card "
+              f"{row['card_peak_bytes'] / 2**30:.3f} GiB / estimate "
+              f"{est / 2**30:.3f} GiB = {ratio:.4f} (range {DR_PEAK_RANGE}); "
+              f"counted in {row['meta_s']:.1f} s on meta, "
+              f"{row['card_s']:.1f} s on the card", flush=True)
+        if row["meta_flops"] != row["card_flops"] or not (
+                DR_PEAK_RANGE[0] <= ratio <= DR_PEAK_RANGE[1]):
+            bad.append(shape.name)
+    t0 = time.monotonic()
+    prod = D.run_cell(GEMMA, "decode_32k", False)
+    prod["wall_seconds"] = time.monotonic() - t0
+    print(f"[DR1] production cell on meta: {json.dumps(prod, default=str)}",
+          flush=True)
+    out = dict(rows=rows, production=prod)
+    REPORT["dryrun_on_card"] = out
+    if bad or prod.get("status") != "ok":
+        fail(f"DR1: {bad}, production status {prod.get('status')}")
+    return out
+
+
+def tp_phases() -> dict:
+    """TP1-TP4 and DR1, their seconds lapped."""
+    out = dict(dryrun=phase_dryrun_on_card())
+    _lap("DR1")
+    out["smoke"] = phase_tp_smoke()
+    _lap("TP1")
+    out["olmo"] = phase_tp_olmo()
+    _lap("TP2")
+    out["olmoe"] = phase_tp_olmoe()
+    _lap("TP3")
+    out["train"] = phase_tp_train()
+    _lap("TP4")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6910,6 +7601,13 @@ def main() -> int:
         print(json.dumps({"encdec": True,
                           "e3_launches": encdec["serve"]["launches_by_route"],
                           "e5_launches": encdec["train_launches"]}))
+        return 0
+    if "--tp" in sys.argv[1:]:
+        tp = tp_phases()
+        _dump()
+        print(json.dumps({"tp": True, "tp2_launches": {
+            m: r["launches_by_route"] for m, r in tp["olmo"]["rows"].items()},
+            "tp3_launches": tp["olmoe"]["launches_by_route"]}))
         return 0
     if "--shard" in sys.argv[1:]:
         shard = shard_phases()
@@ -7131,6 +7829,7 @@ def main() -> int:
     moe = moe_phases()
     hybrid = hybrid_phases(standalone=False)
     encdec = encdec_phases()
+    tp = tp_phases()
     bound = max(fleet["bound_bytes_ms"], fleet["bound_ops_ms"])
     fig4_kernel = {name: {"philox_ms": REPORT[name]["kernel"]["philox_ms"],
                           "pregenerated_ms":
@@ -7168,7 +7867,12 @@ def main() -> int:
            for arch in MOE_ARCHS},
         ZAMBA: hybrid["serve"]["launches_by_route"]["flash_attention"][
             "wgmma"],
-        WHISPER: encdec["serve"]["launches_by_route"]["wgmma"]}
+        WHISPER: encdec["serve"]["launches_by_route"]["wgmma"],
+        **{f"olmo-1b split over (1, {m}) (TP2)":
+           r["launches_by_route"]["wgmma"]
+           for m, r in tp["olmo"]["rows"].items() if m > 1},
+        "olmoe-1b-7b split over (1, 2) (TP3)":
+            tp["olmoe"]["launches_by_route"]["wgmma"]}
     simt_by_path = {"olmo SMOKE float32 (A2)": a2["launches_by_route"]["simt"],
                     "variants' SMOKE float32 (V2)":
                         v2["launches_by_route"]["simt"],
@@ -7178,7 +7882,9 @@ def main() -> int:
                         hybrid["card_vs_cpu"]["launches_by_route"][
                             "flash_attention"]["simt"],
                     "whisper SMOKE float32 (E1)":
-                        encdec["card_vs_cpu"]["launches_by_route"]["simt"]}
+                        encdec["card_vs_cpu"]["launches_by_route"]["simt"],
+                    "split SMOKE float32 (TP1)":
+                        tp["smoke"]["launches_by_route"]["simt"]}
     hybrid_ssd = hybrid["serve"]["launches_by_route"]["ssd_scan"]
     hv = hybrid["serve"]["vs_plain"]
     hybrid_logits = {
@@ -7352,7 +8058,9 @@ def main() -> int:
                 "starcoder2-3b, qwen2-vl-7b (V6), olmoe-1b-7b (M2), "
                 "deepseek-moe-16b (M3), zamba2-7b (H3, head_dim 112 padded "
                 "to 128), whisper-large-v3 (E3: 32 unmasked encoder, 32 "
-                "causal decoder and 32 unmasked cross-attention calls)",
+                "causal decoder and 32 unmasked cross-attention calls); "
+                "olmo-1b split over model extents 2 and 4 (TP2: one call a "
+                "layer and shard) and olmoe-1b-7b over 2 (TP3)",
         "launches": sum(tc_by_path.values()),
         "launches_by_path": tc_by_path,
         "max_abs_err": max(worst_of(flash_rows, "wgmma", (None,)),
@@ -7368,6 +8076,11 @@ def main() -> int:
         "gqa_shape": {k: gqa_t[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
         "variant_shapes": variant_rows,
+        "split_shapes": {f"olmo-1b shard at model extent {m} (TP2)": dict(
+            r["shard_call"], calls_worst=r["call_worst"],
+            logits_vs_unsplit={k: r["bf16"][k] for k in (
+                "max_ratio", "limit_ratio", "rel_rms")})
+            for m, r in tp["olmo"]["rows"].items() if m > 1},
         "zamba2_shape": zamba_flash,
         "whisper_shapes": whisper_flash}, {
         "name": "flash_attention", "route": "cuda", "kernel_route": "simt",

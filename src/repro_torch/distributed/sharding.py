@@ -18,16 +18,30 @@ The rules implement the distribution plan of DESIGN.md Sec 5:
 
 A physical spec is a plain tuple, one entry a dimension: ``None``, one
 axis name, or a tuple of names (what ``jax.sharding.PartitionSpec``
-holds).  The context that applies the rules inside model code
-(``sharding_context``, ``current_rules``, ``logically_sharded``) waits for
-ROADMAP Queue 1 item 10, which has its consumer.
+holds).
+
+Inside model code the rules apply through a context, as in the
+reference: :func:`sharding_context` makes a mesh and its rules current
+(the split model's forward enters it, ``distributed/tensor_parallel.py``),
+and :func:`logically_sharded` names a tensor's dimensions by logical axes.
+The port has no partitioner to hand a constraint to, so inside a context
+it checks the tensor instead: every dimension whose logical axis the rules
+put on the ``model`` axis must hold the global size (carried by the rules
+from ``sharding_dims``) divided by the model extent, and a shard that
+holds the whole tensor raises.  Outside a context it is a no-op, as in
+JAX.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
-from repro_torch.distributed.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, Mesh
+import torch
+
+from repro_torch.distributed.mesh import (DATA_AXIS, MODEL_AXIS, POD_AXIS,
+                                          Mesh, axis_size)
 
 LogicalSpec = Tuple[Optional[str], ...]
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
@@ -35,9 +49,11 @@ Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 @dataclass(frozen=True)
 class ShardingRules:
-    """Mapping logical axis name -> tuple of physical mesh axes (or ())."""
+    """Mapping logical axis name -> tuple of physical mesh axes (or ());
+    ``dims``: the global sizes the table was resolved for (not compared)."""
 
     table: Dict[str, Tuple[str, ...]]
+    dims: Dict[str, int] = field(default_factory=dict, compare=False)
 
     def physical(self, logical: Optional[str]) -> Optional[Tuple[str, ...]]:
         if logical is None:
@@ -153,7 +169,59 @@ def resolve_rules(mesh: Mesh, dims: Dict[str, int]) -> ShardingRules:
         table["cell"] = (DATA_AXIS,)
     else:
         table["cell"] = ()
-    return ShardingRules(table=table)
+    return ShardingRules(table=table,
+                         dims={k: int(v) for k, v in dims.items() if v})
+
+
+# --------------------------------------------------------------------------- #
+# Context: model code calls logically_sharded(x, (..names..)), a check of a
+# shard's local shape when a mesh+rules context is active, else a no-op.
+# --------------------------------------------------------------------------- #
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh: Optional[Mesh] = None
+        self.rules: Optional[ShardingRules] = None
+
+
+_CTX = _Ctx()
+
+
+@contextmanager
+def sharding_context(mesh: Mesh, rules: ShardingRules):
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, rules
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def current_rules() -> Optional[ShardingRules]:
+    return _CTX.rules
+
+
+def logically_sharded(x: torch.Tensor, logical_spec: LogicalSpec
+                      ) -> torch.Tensor:
+    """``x`` itself.  Inside a context, raise unless each dimension whose
+    logical axis the rules put on the model axis holds the global size
+    divided by the model extent (a whole tensor where a shard belongs)."""
+    if _CTX.mesh is None or _CTX.rules is None:
+        return x
+    m = axis_size(_CTX.mesh, MODEL_AXIS)
+    if len(logical_spec) != x.dim():
+        raise ValueError(f"logical spec {logical_spec} for a tensor of "
+                         f"rank {x.dim()}")
+    for i, name in enumerate(logical_spec):
+        if name is None or MODEL_AXIS not in _CTX.rules.table.get(name, ()):
+            continue
+        whole = _CTX.rules.dims.get(name)
+        if whole and x.shape[i] != whole // m:
+            raise ValueError(
+                f"dimension {i} ({name!r}) of {tuple(x.shape)} holds "
+                f"{x.shape[i]}; the rules put {name!r} on the model axis, "
+                f"so a shard holds {whole} / {m} = {whole // m}")
+    return x
 
 
 def _is_spec(x: Any) -> bool:

@@ -39,6 +39,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import cost_analysis as CA
 
 LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0}
 MAX_BLOCK = 4096
@@ -129,6 +130,7 @@ def _launch_quantize(x: torch.Tensor, n_blocks: int, block: int
                       int(x.dtype == torch.bfloat16), n_blocks, block)
     _raise_on(lib, rc, "quantize_blocks")
     LAUNCHES["quantize_blocks"] += 1
+    CA.report_kernel(nbytes=CA.nbytes(x) + CA.nbytes(q) + CA.nbytes(scales))
     return q, scales
 
 
@@ -167,4 +169,6 @@ def _launch_dequantize(q: torch.Tensor, scales: torch.Tensor, n_blocks: int,
                       int(dtype == torch.bfloat16), n_blocks, block)
     _raise_on(lib, rc, "dequantize_blocks")
     LAUNCHES["dequantize_blocks"] += 1
+    CA.report_kernel(nbytes=CA.nbytes(q) + CA.nbytes(scales)
+                     + CA.nbytes(out))
     return out

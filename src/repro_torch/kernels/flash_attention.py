@@ -60,6 +60,13 @@ counts kernel launches, ``LAUNCHES_BY_ROUTE`` the launches of each
 kernel.  The kernel has no backward (neither has the Pallas kernel): on
 CUDA tensors under autograd ``flash_attention`` raises rather than return
 an output that no gradient flows through.
+
+Each launch reports its work to an active cost counter
+(``launch.cost_analysis``): the dense products its plain version runs,
+``4 · BG · R · Sq · Skv · D`` (the causal mask does not cut them, as
+the JAX dense path's HLO counts them), and q, k, v and o's bytes.  On
+the meta device (the dry run) the wrapper checks the operands, reports
+the same work and returns an uninitialised output of the right shape.
 """
 from __future__ import annotations
 
@@ -69,6 +76,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import cost_analysis as CA
 
 LAUNCHES = 0                                # launches of either kernel
 LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
@@ -221,6 +229,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      softcap=softcap)
+    if q.device.type == "meta":
+        _check(q, k, v, softcap)
+        o = torch.empty(q.shape, dtype=q.dtype, device="meta")
+        report_work(q, k, v, o)
+        return o
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}")
@@ -237,13 +250,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if pad:
         q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
     o = _launch(q, k, v, route(q.dtype, D), scale=scale, causal=causal,
-                softcap=softcap)
-    return o[..., :D] if pad else o
+                softcap=softcap, report=not pad)
+    if pad:
+        o = o[..., :D]
+        report_work(q[..., :D], k[..., :D], v[..., :D], o)
+    return o
+
+
+def work(BG: int, R: int, Sq: int, Skv: int, D: int) -> int:
+    """The FLOPs of the plain version's two products (q k^T and p v)."""
+    return 4 * BG * R * Sq * Skv * D
+
+
+def report_work(q, k, v, o) -> None:
+    """One call's work to an active cost counter (at q's unpadded D)."""
+    BG, R, Sq, D = q.shape
+    CA.report_kernel(flops=work(BG, R, Sq, k.shape[1], D),
+                     nbytes=sum(CA.nbytes(t) for t in (q, k, v, o)))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, how: str, *,
             scale: float, causal: bool,
-            softcap: Optional[float]) -> torch.Tensor:
+            softcap: Optional[float], report: bool = True) -> torch.Tensor:
     """One launch of the kernel ``how`` names on checked CUDA operands.
     :func:`flash_attention` passes :func:`route`'s choice; ``chip_smoke.py``
     also times the SIMT kernel at the shapes the tensor-core kernel
@@ -270,4 +298,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, how: str, *,
                            f"{lib.flash_attention_error_string(rc).decode()}")
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[how] += 1
+    if report:
+        report_work(q, k, v, o)
     return o

@@ -65,6 +65,7 @@ import torch
 
 from repro_torch.device import F64
 from repro_torch.kernels import build
+from repro_torch.launch import cost_analysis as CA
 from repro_torch.sim import engine as _eng
 from repro_torch.sim.draws import PhiloxDraws, n_draws
 
@@ -292,6 +293,9 @@ def _launch(params: tuple, state: torch.Tensor, taken: torch.Tensor, *,
                            f"{lib.sim_step_error_string(rc).decode()}")
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE["pregenerated" if seeds is None else "philox"] += 1
+    # its bytes to a cost counter: the state read and written, the draws
+    CA.report_kernel(nbytes=2 * CA.nbytes(state) + (
+        0 if draws is None else CA.nbytes(draws)))
     key = variant(any_store, any_het, any_shock, any_pm)
     LAUNCHES_BY_VARIANT[key] = LAUNCHES_BY_VARIANT.get(key, 0) + 1
 

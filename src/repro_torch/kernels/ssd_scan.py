@@ -51,6 +51,13 @@ that launched, ``LAUNCHES_BY_ROUTE`` those of each route.
 The kernel has no backward: on CUDA tensors under autograd (grad enabled
 and an input that requires grad) ``ssd_scan`` raises rather than return
 outputs that no gradient flows through.
+
+Each call that launches reports its work to an active cost counter
+(``launch.cost_analysis``): the products of ``models.ssm.ssd_chunked``
+over the same inputs (:func:`chunked_work`; ``chunk`` the caller's, the
+sequence padded to it as ``ssd_chunked`` pads) and the bytes of x, dt,
+B, C, y and the states.  On the meta device (the dry run) the wrapper
+reports the same and returns uninitialised outputs of the right shapes.
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import cost_analysis as CA
 
 LAUNCHES = 0                             # calls that launched a kernel
 LAUNCHES_BY_ROUTE = {"mma": 0, "simt": 0}
@@ -222,6 +230,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=Q,
                               initial_state=initial_state)
+    if x.device.type == "meta":
+        y = torch.empty((b, s, h, p), dtype=x.dtype, device="meta")
+        final = torch.empty((b, h, p, n), dtype=torch.float32, device="meta")
+        _report(x, dt, B, C, y, final, initial_state, chunk)
+        return y, final
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got {x.device}")
     if torch.is_grad_enabled() and any(
@@ -233,7 +246,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "B or C.  Training runs ssd_chunked (use_flash_kernel=False); "
             "call the kernel under torch.no_grad or torch.inference_mode")
     _check(x, dt, A, B, C, initial_state, Q)
-    return _launch(x, dt, A, B, C, initial_state, Q, route(x.dtype, p, n, Q))
+    y, final = _launch(x, dt, A, B, C, initial_state, Q,
+                       route(x.dtype, p, n, Q))
+    _report(x, dt, B, C, y, final, initial_state, chunk)
+    return y, final
+
+
+def chunked_work(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """The FLOPs of ``ssd_chunked``'s four products over a sequence padded
+    to ``chunk``: C B^T, the intra-chunk (G o L) x, the chunk states and
+    the inter-chunk C state."""
+    nc = -(-s // chunk)
+    Q = chunk
+    return 2 * b * nc * (Q * Q * n + Q * Q * h * p + 2 * Q * h * p * n)
+
+
+def _report(x, dt, B, C, y, final, initial_state, chunk: int) -> None:
+    b, s, h, p = x.shape
+    ts = [x, dt, B, C, y, final] + ([] if initial_state is None
+                                    else [initial_state])
+    CA.report_kernel(flops=chunked_work(b, s, h, p, B.shape[-1], chunk),
+                     nbytes=sum(CA.nbytes(t) for t in ts))
 
 
 def _launch(x, dt, A, B, C, initial_state, Q: int, how: str

@@ -16,6 +16,15 @@ generator's own device: a CPU generator (a seed) gives the same weights
 on every device, a CUDA generator draws on the card (the full-width
 models, whose draw on the CPU would take minutes).  ``gen=None`` gives
 uninitialised tensors on the meta device (shapes and dtypes only).
+
+Activations carry logical sharding names through
+:func:`repro_torch.distributed.sharding.logically_sharded` at the
+reference's sites: a no-op outside a sharding context, a check of a
+shard's local shape inside one.  The functions run on a shard of a split
+model (``distributed/tensor_parallel.py``) as they run on the whole one:
+attention on a config with the shard's heads, the MLP and the unembedding
+on the shard's columns, the embedding on the shard's rows
+(:func:`embed_rows` with the shard's ``vocab_offset``).
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import div
+from repro_torch.distributed.sharding import logically_sharded as shard
 from repro_torch.kernels import flash_attention as FA
 
 Params = Mapping[str, torch.Tensor]
@@ -346,6 +356,9 @@ def multi_head_attention(
                        a.rope.mrope_sections)
         k = apply_rope(k, positions, a.rope.theta, a.rope.partial_pct,
                        a.rope.mrope_sections)
+    q = shard(q, ("batch", "heads", "q_seq", "head_dim"))
+    k = shard(k, ("batch", "kv_heads", "kv_seq", "head_dim"))
+    v = shard(v, ("batch", "kv_heads", "kv_seq", "head_dim"))
 
     q_offset, kv_valid = 0, None
     k_own, v_own = k, v
@@ -359,6 +372,8 @@ def multi_head_attention(
             else ("k", "v")
         bufs = [cache[n] if layer_index is None else cache[n][layer_index]
                 for n in names]
+        for buf in bufs[:2]:
+            shard(buf, ("batch", "kv_heads", "kv_seq", "head_dim"))
         if len(bufs) == 4:
             ck, cv, cks, cvs = bufs
             (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
@@ -397,9 +412,10 @@ def multi_head_attention(
             softcap=a.softcap, causal=causal,
             sliding_window=a.sliding_window, local_flag=layer_is_local,
             q_offset=q_offset, kv_valid=kv_valid, q_chunk=q_chunk, cdt=cdt)
-    ctx = ctx.reshape(B, a.n_heads, S, hd)
+    ctx = shard(ctx.reshape(B, a.n_heads, S, hd),
+                ("batch", "heads", "q_seq", "head_dim"))
     out = torch.einsum("bhsk,hkd->bsd", ctx, p["wo"].to(cdt))
-    return out.to(x.dtype), cache
+    return shard(out, ("batch", "seq", "embed")).to(x.dtype), cache
 
 
 # --------------------------------------------------------------------------- #
@@ -443,9 +459,11 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cdt = _dtype(cfg.compute_dtype)
     xc = x.to(cdt)
     gated = cfg.act.endswith("gated")
-    h = activate(cfg, xc @ p["w_up"].to(cdt),
-                 xc @ p["w_gate"].to(cdt) if gated else None)
-    return (h @ p["w_down"].to(cdt)).to(x.dtype)
+    up = shard(xc @ p["w_up"].to(cdt), ("batch", "seq", "mlp"))
+    h = shard(activate(cfg, up, xc @ p["w_gate"].to(cdt) if gated else None),
+              ("batch", "seq", "mlp"))
+    return shard(h @ p["w_down"].to(cdt), ("batch", "seq", "embed")
+                 ).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -473,22 +491,44 @@ def embedding_param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
     return specs
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    x = p["tok"][tokens].to(_dtype(cfg.compute_dtype))
+def embed_rows(p: Params, tokens: torch.Tensor,
+               vocab_offset: Optional[int] = None) -> torch.Tensor:
+    """The tokens' rows of the table, in its dtype.  ``vocab_offset``
+    (vocabulary-parallel): ``p["tok"]`` holds the rows ``[offset, offset +
+    rows)`` of the whole table, and a token outside them gives a zero row
+    (the masked lookup; the sum over the shards is the whole lookup)."""
+    tok = p["tok"]
+    if vocab_offset is None:
+        return tok[tokens]
+    local = tokens - vocab_offset
+    mine = (local >= 0) & (local < tok.shape[0])
+    rows = tok[local.clamp(0, tok.shape[0] - 1)]
+    return torch.where(mine[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
+def scale_embedding(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Looked-up rows in the compute dtype, with gemma's sqrt(d) scaling."""
+    x = x.to(_dtype(cfg.compute_dtype))
     if cfg.norm.startswith("rmsnorm") and cfg.tie_embeddings:
         # gemma-style embedding scaling for tied embeddings, in the compute
         # dtype (sqrt(d_model) rounded to it first, as the JAX package does)
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
-    return x
+    return shard(x, ("batch", "seq", "embed"))
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return scale_embedding(embed_rows(p, tokens), cfg)
 
 
 def logits_from_hidden(p: Params, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
     """float32 logits through the tied embedding or the untied
     unembedding, then the final softcap ``tanh(logits / cap) * cap``
-    (gemma2: 30)."""
+    (gemma2: 30).  On a vocabulary shard: the shard's columns of the
+    logits (the softcap is elementwise)."""
     cdt = _dtype(cfg.compute_dtype)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x.to(cdt), p["tok"].to(cdt))
@@ -498,4 +538,4 @@ def logits_from_hidden(p: Params, x: torch.Tensor,
     if cfg.logit_softcap is not None:
         logits = torch.tanh(div(logits, cfg.logit_softcap)) \
             * cfg.logit_softcap
-    return logits
+    return shard(logits, ("batch", "seq", "vocab"))

@@ -72,6 +72,15 @@ uses of the shared block, both written in place.  encdec: the dense
 ``"cross_v"`` of (L, B, G, enc_seq, hd) in ``cache_dtype``, written once
 by the prefill and read by every decode step.  Entry points run on CUDA
 unless given ``device="cpu"``.
+
+A dense or moe model split over a mesh's model axis
+(``distributed.tensor_parallel.SplitLM``: one module a mesh position) runs
+through the same :func:`forward`, :func:`prefill`, :func:`decode_step`
+and :func:`loss_fn`: the global batch split over the data positions, and
+each block looped over the model positions from one controller, the
+partial outputs of the attention, the MLP and the moe block joined by
+``distributed.collectives`` (:func:`_split_group`); its cache holds each
+position's K/V (``SplitLM.init_cache``).
 """
 from __future__ import annotations
 
@@ -91,6 +100,9 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import div, resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import sharding_context
+from repro_torch.launch import cost_analysis as CA
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -295,6 +307,10 @@ def _apply_ssm_block(bp: Mamba2Block, x, cfg: ModelConfig, *, cache=None,
     h = L.apply_norm(bp.norm, x, cfg)
     mix, new_cache = bp.mixer(h, cache=cache, use_kernel=use_kernel)
     return x + mix, new_cache
+
+
+def _is_split(params) -> bool:
+    return getattr(params, "is_split", False)
 
 
 def _apply_dense_block(bp: DenseBlock, x, cfg: ModelConfig, *, positions,
@@ -796,6 +812,200 @@ def _decoder_stack(params: EncDecLM, x, cfg: ModelConfig, *, positions,
 
 
 # --------------------------------------------------------------------------- #
+# The dense and moe stacks split over a mesh's model axis
+# --------------------------------------------------------------------------- #
+
+def _split_layer(split, d: int, i: int, cfg: ModelConfig, positions, caches,
+                 cache_index, *xs):
+    """Block ``i`` at every model position of data index ``d``: each
+    shard's attention (its heads) and feed-forward part (its MLP columns
+    and rows, its experts), the partial outputs all-reduced where the
+    rules split them.  Returns (the new residuals, each position's aux)."""
+    group = split.group(d)
+    lcfg, m, origin = split.local_cfg, split.extent, d == 0
+    local_flag = _layer_is_local_static(cfg, i)
+    attn = []
+    for (j, p), x, pos, c in zip(group, xs, positions, caches):
+        bp = p.blocks[i]
+        h = L.apply_norm(bp.attn_norm, x, cfg)
+        a, _ = L.multi_head_attention(
+            bp.attn, h, lcfg, positions=pos, layer_is_local=local_flag,
+            cache=None if c is None else c["kv"], cache_index=cache_index,
+            layer_index=None if c is None else i)
+        attn.append(a)
+    if split.on_model("heads"):
+        attn = C.all_reduce(attn, extent=m, origin=origin)
+    res, partial, whole, auxes = [], [], [], []
+    for (j, p), x, a in zip(group, xs, attn):
+        bp = p.blocks[i]
+        if cfg.post_block_norm:
+            a = L.apply_norm(bp.post_attn_norm, a, cfg)
+        x = x + a
+        res.append(x)
+        h = L.apply_norm(bp.mlp_norm, x, cfg)
+        if cfg.family != "moe":
+            f, aux = L.apply_mlp(bp.mlp, h, cfg), {}
+            split_parts, own = ([f], []) if split.on_model("mlp") \
+                else ([], [f])
+        else:
+            f, aux = MOE.apply_moe(bp.moe, h, cfg,
+                                   expert_offset=split.expert_offset(j),
+                                   with_shared=False)
+            split_parts, own = ([f], []) if split.on_model("experts") \
+                else ([], [f])
+            if cfg.moe.n_shared > 0:
+                sh = MOE.apply_shared(bp.moe, h, cfg).to(f.dtype)
+                (split_parts if split.on_model("mlp") else own).append(sh)
+        partial.append(functools.reduce(torch.add, split_parts)
+                       if split_parts else None)
+        whole.append(own)
+        auxes.append(aux)
+    if partial[0] is not None:
+        partial = C.all_reduce(partial, extent=m, origin=origin)
+    out = []
+    for (j, p), x, f, own in zip(group, res, partial, whole):
+        bp = p.blocks[i]
+        parts = ([] if f is None else [f]) + own
+        f = functools.reduce(torch.add, parts)
+        if cfg.post_block_norm:
+            f = L.apply_norm(bp.post_mlp_norm, f, cfg)
+        out.append(x + f)
+    return tuple(out), auxes
+
+
+def _split_group(split, d: int, batch: Mapping[str, torch.Tensor],
+                 cfg: ModelConfig, *, caches=None, cache_index: int = 0,
+                 last_only: bool = False):
+    """Data index ``d``'s part of the batch through its model positions
+    (each on its own device): the vocabulary-parallel embedding, the
+    blocks (:func:`_split_layer`, recomputed in the backward as
+    ``cfg.remat`` says when there is no cache), the final norm and the
+    shard's logits, all-gathered along the vocabulary.  Returns (each
+    position's whole logits, each position's aux)."""
+    group = split.group(d)
+    m, origin = split.extent, d == 0
+    devs = [next(p.parameters()).device for _, p in group]
+    tokens = [batch["tokens"].to(dev, torch.long) for dev in devs]
+    rows = [L.embed_rows(p.embed, t, split.vocab_offset(j))
+            for (j, p), t in zip(group, tokens)]
+    if split.on_model("vocab"):
+        rows = C.all_reduce(rows, extent=m, origin=origin)
+    xs = [L.scale_embedding(r, cfg) for r in rows]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = [torch.arange(t.shape[1], device=t.device)[None, :]
+                     + cache_index for t in tokens]
+    else:
+        positions = [positions.to(dev) for dev in devs]
+    rope = cfg.attention.rope
+    if rope is not None and rope.mrope_sections is not None:
+        positions = [q[:, None, :].expand(q.shape[0], 3, q.shape[1])
+                     if q.dim() == 2 else q for q in positions]
+    caches = caches or [None] * len(group)
+    remat = _remat(cfg) if caches[0] is None else "none"
+    n = cfg.n_layers
+    decode = caches[0] is not None and tokens[0].shape[1] == 1
+    aux_tot = [{} for _ in group]
+    for i in range(n):
+        args = (split, d, i, cfg, positions, caches, cache_index, *xs)
+        if remat != "none":
+            xs, auxes = _checkpointed(remat, _split_layer, *args)
+        else:
+            xs, auxes = _split_layer(*args)
+        for tot, aux in zip(aux_tot, auxes):
+            for k, v in aux.items():
+                if decode:
+                    v = div(v, n).to(v.dtype)
+                tot[k] = tot[k] + v if k in tot else v
+    if caches[0] is not None and not decode:
+        aux_tot = [{} for _ in group]
+    elif not decode:
+        aux_tot = [{k: div(v, n).to(v.dtype) for k, v in tot.items()}
+                   for tot in aux_tot]
+    if last_only:
+        xs = [x[:, -1:] for x in xs]
+    logits = [L.logits_from_hidden(p.embed, L.apply_norm(p.final_norm, x,
+                                                         cfg), cfg)
+              for (j, p), x in zip(group, xs)]
+    if split.on_model("vocab"):
+        logits = C.all_gather(logits, -1, extent=m, origin=origin)
+    return logits, aux_tot
+
+
+def _data_part(split, batch: Mapping[str, torch.Tensor], d: int
+               ) -> Dict[str, torch.Tensor]:
+    """Data index ``d``'s contiguous part of the global batch."""
+    b = batch["tokens"].shape[0]
+    if b % split.data_extent:
+        raise ValueError(f"batch {b} does not split over "
+                         f"{split.data_extent} data positions")
+    per = b // split.data_extent
+    return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+
+
+def _split_forward(split, batch: Mapping[str, torch.Tensor],
+                   cfg: ModelConfig, *, cache: Optional[Cache] = None,
+                   last_only: bool = False):
+    """:func:`forward` of a split model: each data index's group on its
+    part of the batch, inside the split's sharding context.  The logits
+    are model position 0's, concatenated over the data indices on the
+    first position's device; aux is the data indices' mean."""
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise NotImplementedError(f"a split {cfg.family} model")
+    index = 0 if cache is None else int(cache["index"])
+    outs, auxes = [], []
+    with sharding_context(split.mesh, split.rules):
+        for d in split.data_indices():
+            caches = None if cache is None else [
+                cache["pieces"][(d, j)] for j, _ in split.group(d)]
+            logits, aux = _split_group(
+                split, d, _data_part(split, batch, d), cfg, caches=caches,
+                cache_index=index, last_only=last_only)
+            outs.append(logits[0])
+            auxes.append(aux[0])
+    # assembling the global result is the controller's, no device's work
+    with CA.paused():
+        dev = outs[0].device
+        logits = torch.cat([o.to(dev) for o in outs]) if len(outs) > 1 \
+            else outs[0]
+        aux = {k: sum(a[k].to(dev) for a in auxes) / len(auxes)
+               for k in auxes[0]}
+    new_cache = None if cache is None else dict(
+        cache, index=index + batch["tokens"].shape[1])
+    return logits, new_cache, aux
+
+
+def _split_loss_terms(split, batch: Mapping[str, torch.Tensor],
+                      cfg: ModelConfig, d: int):
+    """Data index ``d``'s group on ``batch`` (its microbatch): every model
+    position computes the loss on its own copy of the gathered logits, as
+    each device of a partitioned program does, scaled by ``1/m`` (each
+    position's gradient ``1/m`` of the whole, summed by the gather's
+    backward).  Returns (the scaled losses, one a position, to run the
+    backward from; position 0's metrics)."""
+    with sharding_context(split.mesh, split.rules):
+        logits, auxes = _split_group(split, d, batch, cfg)
+        terms = [_loss(lg, batch["labels"].to(lg.device, torch.long), aux)
+                 for lg, aux in zip(logits, auxes)]
+    return [t * (1.0 / split.extent) for t, _ in terms], terms[0][1]
+
+
+def _split_loss(split, batch: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                d: Optional[int] = None):
+    """:func:`loss_fn` of a split model on data index ``d``'s group (the
+    only one present, by default): the sum of
+    :func:`_split_loss_terms`' scaled losses, and position 0's
+    metrics."""
+    if d is None:
+        (d,) = split.data_indices()
+    scaled, metrics = _split_loss_terms(split, batch, cfg, d)
+    with CA.paused():           # the controller's sum of the positions'
+        dev = scaled[0].device
+        total = sum(t.to(dev) for t in scaled)
+    return total, metrics
+
+
+# --------------------------------------------------------------------------- #
 # Public API
 # --------------------------------------------------------------------------- #
 
@@ -821,6 +1031,9 @@ def forward(params: LM, batch: Mapping[str, torch.Tensor],
     position only (prefill -- avoids a (B, S, V) tensor).
     """
     _require_ported(cfg)
+    if _is_split(params):
+        return _split_forward(params, batch, cfg, cache=cache,
+                              last_only=last_only)
     tokens = batch["tokens"]
     x = L.embed_tokens(params.embed, tokens, cfg)
     new_cache, aux = None, {}
@@ -883,8 +1096,14 @@ def loss_fn(params: LM, batch: Mapping[str, torch.Tensor],
     """Next-token cross-entropy, plus the moe aux loss.  batch['labels']
     (B, S); entries < 0 are ignored.  Returns (loss, {'loss', 'ce'} and,
     moe, {'moe_aux_loss', 'moe_dropped_frac'})."""
+    if _is_split(params):
+        return _split_loss(params, batch, cfg)
     logits, _, aux = forward(params, batch, cfg)
-    labels = batch["labels"]
+    return _loss(logits, batch["labels"], aux)
+
+
+def _loss(logits: torch.Tensor, labels: torch.Tensor, aux: Dict
+          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     valid = labels >= 0
     labels_safe = labels.clamp(min=0).long()
     # logsumexp form: no second (B, S, V) log-softmax buffer
@@ -916,11 +1135,20 @@ def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.family == "encdec" and frames is None:
         raise ValueError("an encdec prefill needs frames (B, enc_seq, "
                          "d_model)")
-    cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
-                       device=tokens.device)
+    cache = serving_cache(params, cfg, tokens.shape[0], max_seq, cache_dtype,
+                          device=tokens.device)
     logits, cache, _ = forward(params, _batch(tokens, positions, frames),
                                cfg, cache=cache, last_only=True)
     return logits, cache
+
+
+def serving_cache(params, cfg: ModelConfig, batch: int, max_seq: int,
+                  dtype=torch.bfloat16, device=None) -> Cache:
+    """:func:`init_cache` for ``params``: a split model's holds each
+    position's part (``SplitLM.init_cache``)."""
+    if _is_split(params):
+        return params.init_cache(batch, max_seq, dtype)
+    return init_cache(cfg, batch, max_seq, dtype, device=device)
 
 
 def decode_step(params: LM, cache: Cache, tokens: torch.Tensor,

@@ -32,6 +32,15 @@ key), so :func:`apply_moe` takes no key.  :func:`route` is the routing
 alone (:func:`assign` its gates and capacity for given choices); the
 model calls it through this module, so a caller can read the routes
 (``expert_ids`` and the within-capacity mask) of every layer.
+
+On a shard of a split model (``distributed/tensor_parallel.py``) the
+experts lie on the model axis: ``p`` holds the shard's ``E/m`` stacked
+experts, from ``expert_offset`` on, and the router whole.  Every shard
+routes the same replicated tokens with the same router, so every shard
+computes the same routes; each dispatches only the claims on its own
+experts (the tokens are replicated, so no all-to-all), runs its experts
+and combines their outputs: a partial sum that the caller all-reduces.
+The shared experts split as the MLP does (:func:`apply_shared`).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import div
+from repro_torch.distributed.sharding import logically_sharded as shard
 from repro_torch.models.layers import (Params, _dtype, activate,
                                        truncated_normal_init)
 
@@ -151,14 +161,22 @@ def assign(probs: torch.Tensor, expert_ids: torch.Tensor,
     return Routing(probs, gates, expert_ids, pos, pos < C)
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              expert_offset: Optional[int] = None, with_shared: bool = True
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The MoE block on (B, S, D).  Returns (out in ``x``'s dtype, aux):
-    aux holds ``moe_aux_loss`` and ``moe_dropped_frac`` (float32 scalars)."""
+    aux holds ``moe_aux_loss`` and ``moe_dropped_frac`` (float32 scalars).
+
+    ``expert_offset``: ``p`` holds the experts ``[offset, offset + E_local)``
+    of a shard, and ``out`` is their part of the routed output.
+    ``with_shared=False`` leaves the shared experts out of ``out``
+    (:func:`apply_shared` computes them)."""
     m = cfg.moe
     B, S, D = x.shape
     cdt = _dtype(cfg.compute_dtype)
     E, K = m.n_experts, m.top_k
+    El = p["w_up"].shape[0]          # the experts held here
+    off = 0 if expert_offset is None else int(expert_offset)
     G, group, C = _groups(cfg, B * S)
     N = B * S
     xc = x.to(cdt)
@@ -174,36 +192,51 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     # (a 0-dim float32 over the float64 constant: float64, rounded back)
     dropped = 1.0 - div(r.kept.sum().float(), G * group * K).float()
 
-    # dispatch: each kept claim into its own slot (e, g, c) of the
-    # (E, G·C, D) buffer; the dropped ones into a trash row, never read
+    # dispatch: each kept claim on an expert held here into its own slot
+    # (e, g, c) of the (E_local, G·C, D) buffer; the dropped ones (and, on
+    # a shard, the other shards' claims) into a trash row, never read
     g_idx = torch.arange(G, device=x.device)[:, None, None]
-    slot = ((r.expert_ids * G + g_idx) * C + r.pos).reshape(N * K)
-    kept = r.kept.reshape(N * K)
+    local = r.expert_ids - off
+    mine = r.kept & (local >= 0) & (local < El)
+    slot = ((local * G + g_idx) * C + r.pos).reshape(N * K)
+    kept = mine.reshape(N * K)
     claims = xc.reshape(N, 1, D).expand(N, K, D).reshape(N * K, D)
-    buf = claims.new_zeros(E * G * C + 1, D).index_copy(
-        0, torch.where(kept, slot, E * G * C), claims)
-    exp_in = buf[:-1].view(E, G * C, D)
+    buf = claims.new_zeros(El * G * C + 1, D).index_copy(
+        0, torch.where(kept, slot, El * G * C), claims)
+    exp_in = shard(buf[:-1].view(El, G * C, D), ("experts", None, "embed"))
 
     def expert(name):
         return torch.bmm(exp_in, p[name].to(cdt))
 
-    h = activate(cfg, expert("w_up"),
-                 expert("w_gate") if cfg.act.endswith("gated") else None)
-    exp_out = torch.bmm(h, p["w_down"].to(cdt)).reshape(E * G * C, D)
+    h = shard(activate(cfg, expert("w_up"),
+                       expert("w_gate") if cfg.act.endswith("gated")
+                       else None), ("experts", None, None))
+    exp_out = torch.bmm(h, p["w_down"].to(cdt)).reshape(El * G * C, D)
 
     # combine: each claim's output times its gate (rounded to the compute
     # dtype, as the reference's combine tensor is), summed over K with
     # float32 accumulation and one rounding (a batched product, as the
-    # reference's combine einsum); a dropped claim reads slot 0 at weight 0
+    # reference's combine einsum); a dropped claim (and another shard's)
+    # reads slot 0 at weight 0
     y = exp_out.index_select(0, torch.where(kept, slot, 0)).view(N, K, D)
-    w = torch.where(r.kept, r.gates, 0.0).to(cdt).reshape(N, 1, K)
+    w = torch.where(mine, r.gates, 0.0).to(cdt).reshape(N, 1, K)
     out = torch.bmm(w, y).reshape(N, D)
 
-    if m.n_shared > 0:
-        xs = xc.reshape(N, D)
-        sh = activate(cfg, xs @ p["shared_up"].to(cdt),
-                      xs @ p["shared_gate"].to(cdt)
-                      if cfg.act.endswith("gated") else None)
-        out = out + sh @ p["shared_down"].to(cdt)
+    if m.n_shared > 0 and with_shared:
+        out = out + apply_shared(p, xc, cfg).reshape(N, D)
     aux = {"moe_aux_loss": aux_loss, "moe_dropped_frac": dropped}
-    return out.reshape(B, S, D).to(x.dtype), aux
+    return shard(out.reshape(B, S, D), ("batch", "seq", "embed")
+                 ).to(x.dtype), aux
+
+
+def apply_shared(p: Params, x: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """The shared experts (deepseek) on (B, S, D), in the compute dtype
+    (on a shard: its columns of up/gate and rows of down, a partial
+    sum)."""
+    cdt = _dtype(cfg.compute_dtype)
+    xs = x.to(cdt)
+    up = shard(xs @ p["shared_up"].to(cdt), ("batch", "seq", "mlp"))
+    sh = activate(cfg, up, xs @ p["shared_gate"].to(cdt)
+                  if cfg.act.endswith("gated") else None)
+    return sh @ p["shared_down"].to(cdt)

@@ -13,6 +13,11 @@ there and its cross K/V go into the cache, which the decode steps read.  The ste
 made by these steps is an inference tensor: continue it with these steps
 (or under ``torch.inference_mode``), since PyTorch refuses an in-place
 write to an inference tensor outside that mode.
+
+The steps take a split model (``distributed.tensor_parallel.SplitLM``)
+as they take a whole one: tensor parallelism is reached through this API,
+with no flag of ``launch/serve.py``, as the reference's dry run reaches
+it.  Its cache holds each mesh position's part.
 """
 from __future__ import annotations
 
@@ -21,8 +26,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import (LM, decode_step, forward, init_cache,
-                                      prefill)
+from repro_torch.models.model import (LM, decode_step, forward, prefill,
+                                      serving_cache)
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int,
@@ -33,8 +38,8 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int,
     @torch.inference_mode()
     def prefill_step(params: LM, batch: Dict[str, torch.Tensor]):
         tokens = batch["tokens"]
-        cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
-                           device=tokens.device)
+        cache = serving_cache(params, cfg, tokens.shape[0], max_seq,
+                              cache_dtype, device=tokens.device)
         logits, cache, _ = forward(params, batch, cfg, cache=cache,
                                    last_only=True)
         return logits, cache

@@ -24,8 +24,11 @@ piece into its slice of a working parameter.  The update is elementwise,
 so a sharded state steps bitwise as the whole one, except for the global
 norm: over sharded gradients it adds per-piece partial sums, as XLA's
 sharded reduction does, so it (and a step that clips by it) agrees to
-rounding only.  A mesh whose model axis is larger than 1 raises: tensor
-parallelism waits for ROADMAP Queue 1 item 10.
+rounding only.  With a model axis above 1 (tensor parallelism,
+``train/step.py``'s ``SplitTrainState``) each model piece's state is split
+over the data positions of its model index, in mesh order, by the spec
+the piece's leaf widens to; :func:`adamw_update` then takes the norm of
+every piece's gradients (``gnorm``), computed once for all of them.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch.distributed.mesh import MODEL_AXIS, Mesh, axis_size
 from repro_torch.distributed.sharding import Spec
+from repro_torch.launch import cost_analysis as CA
 
 Params = Mapping[str, torch.Tensor]
 
@@ -44,7 +48,8 @@ Params = Mapping[str, torch.Tensor]
 class Sharded(NamedTuple):
     """One leaf of a ZeRO-1 state: contiguous pieces along ``dim``, one a
     data position in mesh order, each on that position's device (pieces
-    may share a device); ``dim`` None: one piece, the whole leaf."""
+    may share a device); ``dim`` None: the whole leaf, one piece (a split
+    state's: one copy a data position, all equal)."""
 
     shards: Tuple[torch.Tensor, ...]
     dim: Optional[int]
@@ -54,7 +59,8 @@ class Sharded(NamedTuple):
         """Each piece beside the slice of ``whole`` (a tensor of the
         leaf's shape) it holds."""
         if self.dim is None:
-            yield self.shards[0], whole
+            for t in self.shards:
+                yield t, whole
             return
         off = 0
         for t in self.shards:
@@ -148,25 +154,32 @@ def adamw_update(
     grads: Params,
     state: AdamWState,
     lr_scale: Union[torch.Tensor, float] = 1.0,
+    gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
     """One AdamW step.  Returns (new fp32 master, new state); the inputs are
-    not modified."""
-    step = state.step + 1
-    gnorm = global_norm(grads)
-    c = gnorm.new_tensor
-    clip = torch.clamp(c(cfg.grad_clip) / torch.clamp(gnorm, min=1e-12),
-                       max=1.0)
-    stepf = step.float()
-    b1c = 1.0 - c(cfg.b1) ** stepf
-    b2c = 1.0 - c(cfg.b2) ** stepf
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
-                                  device=gnorm.device)
-    scalars = dict(clip=clip, b1c=b1c, b2c=b2c, lr=lr, eps=c(cfg.eps))
+    not modified.  ``gnorm``: the global norm the clip uses, when the
+    gradients are one part of a larger tree (default: theirs)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
+    # the step's scalars: bookkeeping a cost counter leaves out (a split
+    # state's are computed once a model index, not once a position)
+    with CA.paused():
+        step = state.step + 1
+        c = gnorm.new_tensor
+        clip = torch.clamp(c(cfg.grad_clip) / torch.clamp(gnorm, min=1e-12),
+                           max=1.0)
+        stepf = step.float()
+        b1c = 1.0 - c(cfg.b1) ** stepf
+        b2c = 1.0 - c(cfg.b2) ** stepf
+        lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
+                                      device=gnorm.device)
+        scalars = dict(clip=clip, b1c=b1c, b2c=b2c, lr=lr, eps=c(cfg.eps))
     on: Dict[torch.device, dict] = {gnorm.device: scalars}
 
     def at(dev: torch.device) -> dict:
         if dev not in on:
-            on[dev] = {k: x.to(dev) for k, x in scalars.items()}
+            with CA.paused():
+                on[dev] = {k: x.to(dev) for k, x in scalars.items()}
         return on[dev]
 
     master_new, m_new, v_new = {}, {}, {}
@@ -261,19 +274,19 @@ def zero1_state_shardings(param_specs: Mapping[str, Spec],
                       v=dict(master))
 
 
-def data_devices(mesh: Mesh, data_axis: str = "data") -> List[torch.device]:
+def data_devices(mesh: Mesh, data_axis: str = "data",
+                 model_index: int = 0) -> List[torch.device]:
     """The devices a ZeRO-1 state is split over: the data axis's positions
-    (the first position of every other axis).  Raises for an abstract mesh
-    and for a model axis larger than 1."""
+    at model index ``model_index`` (the first position of every other
+    axis).  Raises for an abstract mesh."""
     if mesh.devices is None:
         raise ValueError("a ZeRO-1 state needs a mesh with devices, got an "
                          "abstract one")
-    if axis_size(mesh, MODEL_AXIS) > 1:
-        raise NotImplementedError(
-            f"a mesh with a model axis of {mesh.shape[MODEL_AXIS]}: tensor "
-            f"parallelism is not ported (ROADMAP Queue 1 item 10); use a "
-            f"model axis of 1")
-    return mesh.devices_along((data_axis,))
+    m = axis_size(mesh, MODEL_AXIS)
+    if not 0 <= model_index < m:
+        raise ValueError(f"model index {model_index} of an axis of {m}")
+    devs = mesh.devices_along((data_axis, MODEL_AXIS))
+    return devs[model_index::m]
 
 
 def _split_dim(spec: Spec, data_axis: str) -> Optional[int]:

@@ -35,6 +35,20 @@ except through the global norm (see ``train/optimizer.py``).
 zero1_grad_constraint`) puts the accumulated gradients into the ZeRO-1
 layout before the update; with ``zero1_grads_in_scan`` the accumulator
 itself lives in that layout and takes each microbatch's slices.
+
+Tensor parallelism x ZeRO-1 (a mesh whose model axis is above 1):
+:func:`shard_train_state` returns a :class:`SplitTrainState` -- the model
+split by position (``distributed.tensor_parallel``), each model piece's
+AdamW state split over the data positions of its model index.  Its step
+runs microbatch by microbatch, each data position's model group in turn;
+the replicated leaves' gradients are all-reduced over the model
+positions, the gradients reduce-scattered over the data axis into the
+ZeRO-1 layout (all-reduced over the pods first), each piece updated with
+the norm of all of them, and the new master all-gathered over the data
+axis into every piece (``distributed.collectives``: the bytes a cost
+counter sees).  It agrees with the unsplit step by T2's rule (partial
+products summed in another order), and its checkpoint image is the
+unsplit state's, leaf for leaf.
 """
 from __future__ import annotations
 
@@ -45,13 +59,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.mesh import Mesh, data_axes
+from repro_torch.distributed.mesh import (DATA_AXIS, MODEL_AXIS, POD_AXIS,
+                                          Mesh, axis_size, data_axes)
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import resolve_rules
+from repro_torch.distributed.tensor_parallel import (model_dim,
+                                                     split_model)
+from repro_torch.launch import cost_analysis as CA
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import (
     AdamWConfig,
     AdamWState,
     Sharded,
+    _split_dim,
     adamw_update,
     data_devices,
     global_norm,
@@ -148,16 +168,25 @@ def zero1_specs(cfg: ModelConfig, mesh: Mesh) -> AdamWState:
 def batch_devices(mesh: Mesh) -> list:
     """The devices a ZeRO-1 step splits the global batch over: the
     positions of the mesh's data axes (pod, data), in mesh order."""
-    data_devices(mesh)                      # refuses a model axis > 1
+    data_devices(mesh)                      # refuses an abstract mesh
     return mesh.devices_along(data_axes(mesh))
 
 
-def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+def shard_train_state(state: TrainState, mesh: Mesh, *, positions=None
+                      ) -> Union[TrainState, "SplitTrainState"]:
     """``state`` with its AdamW state split ZeRO-1-style over ``mesh``'s
     data axis (:func:`~repro_torch.train.optimizer.shard_state`: by copy,
     each whole leaf dropped from ``state`` once split) and a replica of
     the working parameters on each batch device (``state.params`` itself
-    where it already lies there)."""
+    where it already lies there).
+
+    A mesh with a model axis above 1 (tensor parallelism): a
+    :class:`SplitTrainState` -- the parameters split by position, each
+    model piece's AdamW state over the data positions of its model index
+    -- of every position, or of ``positions`` (``(d, j)``; the dry run's
+    state on the meta device holds ``[(0, 0)]``)."""
+    if axis_size(mesh, MODEL_AXIS) > 1 or positions is not None:
+        return _split_train_state(state, mesh, positions)
     cfg = state.params.cfg
     constraint = zero1_grad_constraint(mesh, zero1_specs(cfg, mesh).master)
     opt = shard_state(state.opt, constraint)
@@ -169,6 +198,285 @@ def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
             mods[dev] = _copy_model(state.params, dev)
         reps.append(mods[dev])
     return TrainState(reps[0], opt, tuple(reps))
+
+
+# --------------------------------------------------------------------------- #
+# Tensor parallelism x ZeRO-1: a state split over a (data, model) mesh
+# --------------------------------------------------------------------------- #
+
+class SplitTrainState(NamedTuple):
+    """A train state over a mesh with a model axis above 1: the working
+    parameters split by position (``params``, a
+    :class:`~repro_torch.distributed.tensor_parallel.SplitLM`), and for
+    each model index ``j`` the AdamW state of its piece, each leaf split
+    over the data positions of model index ``j`` (pod 0) along
+    ``zero_dims[name]`` (None: whole, a copy a data position), in mesh
+    order.
+    A state of the dry run holds mesh position 0 alone."""
+
+    params: Any                       # SplitLM
+    opts: Tuple[AdamWState, ...]      # one a model index
+    zero_dims: Dict[str, Optional[int]]
+
+    def modules(self) -> list:
+        return self.params.modules()
+
+    def _whole(self, k: str, leaves: list) -> torch.Tensor:
+        """Leaf ``k`` from one piece a model index, on position (0, 0)'s
+        device (concatenated along its model dimension)."""
+        dev = self.params.device(0, 0)
+        dim = model_dim(self.params.specs[k])
+        if dim is None:
+            return leaves[0].to(dev)
+        return torch.cat([t.to(dev) for t in leaves], dim=dim)
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        """The checkpoint image, in the unsplit state's layout: every leaf
+        gathered over the data positions and the model positions (needs
+        every position)."""
+        split = self.params
+        if not split.complete:
+            raise ValueError("the image of a state needs every position")
+        named = [dict(p.named_parameters()) for _, p in split.group(0)]
+        out = {f"params/{k}": self._whole(k, [n[k] for n in named])
+               for k in named[0]}
+        out["opt/step"] = self.opts[0].step
+        for part in _OPT_PARTS:
+            leaves = [getattr(o, part) for o in self.opts]
+            out.update({f"opt/{part}/{k}": self._whole(
+                k, [t[k].gather() for t in leaves]) for k in leaves[0]})
+        return out
+
+    @torch.no_grad()
+    def load_tree(self, tree: Mapping[str, torch.Tensor]
+                  ) -> "SplitTrainState":
+        """Copy a :meth:`tree` mapping into this state in place."""
+        split = self.params
+        for (d, j), piece in split.pieces.items():
+            for k, p in piece.named_parameters():
+                p.copy_(_model_pieces(split, k, tree[f"params/{k}"])[j])
+        for j, opt in enumerate(self.opts):
+            opt.step.copy_(tree["opt/step"])
+            for part in _OPT_PARTS:
+                for k, t in getattr(opt, part).items():
+                    whole = _model_pieces(split, k,
+                                          tree[f"opt/{part}/{k}"])[j]
+                    for piece, sl in t.slices(whole):
+                        piece.copy_(sl)
+        return self
+
+    def clone(self) -> "SplitTrainState":
+        """A copy that shares no storage with this state."""
+        opts = tuple(AdamWState(step=o.step.clone(), **{
+            part: {k: t.map(torch.clone) for k, t in getattr(o, part).items()}
+            for part in _OPT_PARTS}) for o in self.opts)
+        return SplitTrainState(self.params.clone(), opts,
+                               dict(self.zero_dims))
+
+
+def _model_pieces(split, k: str, whole: torch.Tensor) -> list:
+    """``whole`` (leaf ``k`` in the unsplit layout) cut into one piece a
+    model index (the same tensor for each where nothing splits it)."""
+    dim = model_dim(split.specs[k])
+    if dim is None:
+        return [whole] * split.extent
+    return list(whole.chunk(split.extent, dim=dim))
+
+
+def _data_layout(mesh: Mesh) -> Tuple[int, int]:
+    """(pod extent, data extent) of ``mesh``."""
+    return axis_size(mesh, POD_AXIS), axis_size(mesh, DATA_AXIS)
+
+
+def split_zero_dims(cfg: ModelConfig, mesh: Mesh) -> Dict[str, Optional[int]]:
+    """The dimension ZeRO-1 splits each leaf's model piece along over the
+    data axis (``zero1_spec`` of the leaf's spec on ``mesh``), None where
+    nothing divides."""
+    specs = zero1_specs(cfg, mesh).master
+    return {k: _split_dim(spec, DATA_AXIS) for k, spec in specs.items()}
+
+
+def _split_train_state(state: TrainState, mesh: Mesh,
+                       positions=None) -> SplitTrainState:
+    """``state`` split over ``mesh``: its parameters by position
+    (``split_model``), each model piece's AdamW state over the data
+    positions of its model index (pod 0), by copy, each whole leaf of
+    ``state`` dropped once its pieces exist."""
+    cfg = state.params.cfg
+    split = split_model(state.params, mesh, positions=positions)
+    m = split.extent
+    n_pod, n_data = _data_layout(mesh)
+    zdims = split_zero_dims(cfg, mesh)
+    # the data positions of pod 0 present, for each model index
+    owners = {j: [e for e in range(n_data) if (e, j) in split.pieces]
+              for j in range(m)}
+    present = [j for j in range(m) if owners[j]]
+    parts = {j: {part: {} for part in _OPT_PARTS} for j in present}
+    for part in _OPT_PARTS:
+        src = getattr(state.opt, part)
+        for k in list(src):
+            whole = src[k]
+            zd = zdims[k]
+            for j in present:
+                local = _model_pieces(split, k, whole)[j]
+                if zd is None:      # a copy a data position
+                    pieces = [(local, split.device(e, j))
+                              for e in owners[j]]
+                else:
+                    n = local.shape[zd] // n_data
+                    pieces = [(local.narrow(zd, e * n, n), split.device(e, j))
+                              for e in owners[j]]
+                out = []
+                for t, dev in pieces:
+                    c = torch.empty(t.shape, dtype=torch.float32, device=dev)
+                    out.append(c.copy_(t))
+                parts[j][part][k] = Sharded(tuple(out), zd)
+            del src[k]
+    opts = tuple(AdamWState(step=state.opt.step.to(
+        split.device(owners[j][0], j), copy=True), **parts[j])
+        for j in present)
+    return SplitTrainState(split.requires_grad_(True), opts, zdims)
+
+
+def _reduce_over_data(split, j: int, k: str, zd: Optional[int],
+                      by_d: Dict[int, torch.Tensor]) -> Sharded:
+    """The sum over the data positions of model index ``j``'s float32
+    gradients of leaf ``k`` (``by_d``: one a data index present), in the
+    ZeRO-1 layout: all-reduced over the pods, then reduce-scattered over
+    the data axis along ``zd`` (all-reduced where ``zd`` is None)."""
+    n_pod, n_data = _data_layout(split.mesh)
+    origin = j == 0
+    if n_pod > 1:
+        for e in sorted({d % n_data for d in by_d}):
+            pods = [d for d in sorted(by_d) if d % n_data == e]
+            out = C.all_reduce([by_d[d] for d in pods], extent=n_pod,
+                               origin=origin and e == 0)
+            by_d[pods[0]] = out[0]
+    at_pod0 = [by_d[e] for e in range(n_data) if e in by_d]
+    if zd is None:
+        return Sharded(tuple(C.all_reduce(at_pod0, extent=n_data,
+                                          origin=origin)), None)
+    return Sharded(tuple(C.reduce_scatter(at_pod0, zd, extent=n_data,
+                                          origin=origin)), zd)
+
+
+def _split_train_step(state: SplitTrainState, batch: Mapping[str, Any],
+                      cfg: ModelConfig, opt_cfg: AdamWConfig, schedule,
+                      n_microbatches: int, in_scan: bool):
+    """One step of a split state (see :func:`make_train_step`)."""
+    split = state.params
+    m, n_dp = split.extent, split.data_extent
+    n_pod, n_data = _data_layout(split.mesh)
+    present = split.data_indices()
+    b = batch["tokens"].shape[0]
+    n_total = n_dp * n_microbatches
+    if b % n_total:
+        raise ValueError(f"batch {b} % (data positions {n_dp} x "
+                         f"n_microbatches {n_microbatches}) != 0")
+    per, mb = b // n_dp, b // n_total
+    names = [k for k, _ in split.group(present[0])[0][1].named_parameters()]
+    replicated = [k for k in names if m > 1
+                  and model_dim(split.specs[k]) is None]
+    zdims = state.zero_dims
+
+    def grads_of(d: int, micro) -> Dict[int, Dict[str, torch.Tensor]]:
+        """Each model position's float32 gradients on one microbatch, the
+        replicated leaves' summed over the model positions."""
+        group = split.group(d)
+        for _, p in group:
+            p.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            scaled, metrics = M._split_loss_terms(split, micro, cfg, d)
+            torch.autograd.backward(scaled)
+        out = {j: {k: p.grad.float() for k, p in piece.named_parameters()}
+               for j, piece in group}
+        for _, p in group:
+            p.zero_grad(set_to_none=True)
+        for k in replicated:
+            summed = C.all_reduce([out[j][k] for j, _ in group], extent=m,
+                                  origin=d == 0)
+            for (j, _), g in zip(group, summed):
+                out[j][k] = g
+        return out, {k: v.detach() for k, v in metrics.items()}
+
+    owners = sorted({j for _, j in split.pieces})
+    acc: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+    zacc: Dict[int, Dict[str, Sharded]] = {}
+    m_sum: Dict[int, Dict[str, torch.Tensor]] = {}
+    for i in range(n_microbatches):
+        by_d = {}
+        for d in present:
+            dev = split.device(d, split.group(d)[0][0])
+            # each position moves (and widens) its own tokens and labels
+            micro = {k: torch.as_tensor(v)[d * per + i * mb:
+                                           d * per + (i + 1) * mb]
+                     for k, v in batch.items()}
+            g, metrics = grads_of(d, micro)
+            with CA.paused():           # the controller's bookkeeping
+                tot = m_sum.setdefault(d, _zero_metrics(cfg, dev))
+                for k in tot:
+                    tot[k] += metrics[k]
+            if in_scan:
+                by_d[d] = g
+            else:
+                for j, gj in g.items():
+                    a = acc.setdefault((d, j), {})
+                    for k, t in gj.items():
+                        a[k] = a[k] + t if k in a else t
+        for j in owners if in_scan else ():
+            for k in names:
+                r = _reduce_over_data(split, j, k, zdims[k],
+                                      {d: by_d[d][j][k] for d in by_d})
+                z = zacc.setdefault(j, {})
+                z[k] = r if k not in z else Sharded(
+                    tuple(x + y for x, y in zip(z[k].shards, r.shards)),
+                    r.dim)
+    if not in_scan:
+        for j in owners:
+            zacc[j] = {k: _reduce_over_data(
+                split, j, k, zdims[k], {d: acc[(d, j)][k] for d in present
+                                        if (d, j) in acc})
+                for k in names}
+        acc.clear()
+    grads = {j: {k: g.map(lambda t: t / t.new_tensor(float(n_total)))
+                 for k, g in zacc[j].items()} for j in owners}
+    # the norm over every piece, a replicated leaf once (each position
+    # sums the squares of all its pieces, as each device does)
+    dev0 = state.opts[0].step.device
+    sq = {(j, k): [torch.sum(torch.square(x)) for x in g.shards]
+          for j in owners for k, g in grads[j].items()}
+    with CA.paused():           # an all-reduce of the partial sums
+        gnorm = torch.sqrt(sum(
+            x.to(dev0) for (j, k), xs in sq.items()
+            for x in (xs if zdims[k] is not None else xs[:1])
+            if j == owners[0] or k not in replicated))
+    with CA.paused():
+        lr_scale = schedule(state.opts[0].step)
+    new_opts = []
+    for j, opt in zip(owners, state.opts):
+        master, new = adamw_update(opt_cfg, grads[j], opt, lr_scale,
+                                   gnorm=gnorm.to(opt.step.device))
+        new_opts.append(new)
+        es = [e for e in range(n_data) if (e, j) in split.pieces]
+        with torch.no_grad():
+            for k in names:
+                w, zd = master[k], zdims[k]
+                whole = list(w.shards) if zd is None else \
+                    C.all_gather(list(w.shards), zd, extent=n_data,
+                                 origin=j == 0)
+                for (d, jj), piece in split.pieces.items():
+                    if jj == j:
+                        src = whole[es.index(d % n_data)]
+                        dict(piece.named_parameters())[k].copy_(src)
+    totals = {k: C.all_reduce([m_sum[d][k] for d in present], extent=n_dp)[0]
+              for k in m_sum[present[0]]}
+    with CA.paused():
+        metrics = {k: v / v.new_tensor(float(n_total))
+                   for k, v in totals.items()}
+        metrics["grad_norm"] = gnorm
+        metrics["lr_scale"] = torch.as_tensor(lr_scale, dtype=torch.float32)
+        metrics["step"] = new_opts[0].step.float()
+    return state._replace(opts=tuple(new_opts)), metrics
 
 
 def require_trainable_family(cfg: ModelConfig) -> None:
@@ -307,11 +615,20 @@ def make_train_step(
     it.  By default it is applied once after the microbatch loop;
     ``zero1_grads_in_scan`` additionally keeps the accumulator itself in
     that layout (smaller, at the cost of a slice-add a leaf and
-    microbatch)."""
+    microbatch).  A :class:`SplitTrainState` carries its own ZeRO-1 layout
+    (``grad_constraint`` must be None); ``zero1_grads_in_scan`` then
+    reduce-scatters each microbatch's gradients over the data axis."""
     require_trainable(cfg)
     in_scan = grad_constraint is not None and zero1_grads_in_scan
 
     def train_step(state: TrainState, batch: Mapping[str, Any]):
+        if isinstance(state, SplitTrainState):
+            if grad_constraint is not None:
+                raise ValueError(
+                    "a split state carries its own ZeRO-1 layout; build "
+                    "its step without grad_constraint")
+            return _split_train_step(state, batch, cfg, opt_cfg, schedule,
+                                     n_microbatches, zero1_grads_in_scan)
         dev = state.opt.step.device
         reps = state.replicas or (state.params,)
         n_total = len(reps) * n_microbatches

@@ -1752,3 +1752,175 @@ def test_zero1_over_every_card():
     assert len({id(r) for r in got.replicas}) == n
     for k, v in want.tree().items():
         assert torch.equal(v, got.tree()[k].to(v.device)), k
+
+
+# ------------------------------------------- tensor parallelism (TP1's)
+def _tp_mesh(shape, dev):
+    from repro_torch.distributed import mesh as MESH
+
+    n = shape[0] * shape[1]
+    return MESH.make_mesh(shape, ("data", "model"),
+                          dev if isinstance(dev, list) else [dev] * n)
+
+
+def _tp_serve(model, cfg, prompt, forced):
+    from repro_torch.serve import step as SERVE
+
+    pre = SERVE.make_prefill_step(cfg, prompt.shape[1] + forced.shape[1],
+                                  torch.float32)
+    srv = SERVE.make_serve_step(cfg)
+    logits, cache = pre(model, {"tokens": prompt})
+    out = [logits[:, -1]]
+    for k in range(forced.shape[1]):
+        logits, cache = srv(model, cache, {"tokens": forced[:, k:k + 1]})
+        out.append(logits[:, -1])
+    if getattr(model, "is_split", False):
+        cache = model.gather_cache(cache)
+    return torch.stack(out).cpu(), cache["kv"]["k"].cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,m", [("olmo-1b", 2), ("olmo-1b", 4),
+                                    ("gemma2-27b", 2), ("olmoe-1b-7b", 2),
+                                    ("olmoe-1b-7b", 4),
+                                    ("deepseek-moe-16b", 2)])
+def test_split_smoke_card_equals_cpu_and_unsplit(arch, m):
+    """TP1: a SMOKE config in float32 with the kernel on, split over
+    (1, m) of cuda:0: logits and the K cache within 1e-4 of the CPU's
+    split run and of the card's unsplit run, the flash kernel launched
+    once a layer and shard a prefill; moe routes equal on the shards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as MOE
+
+    cfg = get_smoke_config(arch).replace(
+        param_dtype="float32", compute_dtype="float32", use_flash_kernel=True)
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (4, 32), generator=g)
+    forced = torch.randint(0, cfg.vocab, (4, 3), generator=g)
+    card = init_params(0, cfg, device="cuda")
+    want = _tp_serve(card, cfg, prompt.cuda(), forced.cuda())
+    split = TP.split_model(card, _tp_mesh((1, m), "cuda:0"))
+    routes, real = [], MOE.route
+
+    def spy(*a):
+        routes.append(real(*a))
+        return routes[-1]
+
+    before = FA.LAUNCHES
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(MOE, "route", spy)
+        got = _tp_serve(split, cfg, prompt.cuda(), forced.cuda())
+    host = _tp_serve(TP.split_model(init_params(0, cfg, device="cpu"),
+                                    _tp_mesh((1, m), "cpu")), cfg, prompt,
+                     forced)
+    for a, b, c in zip(got, host, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    assert FA.LAUNCHES - before == m * _flash_layers(cfg, 32)
+    for i in range(0, len(routes), m):
+        for r in routes[i + 1:i + m]:
+            assert torch.equal(r.expert_ids, routes[i].expert_ids)
+            assert torch.equal(r.kept, routes[i].kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "olmoe-1b-7b"])
+def test_split_train_step_card_equals_unsplit(arch):
+    """TP1: one float32 SMOKE step over (data 2, model 2) of cuda:0
+    against the unsplit step with 4 microbatches: the loss and grad_norm
+    within 1e-5 relative, the image in the unsplit layout, its gradients
+    (the first moments) within 1e-4 max|g| + 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import schedule as SCH
+    from repro_torch.train import step as STEP
+
+    cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                         compute_dtype="float32")
+    g = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, cfg.vocab, (8, 32), generator=g)
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+    opt = OPT.AdamWConfig(lr=1e-3)
+    want, wm = STEP.make_train_step(cfg, opt, SCH.constant(1.0),
+                                    n_microbatches=4)(
+        STEP.init_train_state(0, cfg, "cuda"), batch)
+    split = STEP.shard_train_state(STEP.init_train_state(0, cfg, "cuda"),
+                                   _tp_mesh((2, 2), "cuda:0"))
+    got, gm = STEP.make_train_step(cfg, opt, SCH.constant(1.0),
+                                   n_microbatches=2)(split, batch)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(gm[k], wm[k], rtol=1e-5, atol=0)
+    a, b = want.tree(), got.tree()
+    assert a.keys() == b.keys()
+    clip = min(1.0, opt.grad_clip / float(wm["grad_norm"]))
+    for k, v in a.items():
+        assert v.shape == b[k].shape and v.dtype == b[k].dtype, k
+        if k.startswith("opt/m/"):
+            g_max = float(v.abs().max()) / ((1 - opt.b1) * clip)
+            bound = (1 - opt.b1) * clip * (1e-4 * g_max + 1e-6)
+            assert float((b[k] - v).abs().max()) <= bound, k
+
+
+@pytest.mark.cuda
+def test_split_backward_is_deterministic_and_remat_free_on_card():
+    """TP1: a split model's gradients with remat none, full and dots, and
+    a second backward, bitwise the same on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config("olmoe-1b-7b").replace(
+        param_dtype="float32", compute_dtype="float32")
+    split = TP.split_model(init_params(0, cfg, device="cuda")
+                           .requires_grad_(True), _tp_mesh((1, 2), "cuda:0"))
+    tok = torch.randint(0, cfg.vocab, (4, 32),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+
+    def grads(remat):
+        for p in split.modules():
+            p.zero_grad(set_to_none=True)
+        loss, _ = M._split_loss(split, batch, cfg.replace(remat=remat), 0)
+        loss.backward()
+        return [p.grad.clone() for p in split.parameters()]
+
+    ref = grads("none")
+    for r in ("full", "dots", "none"):
+        assert all(torch.equal(a, b) for a, b in zip(ref, grads(r))), r
+
+
+@pytest.mark.cuda
+def test_split_model_over_every_card():
+    """A split over (1, n) of n distinct cards (n >= 2): the logits and K
+    cache equal the unsplit run on cuda:0 within 1e-4."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import init_params
+
+    n = 2 if torch.cuda.device_count() < 4 else 4
+    cfg = get_smoke_config("olmo-1b").replace(
+        param_dtype="float32", compute_dtype="float32", use_flash_kernel=True)
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (4, 32), generator=g).cuda()
+    forced = torch.randint(0, cfg.vocab, (4, 3), generator=g).cuda()
+    card = init_params(0, cfg, device="cuda:0")
+    want = _tp_serve(card, cfg, prompt, forced)
+    split = TP.split_model(card, _tp_mesh((1, n), [f"cuda:{i}"
+                                                   for i in range(n)]))
+    assert {split.device(0, j) for j in range(n)} == {
+        torch.device("cuda", i) for i in range(n)}
+    got = _tp_serve(split, cfg, prompt, forced)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -25,7 +25,9 @@ the CPU.
   ``load_tree`` writes it back into the pieces;
 * every ctypes launch runs under ``torch.cuda.device`` of its tensors
   (recorders in place of the libraries and the device context);
-* a mesh with a model axis above 1 is refused for ZeRO-1.
+* ZeRO-1 over a (data 2, model 2) mesh: the split step matches the
+  unsplit step (``test_zero1_refuses_a_model_axis``, which once held the
+  refusal of a model axis).
 """
 
 import contextlib
@@ -429,13 +431,50 @@ def test_zero1_checkpoint_image_is_the_unsharded_image(arch, tmp_path):
 
 
 def test_zero1_refuses_a_model_axis():
+    """Once a refusal (tensor parallelism was not ported), now the
+    positive case it refused: ZeRO-1 over a (data 2, model 2) mesh splits
+    each model piece's state over the data positions of its model index,
+    and the step matches the unsplit step with as many microbatches: the
+    loss and grad_norm to 1e-6 relative, every leaf of the image to 1e-5
+    relative above a floor of 1e-6 of its largest value (a split model
+    sums its partial products in another order), the first and second
+    moments (the gradients) included; the master and the parameters there
+    too except the elements whose gradient (10 m, unclipped) is below
+    1e-6: Adam's update of those turns the split's float32 noise near its
+    eps (1e-8) into any share of lr (one embedding element moves 0.06 lr
+    here), so they are held to the update's own size, lr (1 + wd |w|);
+    ``tests/test_torch_tp.py`` holds the split step to T2's whole rule.
+    An abstract mesh is still refused."""
     cfg = _zero1_cfg("olmo-1b")
     mesh = T_mesh.make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        T_step.shard_train_state(T_step.init_train_state(0, cfg, "cpu"),
-                                 mesh)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        T_opt.zero1_grad_constraint(mesh, {})
+    assert T_opt.data_devices(mesh, model_index=1) == [torch.device("cpu")] * 2
+    opt = T_opt.AdamWConfig(lr=1e-3, grad_clip=1e6)
+    batch = _zero1_batch(cfg)
+    want, wm = T_step.make_train_step(cfg, opt, T_sched.constant(),
+                                      n_microbatches=4)(
+        T_step.init_train_state(0, cfg, "cpu"), batch)
+    state = T_step.shard_train_state(T_step.init_train_state(0, cfg, "cpu"),
+                                     mesh)
+    assert isinstance(state, T_step.SplitTrainState)
+    split = [k for k, v in state.opts[0].master.items() if v.dim is not None]
+    assert split and all(len(state.opts[1].master[k].shards) == 2
+                         for k in split)
+    got, gm = T_step.make_train_step(cfg, opt, T_sched.constant(),
+                                     n_microbatches=2)(state, batch)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(gm[k], wm[k], rtol=1e-6, atol=0)
+    a, b = want.tree(), got.tree()
+    assert a.keys() == b.keys()
+    for k in a:
+        w, g = a[k].detach(), b[k].detach()
+        floor = 1e-6 * float(w.abs().max())
+        name = k.split("/")[-1]
+        if k.startswith(("params/", "opt/master/")):
+            tiny = (10 * a[f"opt/m/{name}"]).abs() < 1e-6
+            step = opt.lr * (1 + opt.weight_decay * w.abs())
+            assert not ((g - w).abs() > step)[tiny].any(), k
+            w, g = w[~tiny], g[~tiny]
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=floor)
     with pytest.raises(ValueError, match="abstract"):
         T_opt.zero1_grad_constraint(T_mesh.Mesh((2,), ("data",)), {})
 
