@@ -6,6 +6,7 @@
     python3 chip_smoke.py --hybrid   # build + the hybrid phases (H1-H5)
     python3 chip_smoke.py --encdec   # build + the encdec phases (E1-E5)
     python3 chip_smoke.py --shard    # build + cell sharding and ZeRO-1 (C1-Z2)
+    python3 chip_smoke.py --tp       # build + tensor parallelism (DR1, TP1-TP6)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
@@ -131,7 +132,8 @@ S4. the same parameters and prompt with ``use_flash_kernel=False`` (the
    elementwise;
 7. each sim_step variant the main path ran, against the plain step on
    the card at its shapes (every ``BatchResult`` / ``_State`` field
-   equal, both routes at the fleet chunk); one 256-step chunk timed by
+   equal over FIG4_VS_PLAIN_MAX_STEPS (1,024) steps of the Fig. 4 grids,
+   both routes at the fleet chunk); one 256-step chunk timed by
    CUDA events at the Fig. 4 batches (B = 216) and the fleet batch: the
    in-kernel route, the pre-generated route, and the kernel's generator
    on its own (``philox_draws``) followed by the pre-generated route,
@@ -140,7 +142,8 @@ S4. the same parameters and prompt with ``use_flash_kernel=False`` (the
    the FP64 instruction rate, Philox's 32-bit integer operations at the
    INT32 rate; the pre-generated route's bound beside it); run_cells'
    host stages; G3's three sweep batches the same way (run_cells with the
-   kernel against the plain step for at most 1,024 steps, every field
+   kernel against the plain step for SWEEP_VS_PLAIN_MAX_STEPS (512)
+   steps, every field
    equal; a 256-step chunk on
    both routes beside the plain step's and the bound: bytes against the
    step's and Box-Muller's FP64 instructions and Philox's INT32
@@ -166,15 +169,17 @@ T2. across devices, mamba2 SMOKE float32: compress_grads on the same
    one train step from the same weights: loss within 1e-5 relative,
    gradients within 1e-4 max|g| + 1e-6, the AdamW update of the same
    gradients within 1e-5 relative + 1e-6;
-T3. main path: ``repro_torch.launch.train``'s code path on the full
-   mamba2-130m (bf16, remat 'full', ssd_chunked), SyntheticLM batch 8 x
+T3. main path: ``repro_torch.launch.train``'s code path on mamba2-130m
+   at full width cut to TRAIN_LAYERS (8) layers (the config's depth
+   replaced around ``build``; bf16,
+   remat 'full', ssd_chunked), SyntheticLM batch 8 x
    1024 in 2 microbatches, the adaptive policy, 8 steps, checkpoints into
    ``.smoke_ckpt/`` with one neighbour replica (removed afterwards); an
    injector seed with one restart; >= 1 checkpoint, finite losses, the mean
    of the last 3 below the first; then compress_grads three times on the
    trained model's gradients, the error state carried: every |new_err|
    within its block's scale / 2 (1 + 2^-15), and one quantize and two
-   dequantize launches per leaf (218 and 436 a call);
+   dequantize launches per leaf (74 and 148 a call at 8 layers);
 T4. training numbers: warm step seconds and tokens/s, peak memory, V
    (blocking snapshot) and write seconds, a timed restore of the newest
    image (T_d), the controller's interval, compress_grads seconds, a
@@ -188,16 +193,18 @@ D1. across devices, dense training: the five dense SMOKE configs
    holds mamba2's; then remat 'none', 'full' and 'dots' on the card
    (olmo, gemma2): bitwise the same gradients, 'none' twice the control;
 D2. main path: ``repro_torch.launch.train --arch olmo-1b``'s code path at
-   full width and depth (16 layers, d_model 2048, 1.18 B parameters drawn
-   on the card, bf16, remat 'full', attention through
+   full width cut to DENSE_TRAIN_LAYERS (4) layers (as T3's; d_model
+   2048, 0.37 B parameters drawn on the card, bf16, remat 'full',
+   attention through
    ``_attention_core``), SyntheticLM batch 8 x 1024 in 2 microbatches, 7
    steps at AdamW rate 1e-4, the adaptive policy with fixed virtual
-   overheads (V 20 s, T_d 30 s), no replica, the newest image kept (16.5 GB images in
+   overheads (V 20 s, T_d 30 s), no replica, the newest image kept (5.2
+   GB images in
    ``.smoke_ckpt/``, removed afterwards; the disk and the host memory are
    checked against the image first); injector seed 11: >= 2 commits and a
    failure rolled back to a committed image, finite falling losses, no
    launch but ckpt_quant's; compress_grads three times on the trained
-   model's gradients (113 quantize + 226 dequantize launches a call,
+   model's gradients (29 quantize + 58 dequantize launches a call,
    |err| within EF_SLACK); both quant kernels bitwise their plain versions
    on every olmo-1b leaf;
 D3. dense training numbers: warm step seconds, tokens/s and 6 N tokens/s
@@ -450,6 +457,31 @@ Z2. olmo-1b at full width, D2's configuration (clipping off): the
    ``zero1_grads_in_scan``, each bitwise the unsharded step by per-leaf
    sha256 of ``tree()`` made on the host; step seconds and peaks beside
    D3's;
+DR1. the dry run on the card: a (1, 1) mesh of cuda:0 at A3's prefill and
+   D3's train shape, the card's FLOPs equal to the meta count and its
+   peak within DR_PEAK_RANGE of the estimate; the production cells
+   gemma2-27b, zamba2-7b and mamba2-130m ``decode_32k`` on meta "ok";
+TP1. split SMOKE models in float32 with the kernels on (olmo, gemma2,
+   olmoe, deepseek, mamba2, zamba2) over (1, 2) and (1, 4) of cuda:0, and
+   zamba2 at batch 1 over (2, 2) (its K/V along the sequence over the data
+   positions): logits and gathered caches within 1e-4 of the CPU's split
+   run and of the card's unsplit run, moe routes and the Mamba2 shards' B
+   and C conv carries bitwise equal on the shards; one (2, 2) train step
+   of olmo, olmoe, mamba2 and zamba2 by T2's rule with the master held to
+   the bound that follows Adam; remat and a second backward bitwise;
+TP2-TP4. olmo-1b served whole at model extents 1, 2 and 4 (exactly 16·m
+   ``wgmma`` launches a prefill), olmoe-1b-7b at 2, olmo-1b at 8 layers
+   trained over (2, 2);
+TP5. zamba2-7b served whole at model extents 2 and 16 of cuda:0 (7 SSM
+   heads and 2 attention heads a shard at 16): exactly 81·m ``mma`` SSD
+   calls and 13·m ``wgmma`` flash launches a prefill, none in decode;
+   every shard's SSD and flash call against its plain version; bf16
+   logits by S4's floor rule against the unsplit kernel path; float32 at
+   12 layers; prefill s, decode tokens/s (8 steps at 2, 4 at 16), peak;
+   the shard shapes timed;
+TP6. mamba2-130m served whole at 2 (12 heads a shard) and 16 (replicas):
+   exactly 24·m ``mma`` SSD calls a prefill; bf16 logits by S4's floor
+   rule at 2, bitwise the unsplit kernel path's at 16;
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
    the serving prefills for the tensor-core kernels (the flash kernel's
    by model, the moe, hybrid and encdec models' too; the SSD kernel's by
@@ -1024,6 +1056,7 @@ def chunk_times(cells, reps: int = 20) -> dict:
 
 
 FIG4_VS_PLAIN_MAX_STEPS = 1024   # to the end (1,536 / 2,048) until TP1-DR1
+                                  # (1,536 / 2,048) until TP1-DR1
 
 
 def phase_fig4_vs_plain() -> None:
@@ -3106,6 +3139,7 @@ QBLOCK = 512
 EMBED_LEAF = 50_280 * 768      # 38,615,040 elements: 75,420 blocks of 512
 IN_PROJ_LEAF = 768 * 3_352     # 2,574,336 elements: 5,028 blocks
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 8
+TRAIN_LAYERS = 8    # T3: mamba2-130m's depth cut (24 until TP5-TP6)
 # The injector, picked on the CPU (its numpy streams are the same on the
 # card): 64 nodes of MTBF 32,000 s at 60 virtual seconds a step, and fixed
 # virtual overheads (V 5 s, T_d 12 s, the trainer tests' values) so that
@@ -3384,7 +3418,8 @@ def phase_train(ckpt_dir: str) -> dict:
     carrying the error state."""
     import math
 
-    out = train_with_compress("T3", train_argv(ckpt_dir), TRAIN_STEPS)
+    out = train_with_compress("T3", train_argv(ckpt_dir), TRAIN_STEPS,
+                              TRAIN_LAYERS)
     del out["last_grads"], out["last_err"]
     report, restored = out["report"], out["restored_steps"]
     losses = report["losses"]
@@ -3551,6 +3586,7 @@ def phase_quant_measure(n: int = EMBED_LEAF, tag: str = "T4",
 DENSE_ARCHS = (OLMO,) + VARIANTS
 DENSE_SEQ = 64          # D1: wider than the SMOKE window of 32, so it masks
 DENSE_TRAIN_STEPS = 7
+DENSE_TRAIN_LAYERS = 4   # D2: olmo-1b's depth cut (16 until TP5-TP6)
 # D2's injector, picked on the CPU (the trainer's decisions hang on the
 # virtual clock, the injector's numpy streams and the fixed virtual
 # overheads alone, so the olmo SMOKE config makes the same ones): 64 nodes
@@ -3653,19 +3689,24 @@ def _mem_available() -> int:
     return 0
 
 
-def train_with_compress(tag: str, argv: list, n_steps: int) -> dict:
+def train_with_compress(tag: str, argv: list, n_steps: int,
+                        n_layers: int) -> dict:
     """A training main path through ``repro_torch.launch.train``'s code
-    (parser, build, the trainer's run), then compress_grads three times on
-    the trained model's gradients, the error state carried: the launches
-    of each call and the error-feedback ratio.  Keeps the last call's
+    (parser, build, the trainer's run), its config's depth cut to
+    ``n_layers`` (the width kept), then compress_grads three times on the
+    trained model's gradients, the error state carried: the launches of
+    each call and the error-feedback ratio.  Keeps the last call's
     gradients and input error state (``last_grads``, ``last_err``)."""
     import torch
 
     from repro_torch.launch import train as launch
     from repro_torch.train.step import _to_device
 
+    whole = launch.get_config
     args = launch.parser().parse_args(argv)
-    trainer, ckpt = launch.build(args)
+    with mock.patch.object(launch, "get_config", lambda arch: whole(
+            arch).replace(n_layers=n_layers)):
+        trainer, ckpt = launch.build(args)
     cfg = trainer.cfg
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -3753,7 +3794,8 @@ def phase_dense_train(ckpt_dir: str) -> dict:
 
     from repro_torch.configs import get_config
 
-    n_params, image = image_size(get_config(OLMO))
+    n_params, image = image_size(get_config(OLMO).replace(
+        n_layers=DENSE_TRAIN_LAYERS))
     root = Path(ckpt_dir).parent
     root.mkdir(parents=True, exist_ok=True)
     free, avail = shutil.disk_usage(root).free, _mem_available()
@@ -3766,7 +3808,7 @@ def phase_dense_train(ckpt_dir: str) -> dict:
              f"{2 * image + 2e9:,.0f}), {avail:,} B of host memory available "
              f"(1.5 images needed: {1.5 * image:,.0f})")
     out = train_with_compress("D2", dense_train_argv(ckpt_dir),
-                              DENSE_TRAIN_STEPS)
+                              DENSE_TRAIN_STEPS, DENSE_TRAIN_LAYERS)
     out.update(n_params=n_params, image_bytes_predicted=image,
                disk_free=free, mem_available=avail)
     rep, restored = out["report"], out["restored_steps"]
@@ -6886,7 +6928,7 @@ def shard_phases(fleet_res=None) -> dict:
 # (DR1)
 # --------------------------------------------------------------------------- #
 
-TP_SMOKE_ARCHS = (OLMO, GEMMA, OLMOE, DEEPSEEK)
+TP_SMOKE_ARCHS = (OLMO, GEMMA, OLMOE, DEEPSEEK, ARCH, ZAMBA)
 TP_EXTENTS = (2, 4)      # TP1/TP2: model extents over cuda:0 repeated
 TP_SEQ, TP_FORCED = 32, 4   # TP1: prompt tokens and teacher-forced steps
 TP_TRAIN_LAYERS = 8      # TP4: olmo-1b's depth cut (the unsplit and the
@@ -6895,7 +6937,13 @@ TP_TRAIN_STEPS = 3
 TP_LOSS_REL, TP_GNORM_REL = 1e-2, 5e-2   # TP4: bf16 step against unsplit
 TP_MOE_F32_LAYERS = 4    # TP3: olmoe's float32 check (27.7 GB at 16 layers)
 TP_DECODE_STEPS = 8      # TP2/TP3: decode steps timed beside the greedy run
+TP_WIDE_DECODE_STEPS = 4    # TP5 at m = 16 (3-4 s a step, host-bound)
 DR_PEAK_RANGE = (0.8, 1.25)   # DR1: card peak / the dry run's estimate
+TP_ZAMBA_EXTENTS = (2, 16)    # TP5: 56 / 7 SSM heads, 16 / 2 attention heads
+TP_MAMBA_EXTENTS = (2, 16)    # TP6: a split of 12 heads / replicas
+TP_SPLIT_FORCED = 1   # TP5/TP6: teacher-forced decode steps in the logits
+TP_SSD_CHECK_LAYERS = 2   # TP5: layers whose shard SSD calls meet S1's rule
+DR_DECODE_CELLS = ((ZAMBA, "decode_32k"), (ARCH, "decode_32k"))   # DR1
 
 
 def _model_mesh(shape, dev: str = "cuda"):
@@ -6912,13 +6960,33 @@ def _tp_serve(model, cfg, prompt, forced, cache_dtype=None):
 
     out, cache = _serve_run(model, cfg, prompt, forced, cache_dtype)
     if getattr(model, "is_split", False):
+        if not _carries_equal(model, cache):
+            fail(f"{cfg.name}: the shards' B and C conv carries differ")
         cache = model.gather_cache(cache)
     return torch.stack(out), cache
 
 
 def _cache_gap(a, b, tol) -> dict:
-    return max((_gap(a["kv"][n], b["kv"][n], tol) for n in ("k", "v")),
+    """The worst gap over the caches' leaves (K/V, SSM state, conv)."""
+    return max((_gap(a[part][n], b[part][n], tol)
+                for part in ("kv", "ssm") if part in a for n in a[part]),
                key=lambda g: g["max_ratio"])
+
+
+def _carries_equal(split, cache) -> bool:
+    """Every shard's B and C conv carry (the channels every shard
+    computes whole) the same to the bit, at each data index."""
+    import torch
+
+    if not split.ssm_split:
+        return True
+    n = split.cfg.ssm.d_state
+    for d in split.data_indices():
+        bc = [cache["pieces"][(d, j)]["ssm"]["conv"][..., -2 * n:]
+              for j, _ in split.group(d)]
+        if not all(torch.equal(x, bc[0]) for x in bc[1:]):
+            return False
+    return True
 
 
 def _shards_equal(routes: list, m: int) -> bool:
@@ -6984,93 +7052,140 @@ def tp_step_vs_unsplit(cfg, batch, dev: str = "cuda") -> dict:
            for k in ("loss", "grad_norm")}
     res = dict(loss=float(gm["loss"]), loss_unsplit=float(wm["loss"]),
                loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
-               image_layout_equal=layout, **master_rule(
-                   {k[len("opt/master/"):]: v for k, v in a.items()
-                    if k.startswith("opt/master/")},
-                   {k[len("opt/master/"):]: v for k, v in b.items()
-                    if k.startswith("opt/master/")}, g_ref, g_ref, opt.lr))
+               image_layout_equal=layout, **adam_master_rule(a, b, g_ref,
+                                                             opt))
     res["ok"] = res["ok"] and layout and max(rel.values()) <= STEP_TOL
     return res
 
 
+def adam_master_rule(want: dict, got: dict, g_ref: dict, opt) -> dict:
+    """T2's rule for a whole step's master between two states' images
+    (``tree()``), with the bound that follows Adam
+    (``train.optimizer.master_gap_bound``: lr |dm^| / (sqrt(v^) + eps) x
+    2 + STEP_TOL |w| + 1e-6, dm^ the two states' first moments'
+    difference) in place of T2's exemption of tiny gradients; the first
+    moments (m = 0.1 clip g) within 1e-4 max|g| + 1e-6 of the
+    reference's gradient ``g_ref``."""
+    from repro_torch.train.optimizer import master_gap_bound
+
+    step = int(want["opt/step"])
+    beyond, worst, m_beyond = 0, 0.0, []
+    for k in g_ref:
+        w = want[f"opt/master/{k}"].cpu()
+        bound = master_gap_bound(opt, step, w, want[f"opt/m/{k}"].cpu(),
+                                 got[f"opt/m/{k}"].cpu(),
+                                 want[f"opt/v/{k}"].cpu(), opt.lr,
+                                 rtol=STEP_TOL)
+        d = (got[f"opt/master/{k}"].cpu() - w).abs()
+        beyond += int((d > bound).sum())
+        worst = max(worst, float((d / bound).max()))
+        dm = float((got[f"opt/m/{k}"] - want[f"opt/m/{k}"]).abs().max())
+        if dm > (1 - opt.b1) * (1e-4 * float(g_ref[k].abs().max()) + 1e-6):
+            m_beyond.append(k)
+    return dict(step_master_beyond_bound=beyond,
+                step_master_worst_ratio=worst, moments_beyond=m_beyond,
+                n_params=sum(t.numel() for t in g_ref.values()),
+                ok=not beyond and not m_beyond)
+
+
 def phase_tp_smoke(dev: str = "cuda") -> dict:
-    """TP1: four SMOKE configs in float32 with the kernel on, split over
-    (1, 2) and (1, 4) of ``dev`` (4 where the heads divide), against the
-    CPU's split run and the card's unsplit run: prefill of TP_SEQ tokens
-    and TP_FORCED teacher-forced decode steps, logits and the KV caches
-    within OLMO_F32_TOL; moe routes bitwise equal on every shard and
-    against the unsplit run.  Then one train step over (2, 2) of olmo and
-    olmoe SMOKE against the unsplit step (T2's rule), and remat none, full
-    and dots and a second backward bitwise on ``dev``."""
+    """TP1: six SMOKE configs in float32 with the kernels on (SIMT flash;
+    mamba2's and zamba2's SIMT SSD), split over (1, 2) and (1, 4) of
+    ``dev`` (4 where the heads divide), against the CPU's split run and
+    the card's unsplit run: prefill of TP_SEQ tokens and TP_FORCED
+    teacher-forced decode steps, logits and the gathered caches (K/V, SSM
+    state, conv carry) within OLMO_F32_TOL; moe routes bitwise equal on
+    every shard and against the unsplit run; every shard's B and C conv
+    carry bitwise equal.  zamba2 at batch 1 over (2, 2): the batch run
+    whole by each data position, the shared block's K/V along the
+    sequence over them.  Then one train step over (2, 2) of olmo, olmoe,
+    mamba2 and zamba2 SMOKE against the unsplit step (T2's rule, the
+    master by the bound that follows Adam), and remat none, full and dots
+    and a second backward bitwise on ``dev`` (olmo and zamba2 over (1,
+    2))."""
     import torch
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models import init_params
 
     tol = OLMO_F32_TOL
-    FA.LAUNCHES = 0
+    FA.LAUNCHES = SSD.LAUNCHES = 0
     _zero(FA.LAUNCHES_BY_ROUTE)
+    _zero(SSD.LAUNCHES_BY_ROUTE)
     rows, bad = {}, []
-    for arch in TP_SMOKE_ARCHS:
+    runs = [(arch, (1, m), 4) for arch in TP_SMOKE_ARCHS
+            for m in TP_EXTENTS] + [(ZAMBA, (2, 2), 1)]
+    made = {}
+    for arch, shape, batch in runs:
         cfg = get_smoke_config(arch).replace(
             param_dtype="float32", compute_dtype="float32",
             use_flash_kernel=True)
-        here, cpu = init_params(0, cfg, device=dev), \
-            init_params(0, cfg, device="cpu")
-        g = torch.Generator().manual_seed(3)
-        prompt = torch.randint(0, cfg.vocab, (4, TP_SEQ), generator=g)
-        forced = torch.randint(0, cfg.vocab, (4, TP_FORCED), generator=g)
-        with RouteSpy() as r_whole:
-            lw, cw = _tp_serve(here, cfg, prompt.to(dev), forced.to(dev),
-                               torch.float32)
-        for m in TP_EXTENTS:
-            rules = TP.split_rules(cfg, _model_mesh((1, m), dev))
-            if TP.unsupported_axes(cfg, rules):
-                rows[f"{arch} m={m}"] = dict(
-                    skipped=f"the rules put {TP.unsupported_axes(cfg, rules)}"
-                            f" on the model axis")
-                continue
-            card = TP.split_model(here, _model_mesh((1, m), dev))
-            host = TP.split_model(cpu, _model_mesh((1, m), "cpu"))
-            with RouteSpy() as r_card:
-                lc, cc = _tp_serve(card, cfg, prompt.to(dev), forced.to(dev),
+        if (arch, batch) not in made:
+            here, cpu = init_params(0, cfg, device=dev), \
+                init_params(0, cfg, device="cpu")
+            g = torch.Generator().manual_seed(3)
+            prompt = torch.randint(0, cfg.vocab, (batch, TP_SEQ), generator=g)
+            forced = torch.randint(0, cfg.vocab, (batch, TP_FORCED),
+                                   generator=g)
+            with RouteSpy() as r_whole:
+                lw, cw = _tp_serve(here, cfg, prompt.to(dev), forced.to(dev),
                                    torch.float32)
-            lp, cp = _tp_serve(host, cfg, prompt, forced, torch.float32)
-            row = dict(vs_cpu=_gap(lc.cpu(), lp, tol),
-                       cache_vs_cpu=_cache_gap(
-                           {"kv": {n: t.cpu() for n, t in cc["kv"].items()}},
-                           cp, tol),
-                       vs_unsplit=_gap(lc, lw, tol),
-                       cache_vs_unsplit=_cache_gap(cc, cw, tol))
-            ok = all(_ok(g) for g in row.values())
-            if cfg.family == "moe":
-                row["routes_equal_on_shards"] = _shards_equal(r_card.routes,
-                                                             m)
-                row["routes_equal_to_unsplit"] = all(
-                    torch.equal(a.expert_ids, b.expert_ids)
-                    and torch.equal(a.kept, b.kept) for a, b in
-                    zip(r_card.routes[::m], r_whole.routes)) and \
-                    len(r_card.routes) == m * len(r_whole.routes)
-                ok = ok and row["routes_equal_on_shards"] and \
-                    row["routes_equal_to_unsplit"]
-            row["ok"] = ok
-            rows[f"{arch} m={m}"] = row
-            print(f"[TP1] {arch} SMOKE float32 split over (1, {m}): logits "
-                  f"vs the CPU's split run {row['vs_cpu']['max_abs']:.3g}, "
-                  f"vs the unsplit run {row['vs_unsplit']['max_abs']:.3g}; "
-                  f"caches {row['cache_vs_cpu']['max_abs']:.3g} / "
-                  f"{row['cache_vs_unsplit']['max_abs']:.3g} (tol {tol})"
-                  + (f"; routes equal on the shards "
-                     f"{row['routes_equal_on_shards']}, to the unsplit run "
-                     f"{row['routes_equal_to_unsplit']}"
-                     if cfg.family == "moe" else ""), flush=True)
-            if not ok:
-                bad.append(f"{arch} m={m}")
-    launches = dict(FA.LAUNCHES_BY_ROUTE)
+            made[(arch, batch)] = (here, cpu, prompt, forced, r_whole, lw, cw)
+        here, cpu, prompt, forced, r_whole, lw, cw = made[(arch, batch)]
+        name = f"{arch} {shape}" + (f" batch {batch}" if batch != 4 else "")
+        rules = TP.split_rules(cfg, _model_mesh(shape, dev))
+        if TP.unsupported_axes(cfg, rules):
+            rows[name] = dict(
+                skipped=f"the rules put {TP.unsupported_axes(cfg, rules)}"
+                        f" on the model axis")
+            continue
+        card = TP.split_model(here, _model_mesh(shape, dev))
+        host = TP.split_model(cpu, _model_mesh(shape, "cpu"))
+        with RouteSpy() as r_card:
+            lc, cc = _tp_serve(card, cfg, prompt.to(dev), forced.to(dev),
+                               torch.float32)
+        lp, cp = _tp_serve(host, cfg, prompt, forced, torch.float32)
+        row = dict(vs_cpu=_gap(lc.cpu(), lp, tol),
+                   cache_vs_cpu=_cache_gap(
+                       {part: {n: t.cpu() for n, t in cc[part].items()}
+                        for part in ("kv", "ssm") if part in cc}, cp, tol),
+                   vs_unsplit=_gap(lc, lw, tol),
+                   cache_vs_unsplit=_cache_gap(cc, cw, tol))
+        ok = all(_ok(g) for g in row.values())
+        if cfg.family == "moe":
+            m = shape[1]
+            row["routes_equal_on_shards"] = _shards_equal(r_card.routes,
+                                                         m)
+            row["routes_equal_to_unsplit"] = all(
+                torch.equal(a.expert_ids, b.expert_ids)
+                and torch.equal(a.kept, b.kept) for a, b in
+                zip(r_card.routes[::m], r_whole.routes)) and \
+                len(r_card.routes) == m * len(r_whole.routes)
+            ok = ok and row["routes_equal_on_shards"] and \
+                row["routes_equal_to_unsplit"]
+        row["ok"] = ok
+        rows[name] = row
+        print(f"[TP1] {name} SMOKE float32 split: logits vs the CPU's split "
+              f"run {row['vs_cpu']['max_abs']:.3g}, vs the unsplit run "
+              f"{row['vs_unsplit']['max_abs']:.3g}; caches "
+              f"{row['cache_vs_cpu']['max_abs']:.3g} / "
+              f"{row['cache_vs_unsplit']['max_abs']:.3g} (tol {tol})"
+              + (f"; routes equal on the shards "
+                 f"{row['routes_equal_on_shards']}, to the unsplit run "
+                 f"{row['routes_equal_to_unsplit']}"
+                 if cfg.family == "moe" else "")
+              + ("; B and C conv carries bitwise equal on the shards"
+                 if card.ssm_split else ""), flush=True)
+        if not ok:
+            bad.append(name)
+    del made
+    launches = dict(flash_attention=dict(FA.LAUNCHES_BY_ROUTE),
+                    ssd_scan=dict(SSD.LAUNCHES_BY_ROUTE))
     steps = {}
-    for arch in (OLMO, OLMOE):
+    for arch in (OLMO, OLMOE, ARCH, ZAMBA):
         cfg = get_smoke_config(arch).replace(param_dtype="float32",
                                              compute_dtype="float32")
         g = torch.Generator().manual_seed(4)
@@ -7083,33 +7198,42 @@ def phase_tp_smoke(dev: str = "cuda") -> dict:
               f"{res['loss_unsplit']:.7f} (rel {res['loss_rel_err']:.3g}), "
               f"grad_norm rel {res['grad_norm_rel_err']:.3g} (tol "
               f"{STEP_TOL}); whole step's master: "
-              f"{res['step_master_beyond_tol']} of {res['n_params']:,} beyond "
-              f"{STEP_TOL}|b| + 1e-6, {res['step_master_tiny']} tiny within "
-              f"{res['step_master_tiny_max_abs']:.3g}; image layout equal "
+              f"{res['step_master_beyond_bound']} of {res['n_params']:,} "
+              f"beyond the Adam bound (worst "
+              f"{res['step_master_worst_ratio']:.3g} of it), first moments "
+              f"beyond 1e-4 max|g| + 1e-6: "
+              f"{res['moments_beyond']}; image layout equal "
               f"{res['image_layout_equal']}", flush=True)
         if not res["ok"]:
             bad.append(f"{arch} train step")
     # remat none, full, dots and a second backward: bitwise
-    cfg = get_smoke_config(OLMO).replace(param_dtype="float32",
-                                         compute_dtype="float32")
-    split = TP.split_model(init_params(0, cfg, device=dev).requires_grad_(
-        True), _model_mesh((1, 2), dev))
-    g = torch.Generator().manual_seed(5)
-    tok = torch.randint(0, cfg.vocab, (4, TP_SEQ), generator=g).to(dev)
-    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
-    grads = {r: _split_grads(split, cfg.replace(remat=r), batch)
-             for r in ("none", "full", "dots")}
-    again = _split_grads(split, cfg, batch)
-    remat_ok = all(torch.equal(grads["none"][k], grads[r][k])
-                   for r in ("full", "dots") for k in grads["none"]) and \
-        all(torch.equal(grads["none"][k], again[k]) for k in again)
-    print(f"[TP1] olmo SMOKE split over (1, 2): remat none, full, dots and a "
-          f"second backward bitwise the same: {remat_ok}; flash launches "
-          f"{launches}", flush=True)
-    if not remat_ok:
-        bad.append("remat")
+    remat_ok = {}
+    for arch in (OLMO, ZAMBA):
+        cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                             compute_dtype="float32")
+        split = TP.split_model(init_params(0, cfg, device=dev)
+                               .requires_grad_(True),
+                               _model_mesh((1, 2), dev))
+        g = torch.Generator().manual_seed(5)
+        tok = torch.randint(0, cfg.vocab, (4, TP_SEQ), generator=g).to(dev)
+        batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+        grads = {r: _split_grads(split, cfg.replace(remat=r), batch)
+                 for r in ("none", "full", "dots")}
+        again = _split_grads(split, cfg, batch)
+        remat_ok[arch] = all(torch.equal(grads["none"][k], grads[r][k])
+                             for r in ("full", "dots")
+                             for k in grads["none"]) and \
+            all(torch.equal(grads["none"][k], again[k]) for k in again)
+        print(f"[TP1] {arch} SMOKE split over (1, 2): remat none, full, dots "
+              f"and a second backward bitwise the same: {remat_ok[arch]}",
+              flush=True)
+        if not remat_ok[arch]:
+            bad.append(f"{arch} remat")
+    print(f"[TP1] launches of the split float32 SMOKE prefills: {launches}",
+          flush=True)
     out = dict(rows=rows, steps=steps, remat_bitwise=remat_ok,
-               launches_by_route=launches)
+               launches_by_route=launches["flash_attention"],
+               ssd_launches_by_route=launches["ssd_scan"])
     REPORT["tp_smoke"] = out
     if bad:
         fail(f"TP1: the split SMOKE runs disagree: {bad}")
@@ -7539,20 +7663,317 @@ def phase_dryrun_on_card() -> dict:
         if row["meta_flops"] != row["card_flops"] or not (
                 DR_PEAK_RANGE[0] <= ratio <= DR_PEAK_RANGE[1]):
             bad.append(shape.name)
-    t0 = time.monotonic()
-    prod = D.run_cell(GEMMA, "decode_32k", False)
-    prod["wall_seconds"] = time.monotonic() - t0
-    print(f"[DR1] production cell on meta: {json.dumps(prod, default=str)}",
-          flush=True)
-    out = dict(rows=rows, production=prod)
+    prods = {}
+    for arch, cell in ((GEMMA, "decode_32k"),) + DR_DECODE_CELLS:
+        t0 = time.monotonic()
+        prod = D.run_cell(arch, cell, False)
+        prod["wall_seconds"] = time.monotonic() - t0
+        prods[f"{arch} {cell}"] = prod
+        print(f"[DR1] production cell on meta: {json.dumps(prod, default=str)}",
+              flush=True)
+    out = dict(rows=rows, production=prods[f"{GEMMA} decode_32k"],
+               productions=prods)
     REPORT["dryrun_on_card"] = out
-    if bad or prod.get("status") != "ok":
-        fail(f"DR1: {bad}, production status {prod.get('status')}")
+    status = {k: p.get("status") for k, p in prods.items()}
+    if bad or set(status.values()) != {"ok"}:
+        fail(f"DR1: {bad}, production statuses {status}")
+    return out
+
+
+def _record_shard_calls(model, cfg, prompt, forced):
+    """A split model's prefill and teacher-forced decode (:func:`_tp_serve`)
+    with each SSD call of the first TP_SSD_CHECK_LAYERS layers (every
+    shard's) held against ``ssd_scan_plain`` on its own inputs by S1's
+    rule (y within SSD_Y_TOL, the state within SSD_F32_TOL) and each flash
+    call against ``flash_attention_plain`` by A1's bf16 rule.  Returns
+    (the logits, the SSD calls -- the checked ones with their gaps --,
+    the flash calls' gaps)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+
+    ssd_calls, flash_calls = [], []
+    ssd_launch, flash_launch = ops.ssd_scan, ops.flash_attention
+
+    n_check = TP_SSD_CHECK_LAYERS * getattr(model, "extent", 1)
+
+    def ssd_rec(x, dt, A, B, C, *, chunk, initial_state=None):
+        if len(ssd_calls) >= n_check:
+            ssd_calls.append(dict(shape=tuple(x.shape)))
+            return ssd_launch(x, dt, A, B, C, chunk=chunk,
+                              initial_state=initial_state)
+        init = None if initial_state is None else initial_state.clone()
+        y, st = ssd_launch(x, dt, A, B, C, chunk=chunk,
+                           initial_state=initial_state)
+        wy, wst = SSD.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                     initial_state=init)
+        gy, gs = _gap(y, wy, SSD_Y_TOL), _gap(st, wst, SSD_F32_TOL)
+        ssd_calls.append(dict(shape=tuple(x.shape), y=gy, state=gs,
+                              ok=_ok(gy) and _ok(gs)))
+        return y, st
+
+    def flash_rec(q, k, v, **kw):
+        got = flash_launch(q, k, v, **kw)
+        g = _gap(got, FA.flash_attention_plain(q, k, v, **kw),
+                 FLASH_TOL["bfloat16"])
+        flash_calls.append(dict(shape=tuple(q.shape), **g,
+                                ok=_flash_ok(g, torch.bfloat16)))
+        return got
+
+    with mock.patch.object(ops, "ssd_scan", ssd_rec), \
+            mock.patch.object(ops, "flash_attention", flash_rec):
+        logits, _ = _tp_serve(model, cfg, prompt, forced)
+    return logits, ssd_calls, flash_calls
+
+
+def _split_serve_counted(tag: str, cfg, split, prompt,
+                         n_decode: int = TP_DECODE_STEPS) -> dict:
+    """A split model's serving main path with the SSD and flash counts at
+    0 just before and read just after: one prefill (cold), then
+    ``n_decode`` greedy decode steps timed, the prefill's launches and
+    the decode's apart; then a warm prefill timed; the peak."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    pre = make_prefill_step(cfg, max_seq=prompt.shape[1] + n_decode)
+    srv = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SSD.LAUNCHES = FA.LAUNCHES = 0      # this split serving path starts here
+    _zero(SSD.LAUNCHES_BY_ROUTE)
+    _zero(FA.LAUNCHES_BY_ROUTE)
+    t0 = time.monotonic()
+    logits, cache = pre(split, {"tokens": prompt})
+    torch.cuda.synchronize()
+    cold = time.monotonic() - t0
+    prefill = dict(ssd_scan=dict(SSD.LAUNCHES_BY_ROUTE),
+                   flash_attention=dict(FA.LAUNCHES_BY_ROUTE))
+    tok = logits[:, -1].argmax(-1)[:, None]
+    t0 = time.monotonic()
+    for _ in range(n_decode):
+        logits, cache = srv(split, cache, {"tokens": tok})
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    dec = time.monotonic() - t0
+    total = dict(ssd_scan=dict(SSD.LAUNCHES_BY_ROUTE),   # ... and ends here
+                 flash_attention=dict(FA.LAUNCHES_BY_ROUTE))
+    decode = {k: {r: total[k][r] - prefill[k][r] for r in total[k]}
+              for k in total}
+    peak = torch.cuda.max_memory_allocated()
+    del cache, logits
+    warm = []
+    for _ in range(1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = pre(split, {"tokens": prompt})
+        torch.cuda.synchronize()
+        warm.append(time.monotonic() - t0)
+        del out
+    return dict(prefill_launches=prefill, decode_launches=decode,
+                prefill_s=[cold] + warm,
+                decode_tok_s=prompt.shape[0] * n_decode / dec,
+                decode_step_s=dec / n_decode, decode_steps=n_decode,
+                peak_bytes=peak)
+
+
+def _launch_line(run: dict) -> str:
+    return (f"prefill launches {run['prefill_launches']}, decode launches "
+            f"{run['decode_launches']}; prefill "
+            f"{', '.join(f'{t:.4f}' for t in run['prefill_s'])} s (cold, "
+            f"warm), decode {run['decode_tok_s']:.2f} tok/s "
+            f"({run['decode_step_s']:.3f} s a step), peak "
+            f"{run['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def phase_tp_zamba() -> dict:
+    """TP5: zamba2-7b served whole at model extents 2 and 16 of cuda:0
+    (16: 7 SSM heads and 2 attention heads a shard), batch 8, prompt 1024,
+    the model drawn on the card, m = 2 freed before m = 16: exactly 81·m
+    ``mma`` SSD calls and 13·m ``wgmma`` flash launches a prefill, none in
+    decode (TP_DECODE_STEPS greedy steps timed at m = 2,
+    TP_WIDE_DECODE_STEPS at 16); every shard's SSD calls
+    of the first TP_SSD_CHECK_LAYERS layers against their plain version on
+    their own inputs by S1's rule and each flash call by A1's bf16 rule; bf16 logits (prefill and
+    TP_SPLIT_FORCED teacher-forced steps) against the unsplit kernel path
+    by S4's floor rule with H3's relative RMS (the floor: the unsplit
+    kernel path against the plain path); every shard's B and C conv carry
+    bitwise equal; float32 at ZAMBA_F32_LAYERS layers at m = 2 within
+    OLMO_F32_TOL.  The shards' SSD and flash calls timed at their shapes
+    beside the bound (and SDPA for flash)."""
+    import torch
+
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import model as M
+
+    _require_free_card("TP5")
+    cfg, model, prompt = dense_setup("TP5", ZAMBA)
+    n_uses = cfg.n_layers // cfg.shared_attn_every
+    g = torch.Generator().manual_seed(2)
+    forced = torch.randint(0, cfg.vocab, (OLMO_BATCH, TP_SPLIT_FORCED),
+                           generator=g).cuda()
+    whole, _ = _tp_serve(model, cfg, prompt, forced)
+    plain, _ = _tp_serve(model, cfg.replace(use_flash_kernel=False), prompt,
+                         forced)
+    floor = _gap(whole, plain, LOGIT_TOL)
+    del plain
+    rows, bad = {}, []
+    for m in TP_ZAMBA_EXTENTS:
+        split = TP.split_model(model, _model_mesh((1, m)))
+        if not split.ssm_split:
+            fail(f"TP5: {ZAMBA} at m = {m}: the mixers are not split")
+        run = _split_serve_counted("TP5", cfg, split, prompt,
+                                   TP_DECODE_STEPS if m <= 2
+                                   else TP_WIDE_DECODE_STEPS)
+        want = dict(ssd_scan={"mma": cfg.n_layers * m, "simt": 0},
+                    flash_attention={"wgmma": n_uses * m, "simt": 0})
+        nothing = {k: {r: 0 for r in v} for k, v in want.items()}
+        if run["prefill_launches"] != want or \
+                run["decode_launches"] != nothing:
+            bad.append(f"m={m}: launches {run['prefill_launches']} / decode "
+                       f"{run['decode_launches']}, expected {want} a prefill")
+        logits, ssd_calls, flash_calls = _record_shard_calls(
+            split, cfg, prompt, forced)
+        row = dict(run, ssd_calls=len(ssd_calls), flash_calls=len(flash_calls))
+        checked = [c for c in ssd_calls if "ok" in c]
+        row["ssd_checked"] = len(checked)
+        row["ssd_worst"] = max(checked, key=lambda c: max(
+            c["y"]["max_ratio"], c["state"]["max_ratio"]))
+        row["flash_worst"] = max(flash_calls, key=lambda c: c["max_ratio"])
+        row["calls_ok"] = len(ssd_calls) == cfg.n_layers * m and \
+            len(checked) == TP_SSD_CHECK_LAYERS * m and \
+            len(flash_calls) == n_uses * m and \
+            all(c["ok"] for c in checked + flash_calls)
+        row["bf16"] = _floor_rule(logits, whole, floor, moe=True)
+        del split, logits, ssd_calls, flash_calls
+        torch.cuda.empty_cache()
+        row["ssd_shard"] = phase_ssd_measure(
+            dict(ZAMBA_SSD_SHAPE, h=ZAMBA_SSD_SHAPE["h"] // m), f"TP5 m={m}")
+        row["flash_shard"] = _tp_flash_shard_times(cfg, m)
+        if not (row["calls_ok"] and row["bf16"]["ok"]
+                and row["flash_shard"]["ok"]):
+            bad.append(f"m={m}: SSD calls worst {row['ssd_worst']}, flash "
+                       f"calls worst {row['flash_worst']}, logits "
+                       f"{row['bf16']}")
+        rows[m] = row
+        sw, fw, fs = row["ssd_worst"], row["flash_worst"], row["flash_shard"]
+        print(f"[TP5] {ZAMBA} over (1, {m}) of cuda:0: {_launch_line(run)}; "
+              f"{row['ssd_calls']} shard SSD calls, {row['ssd_checked']} of "
+              f"them (the first {TP_SSD_CHECK_LAYERS} layers') vs plain: "
+              f"worst y "
+              f"{sw['y']['max_ratio']:.3f} x {SSD_Y_TOL}, state "
+              f"{sw['state']['max_ratio']:.3f} x {SSD_F32_TOL} at "
+              f"{sw['shape']}; {row['flash_calls']} shard flash calls vs "
+              f"plain: worst {fw['max_ratio']:.3f} x (2e-2 + 2e-2|b|), rel "
+              f"RMS {fw['rel_rms']:.3g}; bf16 logits vs the unsplit kernel "
+              f"path: max {row['bf16']['max_ratio']:.3f} x (limit "
+              f"{row['bf16']['limit_ratio']:.3f}), rel RMS "
+              f"{row['bf16']['rel_rms']:.4g} (limit "
+              f"{row['bf16']['rms_limit']:.4g}); floor (unsplit kernel vs "
+              f"plain) {floor['max_ratio']:.3f} x, rel RMS "
+              f"{floor['rel_rms']:.4g}; shard flash {fs['shape']}: kernel "
+              f"{fs['ms']:.4f} ms, plain {fs['plain_ms']:.4f}, SDPA "
+              f"{fs['library_ms']:.4f}, bound {fs['bound_ms']:.4f} "
+              f"({fs['bound_by']})", flush=True)
+    # float32 at ZAMBA_F32_LAYERS layers, m = 2: the bf16 weights cast on
+    # the card, float32 caches (the SIMT SSD kernel, _attention_core)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=ZAMBA_F32_LAYERS)
+    model32 = M.HybridLM(cfg32)
+    kept = {n for n, _ in model32.named_parameters()}
+    model32.load_state_dict({n: t.float() for n, t in
+                             model.named_parameters() if n in kept},
+                            assign=True)
+    del model
+    torch.cuda.empty_cache()
+    w32, _ = _tp_serve(model32, cfg32, prompt, forced, torch.float32)
+    s32 = TP.split_model(model32, _model_mesh((1, TP_ZAMBA_EXTENTS[0])))
+    l32, _ = _tp_serve(s32, cfg32, prompt, forced, torch.float32)
+    f32 = _gap(l32, w32, OLMO_F32_TOL)
+    print(f"[TP5] {ZAMBA} float32 at {ZAMBA_F32_LAYERS} layers over (1, "
+          f"{TP_ZAMBA_EXTENTS[0]}) vs unsplit: max |d| {f32['max_abs']:.3g} "
+          f"= {f32['max_ratio']:.4f} x ({OLMO_F32_TOL} + "
+          f"{OLMO_F32_TOL}|b|)", flush=True)
+    if not _ok(f32):
+        bad.append(f"float32 {f32}")
+    del model32, s32
+    torch.cuda.empty_cache()
+    out = dict(rows=rows, floor=floor, f32=f32)
+    REPORT["tp_zamba"] = out
+    if bad:
+        fail(f"TP5: {bad}")
+    return out
+
+
+def phase_tp_mamba() -> dict:
+    """TP6: mamba2-130m served whole at model extents 2 (a real split: 12
+    SSM heads a shard, the vocabulary over the model axis) and 16 (the
+    rules put nothing of it on the model axis: replicas), batch 8, prompt
+    1024: exactly 24·m ``mma`` SSD calls a prefill, none in decode; bf16
+    logits at m = 2 by S4's floor rule against the unsplit kernel path,
+    every shard's B and C conv carry bitwise equal; at m = 16 the logits
+    bitwise the unsplit kernel path's."""
+    import torch
+
+    from repro_torch.distributed import tensor_parallel as TP
+
+    _require_free_card("TP6")
+    cfg, model, prompt = dense_setup("TP6", ARCH)
+    g = torch.Generator().manual_seed(2)
+    forced = torch.randint(0, cfg.vocab, (OLMO_BATCH, TP_SPLIT_FORCED),
+                           generator=g).cuda()
+    whole, _ = _tp_serve(model, cfg, prompt, forced)
+    plain, _ = _tp_serve(model, cfg.replace(use_flash_kernel=False), prompt,
+                         forced)
+    floor = _gap(whole, plain, LOGIT_TOL)
+    rows, bad = {}, []
+    for m in TP_MAMBA_EXTENTS:
+        split = TP.split_model(model, _model_mesh((1, m)))
+        run = _split_serve_counted("TP6", cfg, split, prompt)
+        want = dict(ssd_scan={"mma": cfg.n_layers * m, "simt": 0},
+                    flash_attention={"wgmma": 0, "simt": 0})
+        nothing = {k: {r: 0 for r in v} for k, v in want.items()}
+        if run["prefill_launches"] != want or \
+                run["decode_launches"] != nothing:
+            bad.append(f"m={m}: launches {run['prefill_launches']} / decode "
+                       f"{run['decode_launches']}, expected {want}")
+        logits, _ = _tp_serve(split, cfg, prompt, forced)
+        row = dict(run, replicas=split.replicas, ssm_split=split.ssm_split)
+        if split.replicas:
+            row["bitwise"] = bool(torch.equal(logits, whole))
+            ok = row["bitwise"]
+            cmp = f"logits bitwise the unsplit kernel path's: {ok}"
+        else:
+            row["bf16"] = _floor_rule(logits, whole, floor, moe=False)
+            ok = row["bf16"]["ok"] and split.ssm_split
+            cmp = (f"bf16 logits vs the unsplit kernel path: max "
+                   f"{row['bf16']['max_ratio']:.3f} x (limit "
+                   f"{row['bf16']['limit_ratio']:.3f}), rel RMS "
+                   f"{row['bf16']['rel_rms']:.4g}; floor "
+                   f"{floor['max_ratio']:.3f} x")
+        if (m == 16) != split.replicas or not ok:
+            bad.append(f"m={m}: replicas {split.replicas}, {cmp}")
+        rows[m] = row
+        print(f"[TP6] {ARCH} over (1, {m}) of cuda:0 ("
+              f"{'replicas' if split.replicas else 'split over its heads'}):"
+              f" {_launch_line(run)}; {cmp}", flush=True)
+        del split, logits
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    out = dict(rows=rows, floor=floor)
+    REPORT["tp_mamba"] = out
+    if bad:
+        fail(f"TP6: {bad}")
     return out
 
 
 def tp_phases() -> dict:
-    """TP1-TP4 and DR1, their seconds lapped."""
+    """DR1 and TP1-TP6, their seconds lapped."""
     out = dict(dryrun=phase_dryrun_on_card())
     _lap("DR1")
     out["smoke"] = phase_tp_smoke()
@@ -7563,6 +7984,10 @@ def tp_phases() -> dict:
     _lap("TP3")
     out["train"] = phase_tp_train()
     _lap("TP4")
+    out["zamba"] = phase_tp_zamba()
+    _lap("TP5")
+    out["mamba"] = phase_tp_mamba()
+    _lap("TP6")
     return out
 
 
@@ -7607,7 +8032,11 @@ def main() -> int:
         _dump()
         print(json.dumps({"tp": True, "tp2_launches": {
             m: r["launches_by_route"] for m, r in tp["olmo"]["rows"].items()},
-            "tp3_launches": tp["olmoe"]["launches_by_route"]}))
+            "tp3_launches": tp["olmoe"]["launches_by_route"],
+            "tp5_launches": {m: r["prefill_launches"]
+                             for m, r in tp["zamba"]["rows"].items()},
+            "tp6_launches": {m: r["prefill_launches"]
+                             for m, r in tp["mamba"]["rows"].items()}}))
         return 0
     if "--shard" in sys.argv[1:]:
         shard = shard_phases()
@@ -7872,7 +8301,10 @@ def main() -> int:
            r["launches_by_route"]["wgmma"]
            for m, r in tp["olmo"]["rows"].items() if m > 1},
         "olmoe-1b-7b split over (1, 2) (TP3)":
-            tp["olmoe"]["launches_by_route"]["wgmma"]}
+            tp["olmoe"]["launches_by_route"]["wgmma"],
+        **{f"zamba2-7b split over (1, {m}) (TP5)":
+           r["prefill_launches"]["flash_attention"]["wgmma"]
+           for m, r in tp["zamba"]["rows"].items()}}
     simt_by_path = {"olmo SMOKE float32 (A2)": a2["launches_by_route"]["simt"],
                     "variants' SMOKE float32 (V2)":
                         v2["launches_by_route"]["simt"],
@@ -7886,6 +8318,17 @@ def main() -> int:
                     "split SMOKE float32 (TP1)":
                         tp["smoke"]["launches_by_route"]["simt"]}
     hybrid_ssd = hybrid["serve"]["launches_by_route"]["ssd_scan"]
+    split_ssd = {**{f"zamba2-7b split over (1, {m}) (TP5)":
+                    r["prefill_launches"]["ssd_scan"]["mma"]
+                    for m, r in tp["zamba"]["rows"].items()},
+                 **{f"mamba2-130m over (1, {m}) (TP6)":
+                    r["prefill_launches"]["ssd_scan"]["mma"]
+                    for m, r in tp["mamba"]["rows"].items()}}
+    split_ssd_shapes = {f"zamba2-7b shard at model extent {m} (TP5)": dict(
+        {k: r["ssd_shard"][k] for k in (
+            "shape", "ms", "simt_ms", "plain_ms", "bound_ms", "bound_by",
+            "f32_simt_bound_ms")}, calls_worst=r["ssd_worst"])
+        for m, r in tp["zamba"]["rows"].items()}
     hv = hybrid["serve"]["vs_plain"]
     hybrid_logits = {
         "bf16_rel_rms": hv["bf16"]["rel_rms"],
@@ -7966,10 +8409,15 @@ def main() -> int:
         "name": "ssd_scan_tc", "route": "cuda", "kernel_route": "mma",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        "path": "mamba2-130m and zamba2-7b serving prefills (bf16, S3, H3)",
-        "launches": ssd_by_route["mma"] + hybrid_ssd["mma"],
+        "path": "mamba2-130m and zamba2-7b serving prefills (bf16, S3, "
+                "H3); zamba2-7b split over model extents 2 and 16 (TP5: one "
+                "call a layer and shard over its heads) and mamba2-130m over "
+                "2 and 16 (TP6)",
+        "launches": (ssd_by_route["mma"] + hybrid_ssd["mma"]
+                     + sum(split_ssd.values())),
         "launches_by_path": {"mamba2-130m (S3)": ssd_by_route["mma"],
-                             "zamba2-7b (H3)": hybrid_ssd["mma"]},
+                             "zamba2-7b (H3)": hybrid_ssd["mma"],
+                             **split_ssd},
         "max_abs_err": worst_of(ssd_rows, "mma", ("y", "state")),
         "tolerance": {"y_bf16": SSD_Y_TOL, "state": SSD_F32_TOL},
         "logits_vs_plain_path": ssd_logits,
@@ -7980,19 +8428,23 @@ def main() -> int:
         "zamba2_shape": {k: hybrid["ssd"][k] for k in (
             "shape", "ms", "simt_ms", "plain_ms", "bound_ms", "bound_by",
             "f32_simt_bound_ms")},
+        "split_shapes": split_ssd_shapes,
         "library_ms": None}, {
         "name": "ssd_scan", "route": "cuda", "kernel_route": "simt",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        "path": "mamba2 and zamba2 serving in float32 (S2, H1: SMOKE "
+        "path": "mamba2 and zamba2 serving in float32 (S2, H1, TP1: SMOKE "
                 "prefills)",
         "launches": (s2["launches_by_route"]["simt"]
                      + hybrid["card_vs_cpu"]["launches_by_route"][
-                         "ssd_scan"]["simt"]),
+                         "ssd_scan"]["simt"]
+                     + tp["smoke"]["ssd_launches_by_route"]["simt"]),
         "launches_by_path": {
             "mamba2 SMOKE float32 (S2)": s2["launches_by_route"]["simt"],
             "zamba2 SMOKE float32 (H1)": hybrid["card_vs_cpu"][
-                "launches_by_route"]["ssd_scan"]["simt"]},
+                "launches_by_route"]["ssd_scan"]["simt"],
+            "split mamba2 and zamba2 SMOKE float32 (TP1)":
+                tp["smoke"]["ssd_launches_by_route"]["simt"]},
         "max_abs_err": worst_of(ssd_rows, "simt", ("y", "state")),
         "tolerance": {"y_bf16": SSD_Y_TOL, "state": SSD_F32_TOL},
         "ms": ssd["simt_ms"], "plain_ms": ssd["plain_ms"],
@@ -8060,7 +8512,8 @@ def main() -> int:
                 "to 128), whisper-large-v3 (E3: 32 unmasked encoder, 32 "
                 "causal decoder and 32 unmasked cross-attention calls); "
                 "olmo-1b split over model extents 2 and 4 (TP2: one call a "
-                "layer and shard) and olmoe-1b-7b over 2 (TP3)",
+                "layer and shard), olmoe-1b-7b over 2 (TP3) and zamba2-7b "
+                "over 2 and 16 (TP5: one call a shared use and shard)",
         "launches": sum(tc_by_path.values()),
         "launches_by_path": tc_by_path,
         "max_abs_err": max(worst_of(flash_rows, "wgmma", (None,)),
@@ -8076,18 +8529,24 @@ def main() -> int:
         "gqa_shape": {k: gqa_t[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
         "variant_shapes": variant_rows,
-        "split_shapes": {f"olmo-1b shard at model extent {m} (TP2)": dict(
-            r["shard_call"], calls_worst=r["call_worst"],
-            logits_vs_unsplit={k: r["bf16"][k] for k in (
-                "max_ratio", "limit_ratio", "rel_rms")})
-            for m, r in tp["olmo"]["rows"].items() if m > 1},
+        "split_shapes": {**{
+            f"olmo-1b shard at model extent {m} (TP2)": dict(
+                r["shard_call"], calls_worst=r["call_worst"],
+                logits_vs_unsplit={k: r["bf16"][k] for k in (
+                    "max_ratio", "limit_ratio", "rel_rms")})
+            for m, r in tp["olmo"]["rows"].items() if m > 1}, **{
+            f"zamba2-7b shard at model extent {m} (TP5)": dict(
+                r["flash_shard"], calls_worst=r["flash_worst"],
+                logits_vs_unsplit={k: r["bf16"][k] for k in (
+                    "max_ratio", "limit_ratio", "rel_rms", "rms_limit")})
+            for m, r in tp["zamba"]["rows"].items()}},
         "zamba2_shape": zamba_flash,
         "whisper_shapes": whisper_flash}, {
         "name": "flash_attention", "route": "cuda", "kernel_route": "simt",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
         "path": "dense, moe, hybrid and encdec serving in float32 (A2, V2, "
-                "M1, H1, E1: SMOKE prefills)",
+                "M1, H1, E1, TP1: SMOKE prefills)",
         "launches": sum(simt_by_path.values()),
         "launches_by_path": simt_by_path,
         "max_abs_err": worst_of(flash_rows, "simt", (None,)),

@@ -28,8 +28,12 @@ The port has no partitioner to hand a constraint to, so inside a context
 it checks the tensor instead: every dimension whose logical axis the rules
 put on the ``model`` axis must hold the global size (carried by the rules
 from ``sharding_dims``) divided by the model extent, and a shard that
-holds the whole tensor raises.  Outside a context it is a no-op, as in
-JAX.
+holds the whole tensor raises.  ``inner`` is the exception: its entry in
+``dims`` is the gcd of the SSM's channel counts (in_proj's outputs, the
+conv's channels, d_inner), not a size, so it cannot judge a dimension;
+the mixer's shard checks its widths against ``ssm_dims`` / m itself
+(``models.ssm.apply_mamba2_shard``).  Outside a context it is a no-op, as
+in JAX.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ from repro_torch.distributed.mesh import (DATA_AXIS, MODEL_AXIS, POD_AXIS,
                                           Mesh, axis_size)
 
 LogicalSpec = Tuple[Optional[str], ...]
+# logical axes whose ``dims`` entry is a gcd of several sizes, not a size
+GCD_AXES = ("inner",)
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 
@@ -213,7 +219,8 @@ def logically_sharded(x: torch.Tensor, logical_spec: LogicalSpec
         raise ValueError(f"logical spec {logical_spec} for a tensor of "
                          f"rank {x.dim()}")
     for i, name in enumerate(logical_spec):
-        if name is None or MODEL_AXIS not in _CTX.rules.table.get(name, ()):
+        if name is None or name in GCD_AXES or \
+                MODEL_AXIS not in _CTX.rules.table.get(name, ()):
             continue
         whole = _CTX.rules.dims.get(name)
         if whole and x.shape[i] != whole // m:

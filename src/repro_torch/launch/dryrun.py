@@ -37,10 +37,19 @@ single pod, 8 of one on the multi-pod mesh, where the reference's 16
 microbatches of 16 sequences do not divide over 32 data positions).
 
 **What is not run.**  A cell the reference skips (``shape_applicable``)
-is ``"skipped"`` with its reason; a cell whose rules put on the model axis
-an axis the port does not split yet (``kv_seq``, ``head_dim``, ``inner``,
-or any axis of a family other than dense and moe) is ``"unsupported"``
-and names those axes.  Neither runs, and neither is run unsplit.
+is ``"skipped"`` with its reason; a cell whose rules put an axis a tensor
+of the cell carries where the port does not split it yet
+(``tensor_parallel.unsupported_axes``: ``kv_seq`` or ``head_dim`` on the
+model axis, ``kv_seq`` on the data axis outside the hybrid family, any
+axis of the encdec family) is ``"unsupported"`` and names those axes.
+Neither runs, and neither is run unsplit.  Of the 80 cells (10 archs x
+4 shapes x 2 meshes) 46 are "ok", 18 "unsupported" (starcoder2-3b,
+qwen2-vl-7b and whisper-large-v3: 6 each) and 16 "skipped".  Where the
+rules put nothing of the model on the model axis (mamba2-130m) the model
+positions are replicas: the record is that of the same cell on a mesh
+without a model axis.  Where the batch is off the data axes (long_500k,
+batch 1) every data position runs the whole batch, and zamba2-7b's KV
+cache lies along the sequence over the data axis.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch gemma2-27b --shape train_4k --mesh single
@@ -277,9 +286,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     if bad:
         record["status"] = "unsupported"
         record["axes"] = bad
-        record["reason"] = (f"the rules put {bad} on the model axis, which "
-                            f"the port does not split yet (ROADMAP Queue 1 "
-                            f"item 10b)")
+        record["reason"] = (f"the rules put {bad} where the port does not "
+                            f"split them yet (ROADMAP Queue 1 item 10b)")
         return record
     t0 = time.monotonic()
     info = build_program(cfg, shape, mesh, rules,

@@ -343,23 +343,7 @@ def multi_head_attention(
     G, hd = a.n_kv_heads, a.head_dim
     rep = a.n_heads // G
     cdt = _dtype(cfg.compute_dtype)
-    xc = x.to(cdt)
-    d = xc.shape[-1]
-
-    def proj(w, n):
-        return (xc @ w.to(cdt).reshape(d, n * hd)).reshape(
-            B, S, n, hd).transpose(1, 2)
-
-    q, k, v = proj(p["wq"], a.n_heads), proj(p["wk"], G), proj(p["wv"], G)
-    if a.rope is not None:
-        q = apply_rope(q, positions, a.rope.theta, a.rope.partial_pct,
-                       a.rope.mrope_sections)
-        k = apply_rope(k, positions, a.rope.theta, a.rope.partial_pct,
-                       a.rope.mrope_sections)
-    q = shard(q, ("batch", "heads", "q_seq", "head_dim"))
-    k = shard(k, ("batch", "kv_heads", "kv_seq", "head_dim"))
-    v = shard(v, ("batch", "kv_heads", "kv_seq", "head_dim"))
-
+    q, k, v = attention_qkv(p, x, cfg, positions)
     q_offset, kv_valid = 0, None
     k_own, v_own = k, v
 
@@ -412,10 +396,46 @@ def multi_head_attention(
             softcap=a.softcap, causal=causal,
             sliding_window=a.sliding_window, local_flag=layer_is_local,
             q_offset=q_offset, kv_valid=kv_valid, q_chunk=q_chunk, cdt=cdt)
-    ctx = shard(ctx.reshape(B, a.n_heads, S, hd),
+    return attention_out(p, ctx, cfg, B, S, x.dtype), cache
+
+
+def attention_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor):
+    """q (B, H, S, hd) and k, v (B, G, S, hd) of (B, S, D) ``x`` in the
+    compute dtype, q and k rotated by ``positions``."""
+    a = cfg.attention
+    B, S, _ = x.shape
+    G, hd = a.n_kv_heads, a.head_dim
+    cdt = _dtype(cfg.compute_dtype)
+    xc = x.to(cdt)
+    d = xc.shape[-1]
+
+    def proj(w, n):
+        return (xc @ w.to(cdt).reshape(d, n * hd)).reshape(
+            B, S, n, hd).transpose(1, 2)
+
+    q, k, v = proj(p["wq"], a.n_heads), proj(p["wk"], G), proj(p["wv"], G)
+    if a.rope is not None:
+        q = apply_rope(q, positions, a.rope.theta, a.rope.partial_pct,
+                       a.rope.mrope_sections)
+        k = apply_rope(k, positions, a.rope.theta, a.rope.partial_pct,
+                       a.rope.mrope_sections)
+    q = shard(q, ("batch", "heads", "q_seq", "head_dim"))
+    k = shard(k, ("batch", "kv_heads", "kv_seq", "head_dim"))
+    v = shard(v, ("batch", "kv_heads", "kv_seq", "head_dim"))
+    return q, k, v
+
+
+def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig, B: int,
+                  S: int, dtype: torch.dtype) -> torch.Tensor:
+    """The heads' context (any shape holding (B, H, S, hd)) through
+    ``wo``, in ``dtype``."""
+    a = cfg.attention
+    cdt = _dtype(cfg.compute_dtype)
+    ctx = shard(ctx.reshape(B, a.n_heads, S, a.head_dim),
                 ("batch", "heads", "q_seq", "head_dim"))
     out = torch.einsum("bhsk,hkd->bsd", ctx, p["wo"].to(cdt))
-    return shard(out, ("batch", "seq", "embed")).to(x.dtype), cache
+    return shard(out, ("batch", "seq", "embed")).to(dtype)
 
 
 # --------------------------------------------------------------------------- #

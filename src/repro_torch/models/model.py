@@ -73,14 +73,19 @@ uses of the shared block, both written in place.  encdec: the dense
 by the prefill and read by every decode step.  Entry points run on CUDA
 unless given ``device="cpu"``.
 
-A dense or moe model split over a mesh's model axis
-(``distributed.tensor_parallel.SplitLM``: one module a mesh position) runs
-through the same :func:`forward`, :func:`prefill`, :func:`decode_step`
-and :func:`loss_fn`: the global batch split over the data positions, and
-each block looped over the model positions from one controller, the
-partial outputs of the attention, the MLP and the moe block joined by
-``distributed.collectives`` (:func:`_split_group`); its cache holds each
-position's K/V (``SplitLM.init_cache``).
+A model split over a mesh's model axis
+(``distributed.tensor_parallel.SplitLM``: one module a mesh position) of
+the dense, moe, ssm or hybrid family runs through the same
+:func:`forward`, :func:`prefill`, :func:`decode_step` and
+:func:`loss_fn`: the global batch split over the data positions (or run
+whole by each, where it does not split), and each block looped over the
+model positions from one controller, the partial outputs of the
+attention, the MLP, the moe block and the Mamba2 mixer joined by
+``distributed.collectives`` (:func:`_split_group` for the transformer
+stack, :func:`_split_recurrent` for the Mamba2 and hybrid stacks, which
+run the data indices in lockstep so that a decode step's attention can
+combine a K/V sequence that lies over the data positions); its cache
+holds each position's K/V and SSM state (``SplitLM.init_cache``).
 """
 from __future__ import annotations
 
@@ -351,15 +356,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
 
     def kv(n_layers: int) -> Dict[str, torch.Tensor]:
-        a = cfg.attention
-        shape = (n_layers, batch, a.n_kv_heads, max_seq, a.head_dim)
-        if cfg.kv_cache_quant:
-            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "k_scale": torch.ones(shape[:4], device=dev),
-                    "v_scale": torch.ones(shape[:4], device=dev)}
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return init_kv_cache(cfg, n_layers, batch, max_seq, dtype, dev)
 
     if cfg.family in ATTENTION_FAMILIES:
         return {"kv": kv(cfg.n_layers), "index": 0}
@@ -377,6 +374,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         return {"ssm": st, "kv": kv(cfg.n_layers // cfg.shared_attn_every),
                 "index": 0}
     return {"ssm": st, "index": 0}
+
+
+def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_seq: int,
+                  dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """Zeroed K and V of (n_layers, B, G, max_seq, hd) in ``dtype``; with
+    ``kv_cache_quant``, int8 codes and float32 scales of (n_layers, B, G,
+    max_seq) set to 1 (``dtype`` does not enter)."""
+    a = cfg.attention
+    shape = (n_layers, batch, a.n_kv_heads, max_seq, a.head_dim)
+    if cfg.kv_cache_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.ones(shape[:4], device=device),
+                "v_scale": torch.ones(shape[:4], device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def cache_logical_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -812,32 +825,38 @@ def _decoder_stack(params: EncDecLM, x, cfg: ModelConfig, *, positions,
 
 
 # --------------------------------------------------------------------------- #
-# The dense and moe stacks split over a mesh's model axis
+# The stacks split over a mesh's model axis
 # --------------------------------------------------------------------------- #
 
-def _split_layer(split, d: int, i: int, cfg: ModelConfig, positions, caches,
-                 cache_index, *xs):
-    """Block ``i`` at every model position of data index ``d``: each
-    shard's attention (its heads) and feed-forward part (its MLP columns
-    and rows, its experts), the partial outputs all-reduced where the
-    rules split them.  Returns (the new residuals, each position's aux)."""
-    group = split.group(d)
-    lcfg, m, origin = split.local_cfg, split.extent, d == 0
-    local_flag = _layer_is_local_static(cfg, i)
+def _split_attention(split, d: int, blocks, cfg: ModelConfig, positions,
+                     caches, cache_index, layer_index: int, local_flag: bool,
+                     xs):
+    """Each shard's attention (its heads) of data index ``d``'s residuals
+    ``xs`` through ``blocks`` (one a model position), all-reduced where
+    the rules split the heads."""
+    lcfg, m = split.local_cfg, split.extent
     attn = []
-    for (j, p), x, pos, c in zip(group, xs, positions, caches):
-        bp = p.blocks[i]
+    for bp, x, pos, c in zip(blocks, xs, positions, caches):
         h = L.apply_norm(bp.attn_norm, x, cfg)
         a, _ = L.multi_head_attention(
             bp.attn, h, lcfg, positions=pos, layer_is_local=local_flag,
             cache=None if c is None else c["kv"], cache_index=cache_index,
-            layer_index=None if c is None else i)
+            layer_index=None if c is None else layer_index)
         attn.append(a)
     if split.on_model("heads"):
-        attn = C.all_reduce(attn, extent=m, origin=origin)
+        attn = C.all_reduce(attn, extent=m, origin=d == 0)
+    return attn
+
+
+def _split_ffn(split, d: int, blocks, cfg: ModelConfig, xs, attn):
+    """The rest of a transformer block after its attention ``attn``: the
+    residual, each shard's feed-forward part (its MLP columns and rows,
+    its experts), the partial outputs all-reduced where the rules split
+    them.  Returns (the new residuals, each position's aux)."""
+    group = split.group(d)
+    m, origin = split.extent, d == 0
     res, partial, whole, auxes = [], [], [], []
-    for (j, p), x, a in zip(group, xs, attn):
-        bp = p.blocks[i]
+    for (j, _), bp, x, a in zip(group, blocks, xs, attn):
         if cfg.post_block_norm:
             a = L.apply_norm(bp.post_attn_norm, a, cfg)
         x = x + a
@@ -863,8 +882,7 @@ def _split_layer(split, d: int, i: int, cfg: ModelConfig, positions, caches,
     if partial[0] is not None:
         partial = C.all_reduce(partial, extent=m, origin=origin)
     out = []
-    for (j, p), x, f, own in zip(group, res, partial, whole):
-        bp = p.blocks[i]
+    for bp, x, f, own in zip(blocks, res, partial, whole):
         parts = ([] if f is None else [f]) + own
         f = functools.reduce(torch.add, parts)
         if cfg.post_block_norm:
@@ -873,15 +891,72 @@ def _split_layer(split, d: int, i: int, cfg: ModelConfig, positions, caches,
     return tuple(out), auxes
 
 
-def _split_group(split, d: int, batch: Mapping[str, torch.Tensor],
-                 cfg: ModelConfig, *, caches=None, cache_index: int = 0,
-                 last_only: bool = False):
-    """Data index ``d``'s part of the batch through its model positions
-    (each on its own device): the vocabulary-parallel embedding, the
-    blocks (:func:`_split_layer`, recomputed in the backward as
-    ``cfg.remat`` says when there is no cache), the final norm and the
-    shard's logits, all-gathered along the vocabulary.  Returns (each
-    position's whole logits, each position's aux)."""
+def _split_layer(split, d: int, i: int, cfg: ModelConfig, positions, caches,
+                 cache_index, *xs):
+    """Block ``i`` at every model position of data index ``d``: each
+    shard's attention and feed-forward part, the partial outputs
+    all-reduced where the rules split them.  Returns (the new residuals,
+    each position's aux)."""
+    blocks = [p.blocks[i] for _, p in split.group(d)]
+    attn = _split_attention(split, d, blocks, cfg, positions, caches,
+                            cache_index, i, _layer_is_local_static(cfg, i),
+                            xs)
+    return _split_ffn(split, d, blocks, cfg, xs, attn)
+
+
+def _split_mamba(split, d: int, i: int, cfg: ModelConfig, caches, *xs):
+    """Mamba2 block ``i`` at every model position of data index ``d``.
+    Mixers split over their heads (``split.ssm_split``): each shard's
+    gated output and its sum of squares
+    (``models.ssm.apply_mamba2_shard``), the sums all-reduced, each
+    shard's row-parallel ``out_proj`` (:func:`models.ssm.mamba2_shard_out`)
+    and an all-reduce of the float32 partial outputs, rounded once to the
+    residual's dtype.  Otherwise every position
+    runs the whole block, with no collective.  With caches each
+    position's slice of its SSM state and conv carry is written in place.
+    Returns the new residuals."""
+    group = split.group(d)
+    m, use_kernel = split.extent, cfg.use_flash_kernel
+    caches = caches or [None] * len(group)
+    own = [None if c is None else {k: v[i] for k, v in c["ssm"].items()}
+           for c in caches]
+
+    def keep(c, new):
+        if c is not None:
+            for k, v in new.items():
+                c["ssm"][k][i].copy_(v)
+
+    if not split.ssm_split:
+        out = []
+        for (_, p), x, c, ci in zip(group, xs, caches, own):
+            y, new = _apply_ssm_block(p.blocks[i], x, cfg, cache=ci,
+                                      use_kernel=use_kernel)
+            keep(c, new)
+            out.append(y)
+        return tuple(out)
+    gated, sums, mixers = [], [], []
+    for (j, p), x, c, ci in zip(group, xs, caches, own):
+        bp = p.blocks[i]
+        mixers.append(bp.mixer.params())
+        h = L.apply_norm(bp.norm, x, cfg)
+        yg, sq, new = SSM.apply_mamba2_shard(mixers[-1], h, cfg, m, j,
+                                             cache=ci, use_kernel=use_kernel)
+        keep(c, new)
+        gated.append(yg)
+        sums.append(sq)
+    sums = C.all_reduce(sums, extent=m, origin=d == 0)
+    parts = [SSM.mamba2_shard_out(mp, yg, sq, cfg)
+             for mp, yg, sq in zip(mixers, gated, sums)]
+    parts = C.all_reduce(parts, extent=m, origin=d == 0)
+    return tuple(x + o.to(x.dtype) for x, o in zip(xs, parts))
+
+
+def _split_embed(split, d: int, batch: Mapping[str, torch.Tensor],
+                 cfg: ModelConfig, cache_index: int):
+    """Data index ``d``'s tokens through the vocabulary-parallel embedding
+    (a masked lookup a shard, all-reduced where the rules split the
+    vocabulary).  Returns (each position's residual, each position's
+    positions)."""
     group = split.group(d)
     m, origin = split.extent, d == 0
     devs = [next(p.parameters()).device for _, p in group]
@@ -890,7 +965,9 @@ def _split_group(split, d: int, batch: Mapping[str, torch.Tensor],
             for (j, p), t in zip(group, tokens)]
     if split.on_model("vocab"):
         rows = C.all_reduce(rows, extent=m, origin=origin)
-    xs = [L.scale_embedding(r, cfg) for r in rows]
+    xs = tuple(L.scale_embedding(r, cfg) for r in rows)
+    if cfg.family == "ssm":
+        return xs, None
     positions = batch.get("positions")
     if positions is None:
         positions = [torch.arange(t.shape[1], device=t.device)[None, :]
@@ -901,10 +978,39 @@ def _split_group(split, d: int, batch: Mapping[str, torch.Tensor],
     if rope is not None and rope.mrope_sections is not None:
         positions = [q[:, None, :].expand(q.shape[0], 3, q.shape[1])
                      if q.dim() == 2 else q for q in positions]
+    return xs, positions
+
+
+def _split_logits(split, d: int, xs, cfg: ModelConfig, last_only: bool):
+    """Each position's whole logits: the final norm, the shard's columns,
+    all-gathered along the vocabulary where the rules split it."""
+    group = split.group(d)
+    if last_only:
+        xs = [x[:, -1:] for x in xs]
+    logits = [L.logits_from_hidden(p.embed, L.apply_norm(p.final_norm, x,
+                                                         cfg), cfg)
+              for (j, p), x in zip(group, xs)]
+    if split.on_model("vocab"):
+        logits = C.all_gather(logits, -1, extent=split.extent,
+                              origin=d == 0)
+    return logits
+
+
+def _split_group(split, d: int, batch: Mapping[str, torch.Tensor],
+                 cfg: ModelConfig, *, caches=None, cache_index: int = 0,
+                 last_only: bool = False):
+    """Data index ``d``'s part of the batch through its model positions
+    (each on its own device) of a dense or moe model: the embedding
+    (:func:`_split_embed`), the blocks (:func:`_split_layer`, recomputed
+    in the backward as ``cfg.remat`` says when there is no cache) and the
+    logits (:func:`_split_logits`).  Returns (each position's whole
+    logits, each position's aux)."""
+    group = split.group(d)
+    xs, positions = _split_embed(split, d, batch, cfg, cache_index)
     caches = caches or [None] * len(group)
     remat = _remat(cfg) if caches[0] is None else "none"
     n = cfg.n_layers
-    decode = caches[0] is not None and tokens[0].shape[1] == 1
+    decode = caches[0] is not None and batch["tokens"].shape[1] == 1
     aux_tot = [{} for _ in group]
     for i in range(n):
         args = (split, d, i, cfg, positions, caches, cache_index, *xs)
@@ -922,23 +1028,210 @@ def _split_group(split, d: int, batch: Mapping[str, torch.Tensor],
     elif not decode:
         aux_tot = [{k: div(v, n).to(v.dtype) for k, v in tot.items()}
                    for tot in aux_tot]
-    if last_only:
-        xs = [x[:, -1:] for x in xs]
-    logits = [L.logits_from_hidden(p.embed, L.apply_norm(p.final_norm, x,
-                                                         cfg), cfg)
-              for (j, p), x in zip(group, xs)]
-    if split.on_model("vocab"):
-        logits = C.all_gather(logits, -1, extent=m, origin=origin)
-    return logits, aux_tot
+    return _split_logits(split, d, xs, cfg, last_only), aux_tot
+
+
+# -- the KV sequence over the data positions (the hybrid family) ------------
+
+def _seq_part_write(buf: torch.Tensor, new: torch.Tensor, e: int,
+                    index: int) -> None:
+    """Write ``new`` (B, G, S, hd), the K or V of positions ``index`` ...
+    ``index + S``, into ``buf`` (B, G, T, hd), sequence part ``e`` (its
+    positions ``e·T`` ... ``(e + 1)·T``), in place: the slots of those
+    positions the part holds.  A step of one token writes one slot,
+    masked, on every part (the part that holds the position takes the
+    token, the others rewrite their own value), so every part runs the
+    same operations; a longer step rewrites the part's every slot, each
+    from the prompt or from itself."""
+    T, S = buf.shape[2], new.shape[2]
+    new = new.to(buf.dtype)
+    if S == 1:
+        at = index - e * T
+        li = min(max(at, 0), T - 1)
+        mine = torch.tensor(0 <= at < T, device=buf.device)
+        buf[:, :, li:li + 1] = torch.where(mine, new, buf[:, :, li:li + 1])
+        return
+    slot = torch.arange(T, device=buf.device) + (e * T - index)
+    valid = (slot >= 0) & (slot < S)
+    src = new.index_select(2, slot.clamp(0, S - 1))
+    buf.copy_(torch.where(valid[None, None, :, None], src, buf))
+
+
+def _seq_part_scores(q, ck, cv, cfg: ModelConfig, e: int, index: int,
+                     scale: float):
+    """One sequence part's share of a decode step's attention: q (B, H, 1,
+    hd) over the part's keys ``ck``, ``cv`` (B, G, T, hd), those past
+    ``index`` masked.  Returns (the unnormalised output (B, G, R, 1, hd)
+    float32, the row maxima and the row sums (B, G, R, 1, 1)) of the
+    scores ``_attention_core`` computes, in float32."""
+    a = cfg.attention
+    cdt = L._dtype(cfg.compute_dtype)
+    B, G, T, hd = ck.shape
+    qg = q.reshape(B, G, a.n_heads // G, 1, hd)
+    s = torch.einsum("bgrsk,bgtk->bgrst", qg, ck.to(cdt)).float() * scale
+    if a.softcap is not None:
+        s = torch.tanh(s / a.softcap) * a.softcap
+    k_pos = torch.arange(T, device=q.device) + e * T
+    s = torch.where(k_pos <= index, s, L.NEG_INF)
+    mx = s.amax(dim=-1, keepdim=True)
+    ex = torch.exp(s - mx)
+    o = torch.einsum("bgrst,bgtk->bgrsk", ex.to(cdt), cv.to(cdt)).float()
+    return o, mx, ex.sum(dim=-1, keepdim=True)
+
+
+def _seq_split_attention(split, ds, g: int, cfg: ModelConfig, positions,
+                         caches, cache_index: int, parts: int, xs):
+    """The shared block's attention (use ``g``) where the K/V lie along the
+    sequence over the data axis, for the data indices ``ds`` in lockstep
+    (every data index runs the whole batch).  Each position writes its
+    sequence part's slots (:func:`_seq_part_write`).  A prefill (from
+    position 0) attends over the prompt's own K/V, read back through the
+    cache's dtype, as the unsplit prefill does; a decode step combines
+    the parts: each its scores' row maxima, sums and unnormalised output
+    (:func:`_seq_part_scores`), the maxima all-gathered over the data
+    positions and the rescaled outputs and sums all-reduced.  Then ``wo``
+    and the all-reduce over the heads as :func:`_split_attention`.
+    Returns {d: each position's attention output}."""
+    from repro_torch.kernels import ops
+
+    lcfg, m = split.local_cfg, split.extent
+    a = lcfg.attention
+    cdt = L._dtype(cfg.compute_dtype)
+    if lcfg.kv_cache_quant or a.sliding_window is not None:
+        raise ValueError("a K/V sequence over the data positions takes a "
+                         "plain cache and no sliding window")
+    scale = a.query_scale if a.query_scale is not None else \
+        1.0 / math.sqrt(a.head_dim)
+    state, ctx = {}, {}
+    for d in ds:
+        e = d % parts
+        for (j, p), x, pos, c in zip(split.group(d), xs[d], positions[d],
+                                     caches[d]):
+            bp = p.shared
+            h = L.apply_norm(bp.attn_norm, x, cfg)
+            q, k, v = L.attention_qkv(bp.attn, h, lcfg, pos)
+            ck, cv = c["kv"]["k"][g], c["kv"]["v"][g]
+            _seq_part_write(ck, k, e, cache_index)
+            _seq_part_write(cv, v, e, cache_index)
+            B, S = x.shape[:2]
+            if S > 1:
+                if cache_index:
+                    raise ValueError("a step of several tokens over a K/V "
+                                     "sequence split over the data positions "
+                                     "must start at position 0")
+                ko, vo = k.to(ck.dtype).to(cdt), v.to(cv.dtype).to(cdt)
+                G, hd = a.n_kv_heads, a.head_dim
+                rep = a.n_heads // G
+                if L.flash_route(lcfg, q_offset=0, seq=S,
+                                 layer_is_local=False):
+                    out = ops.flash_attention(
+                        q.reshape(B * G, rep, S, hd), ko.reshape(B * G, S, hd),
+                        vo.reshape(B * G, S, hd), scale=scale, causal=True,
+                        softcap=a.softcap)
+                else:
+                    out = L._attention_core(
+                        q.reshape(B, G, rep, S, hd), ko, vo, scale=scale,
+                        softcap=a.softcap, causal=True, sliding_window=None,
+                        local_flag=False, q_offset=0, kv_valid=None,
+                        q_chunk=512, cdt=cdt)
+                ctx[(d, j)] = out
+            else:
+                state[(d, j)] = _seq_part_scores(q, ck, cv, lcfg, e,
+                                                 cache_index, scale)
+    if state:
+        # each pod's data positions combine, one model index at a time
+        n_pod = split.data_extent // parts
+        for pod in range(n_pod):
+            members = [d for d in ds if d // parts == pod]
+            for j in sorted({j for d in members for j, _ in split.group(d)}):
+                got = [state[(d, j)] for d in members]
+                origin = pod == 0 and j == 0
+                mxs = C.all_gather([mx for _, mx, _ in got], -1,
+                                   extent=parts, origin=origin)
+                scaled = []
+                for (o, mx, l), every in zip(got, mxs):
+                    w = torch.exp(mx - every.amax(dim=-1, keepdim=True))
+                    scaled.append(torch.cat([o * w, l * w], dim=-1))
+                tot = C.all_reduce(scaled, extent=parts, origin=origin)
+                for d, t in zip(members, tot):
+                    hd = a.head_dim
+                    ctx[(d, j)] = (t[..., :hd] / t[..., hd:]).to(cdt)
+    out = {}
+    for d in ds:
+        attn = []
+        for (j, p), x in zip(split.group(d), xs[d]):
+            B, S = x.shape[:2]
+            attn.append(L.attention_out(p.shared.attn, ctx[(d, j)], lcfg, B,
+                                        S, x.dtype))
+        if split.on_model("heads"):
+            attn = C.all_reduce(attn, extent=m, origin=d == 0)
+        out[d] = attn
+    return out
+
+
+def _split_recurrent(split, ds, batches, cfg: ModelConfig, *, caches=None,
+                     cache_index: int = 0, last_only: bool = False,
+                     seq_parts: int = 1):
+    """The ssm and hybrid stacks of a split model, the data indices ``ds``
+    in lockstep (``batches[d]`` each one's part; ``caches[d]`` its
+    positions' caches): the embedding, the Mamba2 blocks
+    (:func:`_split_mamba`, recomputed in the backward as ``cfg.remat``
+    says when there is no cache), for the hybrid family the shared block
+    after every ``shared_attn_every`` of them (the Megatron split of
+    :func:`_split_attention` and :func:`_split_ffn` over ``params.shared``
+    and the g-th slice of each position's KV cache, or
+    :func:`_seq_split_attention` where the K/V lie along the sequence;
+    run plainly, as the JAX package runs it outside its remat), the
+    remainder layers, and the logits.  Returns {d: each position's whole
+    logits}."""
+    xs, positions = {}, {}
+    for d in ds:
+        xs[d], positions[d] = _split_embed(split, d, batches[d], cfg,
+                                           cache_index)
+    cs = {d: (caches[d] if caches is not None
+              else [None] * len(split.group(d))) for d in ds}
+    remat = _remat(cfg) if caches is None else "none"
+
+    def mamba(i: int):
+        for d in ds:
+            args = (split, d, i, cfg, None if caches is None else cs[d],
+                    *xs[d])
+            xs[d] = (_checkpointed(remat, _split_mamba, *args)
+                     if remat != "none" else _split_mamba(*args))
+
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            mamba(i)
+    else:
+        every = cfg.shared_attn_every
+        for g in range(cfg.n_layers // every):
+            for i in range(g * every, (g + 1) * every):
+                mamba(i)
+            if seq_parts > 1:
+                attn = _seq_split_attention(split, ds, g, cfg, positions,
+                                            cs, cache_index, seq_parts, xs)
+            else:
+                attn = {d: _split_attention(
+                    split, d, [p.shared for _, p in split.group(d)], cfg,
+                    positions[d], cs[d], cache_index, g, False, xs[d])
+                    for d in ds}
+            for d in ds:
+                xs[d] = _split_ffn(split, d, [p.shared for _, p in
+                                              split.group(d)], cfg, xs[d],
+                                   attn[d])[0]
+        for i in range(cfg.n_layers // every * every, cfg.n_layers):
+            mamba(i)
+    return {d: _split_logits(split, d, xs[d], cfg, last_only) for d in ds}
 
 
 def _data_part(split, batch: Mapping[str, torch.Tensor], d: int
                ) -> Dict[str, torch.Tensor]:
-    """Data index ``d``'s contiguous part of the global batch."""
+    """Data index ``d``'s contiguous part of the global batch, or all of
+    it where the batch does not split over the data positions (each runs
+    the whole batch, as the rules replicate it)."""
     b = batch["tokens"].shape[0]
-    if b % split.data_extent:
-        raise ValueError(f"batch {b} does not split over "
-                         f"{split.data_extent} data positions")
+    if not split.batch_split(b):
+        return dict(batch)
     per = b // split.data_extent
     return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
 
@@ -949,23 +1242,39 @@ def _split_forward(split, batch: Mapping[str, torch.Tensor],
     """:func:`forward` of a split model: each data index's group on its
     part of the batch, inside the split's sharding context.  The logits
     are model position 0's, concatenated over the data indices on the
-    first position's device; aux is the data indices' mean."""
-    if cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(f"a split {cfg.family} model")
+    first position's device (data index 0's where every data index ran
+    the whole batch); aux is the data indices' mean."""
     index = 0 if cache is None else int(cache["index"])
+    ds = split.data_indices()
     outs, auxes = [], []
+
+    def caches_of(d):
+        return None if cache is None else [
+            cache["pieces"][(d, j)] for j, _ in split.group(d)]
+
     with sharding_context(split.mesh, split.rules):
-        for d in split.data_indices():
-            caches = None if cache is None else [
-                cache["pieces"][(d, j)] for j, _ in split.group(d)]
-            logits, aux = _split_group(
-                split, d, _data_part(split, batch, d), cfg, caches=caches,
-                cache_index=index, last_only=last_only)
-            outs.append(logits[0])
-            auxes.append(aux[0])
+        if cfg.family in ATTENTION_FAMILIES:
+            for d in ds:
+                logits, aux = _split_group(
+                    split, d, _data_part(split, batch, d), cfg,
+                    caches=caches_of(d), cache_index=index,
+                    last_only=last_only)
+                outs.append(logits[0])
+                auxes.append(aux[0])
+        else:
+            got = _split_recurrent(
+                split, ds, {d: _data_part(split, batch, d) for d in ds}, cfg,
+                caches=None if cache is None else {d: caches_of(d)
+                                                   for d in ds},
+                cache_index=index, last_only=last_only,
+                seq_parts=1 if cache is None else cache["seq_parts"])
+            outs = [got[d][0] for d in ds]
+            auxes = [{} for _ in ds]
     # assembling the global result is the controller's, no device's work
     with CA.paused():
         dev = outs[0].device
+        if not split.batch_split(batch["tokens"].shape[0]):
+            outs = outs[:1]
         logits = torch.cat([o.to(dev) for o in outs]) if len(outs) > 1 \
             else outs[0]
         aux = {k: sum(a[k].to(dev) for a in auxes) / len(auxes)
@@ -980,13 +1289,21 @@ def _split_loss_terms(split, batch: Mapping[str, torch.Tensor],
     """Data index ``d``'s group on ``batch`` (its microbatch): every model
     position computes the loss on its own copy of the gathered logits, as
     each device of a partitioned program does, scaled by ``1/m`` (each
-    position's gradient ``1/m`` of the whole, summed by the gather's
-    backward).  Returns (the scaled losses, one a position, to run the
-    backward from; position 0's metrics)."""
+    position's gradient ``1/m`` of the whole, summed by the collectives'
+    backward) -- unscaled where the model positions are replicas, each
+    then holding the whole gradient of its own copy.  Returns (the
+    losses, one a position, to run the backward from; position 0's
+    metrics)."""
     with sharding_context(split.mesh, split.rules):
-        logits, auxes = _split_group(split, d, batch, cfg)
+        if cfg.family in ATTENTION_FAMILIES:
+            logits, auxes = _split_group(split, d, batch, cfg)
+        else:
+            logits = _split_recurrent(split, [d], {d: batch}, cfg)[d]
+            auxes = [{} for _ in logits]
         terms = [_loss(lg, batch["labels"].to(lg.device, torch.long), aux)
                  for lg, aux in zip(logits, auxes)]
+    if split.replicas:
+        return [t for t, _ in terms], terms[0][1]
     return [t * (1.0 / split.extent) for t, _ in terms], terms[0][1]
 
 
@@ -994,13 +1311,16 @@ def _split_loss(split, batch: Mapping[str, torch.Tensor], cfg: ModelConfig,
                 d: Optional[int] = None):
     """:func:`loss_fn` of a split model on data index ``d``'s group (the
     only one present, by default): the sum of
-    :func:`_split_loss_terms`' scaled losses, and position 0's
-    metrics."""
+    :func:`_split_loss_terms`' scaled losses (one position's, where the
+    model positions are replicas), and position 0's metrics."""
     if d is None:
         (d,) = split.data_indices()
     scaled, metrics = _split_loss_terms(split, batch, cfg, d)
     with CA.paused():           # the controller's sum of the positions'
         dev = scaled[0].device
+        if split.replicas:      # each replica's gradient, one loss's value
+            return scaled[0] + sum((t - t.detach()).to(dev)
+                                   for t in scaled[1:]), metrics
         total = sum(t.to(dev) for t in scaled)
     return total, metrics
 

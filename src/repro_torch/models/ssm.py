@@ -190,7 +190,10 @@ def ssd_recurrent_step(x, dt, A, B, C, state):
     """
     dtf = dt.float()
     dA = torch.exp(dtf * A)[..., None, None]                     # (b,h,1,1)
-    dBx = torch.einsum("bh,bn,bhp->bhpn", dtf, B.float(), x.float())
+    # dt_h B_n x_hp as two broadcast products (the einsum of three
+    # operands would plan its contraction on the host at every step)
+    dBx = (dtf[:, :, None] * B.float()[:, None, :])[:, :, None, :] \
+        * x.float()[..., None]
     new_state = state * dA + dBx
     y = torch.einsum("bhpn,bn->bhp", new_state, C.float())
     return y.to(x.dtype), new_state
@@ -217,26 +220,44 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out).to(seq.dtype), new_carry
 
 
-def apply_mamba2(p: Params, xin: torch.Tensor, cfg: ModelConfig, *,
-                 cache: Optional[Mapping[str, torch.Tensor]] = None,
-                 use_kernel: bool = False
-                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Mamba2 mixer over (B, S, D).
+def _ssd_prefill(xh, dt, A, Bc, Cc, s, init_state, use_kernel: bool):
+    """The SSD over a prompt of (b, S, h, p) ``xh``: the CUDA kernel with
+    ``use_kernel`` (through ``kernels.ops.ssd_scan``), else
+    :func:`ssd_chunked`.  Returns (y (b, S, h, p), final state)."""
+    S = xh.shape[1]
+    if use_kernel:
+        from repro_torch.kernels.ops import ssd_scan as ssd_kernel
+        # the kernel takes only chunk multiples: zero-pad as
+        # ssd_chunked does (dt = 0 makes the pad exact) and slice back
+        pad = -S % min(s.chunk, S)
+        kx, kdt, kB, kC = xh, dt, Bc, Cc
+        if pad:
+            kx = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            kdt = F.pad(dt, (0, 0, 0, pad))
+            kB = F.pad(Bc, (0, 0, 0, pad))
+            kC = F.pad(Cc, (0, 0, 0, pad))
+        y, final_state = ssd_kernel(kx, kdt, A, kB, kC, chunk=s.chunk,
+                                    initial_state=init_state)
+        return y[:, :S], final_state
+    return ssd_chunked(xh, dt, A, Bc, Cc, chunk=min(s.chunk, S),
+                       initial_state=init_state)
 
-    cache (serving): {'state': (B,h,p,n), 'conv': (B, W-1, conv_dim)}.
-    When ``cache`` is provided and S == 1 the recurrent path is used.
-    """
+
+def _mixer_ssm(cfg: ModelConfig, z, x, Bv, Cv, dt_raw, p: Params, heads,
+               d_inner: int, nheads: int, cache, use_kernel: bool):
+    """The conv, the SSD and the skip of a mixer over ``nheads`` heads of
+    ``d_inner`` channels (the whole mixer, or a shard's heads: ``heads``
+    slices ``a_log``, ``dt_bias`` and ``d_skip``, whole when None).
+    Returns (y (B, S, d_inner) float32 before the gate, the new cache or
+    None)."""
     s = cfg.ssm
-    cdt = _dtype(cfg.compute_dtype)
-    Bsz, S, _ = xin.shape
-    d_inner, nheads, hd = ssm_dims(cfg)
-
-    proj = torch.einsum("bsd,de->bse", xin.to(cdt), p["in_proj"].to(cdt))
-    z, x, Bv, Cv, dt_raw = _split_proj(cfg, proj)
-
+    Bsz, S = x.shape[:2]
+    hd = s.head_dim
+    sl = slice(None) if heads is None else heads
     xbc = torch.cat([x, Bv, Cv], dim=-1)
-    A = -torch.exp(p["a_log"])                                      # (h,)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])                  # (b,s,h)
+    A = -torch.exp(p["a_log"][sl])                                  # (h,)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"][sl])              # (b,s,h)
+    d_skip = p["d_skip"][sl]
 
     if cache is not None and S == 1:
         xbc_out, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
@@ -247,45 +268,47 @@ def apply_mamba2(p: Params, xin: torch.Tensor, cfg: ModelConfig, *,
         xh = xx.reshape(Bsz, nheads, hd)
         y, new_state = ssd_recurrent_step(xh, dt[:, 0], A, Bc[:, 0], Cc[:, 0],
                                           cache["state"].float())
-        y = y + p["d_skip"][None, :, None] * xh.float()
+        y = y + d_skip[None, :, None] * xh.float()
         y = y.reshape(Bsz, 1, d_inner)
-        new_cache = {"state": new_state.to(cache["state"].dtype),
-                     "conv": new_conv.to(cache["conv"].dtype)}
-    else:
-        xbc_out, conv_carry = _causal_conv(
-            xbc, p["conv_w"], p["conv_b"],
-            cache["conv"] if cache is not None else None)
-        xx = xbc_out[..., :d_inner]
-        Bc = xbc_out[..., d_inner: d_inner + s.d_state]
-        Cc = xbc_out[..., d_inner + s.d_state:]
-        # views of the conv output: the kernel reads these strided slices
-        # in place (batch and sequence strides are its arguments)
-        xh = xx.reshape(Bsz, S, nheads, hd)
-        init_state = cache["state"] if cache is not None else None
-        if use_kernel:
-            from repro_torch.kernels.ops import ssd_scan as ssd_kernel
-            # the kernel takes only chunk multiples: zero-pad as
-            # ssd_chunked does (dt = 0 makes the pad exact) and slice back
-            pad = -S % min(s.chunk, S)
-            kx, kdt, kB, kC = xh, dt, Bc, Cc
-            if pad:
-                kx = F.pad(xh, (0, 0, 0, 0, 0, pad))
-                kdt = F.pad(dt, (0, 0, 0, pad))
-                kB = F.pad(Bc, (0, 0, 0, pad))
-                kC = F.pad(Cc, (0, 0, 0, pad))
-            y, final_state = ssd_kernel(kx, kdt, A, kB, kC, chunk=s.chunk,
-                                        initial_state=init_state)
-            y = y[:, :S]
-        else:
-            y, final_state = ssd_chunked(xh, dt, A, Bc, Cc,
-                                         chunk=min(s.chunk, S),
-                                         initial_state=init_state)
-        y = y + p["d_skip"][None, None, :, None].float() * xh.float()
-        y = y.reshape(Bsz, S, d_inner)
-        new_cache = None
-        if cache is not None:
-            new_cache = {"state": final_state.to(cache["state"].dtype),
-                         "conv": conv_carry.to(cache["conv"].dtype)}
+        return y, {"state": new_state.to(cache["state"].dtype),
+                   "conv": new_conv.to(cache["conv"].dtype)}
+    xbc_out, conv_carry = _causal_conv(
+        xbc, p["conv_w"], p["conv_b"],
+        cache["conv"] if cache is not None else None)
+    xx = xbc_out[..., :d_inner]
+    Bc = xbc_out[..., d_inner: d_inner + s.d_state]
+    Cc = xbc_out[..., d_inner + s.d_state:]
+    # views of the conv output: the kernel reads these strided slices
+    # in place (batch and sequence strides are its arguments)
+    xh = xx.reshape(Bsz, S, nheads, hd)
+    init_state = cache["state"] if cache is not None else None
+    y, final_state = _ssd_prefill(xh, dt, A, Bc, Cc, s, init_state,
+                                  use_kernel)
+    y = y + d_skip[None, None, :, None].float() * xh.float()
+    y = y.reshape(Bsz, S, d_inner)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"state": final_state.to(cache["state"].dtype),
+                     "conv": conv_carry.to(cache["conv"].dtype)}
+    return y, new_cache
+
+
+def apply_mamba2(p: Params, xin: torch.Tensor, cfg: ModelConfig, *,
+                 cache: Optional[Mapping[str, torch.Tensor]] = None,
+                 use_kernel: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Mamba2 mixer over (B, S, D).
+
+    cache (serving): {'state': (B,h,p,n), 'conv': (B, W-1, conv_dim)}.
+    When ``cache`` is provided and S == 1 the recurrent path is used.
+    """
+    cdt = _dtype(cfg.compute_dtype)
+    d_inner, nheads, hd = ssm_dims(cfg)
+
+    proj = torch.einsum("bsd,de->bse", xin.to(cdt), p["in_proj"].to(cdt))
+    z, x, Bv, Cv, dt_raw = _split_proj(cfg, proj)
+    y, new_cache = _mixer_ssm(cfg, z, x, Bv, Cv, dt_raw, p, None, d_inner,
+                              nheads, cache, use_kernel)
 
     # gated RMSNorm (mamba2: norm(y * silu(z)))
     yg = y.float() * F.silu(z.float()).reshape(y.shape)
@@ -295,10 +318,109 @@ def apply_mamba2(p: Params, xin: torch.Tensor, cfg: ModelConfig, *,
     return out.to(xin.dtype), new_cache
 
 
+# --------------------------------------------------------------------------- #
+# A mixer split over its heads (tensor parallelism over ``inner``)
+# --------------------------------------------------------------------------- #
+
+def shard_dims(cfg: ModelConfig, m: int) -> Tuple[int, int]:
+    """(channels, heads) of one of ``m`` head-aligned shards of the mixer:
+    ``d_inner / m`` and ``n_heads / m``.  Raises ValueError where ``m``
+    does not divide the heads (a shard never runs the whole mixer in a
+    split's place)."""
+    d_inner, nheads, _ = ssm_dims(cfg)
+    if nheads % m:
+        raise ValueError(f"{cfg.name}: a model extent of {m} does not "
+                         f"divide the {nheads} SSM heads")
+    return d_inner // m, nheads // m
+
+
+def apply_mamba2_shard(p: Params, xin: torch.Tensor, cfg: ModelConfig,
+                       m: int, j: int, *,
+                       cache: Optional[Mapping[str, torch.Tensor]] = None,
+                       use_kernel: bool = False):
+    """Shard ``j`` of ``m`` of the mixer over (B, S, D), up to the gated
+    RMSNorm's statistic.  ``p`` holds the shard's head-aligned pieces
+    (``distributed.tensor_parallel``): ``in_proj`` (d, [z, x, dt] of its
+    heads, then B and C whole), ``conv_w`` / ``conv_b`` (its x channels,
+    then B and C), ``norm_scale`` and ``out_proj`` (its channels), and
+    ``a_log``, ``dt_bias`` and ``d_skip`` whole (its heads sliced here).
+    z, x and dt are one product; B and C another, of the same shape on
+    every shard, so every shard computes the same B and C (and conv
+    carry) to the bit.  The SSD runs over the shard's heads (one kernel
+    call with ``use_kernel``).  cache: the shard's {'state': (B, h/m, p,
+    n), 'conv': (B, W-1, d_inner/m + 2n)}.
+
+    Returns (the gated output y·silu(z) (B, S, d_inner/m) float32, its
+    sum of squares over the channels (B, S, 1) float32, the new cache or
+    None); :func:`mamba2_shard_out` finishes it from the sums of every
+    shard."""
+    s = cfg.ssm
+    cdt = _dtype(cfg.compute_dtype)
+    dis, hs = shard_dims(cfg, m)
+    n = s.d_state
+    w = p["in_proj"].to(cdt)
+    if w.shape[-1] != 2 * dis + hs + 2 * n or p["out_proj"].shape[0] != dis:
+        raise ValueError(f"shard {j} of {m}: in_proj {tuple(w.shape)} and "
+                         f"out_proj {tuple(p['out_proj'].shape)} are not "
+                         f"a head-aligned piece of {dis} channels")
+    xc = xin.to(cdt)
+    # float32 sums rounded once, as the unsplit product's are: the library
+    # splits a bf16 product of a decode step's few rows over k and rounds
+    # its partial sums to bf16 (on an H100, 40% of z and x of
+    # mamba2-130m's shard at 8 rows then differ from the unsplit's)
+    zxdt = _product_f32(xc, w[:, :2 * dis + hs]).to(cdt)
+    bc = _product_f32(xc, w[:, 2 * dis + hs:]).to(cdt)
+    z, x, dt_raw = zxdt[..., :dis], zxdt[..., dis:2 * dis], zxdt[..., 2 * dis:]
+    y, new_cache = _mixer_ssm(cfg, z, x, bc[..., :n], bc[..., n:], dt_raw,
+                              p, slice(j * hs, (j + 1) * hs), dis, hs, cache,
+                              use_kernel)
+    yg = y.float() * F.silu(z.float()).reshape(y.shape)
+    return yg, yg.square().sum(dim=-1, keepdim=True), new_cache
+
+
+def _product_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a`` (..., k) times ``w`` (k, n), both in the compute dtype, with
+    the product's float32 sums kept (not rounded to the compute dtype): a
+    bf16 product on the card (and on the meta device, which stands for it)
+    through ``torch.mm``'s ``out_dtype``, elsewhere on float32 copies of
+    the operands.  Under autograd (``out_dtype`` has no backward) the
+    product is rounded to the compute dtype, as the unsplit one is."""
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.dtype == torch.float32:
+        out = a2 @ w
+    elif torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        out = (a2 @ w).float()
+    elif a.device.type in ("cuda", "meta"):
+        out = torch.mm(a2, w, out_dtype=torch.float32)
+    else:
+        out = a2.float() @ w.float()
+    return out.reshape(*a.shape[:-1], w.shape[-1])
+
+
+def mamba2_shard_out(p: Params, yg: torch.Tensor, sumsq: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """A shard's partial output from its gated ``yg`` and the sum over
+    every shard of the squares (``sumsq``, (B, S, 1)): the gated RMSNorm
+    over all d_inner channels, then the row-parallel ``out_proj`` -- the
+    partial sum of the mixer's output, in float32: the all-reduce adds
+    the shards' partials and rounds once, as the unsplit product's sums
+    are rounded once (a bf16 rounding a shard would add m roundings'
+    noise to every layer's output)."""
+    cdt = _dtype(cfg.compute_dtype)
+    var = sumsq / ssm_dims(cfg)[0]
+    yn = yg * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"].float()
+    return _product_f32(yn.to(cdt), p["out_proj"].to(cdt))
+
+
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None, n_shards: int = 1) -> Dict[str, torch.Tensor]:
+    """The mixer's zeroed state (B, h, p, n) and conv carry (B, W-1,
+    d_inner + 2n); ``n_shards``: one head-aligned shard's, (B, h/m, p,
+    n) and (B, W-1, d_inner/m + 2n)."""
     s = cfg.ssm
     d_inner, nheads, hd = ssm_dims(cfg)
+    if n_shards > 1:
+        d_inner, nheads = shard_dims(cfg, n_shards)
     conv_dim = d_inner + 2 * s.d_state
     return {
         "state": torch.zeros(batch, nheads, hd, s.d_state, dtype=dtype,

@@ -149,6 +149,36 @@ def _adam_leaf(cfg: AdamWConfig, decay: bool, master, m, v, g, k: dict):
     return master - k["lr"] * update, m1, v1
 
 
+MASTER_SLACK = 1.0       # master_gap_bound's factor above the linear term
+
+
+def master_gap_bound(cfg: AdamWConfig, step: int, master: torch.Tensor,
+                     m_ref: torch.Tensor, m_other: torch.Tensor,
+                     v_ref: torch.Tensor, lr: float, *,
+                     rtol: float = 1e-5, atol: float = 1e-6
+                     ) -> torch.Tensor:
+    """How far two AdamW states that start from the same master may differ
+    in their new master, element by element, given their new first
+    moments: ``lr · |Δm̂| / (√v̂ + eps) · (1 + MASTER_SLACK)`` plus ``rtol ·
+    |master| + atol`` for the float32 noise of the rest of the update.
+
+    ``Δm̂`` is the moments' difference, bias-corrected at ``step`` (the
+    step the new state has taken), and ``v̂`` the reference's second
+    moment, bias-corrected.  The update ``m̂ / (√v̂ + eps)`` moves by at most
+    ``|Δm̂| / (√v̂ + eps)`` for a small difference, the second moment's own
+    change pulling the other way; at the first step a difference that
+    flips the sign of a gradient near eps moves it by up to twice that,
+    which the slack covers.  A gradient far below eps (the split's float32
+    reordering of a 1e-9 gradient) is thus held to what its own noise can
+    do, not to a share of ``lr``."""
+    b1c = 1.0 - cfg.b1 ** step
+    b2c = 1.0 - cfg.b2 ** step
+    dm = (m_other.float() - m_ref.float()).abs() / b1c
+    vhat = v_ref.float() / b2c
+    return (lr * (1.0 + MASTER_SLACK) * dm / (vhat.sqrt() + cfg.eps)
+            + rtol * master.float().abs() + atol)
+
+
 def adamw_update(
     cfg: AdamWConfig,
     grads: Params,

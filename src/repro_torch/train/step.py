@@ -40,15 +40,20 @@ Tensor parallelism x ZeRO-1 (a mesh whose model axis is above 1):
 :func:`shard_train_state` returns a :class:`SplitTrainState` -- the model
 split by position (``distributed.tensor_parallel``), each model piece's
 AdamW state split over the data positions of its model index.  Its step
-runs microbatch by microbatch, each data position's model group in turn;
-the replicated leaves' gradients are all-reduced over the model
-positions, the gradients reduce-scattered over the data axis into the
-ZeRO-1 layout (all-reduced over the pods first), each piece updated with
-the norm of all of them, and the new master all-gathered over the data
-axis into every piece (``distributed.collectives``: the bytes a cost
-counter sees).  It agrees with the unsplit step by T2's rule (partial
-products summed in another order), and its checkpoint image is the
-unsplit state's, leaf for leaf.
+runs microbatch by microbatch, each data position's model group in turn
+(where the batch does not split over the data positions, each runs all
+of it); the replicated leaves' gradients, and the segments of a leaf
+every piece holds whole (B's and C's columns of a head-aligned Mamba2
+``in_proj`` and conv), are all-reduced over the model positions -- none
+where the model positions are replicas --, the gradients
+reduce-scattered over the data axis into the ZeRO-1 layout (all-reduced
+over the pods first), each piece updated with the norm of all of them
+(a replicated leaf or segment counted once), and the new master
+all-gathered over the data axis into every piece
+(``distributed.collectives``: the bytes a cost counter sees).  It agrees
+with the unsplit step by T2's rule (partial products summed in another
+order), and its checkpoint image is the unsplit state's, leaf for leaf
+(``tensor_parallel.LeafLayout.join``).
 """
 from __future__ import annotations
 
@@ -63,8 +68,7 @@ from repro_torch.distributed.mesh import (DATA_AXIS, MODEL_AXIS, POD_AXIS,
                                           Mesh, axis_size, data_axes)
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import resolve_rules
-from repro_torch.distributed.tensor_parallel import (model_dim,
-                                                     split_model)
+from repro_torch.distributed.tensor_parallel import split_model
 from repro_torch.launch import cost_analysis as CA
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import (
@@ -223,12 +227,9 @@ class SplitTrainState(NamedTuple):
 
     def _whole(self, k: str, leaves: list) -> torch.Tensor:
         """Leaf ``k`` from one piece a model index, on position (0, 0)'s
-        device (concatenated along its model dimension)."""
+        device (``tensor_parallel.LeafLayout.join``)."""
         dev = self.params.device(0, 0)
-        dim = model_dim(self.params.specs[k])
-        if dim is None:
-            return leaves[0].to(dev)
-        return torch.cat([t.to(dev) for t in leaves], dim=dim)
+        return self.params.layouts[k].join([t.to(dev) for t in leaves])
 
     def tree(self) -> Dict[str, torch.Tensor]:
         """The checkpoint image, in the unsplit state's layout: every leaf
@@ -254,13 +255,12 @@ class SplitTrainState(NamedTuple):
         split = self.params
         for (d, j), piece in split.pieces.items():
             for k, p in piece.named_parameters():
-                p.copy_(_model_pieces(split, k, tree[f"params/{k}"])[j])
+                p.copy_(split.layouts[k].cut(tree[f"params/{k}"])[j])
         for j, opt in enumerate(self.opts):
             opt.step.copy_(tree["opt/step"])
             for part in _OPT_PARTS:
                 for k, t in getattr(opt, part).items():
-                    whole = _model_pieces(split, k,
-                                          tree[f"opt/{part}/{k}"])[j]
+                    whole = split.layouts[k].cut(tree[f"opt/{part}/{k}"])[j]
                     for piece, sl in t.slices(whole):
                         piece.copy_(sl)
         return self
@@ -272,15 +272,6 @@ class SplitTrainState(NamedTuple):
             for part in _OPT_PARTS}) for o in self.opts)
         return SplitTrainState(self.params.clone(), opts,
                                dict(self.zero_dims))
-
-
-def _model_pieces(split, k: str, whole: torch.Tensor) -> list:
-    """``whole`` (leaf ``k`` in the unsplit layout) cut into one piece a
-    model index (the same tensor for each where nothing splits it)."""
-    dim = model_dim(split.specs[k])
-    if dim is None:
-        return [whole] * split.extent
-    return list(whole.chunk(split.extent, dim=dim))
 
 
 def _data_layout(mesh: Mesh) -> Tuple[int, int]:
@@ -318,11 +309,16 @@ def _split_train_state(state: TrainState, mesh: Mesh,
             whole = src[k]
             zd = zdims[k]
             for j in present:
-                local = _model_pieces(split, k, whole)[j]
+                local = split.layouts[k].cut(whole)[j]
                 if zd is None:      # a copy a data position
                     pieces = [(local, split.device(e, j))
                               for e in owners[j]]
                 else:
+                    if local.shape[zd] % n_data:
+                        raise ValueError(
+                            f"{k}: dim {zd} of its model piece "
+                            f"{tuple(local.shape)} does not split over "
+                            f"{n_data} data positions")
                     n = local.shape[zd] // n_data
                     pieces = [(local.narrow(zd, e * n, n), split.device(e, j))
                               for e in owners[j]]
@@ -360,6 +356,19 @@ def _reduce_over_data(split, j: int, k: str, zd: Optional[int],
                                           origin=origin)), zd)
 
 
+def _shared_mask(lay, device) -> Optional[torch.Tensor]:
+    """1 along the layout's model dimension where a piece holds its own
+    part, 0 where it holds a segment every piece holds (B and C of a
+    head-aligned mixer leaf); None where it holds nothing shared."""
+    spans = lay.shared()
+    if lay.dim is None or not spans:
+        return None
+    mask = torch.ones(lay.piece_size(), dtype=torch.float32, device=device)
+    for off, n in spans:
+        mask[off:off + n] = 0.0
+    return mask
+
+
 def _split_train_step(state: SplitTrainState, batch: Mapping[str, Any],
                       cfg: ModelConfig, opt_cfg: AdamWConfig, schedule,
                       n_microbatches: int, in_scan: bool):
@@ -370,18 +379,29 @@ def _split_train_step(state: SplitTrainState, batch: Mapping[str, Any],
     present = split.data_indices()
     b = batch["tokens"].shape[0]
     n_total = n_dp * n_microbatches
-    if b % n_total:
+    # where the batch does not split over the data positions each runs all
+    # of it (the rules replicate it), in n_microbatches parts
+    whole_batch = not split.batch_split(b)
+    rows = b if whole_batch else b // n_dp
+    if rows % n_microbatches:
         raise ValueError(f"batch {b} % (data positions {n_dp} x "
                          f"n_microbatches {n_microbatches}) != 0")
-    per, mb = b // n_dp, b // n_total
+    per, mb = (0 if whole_batch else rows), rows // n_microbatches
+    layouts = split.layouts
     names = [k for k, _ in split.group(present[0])[0][1].named_parameters()]
-    replicated = [k for k in names if m > 1
-                  and model_dim(split.specs[k]) is None]
+    # leaves every model position holds whole, and the leaves of which each
+    # holds a segment whole: their gradients are summed over the model
+    # positions (none where the positions are replicas)
+    replicated = [k for k in names if m > 1 and layouts[k].dim is None]
+    shared = {k: layouts[k].shared() for k in names
+              if layouts[k].dim is not None and layouts[k].shared()}
+    summed = [] if split.replicas else replicated
     zdims = state.zero_dims
 
     def grads_of(d: int, micro) -> Dict[int, Dict[str, torch.Tensor]]:
         """Each model position's float32 gradients on one microbatch, the
-        replicated leaves' summed over the model positions."""
+        replicated leaves' and segments' summed over the model
+        positions."""
         group = split.group(d)
         for _, p in group:
             p.zero_grad(set_to_none=True)
@@ -392,11 +412,20 @@ def _split_train_step(state: SplitTrainState, batch: Mapping[str, Any],
                for j, piece in group}
         for _, p in group:
             p.zero_grad(set_to_none=True)
-        for k in replicated:
-            summed = C.all_reduce([out[j][k] for j, _ in group], extent=m,
-                                  origin=d == 0)
-            for (j, _), g in zip(group, summed):
+        for k in summed:
+            tot = C.all_reduce([out[j][k] for j, _ in group], extent=m,
+                               origin=d == 0)
+            for (j, _), g in zip(group, tot):
                 out[j][k] = g
+        for k, spans in shared.items():
+            dim = layouts[k].dim
+            for off, n in spans:
+                tot = C.all_reduce([out[j][k].narrow(dim, off, n)
+                                    for j, _ in group], extent=m,
+                                   origin=d == 0)
+                for (j, _), g in zip(group, tot):
+                    out[j][k] = out[j][k].clone()
+                    out[j][k].narrow(dim, off, n).copy_(g)
         return out, {k: v.detach() for k, v in metrics.items()}
 
     owners = sorted({j for _, j in split.pieces})
@@ -440,15 +469,35 @@ def _split_train_step(state: SplitTrainState, batch: Mapping[str, Any],
         acc.clear()
     grads = {j: {k: g.map(lambda t: t / t.new_tensor(float(n_total)))
                  for k, g in zacc[j].items()} for j in owners}
-    # the norm over every piece, a replicated leaf once (each position
-    # sums the squares of all its pieces, as each device does)
+    # the norm over every piece, a replicated leaf or segment once (each
+    # position sums the squares of all its pieces, and of their shared
+    # segments, as each device does)
     dev0 = state.opts[0].step.device
-    sq = {(j, k): [torch.sum(torch.square(x)) for x in g.shards]
-          for j in owners for k, g in grads[j].items()}
+
+    def squares(j, k, g):
+        out = []
+        off = 0
+        for x in g.shards:             # each data position's own work
+            whole = torch.sum(torch.square(x))
+            mask = _shared_mask(layouts[k], x.device) if k in shared \
+                else None
+            if mask is None:
+                out.append((whole, whole))
+                continue
+            dim = layouts[k].dim
+            mk = mask if g.dim != dim else mask[off:off + x.shape[dim]]
+            off += x.shape[dim] if g.dim == dim else 0
+            view = [-1 if i == dim else 1 for i in range(x.dim())]
+            out.append((whole, torch.sum(torch.square(x) * mk.view(view))))
+        return out
+
+    sq = {(j, k): squares(j, k, g) for j in owners
+          for k, g in grads[j].items()}
     with CA.paused():           # an all-reduce of the partial sums
         gnorm = torch.sqrt(sum(
-            x.to(dev0) for (j, k), xs in sq.items()
-            for x in (xs if zdims[k] is not None else xs[:1])
+            (whole if j == owners[0] else own).to(dev0)
+            for (j, k), xs in sq.items()
+            for whole, own in (xs if zdims[k] is not None else xs[:1])
             if j == owners[0] or k not in replicated))
     with CA.paused():
         lr_scale = schedule(state.opts[0].step)

@@ -1924,3 +1924,88 @@ def test_split_model_over_every_card():
     got = _tp_serve(split, cfg, prompt, forced)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _ssm_serve(model, cfg, prompt, forced):
+    """A prefill and teacher-forced decode steps: the logits stacked and
+    the SSM state (the unsplit layout), on the CPU; for a split model also
+    whether every shard's B and C conv carry is the same to the bit."""
+    from repro_torch.serve import step as SERVE
+
+    pre = SERVE.make_prefill_step(cfg, prompt.shape[1] + forced.shape[1],
+                                  torch.float32)
+    srv = SERVE.make_serve_step(cfg)
+    logits, cache = pre(model, {"tokens": prompt})
+    out = [logits[:, -1]]
+    for k in range(forced.shape[1]):
+        logits, cache = srv(model, cache, {"tokens": forced[:, k:k + 1]})
+        out.append(logits[:, -1])
+    same = True
+    if getattr(model, "is_split", False):
+        n = cfg.ssm.d_state
+        bc = [cache["pieces"][(0, j)]["ssm"]["conv"][..., -2 * n:]
+              for j in range(model.extent)]
+        same = all(torch.equal(x, bc[0]) for x in bc[1:])
+        cache = model.gather_cache(cache)
+    return torch.stack(out).cpu(), cache["ssm"]["state"].cpu(), same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,m", [("mamba2-130m", 2), ("zamba2-7b", 2),
+                                    ("zamba2-7b", 4)])
+def test_split_ssm_smoke_card_equals_cpu_and_unsplit(arch, m):
+    """TP1: a mamba2 or zamba2 SMOKE config in float32 with the kernels on,
+    split over its SSM heads on (1, m) of cuda:0: logits and the gathered
+    SSM state within 1e-4 of the CPU's split run and of the card's
+    unsplit run, one SIMT SSD launch a layer and shard a prefill, the B/C
+    conv carries bitwise equal on the shards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config(arch).replace(
+        param_dtype="float32", compute_dtype="float32", use_flash_kernel=True)
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (4, 32), generator=g)
+    forced = torch.randint(0, cfg.vocab, (4, 3), generator=g)
+    card = init_params(0, cfg, device="cuda")
+    want = _ssm_serve(card, cfg, prompt.cuda(), forced.cuda())
+    split = TP.split_model(card, _tp_mesh((1, m), "cuda:0"))
+    assert split.ssm_split
+    before = SSD.LAUNCHES_BY_ROUTE["simt"]
+    got = _ssm_serve(split, cfg, prompt.cuda(), forced.cuda())
+    assert SSD.LAUNCHES_BY_ROUTE["simt"] - before == m * cfg.n_layers
+    host = _ssm_serve(TP.split_model(init_params(0, cfg, device="cpu"),
+                                     _tp_mesh((1, m), "cpu")), cfg, prompt,
+                      forced)
+    for a, b, c in zip(got[:2], host[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    assert got[2] and host[2]
+
+
+@pytest.mark.cuda
+def test_split_replicas_are_the_unsplit_program_on_card():
+    """mamba2 SMOKE over a model extent of 3, which divides neither its
+    vocabulary (256) nor its ``inner`` gcd (8): every model position runs
+    the unsplit program, its logits and state bitwise the unsplit
+    run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config("mamba2-130m").replace(
+        param_dtype="float32", compute_dtype="float32", use_flash_kernel=True)
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (4, 32), generator=g).cuda()
+    forced = torch.randint(0, cfg.vocab, (4, 3), generator=g).cuda()
+    card = init_params(0, cfg, device="cuda")
+    split = TP.split_model(card, _tp_mesh((1, 3), "cuda:0"))
+    assert split.replicas
+    want, got = _ssm_serve(card, cfg, prompt, forced), \
+        _ssm_serve(split, cfg, prompt, forced)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -13,7 +13,9 @@
   kernel) and its plain version report equal work, and the SSD wrapper
   reports what ``ssd_chunked`` counts;
 * mesh position 0's numbers (the dry run runs that position alone)
-  against running every position of a (2, 2) abstract mesh at SMOKE:
+  against running every position of a (2, 2) abstract mesh at SMOKE (the
+  dense, moe, ssm and hybrid stacks; zamba2's decode with its K/V along
+  the sequence over the data positions):
   the whole mesh's FLOPs and bytes are four times position 0's, and the
   collective bytes (counted once, for the group of position 0) equal;
 * records: one production cell on meta (``olmo-1b`` ``decode_32k``,
@@ -208,15 +210,18 @@ def test_ssd_wrapper_reports_ssd_chunkeds_work(s, chunk):
 
 
 # ------------------------------------ position 0 against every position
-@pytest.mark.parametrize("arch,kind", [("olmo-1b", "prefill"),
-                                       ("olmo-1b", "decode"),
-                                       ("olmo-1b", "train"),
-                                       ("olmoe-1b-7b", "train"),
-                                       ("deepseek-moe-16b", "prefill")])
-def test_position_zero_equals_every_position(arch, kind):
+@pytest.mark.parametrize("arch,kind,batch", [
+    ("olmo-1b", "prefill", 8), ("olmo-1b", "decode", 8),
+    ("olmo-1b", "train", 8), ("olmoe-1b-7b", "train", 8),
+    ("deepseek-moe-16b", "prefill", 8), ("zamba2-7b", "train", 8),
+    ("zamba2-7b", "decode", 1), ("mamba2-130m", "prefill", 8)])
+def test_position_zero_equals_every_position(arch, kind, batch):
+    """zamba2's decode at batch 1: every data position runs the whole
+    batch and holds half the K/V sequence (a masked write of the new
+    token's K/V on each)."""
     cfg = T_cfg.get_smoke_config(arch)
     mesh = T_mesh.Mesh((2, 2), ("data", "model"))
-    shape = ShapeConfig("small", 16, 8, kind)
+    shape = ShapeConfig("small", 16, batch, kind)
     kw = dict(cfg_override=cfg, mesh=mesh, shape=shape, n_microbatches=2)
     one = D.run_cell(arch, None, **kw)
     every = D.run_cell(arch, None, every_position=True, **kw)
@@ -251,7 +256,7 @@ def test_production_cell_on_meta():
 def test_skipped_and_unsupported_records():
     rec = D.run_cell("olmo-1b", "long_500k", True)
     assert rec["status"] == "skipped" and rec["reason"] == D.SKIP_REASON
-    rec = D.run_cell("mamba2-130m", "train_4k", False)
+    rec = D.run_cell("starcoder2-3b", "train_4k", False)
     assert rec["status"] == "unsupported" and rec["axes"] == ["kv_seq"]
     rec = D.run_cell("whisper-large-v3", "decode_32k", True)
     assert rec["status"] == "unsupported"
