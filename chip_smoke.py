@@ -6,7 +6,7 @@
     python3 chip_smoke.py --hybrid   # build + the hybrid phases (H1-H5)
     python3 chip_smoke.py --encdec   # build + the encdec phases (E1-E5)
     python3 chip_smoke.py --shard    # build + cell sharding and ZeRO-1 (C1-Z2)
-    python3 chip_smoke.py --tp       # build + tensor parallelism (DR1, TP1-TP6)
+    python3 chip_smoke.py --tp       # build + tensor parallelism (DR1, TP1-TP8)
 
 Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
 
@@ -24,7 +24,7 @@ Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
    and 2**32 - 3, seeds >= 2**32 and negative), then a mixed batch of
    4,096 cells with every static flag through both routes -- draws made in
    the kernel and pre-generated draws -- against the plain step fed
-   ``PhiloxDraws.next``, several chunks from step 0 and again from just
+   ``PhiloxDraws.next``, two chunks from step 0 and again from just
    below 2**32 with seeds >= 2**32: every ``_State`` field and the steps
    per warp bitwise equal;
 4. across devices: parity draws (the pre-generated route), kernel on the
@@ -142,7 +142,7 @@ S4. the same parameters and prompt with ``use_flash_kernel=False`` (the
    the FP64 instruction rate, Philox's 32-bit integer operations at the
    INT32 rate; the pre-generated route's bound beside it); run_cells'
    host stages; G3's three sweep batches the same way (run_cells with the
-   kernel against the plain step for SWEEP_VS_PLAIN_MAX_STEPS (512)
+   kernel against the plain step for SWEEP_VS_PLAIN_MAX_STEPS (256)
    steps, every field
    equal; a 256-step chunk on
    both routes beside the plain step's and the bound: bytes against the
@@ -367,7 +367,7 @@ H3. main path: ``repro_torch.serve`` on the full zamba2-7b (81 Mamba2
    decode; the logits against the plain path (``ssd_chunked``,
    ``_attention_core``) by S4's floor rule, the relative RMS limit also
    following the floor's, the decode steps reported alone; float32 on the
-   first 12 layers within 1e-4; the flash kernel's output at each of the
+   first 6 layers within 1e-4; the flash kernel's output at each of the
    prefill's 13 shared-block uses against its plain version on the same
    recorded q, k, v within A1's bf16 tolerance;
 H4. zamba2-7b's numbers beside the card's name and power limit: the
@@ -423,13 +423,13 @@ E4. whisper-large-v3's numbers beside the card's name and power limit:
    decoder's self-attention's by CUDA events in a prefill of their own;
    the prefill beside its operations bound and a decode step beside its
    read bound;
-E5. main path: whisper-large-v3 at full width cut to 16 + 16 layers
-   (800,601,600 parameters, drawn on the card, bf16, remat 'dots',
+E5. main path: whisper-large-v3 at full width cut to 8 + 8 layers
+   (433,497,600 parameters, drawn on the card, bf16, remat 'dots',
    ``_attention_core`` and the plain cross-attention), 5 steps of
    ``make_train_step`` on SyntheticLM tokens 8 x 448 with seeded frames
    (8, 1500, 1280) in 2 microbatches, AdamW 1e-4: finite losses, step
    seconds, decoder tokens/s, frames/s, peak; compress_grads three times
-   on its gradients (421 quantize + 842 dequantize launches a call, |err|
+   on its gradients (213 quantize + 426 dequantize launches a call, |err|
    within EF_SLACK), both quant kernels bitwise their plain versions on
    every leaf and timed at the 66,388,480-element embedding leaf beside
    their plain versions, the bound and ``torch.dequantize``;
@@ -460,7 +460,8 @@ Z2. olmo-1b at full width, D2's configuration (clipping off): the
 DR1. the dry run on the card: a (1, 1) mesh of cuda:0 at A3's prefill and
    D3's train shape, the card's FLOPs equal to the meta count and its
    peak within DR_PEAK_RANGE of the estimate; the production cells
-   gemma2-27b, zamba2-7b and mamba2-130m ``decode_32k`` on meta "ok";
+   gemma2-27b, zamba2-7b, mamba2-130m, starcoder2-3b and
+   whisper-large-v3 ``decode_32k`` on meta "ok";
 TP1. split SMOKE models in float32 with the kernels on (olmo, gemma2,
    olmoe, deepseek, mamba2, zamba2) over (1, 2) and (1, 4) of cuda:0, and
    zamba2 at batch 1 over (2, 2) (its K/V along the sequence over the data
@@ -468,7 +469,13 @@ TP1. split SMOKE models in float32 with the kernels on (olmo, gemma2,
    run and of the card's unsplit run, moe routes and the Mamba2 shards' B
    and C conv carries bitwise equal on the shards; one (2, 2) train step
    of olmo, olmoe, mamba2 and zamba2 by T2's rule with the master held to
-   the bound that follows Adam; remat and a second backward bitwise;
+   the bound that follows Adam; remat and a second backward bitwise.
+   The layouts of rules that split no heads: starcoder2 and qwen2-vl over
+   (1, 4) by a prefill cell's rules (kv_seq: the SIMT kernel with offsets
+   and statistics) and a decode cell's (head_dim), whisper over (1, 2)
+   (its heads) and (1, 8) (kv_seq, head_dim), against the CPU's split run
+   and the card's unsplit run within 1e-4; one (1, 4) step of starcoder2
+   and one (1, 8) step of whisper under kv_seq by the same rule;
 TP2-TP4. olmo-1b served whole at model extents 1, 2 and 4 (exactly 16·m
    ``wgmma`` launches a prefill), olmoe-1b-7b at 2, olmo-1b at 8 layers
    trained over (2, 2);
@@ -477,11 +484,25 @@ TP5. zamba2-7b served whole at model extents 2 and 16 of cuda:0 (7 SSM
    calls and 13·m ``wgmma`` flash launches a prefill, none in decode;
    every shard's SSD and flash call against its plain version; bf16
    logits by S4's floor rule against the unsplit kernel path; float32 at
-   12 layers; prefill s, decode tokens/s (8 steps at 2, 4 at 16), peak;
+   6 layers; prefill s, decode tokens/s (8 steps at 2, 2 at 16), peak;
    the shard shapes timed;
 TP6. mamba2-130m served whole at 2 (12 heads a shard) and 16 (replicas):
    exactly 24·m ``mma`` SSD calls a prefill; bf16 logits by S4's floor
    rule at 2, bitwise the unsplit kernel path's at 16;
+TP7. starcoder2-3b at full width over model extent 4 of cuda:0 (batch 8,
+   prompt 1024, 32 tokens), prefilled by its prefill cell's rules
+   (kv_seq: 4 key parts of 264/264/264/232 prompt keys) and decoded by its
+   decode cell's (head_dim), the cache carried across by ``gather_cache``
+   and ``split_cache``: exactly 120 ``wgmma`` launches a prefill, each
+   with its offset and statistics, none in decode; each call against its
+   plain version on o, m and l by A1's bf16 rule; bf16 logits by S4's
+   floor rule against the unsplit kernel path; float32 at 4 layers;
+TP8. whisper-large-v3 the same over model extent 16 (frames 8 x 1,500 x
+   1,280, prompt 128): exactly 1,440 launches a prefill (encoder 32 x 16
+   parts, decoder self 32 x 13, cross 32 x 16 whole on every position);
+   float32 at 4 + 4 layers.  Then the offset and statistics mode timed at
+   a starcoder2-3b part and a whisper encoder part beside its bound and
+   SDPA under the same mask;
 8. a ``kernels`` JSON line (for each kernel: launches on its path --
    the serving prefills for the tensor-core kernels (the flash kernel's
    by model, the moe, hybrid and encdec models' too; the SSD kernel's by
@@ -499,6 +520,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1693,7 +1715,8 @@ def sweep_bound(p, active: int, fp64_per_step: int,
 # runs 5,376 steps, its plain step on the card ~35 s of them; at 2,048 the
 # heterogeneity and shock comparisons took 14.5 and 13.4 s, so 1,024 (the
 # offload sweep's whole run) makes room for C1-Z2
-SWEEP_VS_PLAIN_MAX_STEPS = 512    # 1,024 until TP1-DR1 needed the time
+SWEEP_VS_PLAIN_MAX_STEPS = 256    # 512 until TP7-TP8, 1,024 until TP1-DR1
+                                  # needed the time
 
 
 def phase_sweeps_vs_plain(sweep_cells: dict) -> dict:
@@ -1991,12 +2014,20 @@ def phase_serve(cfg, model, prompt, n_tokens: int, frames=None) -> dict:
     return dict(tokens=out, wall=wall, mem=mem)
 
 
+# the serving measurements (S3, A3, V3, V6, M2-M3, H4, E4): warm prefills
+# timed (and as many of the plain path's after one warm-up), and decode
+# steps timed (3, 3 and the whole 31 until TP7-TP8 needed the time)
+MEASURE_PREFILLS, MEASURE_DECODE_STEPS = 2, 16
+
+
 def phase_serve_measure(tag: str, cfg, model, prompt, run, n_tokens: int,
                         plain_path: str, frames=None) -> dict:
-    """Prefill seconds and decode tokens/s through the step factories (warm),
-    then the plain path's prefill (``use_flash_kernel=False``: mamba2's
-    ssd_chunked, the dense family's _attention_core) on the same
-    parameters and prompt (and the encdec model's frames)."""
+    """Prefill seconds and decode tokens/s through the step factories (warm:
+    MEASURE_PREFILLS prefills, then MEASURE_DECODE_STEPS greedy steps of a
+    cache sized for ``n_tokens``), then the plain path's prefill
+    (``use_flash_kernel=False``: mamba2's ssd_chunked, the dense family's
+    _attention_core) on the same parameters and prompt (and the encdec
+    model's frames)."""
     import torch
 
     from repro_torch.serve.step import make_prefill_step, make_serve_step
@@ -2007,27 +2038,28 @@ def phase_serve_measure(tag: str, cfg, model, prompt, run, n_tokens: int,
     pre = make_prefill_step(cfg, max_seq=max_seq)
     srv = make_serve_step(cfg)
     times = []
-    for _ in range(3):
+    for _ in range(MEASURE_PREFILLS):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         logits, cache = pre(model, inputs)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
     tok = logits[:, -1].argmax(-1)[:, None]
+    n_dec = min(MEASURE_DECODE_STEPS, n_tokens - 1)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _ in range(n_tokens - 1):
+    for _ in range(n_dec):
         logits, cache = srv(model, cache, {"tokens": tok})
         tok = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
     dec = time.monotonic() - t0
-    tok_s = batch * (n_tokens - 1) / dec
+    tok_s = batch * n_dec / dec
     del cache
     # the plain path's prefill on the same input, warmed once
     plain_pre = make_prefill_step(cfg.replace(use_flash_kernel=False),
                                   max_seq=max_seq)
     plain_times = []
-    for _ in range(4):
+    for _ in range(MEASURE_PREFILLS + 1):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         plain_pre(model, inputs)
@@ -2041,7 +2073,7 @@ def phase_serve_measure(tag: str, cfg, model, prompt, run, n_tokens: int,
     print(f"[{tag}] serve {cfg.name}, batch {batch}, prompt {n_prompt}, "
           f"{n_tokens} greedy tokens: greedy_generate {run['wall']:.3f} s "
           f"(first call), prefill {', '.join(f'{t:.4f}' for t in times)} s "
-          f"(warm), decode {n_tokens - 1} steps in {dec:.3f} s = "
+          f"(warm), decode {n_dec} steps in {dec:.3f} s = "
           f"{tok_s:.1f} tok/s, peak {run['mem'] / 2**30:.2f} GiB; plain "
           f"{plain_path} path prefill "
           f"{', '.join(f'{t:.4f}' for t in plain_times)} s (warm)",
@@ -2385,15 +2417,20 @@ def padded_keys_control(q, k, v, kw, want, tol) -> dict:
     return dict(_gap(ctl, want, tol), padded_keys=pad)
 
 
-def flash_work(bg, r, sq, skv, d, elt_bytes, causal=True):
-    """Bytes the attention must move (q, k, v read once, o written once)
-    and its operations: 4 d per visible (query, key) pair (q k^T and
-    p v), the pairs this mask leaves."""
+def flash_work(bg, r, sq, skv, d, elt_bytes, causal=True, off=None,
+               stats=False):
+    """Bytes the attention must move (q, k, v read once, o written once;
+    with ``stats`` also the rows' float32 m and l) and its operations: 4 d
+    per visible (query, key) pair (q k^T and p v), the pairs this mask
+    leaves (key j visible to row i iff j <= i + off, by default Skv -
+    Sq)."""
+    off = skv - sq if off is None else off
     rows = []
     for i in range(sq):
-        rows.append(min(max(i + skv - sq + 1, 0), skv) if causal else skv)
+        rows.append(min(max(i + off + 1, 0), skv) if causal else skv)
     pairs = bg * r * sum(rows)
-    nbytes = elt_bytes * (2 * bg * r * sq * d + 2 * bg * skv * d)
+    nbytes = elt_bytes * (2 * bg * r * sq * d + 2 * bg * skv * d) \
+        + (2 * 4 * bg * r * sq if stats else 0)
     return nbytes, 4 * d * pairs
 
 
@@ -2672,16 +2709,17 @@ def phase_dense_vs_plain(tag: str, cfg, model, prompt, run,
     return out
 
 
-def _sdpa(q, k, v, scale, causal=True):
+def _sdpa(q, k, v, scale, causal=True, mask=None):
     """One PyTorch call computing the same attention (the library
     yardstick; never used by the port): q (BG, R, S, D) against k, v as
-    (BG, 1, S, D), causal (top-left equals bottom-right at Sq = Skv) or
-    unmasked."""
+    (BG, 1, S, D), causal (top-left equals bottom-right at Sq = Skv),
+    unmasked, or under an explicit boolean (Sq, Skv) ``mask``."""
     import torch.nn.functional as F
 
-    return F.scaled_dot_product_attention(q, k[:, None], v[:, None],
-                                          is_causal=causal, scale=scale,
-                                          enable_gqa=q.shape[1] > 1)
+    return F.scaled_dot_product_attention(
+        q, k[:, None], v[:, None], attn_mask=mask,
+        is_causal=causal and mask is None, scale=scale,
+        enable_gqa=q.shape[1] > 1)
 
 
 def phase_flash_measure() -> dict:
@@ -3053,12 +3091,15 @@ def serve_variant(tag: str, arch: str, f32_layers=None,
     return out
 
 
-def flash_bound(bg, r, sq, skv, d, softcap, causal=True):
+def flash_bound(bg, r, sq, skv, d, softcap, causal=True, off=None,
+                stats=False):
     """Bytes, tensor-core operations and softcap float32 operations of
-    the attention (causal or unmasked), and the least time: the larger of
-    the bytes at the memory rate and the operations at their rates (the
-    tensor-core products and the softcap's float32 work may overlap)."""
-    nbytes, flops = flash_work(bg, r, sq, skv, d, 2, causal)
+    the attention (causal with the diagonal offset ``off``, or unmasked;
+    with ``stats`` the rows' statistics written too), and the least time:
+    the larger of the bytes at the memory rate and the operations at
+    their rates (the tensor-core products and the softcap's float32 work
+    may overlap)."""
+    nbytes, flops = flash_work(bg, r, sq, skv, d, 2, causal, off, stats)
     cap_ops = SOFTCAP_OPS * flops // (4 * d) if softcap is not None else 0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / BF16_TC_OPS_PER_S, cap_ops / FP32_OPS_PER_S) * 1e3
@@ -4538,9 +4579,10 @@ def moe_phases() -> dict:
 # --------------------------------------------------------------------------- #
 
 HYBRID_SEQS = (32, 40)      # H1: one SMOKE chunk, and off the chunk grid
-# H3's float32 check at full width: the first 12 layers (two uses of the
-# shared block), 5.0 GB of float32 weights beside the 13.3 GB bf16 model
-ZAMBA_F32_LAYERS = 12
+# H3's and TP5's float32 check at full width: the first 6 layers (one use
+# of the shared block; 12, two uses, until TP7-TP8 needed the time), 2.8 GB
+# of float32 weights beside the 13.3 GB bf16 model
+ZAMBA_F32_LAYERS = 6
 # H5: zamba2-7b at full width cut to 12 layers (1,255,956,416 parameters,
 # two uses of the shared block; the 81 layers would need ~300 GB at
 # olmo-1b's ~45 bytes a parameter)
@@ -5100,11 +5142,11 @@ WHISPER_PROMPT = 128
 # layers (0.47 GB of float32 weights beside the 3.07 GB bf16 model; 4 + 4,
 # not 8 + 8, to keep the whole script inside its time limit)
 WHISPER_F32_LAYERS = 4
-# E5: full width cut to 16 + 16 layers (800,601,600 parameters): the whole
-# model's training state at ~45 bytes a parameter (D2's olmo-1b measure) would
-# be ~69 GB before activations.  8 x 448 decoder tokens (whisper's context)
-# over 8 x 1,500 frames
-WHISPER_TRAIN_LAYERS, WHISPER_TRAIN_STEPS, WHISPER_TRAIN_SEQ = 16, 5, 448
+# E5: full width cut to 8 + 8 layers (433,497,600 parameters; 16 + 16 until
+# TP7-TP8 needed the time): the whole model's training state at ~45 bytes a
+# parameter (D2's olmo-1b measure) would be ~69 GB before activations.  8 x
+# 448 decoder tokens (whisper's context) over 8 x 1,500 frames
+WHISPER_TRAIN_LAYERS, WHISPER_TRAIN_STEPS, WHISPER_TRAIN_SEQ = 8, 5, 448
 WHISPER_EMBED_LEAF = 51_866 * 1280   # 66,388,480 float32: 129,665 blocks
 
 
@@ -5760,7 +5802,7 @@ def encdec_phases() -> dict:
     plain version and timed (the first two also in A1 in the whole
     script); whisper-large-v3 served whole (the flash counts at 0 just
     before its serving main path and read just after, inside
-    :func:`whisper_serve`); the 16 + 16-layer whisper trained (the
+    :func:`whisper_serve`); the 8 + 8-layer whisper trained (the
     ckpt_quant counts at 0 just before and read just after) and both quant
     kernels timed at its embedding leaf."""
     import torch
@@ -6937,13 +6979,29 @@ TP_TRAIN_STEPS = 3
 TP_LOSS_REL, TP_GNORM_REL = 1e-2, 5e-2   # TP4: bf16 step against unsplit
 TP_MOE_F32_LAYERS = 4    # TP3: olmoe's float32 check (27.7 GB at 16 layers)
 TP_DECODE_STEPS = 8      # TP2/TP3: decode steps timed beside the greedy run
-TP_WIDE_DECODE_STEPS = 4    # TP5 at m = 16 (3-4 s a step, host-bound)
+TP_WIDE_DECODE_STEPS = 2    # TP5 at m = 16 (2-4 s a step, host-bound; 4
+                            # until TP7-TP8 needed the time)
 DR_PEAK_RANGE = (0.8, 1.25)   # DR1: card peak / the dry run's estimate
 TP_ZAMBA_EXTENTS = (2, 16)    # TP5: 56 / 7 SSM heads, 16 / 2 attention heads
 TP_MAMBA_EXTENTS = (2, 16)    # TP6: a split of 12 heads / replicas
 TP_SPLIT_FORCED = 1   # TP5/TP6: teacher-forced decode steps in the logits
 TP_SSD_CHECK_LAYERS = 2   # TP5: layers whose shard SSD calls meet S1's rule
-DR_DECODE_CELLS = ((ZAMBA, "decode_32k"), (ARCH, "decode_32k"))   # DR1
+STARCODER, QWEN = "starcoder2-3b", "qwen2-vl-7b"
+DR_DECODE_CELLS = ((ZAMBA, "decode_32k"), (ARCH, "decode_32k"),   # DR1
+                   (STARCODER, "decode_32k"), ("whisper-large-v3",
+                                               "decode_32k"))
+# TP1's context-parallel, head_dim and encdec splits: (arch, mesh, the
+# cell whose rules the split takes) -- starcoder2's and qwen2-vl's 2 KV
+# heads do not divide 4, whisper's SMOKE 4 heads divide 2 (Megatron), not 8
+TP_ATTN_CASES = ((STARCODER, (1, 4), "prefill"), (STARCODER, (1, 4), "decode"),
+                 (QWEN, (1, 4), "prefill"), (QWEN, (1, 4), "decode"),
+                 ("whisper-large-v3", (1, 2), "prefill"),
+                 ("whisper-large-v3", (1, 8), "prefill"),
+                 ("whisper-large-v3", (1, 8), "decode"))
+TP_ATTN_STEPS = ((STARCODER, (1, 4)), ("whisper-large-v3", (1, 8)))
+TP_WHISPER_SEQ = 28     # TP1: whisper's prompt, 28 + 4 = 32 slots (8 | 32)
+TP7_M, TP7_DECODE_STEPS, TP7_F32_LAYERS = 4, 8, 4   # TP7: starcoder2-3b
+TP8_M, TP8_DECODE_STEPS, TP8_F32_LAYERS = 16, 4, 4  # TP8: whisper-large-v3
 
 
 def _model_mesh(shape, dev: str = "cuda"):
@@ -6953,12 +7011,12 @@ def _model_mesh(shape, dev: str = "cuda"):
     return Mesh(shape, ("data", "model"), [dev] * math.prod(shape))
 
 
-def _tp_serve(model, cfg, prompt, forced, cache_dtype=None):
+def _tp_serve(model, cfg, prompt, forced, cache_dtype=None, frames=None):
     """:func:`_serve_run` of a whole or split model: the logits stacked,
     and the KV cache in the unsplit layout."""
     import torch
 
-    out, cache = _serve_run(model, cfg, prompt, forced, cache_dtype)
+    out, cache = _serve_run(model, cfg, prompt, forced, cache_dtype, frames)
     if getattr(model, "is_split", False):
         if not _carries_equal(model, cache):
             fail(f"{cfg.name}: the shards' B and C conv carries differ")
@@ -6966,10 +7024,17 @@ def _tp_serve(model, cfg, prompt, forced, cache_dtype=None):
     return torch.stack(out), cache
 
 
+def _cache_leaves(c) -> dict:
+    """A cache's leaves by name (K/V, SSM state, conv, cross K/V)."""
+    return {f"{part}/{n}": t for part, v in c.items() if part != "index"
+            for n, t in (v.items() if isinstance(v, dict) else [("", v)])}
+
+
 def _cache_gap(a, b, tol) -> dict:
-    """The worst gap over the caches' leaves (K/V, SSM state, conv)."""
-    return max((_gap(a[part][n], b[part][n], tol)
-                for part in ("kv", "ssm") if part in a for n in a[part]),
+    """The worst gap over the caches' leaves (K/V, SSM state, conv, cross
+    K/V)."""
+    la, lb = _cache_leaves(a), _cache_leaves(b)
+    return max((_gap(t.to(lb[k].device), lb[k], tol) for k, t in la.items()),
                key=lambda g: g["max_ratio"])
 
 
@@ -7017,11 +7082,13 @@ def _split_grads(split, cfg, batch) -> dict:
     return out
 
 
-def tp_step_vs_unsplit(cfg, batch, dev: str = "cuda") -> dict:
-    """One float32 train step over (data 2, model 2) of ``dev`` against the
-    unsplit step with as many microbatches (4), by T2's rule: the loss
-    within STEP_TOL relative, grad_norm likewise, and the whole step's
-    master by :func:`master_rule` (the unsplit gradients as reference)."""
+def tp_step_vs_unsplit(cfg, batch, dev: str = "cuda", shape=(2, 2),
+                       rules=None) -> dict:
+    """One float32 train step over ``shape`` (data, model) of ``dev`` (by
+    ``rules``, default the split's) against the unsplit step with as many
+    microbatches (4), by T2's rule: the loss within STEP_TOL relative,
+    grad_norm likewise, and the whole step's master by
+    :func:`master_rule` (the unsplit gradients as reference)."""
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.schedule import constant
     from repro_torch.train.step import (_to_device, compute_grads,
@@ -7031,7 +7098,7 @@ def tp_step_vs_unsplit(cfg, batch, dev: str = "cuda") -> dict:
     opt = AdamWConfig(lr=1e-3)
     whole = init_train_state(0, cfg, dev)
     split = shard_train_state(init_train_state(0, cfg, dev),
-                              _model_mesh((2, 2), dev))
+                              _model_mesh(shape, dev), rules=rules)
     # the reference gradient is the mean of the 4 microbatches' (a moe
     # gradient of the whole batch differs: its aux loss is the batch's)
     micro = [{k: v[i * 2:(i + 1) * 2] for k, v in
@@ -7043,8 +7110,8 @@ def tp_step_vs_unsplit(cfg, batch, dev: str = "cuda") -> dict:
     g_ref = {k: t / 4 for k, t in g_ref.items()}
     want, wm = make_train_step(cfg, opt, constant(1.0), n_microbatches=4)(
         whole, batch)
-    got, gm = make_train_step(cfg, opt, constant(1.0), n_microbatches=2)(
-        split, batch)
+    got, gm = make_train_step(cfg, opt, constant(1.0),
+                              n_microbatches=4 // shape[0])(split, batch)
     a, b = want.tree(), got.tree()
     layout = all(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
                  for k in a) and a.keys() == b.keys()
@@ -7149,9 +7216,7 @@ def phase_tp_smoke(dev: str = "cuda") -> dict:
                                torch.float32)
         lp, cp = _tp_serve(host, cfg, prompt, forced, torch.float32)
         row = dict(vs_cpu=_gap(lc.cpu(), lp, tol),
-                   cache_vs_cpu=_cache_gap(
-                       {part: {n: t.cpu() for n, t in cc[part].items()}
-                        for part in ("kv", "ssm") if part in cc}, cp, tol),
+                   cache_vs_cpu=_cache_gap(cc, cp, tol),
                    vs_unsplit=_gap(lc, lw, tol),
                    cache_vs_unsplit=_cache_gap(cc, cw, tol))
         ok = all(_ok(g) for g in row.values())
@@ -7182,18 +7247,30 @@ def phase_tp_smoke(dev: str = "cuda") -> dict:
         if not ok:
             bad.append(name)
     del made
+    attn_rows, attn_bad = _tp1_attn_layouts(dev, tol)
+    rows.update(attn_rows)
+    bad += attn_bad
     launches = dict(flash_attention=dict(FA.LAUNCHES_BY_ROUTE),
                     ssd_scan=dict(SSD.LAUNCHES_BY_ROUTE))
     steps = {}
-    for arch in (OLMO, OLMOE, ARCH, ZAMBA):
+    step_cases = [(arch, (2, 2)) for arch in (OLMO, OLMOE, ARCH, ZAMBA)] + \
+        list(TP_ATTN_STEPS)
+    for arch, shape in step_cases:
         cfg = get_smoke_config(arch).replace(param_dtype="float32",
                                              compute_dtype="float32")
         g = torch.Generator().manual_seed(4)
         tok = torch.randint(0, cfg.vocab, (8, TP_SEQ), generator=g)
-        res = tp_step_vs_unsplit(cfg, {"tokens": tok,
-                                       "labels": tok.roll(-1, 1)}, dev)
-        steps[arch] = res
-        print(f"[TP1] {arch} SMOKE train step over (data 2, model 2) vs the "
+        batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+        rules = None
+        if shape != (2, 2):         # the train cell's rules: kv_seq
+            rules = _cell_rules(cfg, shape, "prefill", 8, TP_SEQ, TP_SEQ)
+            if cfg.family == "encdec":
+                batch["frames"] = torch.randn(8, cfg.enc_seq, cfg.d_model,
+                                              generator=g)
+        res = tp_step_vs_unsplit(cfg, batch, dev, shape, rules)
+        steps[f"{arch} {shape}"] = res
+        print(f"[TP1] {arch} SMOKE train step over (data {shape[0]}, model "
+              f"{shape[1]}){'' if rules is None else ' (kv_seq)'} vs the "
               f"unsplit step (4 microbatches): loss {res['loss']:.7f} vs "
               f"{res['loss_unsplit']:.7f} (rel {res['loss_rel_err']:.3g}), "
               f"grad_norm rel {res['grad_norm_rel_err']:.3g} (tol "
@@ -7972,8 +8049,436 @@ def phase_tp_mamba() -> dict:
     return out
 
 
+def _cell_rules(cfg, shape, kind: str, batch: int, prompt: int,
+                max_seq: int):
+    """The rules of a prefill (``q_seq`` the prompt; a train cell's are
+    the same) or a decode cell (``q_seq`` 1) of ``cfg`` at these sizes on
+    a (data, model) mesh of ``shape``."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import resolve_rules
+    from repro_torch.models import model as M
+
+    return resolve_rules(Mesh(shape, ("data", "model")), M.sharding_dims(
+        cfg, batch, kv_seq=max_seq, q_seq=prompt if kind != "decode" else 1))
+
+
+ATTN_LAYOUT = {"prefill": "kv_seq", "decode": "head_dim"}
+
+
+def _tp1_attn_layouts(dev: str, tol: float) -> tuple:
+    """TP1's splits whose rules put no heads on the model axis, and the
+    encdec family's: starcoder2 and qwen2-vl SMOKE over (1, 4) by a
+    prefill cell's rules (``kv_seq``: the SIMT kernel with a diagonal
+    offset and the rows' statistics a part) and a decode cell's
+    (``head_dim``), whisper SMOKE over (1, 2) (its heads) and (1, 8)
+    (``kv_seq``, ``head_dim``), float32 with the knob on: prefill and
+    TP_FORCED teacher-forced steps, logits and gathered caches (the cross
+    K/V too) within ``tol`` of the CPU's split run and of the card's
+    unsplit run.  Returns (rows, the names that failed)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+
+    rows, bad, made = {}, [], {}
+    for arch, shape, kind in TP_ATTN_CASES:
+        cfg = get_smoke_config(arch).replace(
+            param_dtype="float32", compute_dtype="float32",
+            use_flash_kernel=True)
+        seq = TP_WHISPER_SEQ if cfg.family == "encdec" else TP_SEQ
+        if arch not in made:
+            here, cpu = init_params(0, cfg, device=dev), \
+                init_params(0, cfg, device="cpu")
+            g = torch.Generator().manual_seed(3)
+            prompt = torch.randint(0, cfg.vocab, (4, seq), generator=g)
+            forced = torch.randint(0, cfg.vocab, (4, TP_FORCED), generator=g)
+            frames = torch.randn(4, cfg.enc_seq, cfg.d_model, generator=g) \
+                if cfg.family == "encdec" else None
+            fr = None if frames is None else frames.to(dev)
+            lw, cw = _tp_serve(here, cfg, prompt.to(dev), forced.to(dev),
+                               torch.float32, fr)
+            made[arch] = (here, cpu, prompt, forced, frames, fr, lw, cw)
+        here, cpu, prompt, forced, frames, fr, lw, cw = made[arch]
+        rules = _cell_rules(cfg, shape, kind, 4, seq, seq + TP_FORCED)
+        card = TP.split_model(here, _model_mesh(shape, dev), rules)
+        host = TP.split_model(cpu, _model_mesh(shape, "cpu"), rules)
+        want = "heads" if cfg.attention.n_heads % shape[1] == 0 and \
+            cfg.attention.n_kv_heads % shape[1] == 0 else ATTN_LAYOUT[kind]
+        modes = dict(FA.LAUNCHES_BY_MODE)
+        lc, cc = _tp_serve(card, cfg, prompt.to(dev), forced.to(dev),
+                           torch.float32, fr)
+        by_mode = {k: FA.LAUNCHES_BY_MODE[k] - n for k, n in modes.items()}
+        lp, cp = _tp_serve(host, cfg, prompt, forced, torch.float32, frames)
+        row = dict(layout=card.attn_layout, launches_by_mode=by_mode,
+                   vs_cpu=_gap(lc.cpu(), lp, tol),
+                   cache_vs_cpu=_cache_gap(cc, cp, tol),
+                   vs_unsplit=_gap(lc, lw, tol),
+                   cache_vs_unsplit=_cache_gap(cc, cw, tol))
+        # kv_seq: every part of the prefill through the kernel with its
+        # statistics; head_dim: the plain path, no launch with statistics
+        parts_ok = (by_mode["stats"] > 0) == (want == "kv_seq")
+        row["ok"] = all(_ok(row[k]) for k in (
+            "vs_cpu", "cache_vs_cpu", "vs_unsplit", "cache_vs_unsplit")) \
+            and card.attn_layout == want and parts_ok
+        name = f"{arch} {shape} {kind} rules"
+        rows[name] = row
+        print(f"[TP1] {name} ({card.attn_layout}) SMOKE float32 split: "
+              f"logits vs the CPU's split run {row['vs_cpu']['max_abs']:.3g}, "
+              f"vs the unsplit run {row['vs_unsplit']['max_abs']:.3g}; caches "
+              f"{row['cache_vs_cpu']['max_abs']:.3g} / "
+              f"{row['cache_vs_unsplit']['max_abs']:.3g} (tol {tol}); flash "
+              f"launches by mode {by_mode}", flush=True)
+        if not row["ok"]:
+            bad.append(name)
+        del card, host
+    return rows, bad
+
+
+def _carry(pre, dec, cache):
+    """A serving cache from the prefill cell's split to the decode cell's:
+    gathered into the unsplit layout, then cut by the decode split (the
+    controller's work)."""
+    return dec.split_cache(pre.gather_cache(cache))
+
+
+def _two_rule_splits(cfg, model, m: int, batch: int, prompt: int,
+                     max_seq: int) -> tuple:
+    """``model`` split over (1, m) of cuda:0 by its prefill cell's rules
+    and by its decode cell's."""
+    from repro_torch.distributed import tensor_parallel as TP
+
+    return tuple(TP.split_model(model, _model_mesh((1, m)), _cell_rules(
+        cfg, (1, m), kind, batch, prompt, max_seq))
+        for kind in ("prefill", "decode"))
+
+
+def _two_rule_logits(cfg, pre, dec, prompt, forced, max_seq: int,
+                     cache_dtype=None, frames=None, record: bool = False):
+    """Prefill under ``pre`` into a cache of ``max_seq`` slots (the
+    rules' sequence), the cache carried to ``dec``, the forced
+    decode steps there: the logits stacked, and with ``record`` each flash
+    call of the prefill against its plain version on its own q, k, v by
+    A1's bf16 rule -- on o and, for a key part, on the statistics m and l."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    tol, calls, launch = FLASH_TOL["bfloat16"], [], FA.flash_attention
+
+    def recorded(q, k, v, **kw):
+        got = launch(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        pairs = zip(("o", "m", "l"), got, want) if kw.get("stats") else \
+            [("o", got, want)]
+        gaps = {n: _gap(a, b, tol) for n, a, b in pairs}
+        calls.append(dict(shape=tuple(q.shape), skv=k.shape[1],
+                          off=kw.get("off"), **gaps,
+                          ok=all(_flash_ok(g, torch.bfloat16)
+                                 for g in gaps.values())))
+        return got
+
+    pre_step = make_prefill_step(cfg, max_seq=max_seq,
+                                 cache_dtype=cache_dtype or torch.bfloat16)
+    srv = make_serve_step(cfg)
+    with mock.patch.object(FA, "flash_attention", recorded) if record \
+            else contextlib.nullcontext():
+        logits, cache = pre_step(pre, _prompt_batch(prompt, frames))
+    out = [logits[:, -1]]
+    cache = _carry(pre, dec, cache)
+    for k in range(forced.shape[1]):
+        logits, cache = srv(dec, cache, {"tokens": forced[:, k:k + 1]})
+        out.append(logits[:, -1])
+    return torch.stack(out), calls
+
+
+def _two_rule_serve_counted(cfg, pre, dec, prompt, max_seq: int,
+                            n_decode: int, frames=None) -> dict:
+    """The serving main path across two rule sets, the flash counts at 0
+    just before and read just after: one prefill under the prefill cell's
+    split (cold), the cache carried to the decode cell's split, then
+    ``n_decode`` greedy decode steps timed there; the prefill's launches
+    (by route and by mode) and the decode's apart; a warm prefill timed;
+    the peak."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    pre_step = make_prefill_step(cfg, max_seq=max_seq)
+    srv = make_serve_step(cfg)
+    batch = _prompt_batch(prompt, frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.LAUNCHES = 0            # this two-rule serving path starts here
+    _zero(FA.LAUNCHES_BY_ROUTE)
+    _zero(FA.LAUNCHES_BY_MODE)
+    t0 = time.monotonic()
+    logits, cache = pre_step(pre, batch)
+    torch.cuda.synchronize()
+    cold = time.monotonic() - t0
+    prefill = dict(route=dict(FA.LAUNCHES_BY_ROUTE),
+                   mode=dict(FA.LAUNCHES_BY_MODE), total=FA.LAUNCHES)
+    t0 = time.monotonic()
+    cache = _carry(pre, dec, cache)
+    torch.cuda.synchronize()
+    carry = time.monotonic() - t0
+    tok = logits[:, -1].argmax(-1)[:, None]
+    t0 = time.monotonic()
+    for _ in range(n_decode):
+        logits, cache = srv(dec, cache, {"tokens": tok})
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    dec_s = time.monotonic() - t0
+    decode = dict(route=dict(FA.LAUNCHES_BY_ROUTE),   # ... and ends here
+                  mode=dict(FA.LAUNCHES_BY_MODE), total=FA.LAUNCHES)
+    decode = {k: ({r: v - prefill[k][r] for r, v in decode[k].items()}
+                  if isinstance(v, dict) else decode[k] - prefill[k])
+              for k, v in decode.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(((tok >= 0) & (tok < cfg.vocab)).all()):
+        fail(f"{cfg.name}: a greedy token out of range")
+    del cache, logits
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = pre_step(pre, batch)
+    torch.cuda.synchronize()
+    warm = time.monotonic() - t0
+    del out
+    return dict(prefill_launches=prefill, decode_launches=decode,
+                prefill_s=[cold, warm], carry_s=carry,
+                decode_tok_s=prompt.shape[0] * n_decode / dec_s,
+                decode_step_s=dec_s / n_decode, decode_steps=n_decode,
+                peak_bytes=peak)
+
+
+def _f32_cut(cfg, model, enc_layers=None, layers=None):
+    """The first ``layers`` (and ``enc_layers``) layers of ``model`` in
+    float32: its bf16 weights cast on the card."""
+    from repro_torch.models import model as M
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                        n_layers=layers, **({} if enc_layers is None else
+                                            {"n_enc_layers": enc_layers}))
+    model32 = M.model_class(cfg32)(cfg32)
+    kept = {n for n, _ in model32.named_parameters()}
+    model32.load_state_dict({n: t.float() for n, t in
+                             model.named_parameters() if n in kept},
+                            assign=True)
+    return cfg32, model32
+
+
+def _tp_two_rules(tag: str, arch: str, m: int, prompt_len: int,
+                  n_tokens: int, n_decode: int, f32_layers: int,
+                  want_launches: int, want_modes: dict) -> dict:
+    """TP7 / TP8: ``arch`` at full width served over (1, m) of cuda:0
+    across its two rule sets (prefill: ``kv_seq``; decode:
+    ``head_dim``): the main path's launches (exactly ``want_launches``
+    ``wgmma`` and ``want_modes`` a prefill, none in decode); each flash
+    call of the prefill against its plain version by A1's bf16 rule on o
+    and the statistics; bf16 logits (prefill + TP_SPLIT_FORCED forced
+    steps) by S4's floor rule against the unsplit kernel path (the floor:
+    the unsplit kernel path against the plain path); float32 at
+    ``f32_layers`` layers (and as many encoder layers) within
+    OLMO_F32_TOL; prefill s, decode tokens/s, peak."""
+    import torch
+
+    from repro_torch.launch.serve import audio_frames
+
+    _require_free_card(tag)
+    cfg, model, prompt = dense_setup(tag, arch, prompt_len)
+    frames = audio_frames(cfg, prompt.shape[0]).cuda() \
+        if cfg.family == "encdec" else None
+    max_seq = prompt_len + n_tokens
+    g = torch.Generator().manual_seed(2)
+    forced = torch.randint(0, cfg.vocab, (OLMO_BATCH, TP_SPLIT_FORCED),
+                           generator=g).cuda()
+    whole, _ = _tp_serve(model, cfg, prompt, forced, frames=frames)
+    plain, _ = _tp_serve(model, cfg.replace(use_flash_kernel=False), prompt,
+                         forced, frames=frames)
+    floor = _gap(whole, plain, LOGIT_TOL)
+    del plain
+    pre, dec = _two_rule_splits(cfg, model, m, OLMO_BATCH, prompt_len,
+                                max_seq)
+    layouts = (pre.attn_layout, dec.attn_layout)
+    run = _two_rule_serve_counted(cfg, pre, dec, prompt, max_seq, n_decode,
+                                  frames)
+    want = dict(route={"wgmma": want_launches, "simt": 0},
+                mode=want_modes, total=want_launches)
+    nothing = dict(route={"wgmma": 0, "simt": 0},
+                   mode={"offset": 0, "stats": 0}, total=0)
+    bad = []
+    if layouts != ("kv_seq", "head_dim"):
+        bad.append(f"layouts {layouts}")
+    if run["prefill_launches"] != want or run["decode_launches"] != nothing:
+        bad.append(f"launches {run['prefill_launches']} / decode "
+                   f"{run['decode_launches']}, expected {want} a prefill")
+    logits, calls = _two_rule_logits(cfg, pre, dec, prompt, forced, max_seq,
+                                     frames=frames, record=True)
+    worst = {n: max((c for c in calls if n in c),
+                    key=lambda c: c[n]["max_ratio"]) for n in ("o", "m", "l")}
+    n_calls = len(calls)
+    calls_ok = n_calls == want_launches and all(c["ok"] for c in calls)
+    bf16 = _floor_rule(logits, whole, floor, moe=False)
+    if not (calls_ok and bf16["ok"]):
+        bad.append(f"calls worst {worst}, logits {bf16}")
+    del pre, dec, logits, calls
+    torch.cuda.empty_cache()
+    # float32 at f32_layers layers: the bf16 weights cast on the card,
+    # float32 caches (the SIMT kernel takes the parts)
+    cfg32, model32 = _f32_cut(
+        cfg, model, f32_layers if cfg.family == "encdec" else None,
+        f32_layers)
+    del model, whole
+    torch.cuda.empty_cache()
+    w32, _ = _tp_serve(model32, cfg32, prompt, forced, torch.float32, frames)
+    p32, d32 = _two_rule_splits(cfg32, model32, m, OLMO_BATCH, prompt_len,
+                                max_seq)
+    l32, _ = _two_rule_logits(cfg32, p32, d32, prompt, forced, max_seq,
+                              torch.float32, frames)
+    f32 = _gap(l32, w32, OLMO_F32_TOL)
+    if not _ok(f32):
+        bad.append(f"float32 {f32}")
+    del model32, p32, d32, frames
+    torch.cuda.empty_cache()
+    out = dict(run, layouts=layouts, calls=n_calls,
+               call_worst={n: {k: w[k] for k in ("shape", "skv", "off")}
+                           | {k: w[n][k] for k in ("max_abs", "max_ratio",
+                                                   "rel_rms")}
+                           for n, w in worst.items()},
+               bf16=bf16, floor=floor, f32=f32, f32_layers=f32_layers)
+    wo = out["call_worst"]
+    print(f"[{tag}] {arch} over (1, {m}) of cuda:0, prefill by {layouts[0]}, "
+          f"decode by {layouts[1]}: {_launch_line(run)}; cache carried in "
+          f"{run['carry_s']:.4f} s; {want_launches} prefill calls vs plain: "
+          f"worst o {wo['o']['max_ratio']:.3f} x, m "
+          f"{wo['m']['max_ratio']:.3f} x, l {wo['l']['max_ratio']:.3f} x "
+          f"(2e-2 + 2e-2|b|), o's rel RMS {wo['o']['rel_rms']:.3g}; bf16 "
+          f"logits vs the unsplit kernel path: max {bf16['max_ratio']:.3f} x "
+          f"(limit {bf16['limit_ratio']:.3f}), rel RMS "
+          f"{bf16['rel_rms']:.4g}; floor (unsplit kernel vs plain) "
+          f"{floor['max_ratio']:.3f} x, rel RMS {floor['rel_rms']:.4g}; "
+          f"float32 at {f32_layers} layers: max |d| {f32['max_abs']:.3g} = "
+          f"{f32['max_ratio']:.4f} x ({OLMO_F32_TOL} + {OLMO_F32_TOL}|b|)",
+          flush=True)
+    if bad:
+        fail(f"{tag}: {bad}")
+    return out
+
+
+def phase_tp_starcoder2() -> dict:
+    """TP7: starcoder2-3b at full width over model extent 4 of cuda:0,
+    batch 8, prompt 1024, 32 tokens (max_seq 1,056), decode timed over 8
+    steps.  The prefill cell's rules give ``kv_seq`` (T = 264 slots a
+    part; the 4 parts hold 264/264/264/232 prompt keys), the decode
+    cell's ``head_dim`` (32 channels a shard): exactly 30 x 4 = 120
+    ``wgmma`` launches a prefill, each with its diagonal offset and its
+    statistics, none in decode (:func:`_tp_two_rules`)."""
+    from repro_torch.configs import get_config
+
+    n = get_config(STARCODER).n_layers * TP7_M
+    out = _tp_two_rules("TP7", STARCODER, TP7_M, OLMO_PROMPT, OLMO_TOKENS,
+                        TP7_DECODE_STEPS, TP7_F32_LAYERS, n,
+                        {"offset": n, "stats": n})
+    REPORT["tp_starcoder2"] = out
+    return out
+
+
+def phase_tp_whisper() -> dict:
+    """TP8: whisper-large-v3 at full width over model extent 16 of cuda:0,
+    frames 8 x 1,500 x 1,280, prompt 128, 32 tokens (max_seq 160), decode
+    timed over 4 steps.  The prefill cell's rules give ``mlp`` and
+    ``kv_seq``: the encoder's 1,500 frames in 12 parts of 94 and 4 of 93
+    (unmasked, statistics), the decoder's self-attention in parts of 10
+    slots of which 13 hold prompt keys (offset and statistics), the
+    cross-attention whole on every position; the decode cell's
+    ``head_dim`` (4 channels a shard).  Launches a prefill: 32 x 16 + 32 x
+    13 + 32 x 16 = 1,440 ``wgmma``, 928 with statistics and 416 with an
+    offset; none in decode (:func:`_tp_two_rules`)."""
+    import math as _m
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-large-v3")
+    max_seq = WHISPER_PROMPT + OLMO_TOKENS
+    T = max_seq // TP8_M
+    held = _m.ceil(WHISPER_PROMPT / T)                 # parts holding keys
+    enc, self_, cross = (cfg.n_enc_layers * TP8_M, cfg.n_layers * held,
+                         cfg.n_layers * TP8_M)
+    print(f"[TP8] expected flash launches a prefill: encoder {enc} "
+          f"({cfg.n_enc_layers} x {TP8_M} parts), decoder self {self_} "
+          f"({cfg.n_layers} x {held} parts of {T} slots holding prompt "
+          f"keys), cross {cross} (whole on every position) = "
+          f"{enc + self_ + cross}", flush=True)
+    out = _tp_two_rules("TP8", "whisper-large-v3", TP8_M, WHISPER_PROMPT,
+                        OLMO_TOKENS, TP8_DECODE_STEPS, TP8_F32_LAYERS,
+                        enc + self_ + cross,
+                        {"offset": self_, "stats": enc + self_})
+    REPORT["tp_whisper"] = out
+    return out
+
+
+def phase_part_times() -> dict:
+    """The flash kernel's offset and statistics mode at two part shapes
+    of TP7 and TP8, bf16, by CUDA events: a starcoder2-3b part (16, 12,
+    1024, 264, 128), causal with ``off = -264 j`` for j = 0 ... 3, and a
+    whisper-large-v3 encoder part (160, 1, 1500, 94, 64), unmasked; the
+    kernel with its statistics, its plain version and SDPA under the same
+    explicit mask, beside the bound (the bytes of q, k, v, o, m and l;
+    the operations of the pairs the mask leaves)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    rows, bad = {}, []
+    for name, (bg, r, sq, skv, d), causal, offs in (
+            (f"{STARCODER} part", (16, 12, 1024, 264, 128), True,
+             (0, -264, -528, -792)),
+            ("whisper-large-v3 encoder part", (160, 1, 1500, 94, 64), False,
+             (None,))):
+        q, k, v = flash_inputs(bg, r, sq, skv, d, torch.bfloat16, 700)
+        scale = d ** -0.5
+        for off in offs:
+            kw = dict(scale=scale, causal=causal, off=off, stats=True)
+            got = FA.flash_attention(q, k, v, **kw)
+            want = FA.flash_attention_plain(q, k, v, **kw)
+            gaps = {n: _gap(a, b, FLASH_TOL["bfloat16"])
+                    for n, a, b in zip(("o", "m", "l"), got, want)}
+            ms = min(cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 20)
+                     for _ in range(2))
+            plain_ms = cuda_ms(lambda: FA.flash_attention_plain(q, k, v,
+                                                                **kw), 3)
+            mask = FA._visible(sq, skv, q.device, off) if causal else None
+            lib_ms = cuda_ms(lambda: _sdpa(q, k, v, scale, False, mask), 20)
+            b = flash_bound(bg, r, sq, skv, d, None, causal, off, True)
+            key = name if off is None else f"{name}, off {off}"
+            rows[key] = dict(
+                shape=(bg, r, sq, skv, d), causal=causal, off=off, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                max_abs_err=max(g["max_abs"] for g in gaps.values()),
+                ok=all(_flash_ok(g, torch.bfloat16) for g in gaps.values()))
+            print(f"[TP7-TP8] flash kernel, offset and statistics mode, "
+                  f"{key} {(bg, r, sq, skv, d)} bf16: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f}, SDPA (same mask) {lib_ms:.4f}, "
+                  f"bound {b['bound_ms']:.4f} ({b['bound_by']}); vs plain: "
+                  f"o {gaps['o']['max_ratio']:.3f} x, m "
+                  f"{gaps['m']['max_ratio']:.3f} x, l "
+                  f"{gaps['l']['max_ratio']:.3f} x", flush=True)
+            if not rows[key]["ok"]:
+                bad.append(key)
+        del q, k, v
+    torch.cuda.empty_cache()
+    REPORT["flash_part_times"] = rows
+    if bad:
+        fail(f"TP7-TP8 part shapes: {bad}")
+    return rows
+
+
 def tp_phases() -> dict:
-    """DR1 and TP1-TP6, their seconds lapped."""
+    """DR1 and TP1-TP8, their seconds lapped."""
     out = dict(dryrun=phase_dryrun_on_card())
     _lap("DR1")
     out["smoke"] = phase_tp_smoke()
@@ -7988,6 +8493,12 @@ def tp_phases() -> dict:
     _lap("TP5")
     out["mamba"] = phase_tp_mamba()
     _lap("TP6")
+    out["starcoder2"] = phase_tp_starcoder2()
+    _lap("TP7")
+    out["whisper"] = phase_tp_whisper()
+    _lap("TP8")
+    out["parts"] = phase_part_times()
+    _lap("TP7-TP8 part shapes")
     return out
 
 
@@ -8036,7 +8547,9 @@ def main() -> int:
             "tp5_launches": {m: r["prefill_launches"]
                              for m, r in tp["zamba"]["rows"].items()},
             "tp6_launches": {m: r["prefill_launches"]
-                             for m, r in tp["mamba"]["rows"].items()}}))
+                             for m, r in tp["mamba"]["rows"].items()},
+            "tp7_launches": tp["starcoder2"]["prefill_launches"],
+            "tp8_launches": tp["whisper"]["prefill_launches"]}))
         return 0
     if "--shard" in sys.argv[1:]:
         shard = shard_phases()
@@ -8045,7 +8558,8 @@ def main() -> int:
             n: r["launches"] for n, r in shard["cells"]["fleet"].items()}}))
         return 0
 
-    worst = phase_kernel_vs_plain(256 if quick else 4096, 2 if quick else 4,
+    # 2 chunks of 128 steps from each start (4 until TP7-TP8 needed the time)
+    worst = phase_kernel_vs_plain(256 if quick else 4096, 2,
                                   64 if quick else 128)
     phase_across_devices()
     phase_perpeer_across_devices()
@@ -8304,7 +8818,15 @@ def main() -> int:
             tp["olmoe"]["launches_by_route"]["wgmma"],
         **{f"zamba2-7b split over (1, {m}) (TP5)":
            r["prefill_launches"]["flash_attention"]["wgmma"]
-           for m, r in tp["zamba"]["rows"].items()}}
+           for m, r in tp["zamba"]["rows"].items()},
+        f"starcoder2-3b over (1, {TP7_M}), kv_seq (TP7)":
+            tp["starcoder2"]["prefill_launches"]["route"]["wgmma"],
+        f"whisper-large-v3 over (1, {TP8_M}), kv_seq (TP8)":
+            tp["whisper"]["prefill_launches"]["route"]["wgmma"]}
+    tc_by_mode = {f"{name} ({tag})": tp[key]["prefill_launches"]["mode"]
+                  for name, tag, key in (("starcoder2-3b", "TP7", "starcoder2"),
+                                         ("whisper-large-v3", "TP8",
+                                          "whisper"))}
     simt_by_path = {"olmo SMOKE float32 (A2)": a2["launches_by_route"]["simt"],
                     "variants' SMOKE float32 (V2)":
                         v2["launches_by_route"]["simt"],
@@ -8466,7 +8988,8 @@ def main() -> int:
                 moe["train_launches"][f"{name}_blocks"],
             "zamba2-7b 12-layer training (H5)":
                 hybrid["train_launches"][f"{name}_blocks"],
-            "whisper-large-v3 16 + 16-layer training (E5)":
+            f"whisper-large-v3 {WHISPER_TRAIN_LAYERS} + "
+            f"{WHISPER_TRAIN_LAYERS}-layer training (E5)":
                 encdec["train_launches"][f"{name}_blocks"]},
         "launches_per_compress_grads": {
             "mamba2-130m": train_run["compress_launches"][0][f"{name}_blocks"],
@@ -8475,7 +8998,8 @@ def main() -> int:
                 f"{name}_blocks"],
             "zamba2-7b, 12 layers": hybrid["train"]["compress_launches"][0][
                 f"{name}_blocks"],
-            "whisper-large-v3, 16 + 16 layers": encdec["train"][
+            f"whisper-large-v3, {WHISPER_TRAIN_LAYERS} + "
+            f"{WHISPER_TRAIN_LAYERS} layers": encdec["train"][
                 "compress_launches"][0][f"{name}_blocks"]},
         "max_abs_err": max(quant_worst, dense_quant_worst,
                            moe["quant_vs_plain"]["max_abs_err"],
@@ -8513,9 +9037,18 @@ def main() -> int:
                 "causal decoder and 32 unmasked cross-attention calls); "
                 "olmo-1b split over model extents 2 and 4 (TP2: one call a "
                 "layer and shard), olmoe-1b-7b over 2 (TP3) and zamba2-7b "
-                "over 2 and 16 (TP5: one call a shared use and shard)",
+                "over 2 and 16 (TP5: one call a shared use and shard); "
+                "starcoder2-3b over 4 (TP7) and whisper-large-v3 over 16 "
+                "(TP8) by their prefill cells' kv_seq rules: one call a "
+                "layer and key part, with its diagonal offset and its "
+                "rows' statistics",
         "launches": sum(tc_by_path.values()),
         "launches_by_path": tc_by_path,
+        "launches_by_mode": tc_by_mode,
+        "part_shapes": {k: {n: r[n] for n in (
+            "shape", "causal", "off", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")}
+            for k, r in tp["parts"].items()},
         "max_abs_err": max(worst_of(flash_rows, "wgmma", (None,)),
                            max(g["max_abs"] for g in v1.values()),
                            max(r["max_abs_err"]
@@ -8546,7 +9079,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
         "path": "dense, moe, hybrid and encdec serving in float32 (A2, V2, "
-                "M1, H1, E1, TP1: SMOKE prefills)",
+                "M1, H1, E1, TP1: SMOKE prefills; TP1's kv_seq splits with "
+                "offsets and statistics)",
         "launches": sum(simt_by_path.values()),
         "launches_by_path": simt_by_path,
         "max_abs_err": worst_of(flash_rows, "simt", (None,)),

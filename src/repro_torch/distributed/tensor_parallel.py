@@ -1,5 +1,5 @@
 """Tensor and expert parallelism over a mesh's model axis (the Megatron
-layout), for the dense, moe, ssm and hybrid families.
+layout, context parallelism and the head_dim split), for every family.
 
 The reference partitions its programs with GSPMD at the logical-axis
 constraints of its model code.  The port has no partitioner: a split
@@ -11,7 +11,18 @@ with the collectives of ``distributed/collectives.py``:
 * attention: ``wq``/``wk``/``wv`` column-parallel over ``heads`` and
   ``kv_heads`` (each shard runs the attention of its own heads, through
   the flash kernel where the unsplit model would), ``wo`` row-parallel,
-  an all-reduce after it; the KV cache split along ``kv_heads``;
+  an all-reduce after it; the KV cache split along ``kv_heads``.  Where
+  the heads do not divide the axis the rules put ``kv_seq`` there for a
+  call of several queries (context parallelism: each position computes
+  every query and its part of the keys, the parts' softmax statistics
+  combined; the KV cache along the sequence in parts of ``max_seq / m``)
+  and ``head_dim`` for a decode step (each shard's channels of every
+  head, the partial scores and ``wo``'s partial outputs all-reduced; the
+  KV cache along ``head_dim``): ``models/parallel_attention.py``;
+* the encdec family: the encoder's blocks and the decoder's
+  self-attention as the dense family's, the cross-attention by the same
+  layout (its K/V cache along ``kv_heads`` or ``head_dim``, whole under
+  ``kv_seq``), the frames whole on every position;
 * the MLP: ``w_up``/``w_gate`` column-parallel over ``mlp``, ``w_down``
   row-parallel, an all-reduce after it;
 * the moe block: the experts split over ``experts``, the router
@@ -38,12 +49,15 @@ model position is a replica running the unsplit program on its rows.
 Where the batch does not split over the data positions (a batch of 1),
 every data position runs all of it; the hybrid family's KV cache may then
 lie along the sequence over the data positions (``kv_seq`` on ``data``),
-decode's attention combining their partial softmaxes.  A layout whose
-axis a tensor of the cell carries and this module does not split --
-``kv_seq`` on the model axis (context parallelism), ``head_dim``
-(decode's fallback), ``kv_seq`` on the data axis outside the hybrid
-family, and every axis of the encdec family -- is refused
-(:func:`unsupported_axes`), never run unsplit.
+decode's attention combining their partial softmaxes.  The one layout
+whose axis a tensor of the cell carries and this module does not split --
+``kv_seq`` on the data axis outside the hybrid family -- is refused
+(:func:`unsupported_axes`), never run unsplit.  The rules a split model
+is laid out by are the caller's: ``split_model(model, mesh, rules)``;
+by default :func:`split_rules`, which see no sequence and so choose
+``head_dim`` where the heads do not divide.  A server whose prefill
+and decode cells resolve different rules carries its cache across by
+:meth:`SplitLM.gather_cache` and :meth:`SplitLM.split_cache`.
 
 Pieces are keyed by mesh position ``(d, j)``: ``d`` the flat index over the
 data axes (pod, data), ``j`` the model index; never by device, so a mesh
@@ -70,15 +84,14 @@ from repro_torch.distributed.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
                                           axis_size, data_axes)
 from repro_torch.distributed.sharding import (ShardingRules, Spec,
                                               resolve_rules)
+from repro_torch.launch import cost_analysis as CA
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import parallel_attention as PA
 from repro_torch.models import ssm as SSM
 
-# the logical axes this module splits over the model axis, and those it
-# does not split yet (ROADMAP Queue 1 item 10b)
-SPLIT_AXES = ("heads", "kv_heads", "mlp", "experts", "vocab", "inner")
-NOT_SPLIT_YET = ("kv_seq", "head_dim")
-SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the families whose KV cache may lie along the sequence over the data axis
+# (elsewhere refused: ROADMAP Queue 1, what stays refused)
 KV_SEQ_ON_DATA_FAMILIES = ("hybrid",)
 
 Position = Tuple[int, int]
@@ -113,19 +126,14 @@ def carried_axes(cfg: ModelConfig) -> set:
 
 def unsupported_axes(cfg: ModelConfig, rules: ShardingRules) -> List[str]:
     """The logical axes of a layout the port does not split, where a
-    tensor of the cell carries them (:func:`carried_axes`): ``kv_seq`` and
-    ``head_dim`` on the model axis, ``kv_seq`` on the data axis outside
-    the hybrid family, and for the encdec family every axis on the model
-    axis."""
-    carried = carried_axes(cfg)
-    bad = [n for n in NOT_SPLIT_YET if on_model(rules, n) and n in carried]
-    if cfg.family not in SPLIT_FAMILIES:
-        bad += [n for n in SPLIT_AXES if on_model(rules, n)]
-    if on_data(rules, "kv_seq") and "kv_seq" in carried \
-            and cfg.family not in KV_SEQ_ON_DATA_FAMILIES \
-            and "kv_seq" not in bad:
-        bad.append("kv_seq")
-    return bad
+    tensor of the cell carries them (:func:`carried_axes`): ``kv_seq`` on
+    the data axis outside the hybrid family (a dense, moe or encdec cell
+    at a batch that does not split over the data positions).  Every
+    family splits every axis the rules put on the model axis."""
+    if on_data(rules, "kv_seq") and "kv_seq" in carried_axes(cfg) \
+            and cfg.family not in KV_SEQ_ON_DATA_FAMILIES:
+        return ["kv_seq"]
+    return []
 
 
 def model_dim(spec: Spec) -> Optional[int]:
@@ -140,12 +148,18 @@ def local_config(cfg: ModelConfig, rules: ShardingRules, m: int
                  ) -> ModelConfig:
     """The config a shard's attention runs under: ``n_heads / m`` and
     ``n_kv_heads / m`` where the heads lie on the model axis (the softmax
-    scale stays ``1/sqrt(head_dim)``); everything else as ``cfg``."""
-    if m == 1 or not on_model(rules, "heads"):
-        return cfg
+    scale stays ``1/sqrt(head_dim)``); ``head_dim / m`` where ``head_dim``
+    does, with the whole head's softmax scale (``query_scale``, or
+    ``1/sqrt(head_dim)`` of the whole head, set as ``query_scale``);
+    everything else as ``cfg``."""
     a = cfg.attention
-    return cfg.replace(attention=dataclasses.replace(
-        a, n_heads=a.n_heads // m, n_kv_heads=a.n_kv_heads // m))
+    if m > 1 and on_model(rules, "heads"):
+        return cfg.replace(attention=dataclasses.replace(
+            a, n_heads=a.n_heads // m, n_kv_heads=a.n_kv_heads // m))
+    if m > 1 and on_model(rules, "head_dim"):
+        return cfg.replace(attention=dataclasses.replace(
+            a, head_dim=a.head_dim // m, query_scale=L.query_scale(cfg)))
+    return cfg
 
 
 # --------------------------------------------------------------------------- #
@@ -332,6 +346,17 @@ class SplitLM:
         return all(lay.dim is None for lay in self.layouts.values())
 
     @property
+    def attn_layout(self) -> str:
+        """How attention lies over the model axis: ``"heads"`` (each shard
+        its heads), ``"kv_seq"`` (context parallelism), ``"head_dim"``
+        (each shard its channels of every head) or ``"whole"`` (every
+        head on every position)."""
+        for name in ("heads", "kv_seq", "head_dim"):
+            if self.on_model(name):
+                return name
+        return "whole"
+
+    @property
     def ssm_split(self) -> bool:
         """Whether the Mamba2 mixers are split over their heads."""
         return self.cfg.ssm is not None and self.on_model("inner")
@@ -399,14 +424,29 @@ class SplitLM:
         return SplitLM(self.cfg, self.mesh, self.rules, pieces)
 
     # -- caches --------------------------------------------------------------
+    def _kv_parts(self, max_seq: int) -> int:
+        """The sequence parts a K/V cache of ``max_seq`` lies in over the
+        model axis: the extent under ``kv_seq`` (raises where it does not
+        divide ``max_seq``), else 1."""
+        if self.attn_layout != "kv_seq":
+            return 1
+        if max_seq % self.extent:
+            raise ValueError(f"{max_seq} positions do not split over "
+                             f"{self.extent} model positions (kv_seq)")
+        return self.extent
+
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16
                    ) -> dict:
         """The serving cache of every position: the unsplit layout with
-        the shard's ``kv_heads``, its SSM heads and conv channels
-        (:func:`models.ssm.init_ssm_cache` of its shard), and its data
-        index's part of ``batch`` -- or all of it where the batch does not
-        split, the K/V then along the sequence over the data positions
-        where :meth:`seq_split` says so (``"seq_parts"``)."""
+        the shard's ``kv_heads`` or ``head_dim`` channels, its part of the
+        sequence (``kv_seq``: ``max_seq / m`` slots), its SSM heads and
+        conv channels (:func:`models.ssm.init_ssm_cache` of its shard),
+        and its data index's part of ``batch`` -- or all of it where the
+        batch does not split, the K/V then along the sequence over the
+        data positions where :meth:`seq_split` says so (``"seq_parts"``).
+        The encdec family's cross K/V as its self K/V, over the whole
+        ``enc_seq``.  The ``kv_seq`` and ``head_dim`` layouts refuse an
+        int8 cache (ValueError)."""
         n = self.data_extent
         b = batch // n if self.batch_split(batch) else batch
         parts = axis_size(self.mesh, DATA_AXIS) \
@@ -415,15 +455,25 @@ class SplitLM:
             raise ValueError(f"{max_seq} positions do not split over {parts} "
                              f"data positions")
         cfg = self.local_cfg
-        n_kv = {"dense": cfg.n_layers, "moe": cfg.n_layers, "hybrid":
+        if self.attn_layout in ("kv_seq", "head_dim"):
+            PA.refuse_int8(cfg, self.attn_layout)
+        seq = max_seq // parts // self._kv_parts(max_seq)
+        n_kv = {"dense": cfg.n_layers, "moe": cfg.n_layers, "encdec":
+                cfg.n_layers, "hybrid":
                 cfg.n_layers // max(cfg.shared_attn_every, 1)}
         out = {}
         for pos in self.pieces:
             dev = self.device(*pos)
             c = {}
             if cfg.family in n_kv:
-                c["kv"] = M.init_kv_cache(cfg, n_kv[cfg.family], b,
-                                          max_seq // parts, dtype, dev)
+                c["kv"] = M.init_kv_cache(cfg, n_kv[cfg.family], b, seq,
+                                          dtype, dev)
+            if cfg.family == "encdec":
+                a = cfg.attention
+                shape = (cfg.n_layers, b, a.n_kv_heads, cfg.enc_seq,
+                         a.head_dim)
+                for name in ("cross_k", "cross_v"):
+                    c[name] = torch.zeros(shape, dtype=dtype, device=dev)
             if cfg.ssm is not None:
                 one = SSM.init_ssm_cache(
                     cfg, b, device=dev,
@@ -450,45 +500,116 @@ class SplitLM:
             raise ValueError("the data positions' replicated caches differ")
         return rows[0]
 
+    def _kv_model_dim(self, cross: bool = False) -> Optional[int]:
+        """The dimension of a (L, B, G, S, hd) K/V cache leaf the model
+        positions split: ``kv_heads`` 2, ``kv_seq`` 3 (not the cross
+        K/V's), ``head_dim`` 4; None where every position holds it
+        whole."""
+        dims = {"heads": 2, "kv_seq": None if cross else 3, "head_dim": 4}
+        return dims.get(self.attn_layout)
+
+    def _conv_dis(self) -> int:
+        """The x channels of a shard's conv carry."""
+        d_inner = SSM.ssm_dims(self.cfg)[0]
+        return d_inner // self.extent if self.ssm_split else d_inner
+
     def gather_cache(self, cache: dict) -> dict:
-        """The unsplit cache, on position (0, 0)'s device: the K/V
-        concatenated along ``kv_heads`` over the model positions; the SSM
-        state along its heads, the conv carry's x channels over the model
-        positions and its B and C channels from model index 0 (after a
-        check that every shard's are equal); then along the batch over
-        the data positions (along the sequence for a K/V that lies so; the
-        first data index's for a batch every data index ran whole)."""
+        """The unsplit cache, on position (0, 0)'s device: the K/V (and
+        the encdec family's cross K/V) concatenated over the model
+        positions along the dimension their layout splits (``kv_heads``,
+        the sequence under ``kv_seq``, ``head_dim``); the SSM state along
+        its heads, the conv carry's x channels over the model positions
+        and its B and C channels from model index 0 (after a check that
+        every shard's are equal); then along the batch over the data
+        positions (along the sequence for a K/V that lies so; the first
+        data index's for a batch every data index ran whole)."""
         dev = self.device(0, 0)
         pieces = cache["pieces"]
-        kv_split = self.on_model("kv_heads")
         m_split = self.ssm_split
-        n = self.cfg.ssm.d_state if self.cfg.ssm is not None else 0
 
         def over_model(d, part, name):
-            got = [pieces[(d, j)][part][name].to(dev)
+            got = [(pieces[(d, j)][part] if name is None else
+                    pieces[(d, j)][part][name]).to(dev)
                    for j, _ in self.group(d)]
-            if part == "kv":
-                return torch.cat(got, dim=2) if kv_split else got[0]
+            if part != "ssm":
+                dim = self._kv_model_dim(cross=part != "kv")
+                return got[0] if dim is None else torch.cat(got, dim=dim)
             if not m_split:
                 return got[0]
             if name == "state":
                 return torch.cat(got, dim=2)
-            dis = got[0].shape[-1] - 2 * n          # the conv carry
+            dis = self._conv_dis()                  # the conv carry
             bc = [g[..., dis:] for g in got]
             if any(not torch.equal(x, bc[0]) for x in bc[1:]):
                 raise ValueError("the shards' B and C conv carries differ")
             return torch.cat([g[..., :dis] for g in got] + [bc[0]], dim=-1)
 
         out = {"index": cache["index"]}
-        for part, seq_dim in (("kv", 3), ("ssm", None)):
+        for part, seq_dim in (("kv", 3), ("ssm", None), ("cross_k", None),
+                              ("cross_v", None)):
             if part not in pieces[(0, 0)]:
                 continue
-            out[part] = {}
-            for name in pieces[(0, 0)][part]:
-                rows = [over_model(d, part, name)
-                        for d in self.data_indices()]
-                out[part][name] = self._data_join(rows, cache, seq_dim)
+            names = [None] if part.startswith("cross") else \
+                list(pieces[(0, 0)][part])
+            got = {name: self._data_join(
+                [over_model(d, part, name) for d in self.data_indices()],
+                cache, seq_dim) for name in names}
+            out[part] = got[None] if part.startswith("cross") else got
         return out
+
+    def split_cache(self, whole: dict) -> dict:
+        """The inverse of :meth:`gather_cache`: an unsplit serving cache
+        (``models.model.init_cache``'s layout, on any device) cut into
+        this split's pieces, each position's part copied to its device
+        -- the controller's work, not a device's (no cost is counted).
+        A server whose prefill and decode resolve different rules carries
+        its cache from one split to the other by ``gather_cache`` and
+        ``split_cache``."""
+        with CA.paused():
+            return self._split_cache(whole)
+
+    def _split_cache(self, whole: dict) -> dict:
+        ref = whole["kv"]["k"] if "kv" in whole else whole["ssm"]["state"]
+        batch = ref.shape[1]
+        max_seq = whole["kv"]["k"].shape[3] if "kv" in whole else 0
+        n = self.data_extent
+        split_b = self.batch_split(batch)
+        parts = axis_size(self.mesh, DATA_AXIS) \
+            if "kv" in whole and self.seq_split(batch, max_seq) else 1
+        m = self.extent
+
+        def cut(t, d, j, part, name):
+            if split_b:                           # the data index's rows
+                t = t.chunk(n, dim=1)[d]
+            elif parts > 1 and part == "kv":      # its sequence part
+                t = t.chunk(parts, dim=3)[d % parts]
+            if part == "ssm":
+                if not self.ssm_split:
+                    return t
+                if name == "state":
+                    return t.chunk(m, dim=2)[j]
+                dis = self._conv_dis()
+                return torch.cat([t[..., j * dis:(j + 1) * dis],
+                                  t[..., m * dis:]], dim=-1)
+            dim = self._kv_model_dim(cross=part != "kv")
+            return t if dim is None else t.chunk(m, dim=dim)[j]
+
+        out = {}
+        for pos in self.pieces:
+            dev, c = self.device(*pos), {}
+            for part, leaves in whole.items():
+                if part == "index":
+                    continue
+                if isinstance(leaves, dict):
+                    c[part] = {k: cut(v, *pos, part, k).to(
+                        dev, copy=True).contiguous()
+                        for k, v in leaves.items()}
+                else:
+                    c[part] = cut(leaves, *pos, part, None).to(
+                        dev, copy=True).contiguous()
+            out[pos] = c
+        return {"pieces": out, "index": int(whole["index"]),
+                "seq_parts": parts, "batch_parts": n if split_b else 1}
 
     def gather(self) -> nn.Module:
         """The unsplit model (data index 0's pieces joined leaf by leaf,
@@ -506,9 +627,12 @@ class SplitLM:
 
 
 def split_rules(cfg: ModelConfig, mesh: Mesh) -> ShardingRules:
-    """The rules a split model is laid out by: the mesh's rules for the
-    config's dimensions (the batch and sequence do not enter the model
-    axes)."""
+    """The default rules a split model is laid out by: the mesh's rules
+    for the config's dimensions with no sequence (so ``head_dim`` where
+    the heads do not divide the model axis, as for a decode step).  A
+    cell's own rules -- ``kv_seq`` for a train or prefill cell of such a
+    model -- come from ``resolve_rules(mesh, models.model.sharding_dims(
+    cfg, batch, kv_seq=..., q_seq=...))``."""
     return resolve_rules(mesh, M.sharding_dims(cfg, 0))
 
 
@@ -527,16 +651,17 @@ def split_model(model: nn.Module, mesh: Mesh,
     divides is copied whole.  On a mesh with devices each piece goes to
     its position's device; on an abstract mesh to ``model``'s device (on
     the meta device: shapes only).  Raises ``NotImplementedError`` for a
-    layout the port does not split (:func:`unsupported_axes`) and
-    ValueError for a model extent that does not divide the SSM heads."""
+    layout the port does not split (:func:`unsupported_axes`: ``kv_seq``
+    on the data axis outside the hybrid family) and ValueError for a model
+    extent that does not divide the SSM heads."""
     cfg = model.cfg
     rules = rules or split_rules(cfg, mesh)
     bad = unsupported_axes(cfg, rules)
     if bad:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on {dict(mesh.shape)}: the rules put "
-            f"{bad} where the port does not split them yet (ROADMAP Queue 1 "
-            f"item 10b)")
+            f"{bad} where the port does not split them (ROADMAP Queue 1: "
+            f"what stays refused)")
     m = axis_size(mesh, MODEL_AXIS)
     layouts = leaf_layouts(cfg, rules, m)
     positions = list(positions or all_positions(mesh))

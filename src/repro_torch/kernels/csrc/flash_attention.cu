@@ -7,15 +7,29 @@
 //
 //   s[i, j] = (q_i . k_j) * scale                               (float32)
 //   s       = tanh(s / softcap) * softcap            (when softcap > 0)
-//   key j is visible to query i iff j <= i + Skv - Sq (bottom-right causal
-//   mask; every key when not causal), and every key j < Skv
+//   key j is visible to query i iff j <= i + off (causal; every key when
+//   not causal), and every key j < Skv.  The diagonal offset `off` is the
+//   caller's: Skv - Sq (bottom-right alignment) by default, -s for a part
+//   of the keys that starts at position s with q holding every query row
+//   from position 0 (context parallelism)
 //   o_i     = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp(s_ij - max_j s_ij)
 //
 // by the online softmax (float32 running max m, sum l and accumulator), and
 // written in the input's type.  A row that sees no key (Sq > Skv under the
-// causal mask) gets 0, as the Pallas kernel gives it: m starts at -1e30
-// (not -inf, so exp(m_prev - m_new) is never inf - inf), a masked score
-// contributes p = 0 and the final division is by l, or by 1 where l = 0.
+// causal mask, or a negative `off` that puts the part's first key past the
+// row) gets 0, as the Pallas kernel gives it: m starts at -1e30 (not -inf,
+// so exp(m_prev - m_new) is never inf - inf), a masked score contributes
+// p = 0 and the final division is by l, or by 1 where l = 0.
+//
+// On request (m_out, l_out not null) each row's float32 statistics go out
+// beside o, (BG, R, Sq) each: m = the row's max of the (scaled, softcapped)
+// scores over its visible keys, in natural units, and l = sum_j exp(s_ij -
+// m).  A row that sees no key gives m = -1e30 (never -inf) and l = 0, so
+// that a combine of several key parts, sum over parts of l exp(m - M) o,
+// gives it weight 0.  Whole q blocks of such rows (a negative `off`) issue
+// no load: the tensor-core producer skips every TMA when the block has no
+// visible key, and the consumers still write their zero rows and the
+// empty rows' statistics.
 //
 // Two kernels, chosen by the wrapper's route(dtype, D) alone.
 //
@@ -164,6 +178,9 @@ struct Args {
   long long q_bg, q_r, q_s, k_bg, k_s, v_bg, v_s;
   float scale, softcap;  // softcap <= 0: none
   int causal;
+  int off;               // key j is visible to row i iff j <= i + off
+  float* m_out;          // (BG, R, Sq) row statistics, or null
+  float* l_out;
 };
 
 template <int D>
@@ -185,12 +202,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   int bid = blockIdx.x;
-  const int qb = a.n_qb - 1 - bid % a.n_qb;      // heaviest causal blocks first
+  // heaviest causal blocks first: a row's visible keys grow with the row
+  // whatever the offset
+  const int qb = a.n_qb - 1 - bid % a.n_qb;
   bid /= a.n_qb;
   const int r = bid % a.R, bg = bid / a.R;
   const int q0 = qb * kBq;
   const int nq = min(kBq, a.Sq - q0);
-  const int off = a.Skv - a.Sq;                  // bottom-right alignment
+  const int off = a.off;
 
   const T* qp = q + bg * a.q_bg + r * a.q_r;
   const T* kp = k + bg * a.k_bg;
@@ -310,12 +329,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  T* op = o + ((static_cast<long long>(bg) * a.R + r) * a.Sq) * D;
+  const long long row_base = (static_cast<long long>(bg) * a.R + r) * a.Sq;
+  T* op = o + row_base * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= a.Sq) continue;
     const float den = l[i] == 0.0f ? 1.0f : l[i];
+    if (a.m_out != nullptr && tx == 0) {   // m and l are the row's on all 16
+      a.m_out[row_base + row] = l[i] == 0.0f ? kNegInf : m[i];
+      a.l_out[row_base + row] = l[i];
+    }
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
       op[static_cast<long long>(row) * D + out_col<D>(tx, jj)] =
@@ -366,6 +390,9 @@ struct TcArgs {
   int R, Sq, Skv, n_qb;
   float scale, softcap;  // softcap <= 0: none
   int causal;
+  int off;               // key j is visible to row i iff j <= i + off
+  float* m_out;          // (BG, R, Sq) row statistics, or null
+  float* l_out;
 };
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base: the
@@ -671,6 +698,7 @@ struct TcMaps {
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 __device__ __forceinline__ float minus_inf() {
   return __int_as_float(0xff800000u);
 }
@@ -848,7 +876,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   bid /= a.n_qb;
   const int r = bid % a.R, bg = bid / a.R;
   const int q0 = qb * kTcRows;
-  const int off = a.Skv - a.Sq;                       // bottom-right alignment
+  const int off = a.off;
   const int q_last = min(q0 + kTcRows, a.Sq) - 1;
   // keys [0, kv_end) may be visible to some row of the block
   const int kv_end = a.causal ? min(a.Skv, q_last + off + 1) : a.Skv;
@@ -870,7 +898,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   if (wg == 0) {
     // ---- producer ----------------------------------------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
+    // a block none of whose rows sees a key (a negative offset) loads
+    // nothing: its consumers wait for no barrier
+    if (threadIdx.x == 0 && n_tiles > 0) {
       mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
       for (int p = 0; p < L::kPanels; ++p)
@@ -928,8 +958,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     float s[64];
     uint32_t pa[kTcKeys / 16][4];
     float corr0, corr1;
-    mbar_wait(q_full, 0);
     if (n_live > 0) {
+      mbar_wait(q_full, 0);
       mbar_wait(&k_full[0], 0);
       qk_tile<D>(s, sm + L::kQ + c * 64 * 128, sm + L::kK);
       wg_commit();
@@ -991,7 +1021,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       l1 += __shfl_xor_sync(0xffffffffu, l1, w);
     }
     const float d0 = l0 == 0.0f ? 1.0f : l0, d1 = l1 == 0.0f ? 1.0f : l1;
-    __nv_bfloat16* op = o + (static_cast<long long>(bg) * a.R + r) * a.Sq * D;
+    const long long row_base = (static_cast<long long>(bg) * a.R + r) * a.Sq;
+    if (a.m_out != nullptr && t == 0) {   // m in log2 units -> natural
+      if (row0 < a.Sq) {
+        a.m_out[row_base + row0] = l0 == 0.0f ? kNegInf : m0 * kLn2;
+        a.l_out[row_base + row0] = l0;
+      }
+      if (row1 < a.Sq) {
+        a.m_out[row_base + row1] = l1 == 0.0f ? kNegInf : m1 * kLn2;
+        a.l_out[row_base + row1] = l1;
+      }
+    }
+    __nv_bfloat16* op = o + row_base * D;
     auto* o0 = reinterpret_cast<__nv_bfloat162*>(op + 1LL * row0 * D);
     auto* o1 = reinterpret_cast<__nv_bfloat162*>(op + 1LL * row1 * D);
 #pragma unroll
@@ -1055,8 +1096,8 @@ cudaError_t tc_launch(const void* q, const void* k, const void* v, void* o,
                       int BG, int R, int Sq, int Skv, long long q_bg,
                       long long q_r, long long q_s, long long k_bg,
                       long long k_s, long long v_bg, long long v_s,
-                      float scale, int causal, float softcap,
-                      cudaStream_t stream) {
+                      float scale, int causal, float softcap, int off,
+                      float* m_out, float* l_out, cudaStream_t stream) {
   using L = TcLayout<D>;
   TcMaps maps;
   const cuuint64_t qd[4] = {D, static_cast<cuuint64_t>(Sq),
@@ -1072,7 +1113,7 @@ cudaError_t tc_launch(const void* q, const void* k, const void* v, void* o,
       !make_map(&maps.v, v, 3, kd, vs, kTcKeys))
     return cudaErrorInvalidValue;
   const TcArgs a{R, Sq, Skv, (Sq + kTcRows - 1) / kTcRows, scale, softcap,
-                 causal};
+                 causal, off, m_out, l_out};
   const long long blocks = static_cast<long long>(a.n_qb) * R * BG;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1103,7 +1144,9 @@ long long flash_attention_smem_bytes(int D) {
 // o (BG, R, Sq, D), contiguous, in the inputs' type, from q (BG, R, Sq, D)
 // and k, v (BG, Skv, D).  `bf16` selects bfloat16 (else float32).  Strides
 // are in elements, D's is 1; every row must start 16-byte aligned for
-// float32 and 8-byte aligned for bfloat16.  softcap <= 0 means none.
+// float32 and 8-byte aligned for bfloat16.  softcap <= 0 means none.  Key j
+// is visible to row i iff j <= i + off (causal).  m_out and l_out, both
+// null or both (BG, R, Sq) float32, contiguous: the rows' statistics.
 // Returns the cudaError_t of the launch (0 on success); shapes it does not
 // take (D not in {16, 32, 64, 128}, an empty tensor, more than 2^31 - 1
 // blocks) are refused with cudaErrorInvalidValue, so 0 always means a
@@ -1113,12 +1156,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int D, long long q_bg, long long q_r, long long q_s,
                            long long k_bg, long long k_s, long long v_bg,
                            long long v_s, float scale, int causal,
-                           float softcap, void* stream) {
+                           float softcap, int off, float* m_out,
+                           float* l_out, void* stream) {
   if (BG <= 0 || R <= 0 || Sq <= 0 || Skv <= 0 ||
       flash_attention_smem_bytes(D) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((m_out == nullptr) != (l_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a{R, Sq, Skv, (Sq + kBq - 1) / kBq, q_bg, q_r, q_s, k_bg, k_s,
-         v_bg, v_s, scale, softcap, causal};
+         v_bg, v_s, scale, softcap, causal, off, m_out, l_out};
   if (static_cast<long long>(a.n_qb) * R * BG > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1138,18 +1184,22 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               long long q_bg, long long q_r, long long q_s,
                               long long k_bg, long long k_s, long long v_bg,
                               long long v_s, float scale, int causal,
-                              float softcap, void* stream) {
-  if (BG <= 0 || R <= 0 || Sq <= 0 || Skv <= 0)
+                              float softcap, int off, float* m_out,
+                              float* l_out, void* stream) {
+  if (BG <= 0 || R <= 0 || Sq <= 0 || Skv <= 0 ||
+      (m_out == nullptr) != (l_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
     return static_cast<int>(tc_launch<128>(q, k, v, o, BG, R, Sq, Skv, q_bg,
                                            q_r, q_s, k_bg, k_s, v_bg, v_s,
-                                           scale, causal, softcap, st));
+                                           scale, causal, softcap, off,
+                                           m_out, l_out, st));
   if (D == 64)
     return static_cast<int>(tc_launch<64>(q, k, v, o, BG, R, Sq, Skv, q_bg,
                                           q_r, q_s, k_bg, k_s, v_bg, v_s,
-                                          scale, causal, softcap, st));
+                                          scale, causal, softcap, off,
+                                          m_out, l_out, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,8 +6,17 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:37``
 (float32 m, l, acc) in VMEM across a sequential kv axis, skips kv blocks
 above the causal diagonal and writes the input's dtype.  Layout: q (BG, R,
 Sq, D), k and v (BG, Skv, D), the kv groups folded into BG and the R query
-heads of a group sharing one kv head.  The causal mask is bottom-right
-aligned: key j is visible to query i iff ``j <= i + Skv - Sq``.
+heads of a group sharing one kv head.  The causal mask has a diagonal
+offset ``off``: key j is visible to query i iff ``j <= i + off``, by
+default ``off = Skv - Sq`` (bottom-right alignment: a call over its own
+keys).  A part of the keys that starts at position ``s``, called with q
+holding every query row from position 0, passes ``off = -s`` (context
+parallelism, ``models/parallel_attention.py``).  With ``stats=True`` a
+call also returns each row's float32 statistics, ``m`` (the row's max of
+the scaled, softcapped scores over its visible keys) and ``l`` (the sum of
+``exp(s - m)``), (BG, R, Sq) each: the parts of a key sequence combine by
+them.  A row that sees no key has ``m = NEG_INF`` (-1e30, never -inf) and
+``l = 0``, which gives it weight 0 in the combine.
 
 The CUDA source (``csrc/flash_attention.cu``) holds two kernels, and
 :func:`route` picks one from the dtype and head_dim alone:
@@ -80,6 +89,8 @@ from repro_torch.launch import cost_analysis as CA
 
 LAUNCHES = 0                                # launches of either kernel
 LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
+# launches given an explicit diagonal offset, and launches with statistics
+LAUNCHES_BY_MODE = {"offset": 0, "stats": 0}
 HEAD_DIMS = (16, 32, 64, 128)   # head_dim the kernel takes
 TC_HEAD_DIMS = (64, 128)        # head_dim the tensor-core kernel takes
 PAD_TO = 128    # bf16 head_dim strictly between 64 and 128 is padded to it
@@ -115,31 +126,50 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
-def _visible(sq: int, skv: int, device) -> torch.Tensor:
-    """(Sq, Skv) bottom-right causal mask: True where key j is visible."""
+def _visible(sq: int, skv: int, device, off: Optional[int] = None
+             ) -> torch.Tensor:
+    """(Sq, Skv) causal mask of diagonal offset ``off`` (default ``Skv -
+    Sq``): True where key j is visible to row i (``j <= i + off``)."""
+    off = skv - sq if off is None else off
     return (torch.arange(skv, device=device)[None, :]
-            <= torch.arange(sq, device=device)[:, None] + (skv - sq))
+            <= torch.arange(sq, device=device)[:, None] + off)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, scale: float, causal: bool = True,
-                          softcap: Optional[float] = None) -> torch.Tensor:
+                          softcap: Optional[float] = None,
+                          off: Optional[int] = None, stats: bool = False):
     """The kernel's function in torch ops: float32 scores, the optional
-    softcap, the bottom-right causal mask, softmax, float32 p v; a row
-    with no visible key gives 0.  q (BG, R, Sq, D), k and v (BG, Skv, D)
-    -> (BG, R, Sq, D) in q's dtype.  Differentiable."""
+    softcap, the causal mask of offset ``off`` (default ``Skv - Sq``),
+    softmax, float32 p v; a row with no visible key gives 0.  q (BG, R,
+    Sq, D), k and v (BG, Skv, D) -> (BG, R, Sq, D) in q's dtype, and with
+    ``stats`` the rows' float32 ``m`` and ``l`` (BG, R, Sq) beside it.
+    Differentiable."""
     s = torch.einsum("brsd,btd->brst", q.float(), k.float()) * scale
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
     if causal:
-        vis = _visible(q.shape[2], k.shape[1], q.device)
+        vis = _visible(q.shape[2], k.shape[1], q.device, off)
         m = torch.where(vis, s, NEG_INF).amax(dim=-1, keepdim=True)
         p = torch.where(vis, torch.exp(s - m), 0.0)
     else:
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
     den = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("brst,btd->brsd", p, v.float())
-    return (o / torch.where(den == 0, 1.0, den)).to(q.dtype)
+    o = (o / torch.where(den == 0, 1.0, den)).to(q.dtype)
+    if not stats:
+        return o
+    return o, torch.where(den == 0, NEG_INF, m)[..., 0], den[..., 0]
+
+
+def empty_stats(q: torch.Tensor):
+    """What a call over no key gives, launching nothing: zero rows in q's
+    dtype, ``m = NEG_INF`` and ``l = 0``."""
+    rows = q.shape[:-1]
+    return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
+            torch.full(rows, NEG_INF, device=q.device),
+            torch.zeros(rows, device=q.device))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -201,14 +231,14 @@ def _lib():
         P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         lib.flash_attention_launch.argtypes = (
-            [P] * 4 + [I] * 6 + [LL] * 7 + [F, I, F, P])
+            [P] * 4 + [I] * 6 + [LL] * 7 + [F, I, F, I, P, P, P])
         lib.flash_attention_launch.restype = I
         lib.flash_attention_error_string.argtypes = [I]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_smem_bytes.argtypes = [I]
         lib.flash_attention_smem_bytes.restype = LL
         lib.flash_attention_tc_launch.argtypes = (
-            [P] * 4 + [I] * 5 + [LL] * 7 + [F, I, F, P])
+            [P] * 4 + [I] * 5 + [LL] * 7 + [F, I, F, I, P, P, P])
         lib.flash_attention_tc_launch.restype = I
         lib._typed = True
     return lib
@@ -216,23 +246,31 @@ def _lib():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q (BG, R, Sq, D); k, v (BG, Skv, D) -> (BG, R, Sq, D) in q's dtype.
+                    softcap: Optional[float] = None,
+                    off: Optional[int] = None, stats: bool = False):
+    """q (BG, R, Sq, D); k, v (BG, Skv, D) -> (BG, R, Sq, D) in q's dtype;
+    with ``stats``, ``(o, m, l)``, the rows' float32 statistics (BG, R,
+    Sq).  ``off``: the causal mask's diagonal offset (default ``Skv -
+    Sq``).
 
     CUDA tensors: one launch of the CUDA kernel (raises if it cannot be
     built or launched, or if the operands are not what it takes; operands
     it cannot read in place are copied contiguous first; a head_dim that
     :func:`padded_head_dim` pads is zero-padded before the launch and the
     output sliced back).  CPU tensors: :func:`flash_attention_plain`.
-    :func:`route` names the kernel.
+    :func:`route` names the kernel.  ``LAUNCHES_BY_MODE`` counts the
+    launches with an explicit ``off`` and with ``stats``.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     softcap=softcap)
+                                     softcap=softcap, off=off, stats=stats)
     if q.device.type == "meta":
         _check(q, k, v, softcap)
         o = torch.empty(q.shape, dtype=q.dtype, device="meta")
         report_work(q, k, v, o)
+        if stats:
+            return (o, torch.empty(q.shape[:-1], device="meta"),
+                    torch.empty(q.shape[:-1], device="meta"))
         return o
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
@@ -249,12 +287,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad = padded_head_dim(q.dtype, D) - D
     if pad:
         q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
-    o = _launch(q, k, v, route(q.dtype, D), scale=scale, causal=causal,
-                softcap=softcap, report=not pad)
+    out = _launch(q, k, v, route(q.dtype, D), scale=scale, causal=causal,
+                  softcap=softcap, off=off, stats=stats, report=not pad)
+    o = out[0] if stats else out
     if pad:
         o = o[..., :D]
         report_work(q[..., :D], k[..., :D], v[..., :D], o)
-    return o
+    return (o,) + out[1:] if stats else o
 
 
 def work(BG: int, R: int, Sq: int, Skv: int, D: int) -> int:
@@ -270,22 +309,28 @@ def report_work(q, k, v, o) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, how: str, *,
-            scale: float, causal: bool,
-            softcap: Optional[float], report: bool = True) -> torch.Tensor:
-    """One launch of the kernel ``how`` names on checked CUDA operands.
-    :func:`flash_attention` passes :func:`route`'s choice; ``chip_smoke.py``
-    also times the SIMT kernel at the shapes the tensor-core kernel
-    serves."""
+            scale: float, causal: bool, softcap: Optional[float],
+            off: Optional[int] = None, stats: bool = False,
+            report: bool = True):
+    """One launch of the kernel ``how`` names on checked CUDA operands:
+    o, or ``(o, m, l)`` with ``stats``.  :func:`flash_attention` passes
+    :func:`route`'s choice; ``chip_smoke.py`` also times the SIMT kernel
+    at the shapes the tensor-core kernel serves."""
     global LAUNCHES
     q, k, v = _rows(q), _rows(k), _rows(v)
     BG, R, Sq, D = q.shape
+    Skv = k.shape[1]
     o = torch.empty((BG, R, Sq, D), dtype=q.dtype, device=q.device)
+    ml = [torch.empty((BG, R, Sq), device=q.device) for _ in range(2)] \
+        if stats else []
     lib = _lib()
     (q_bg, q_r, q_s, _), (k_bg, k_s, _), (v_bg, v_s, _) = (
         _strides(q), _strides(k), _strides(v))
-    common = (BG, R, Sq, k.shape[1], D, q_bg, q_r, q_s, k_bg, k_s, v_bg,
+    common = (BG, R, Sq, Skv, D, q_bg, q_r, q_s, k_bg, k_s, v_bg,
               v_s, float(scale), int(bool(causal)),
-              float(softcap) if softcap is not None else 0.0)
+              float(softcap) if softcap is not None else 0.0,
+              int(Skv - Sq if off is None else off),
+              *([t.data_ptr() for t in ml] if stats else [None, None]))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     if how == "wgmma":
         rc = build.launch(lib.flash_attention_tc_launch, q.device, *ptrs,
@@ -298,6 +343,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, how: str, *,
                            f"{lib.flash_attention_error_string(rc).decode()}")
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[how] += 1
+    LAUNCHES_BY_MODE["offset"] += off is not None
+    LAUNCHES_BY_MODE["stats"] += stats
     if report:
         report_work(q, k, v, o)
-    return o
+    return (o, *ml) if stats else o

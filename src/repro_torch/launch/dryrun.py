@@ -38,18 +38,23 @@ microbatches of 16 sequences do not divide over 32 data positions).
 
 **What is not run.**  A cell the reference skips (``shape_applicable``)
 is ``"skipped"`` with its reason; a cell whose rules put an axis a tensor
-of the cell carries where the port does not split it yet
-(``tensor_parallel.unsupported_axes``: ``kv_seq`` or ``head_dim`` on the
-model axis, ``kv_seq`` on the data axis outside the hybrid family, any
-axis of the encdec family) is ``"unsupported"`` and names those axes.
-Neither runs, and neither is run unsplit.  Of the 80 cells (10 archs x
-4 shapes x 2 meshes) 46 are "ok", 18 "unsupported" (starcoder2-3b,
-qwen2-vl-7b and whisper-large-v3: 6 each) and 16 "skipped".  Where the
-rules put nothing of the model on the model axis (mamba2-130m) the model
-positions are replicas: the record is that of the same cell on a mesh
-without a model axis.  Where the batch is off the data axes (long_500k,
-batch 1) every data position runs the whole batch, and zamba2-7b's KV
-cache lies along the sequence over the data axis.
+of the cell carries where the port does not split it
+(``tensor_parallel.unsupported_axes``: ``kv_seq`` on the data axis
+outside the hybrid family, which no production cell resolves: long_500k
+is skipped for the dense and encdec archs) is ``"unsupported"`` and
+names those axes.  Neither runs, and neither is run unsplit.  Of the 80
+cells (10 archs x 4 shapes x 2 meshes) 64 are "ok" and 16 "skipped".
+Where the heads do not divide the model axis (starcoder2-3b, qwen2-vl-7b
+and whisper-large-v3) the train and prefill cells resolve ``kv_seq``
+there (context parallelism) and the decode cells ``head_dim``
+(``models/parallel_attention.py``); the cell's program is laid out by
+its own rules (``split_model(..., rules)``, ``shard_train_state(...,
+rules=)``).  Where the rules put nothing of the model on the model axis
+(mamba2-130m) the model positions are replicas: the record is that of
+the same cell on a mesh without a model axis.  Where the batch is off
+the data axes (long_500k, batch 1) every data position runs the whole
+batch, and zamba2-7b's KV cache lies along the sequence over the data
+axis.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch gemma2-27b --shape train_4k --mesh single
@@ -160,7 +165,8 @@ def build_program(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
         state = T.TrainState(params, O.init_adamw(dict(
             params.named_parameters())))
         if not whole:
-            state = T.shard_train_state(state, mesh, positions=pos)
+            state = T.shard_train_state(state, mesh, positions=pos,
+                                        rules=rules)
         n_micro = local_microbatches(info["rows"], n_microbatches)
         in_scan = cfg.n_params_estimate > 10e9
         info.update(n_microbatches=n_micro, zero1_grads_in_scan=in_scan)
@@ -287,7 +293,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
         record["status"] = "unsupported"
         record["axes"] = bad
         record["reason"] = (f"the rules put {bad} where the port does not "
-                            f"split them yet (ROADMAP Queue 1 item 10b)")
+                            f"split them (ROADMAP Queue 1: what stays "
+                            f"refused)")
         return record
     t0 = time.monotonic()
     info = build_program(cfg, shape, mesh, rules,

@@ -144,7 +144,8 @@ def _rope_freqs(head_dim_rot: int, theta: float,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                partial_pct: float = 1.0,
-               mrope_sections: Optional[Tuple[int, int, int]] = None
+               mrope_sections: Optional[Tuple[int, int, int]] = None,
+               channels: Optional[Tuple[int, int]] = None
                ) -> torch.Tensor:
     """Rotate ``x`` (B, H, S, D) by ``positions``: interleaved pairs
     (``x[..., 0::2]``, ``x[..., 1::2]``) as in the JAX package, angles in
@@ -155,13 +156,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     positions: (B or 1, S) for RoPE, (B or 1, 3, S) for M-RoPE
     (qwen2-vl): the d_rot/2 frequency slots split into
     ``mrope_sections`` (t, h, w), each driven by its own position stream;
-    for text the three streams are equal and M-RoPE reduces to RoPE."""
+    for text the three streams are equal and M-RoPE reduces to RoPE.
+
+    ``channels`` (first, whole): ``x`` holds the channels ``first ...
+    first + D`` of a head of ``whole`` (a ``head_dim`` shard; ``first``
+    even, so that every pair lies inside it): they rotate with the whole
+    head's frequency slots and sections, as they would unsplit."""
     B, H, S, D = x.shape
-    d_rot = int(D * partial_pct)
+    c0, whole = channels or (0, D)
+    d_rot = int(whole * partial_pct)
     d_rot -= d_rot % 2
-    if d_rot == 0:
+    hi = min(D, d_rot - c0)          # this x's rotating channels: [0, hi)
+    if hi <= 0:
         return x
-    freqs = _rope_freqs(d_rot, theta, x.device)                  # (d_rot/2,)
+    if c0 % 2:
+        raise ValueError(f"a head_dim shard starts at channel {c0}: the "
+                         f"interleaved pairs would straddle it")
+    slots = slice(c0 // 2, (c0 + hi) // 2)
+    freqs = _rope_freqs(d_rot, theta, x.device)[slots]
     if mrope_sections is None:
         if positions.dim() == 3:
             positions = positions[:, 0]
@@ -173,19 +185,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         if sum(mrope_sections) != d_rot // 2:
             raise ValueError(f"mrope sections {mrope_sections} != "
                              f"{d_rot // 2} freq slots")
-        sec_id = torch.repeat_interleave(
-            torch.arange(3, device=x.device),
-            torch.tensor(mrope_sections, device=x.device))
+        # each frequency slot's stream, made from the sections on the host
+        # (the meta device cannot size a repeat_interleave)
+        sec_id = torch.tensor([i for i, n in enumerate(mrope_sections)
+                               for _ in range(n)], device=x.device)[slots]
         per_slot = positions.float()[:, sec_id, :]           # (B, slots, S)
         angles = per_slot.transpose(1, 2)[:, None] * freqs   # (B,1,S,slots)
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x[..., 0:d_rot:2].float(), x[..., 1:d_rot:2].float()
+    x1, x2 = x[..., 0:hi:2].float(), x[..., 1:hi:2].float()
     r1 = x1 * cos - x2 * sin
     r2 = x2 * cos + x1 * sin
     rotated = torch.stack([r1, r2], dim=-1).reshape(
-        *r1.shape[:3], d_rot).to(x.dtype)
-    return torch.cat([rotated, x[..., d_rot:]], dim=-1) if d_rot < D \
-        else rotated
+        *r1.shape[:3], hi).to(x.dtype)
+    return torch.cat([rotated, x[..., hi:]], dim=-1) if hi < D else rotated
 
 
 # --------------------------------------------------------------------------- #
@@ -255,6 +267,30 @@ def _attn_mask(q_pos: torch.Tensor, kv_len: int, *, causal: bool,
     return mask
 
 
+def attention_probs(s: torch.Tensor, q_pos: torch.Tensor, *, scale,
+                    softcap, causal, sliding_window, local_flag, kv_valid,
+                    cdt) -> torch.Tensor:
+    """The float32 scores ``s`` (..., S, Sk) of queries at ``q_pos`` over
+    keys 0 ... Sk: scaled, softcapped, masked, soft-maxed in float32 and
+    cast to the compute dtype."""
+    s = s * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    m = _attn_mask(q_pos, s.shape[-1], causal=causal,
+                   sliding_window=sliding_window, local_flag=local_flag,
+                   kv_valid_len=kv_valid)
+    s = torch.where(m, s, NEG_INF)
+    return torch.softmax(s, dim=-1).to(cdt)
+
+
+def query_chunks(S: int, q_chunk: int):
+    """The (start, stop) query chunks of the plain attention: one where
+    ``S <= q_chunk`` or ``q_chunk`` does not divide it."""
+    if S <= q_chunk or S % q_chunk:
+        return [(0, S)]
+    return [(c, c + q_chunk) for c in range(0, S, q_chunk)]
+
+
 def _attention_core(qg, k, v, *, scale, softcap, causal, sliding_window,
                     local_flag, q_offset, kv_valid, q_chunk: int, cdt):
     """Softmax attention, chunked over queries (the JAX package's plain
@@ -262,24 +298,24 @@ def _attention_core(qg, k, v, *, scale, softcap, causal, sliding_window,
     multiplied in the compute dtype, then scaled and soft-maxed in
     float32; the probabilities are cast back to the compute dtype before
     the product with v."""
-    S = qg.shape[3]
-    Sk = k.shape[2]
+    pos = torch.arange(qg.shape[3], device=qg.device) + q_offset
+    out = []
+    for c0, c1 in query_chunks(qg.shape[3], q_chunk):
+        s = torch.einsum("bgrsk,bgtk->bgrst", qg[..., c0:c1, :], k).float()
+        probs = attention_probs(
+            s, pos[c0:c1], scale=scale, softcap=softcap, causal=causal,
+            sliding_window=sliding_window, local_flag=local_flag,
+            kv_valid=kv_valid, cdt=cdt)
+        out.append(torch.einsum("bgrst,bgtk->bgrsk", probs, v))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=3)
 
-    def chunk(qc, q_pos):
-        s = torch.einsum("bgrsk,bgtk->bgrst", qc, k).float() * scale
-        if softcap is not None:
-            s = torch.tanh(s / softcap) * softcap
-        m = _attn_mask(q_pos, Sk, causal=causal, sliding_window=sliding_window,
-                       local_flag=local_flag, kv_valid_len=kv_valid)
-        s = torch.where(m, s, NEG_INF)
-        probs = torch.softmax(s, dim=-1).to(cdt)
-        return torch.einsum("bgrst,bgtk->bgrsk", probs, v)
 
-    pos = torch.arange(S, device=qg.device) + q_offset
-    if S <= q_chunk or S % q_chunk:
-        return chunk(qg, pos)
-    return torch.cat([chunk(qg[..., c:c + q_chunk, :], pos[c:c + q_chunk])
-                      for c in range(0, S, q_chunk)], dim=3)
+def query_scale(cfg: ModelConfig) -> float:
+    """The softmax scale: the config's ``query_scale`` or
+    ``1/sqrt(head_dim)``."""
+    a = cfg.attention
+    return a.query_scale if a.query_scale is not None else \
+        1.0 / math.sqrt(a.head_dim)
 
 
 def flash_route(cfg: ModelConfig, *, q_offset: int, seq: int,
@@ -292,9 +328,14 @@ def flash_route(cfg: ModelConfig, *, q_offset: int, seq: int,
     the keys are the call's own) and no sliding window is narrower than
     the prompt.  Causal or not, the mask is then the kernel's: bottom-right
     causal over the call's own keys, or none (the encoder's
-    self-attention and the cross-attention).  Everything else (float16,
+    self-attention and the cross-attention); a context-parallel part of
+    the keys passes the kernel its own diagonal offset
+    (``models/parallel_attention.py``).  Everything else (float16,
     float32 at head_dim 112, decode, a prefill behind earlier tokens) runs
-    :func:`_attention_core`."""
+    :func:`_attention_core`.  A model split over ``head_dim`` never asks:
+    each shard holds a partial score, which the kernel cannot take, so
+    its attention runs the plain path
+    (``parallel_attention.head_dim_core``)."""
     a = cfg.attention
     narrow = (a.sliding_window is not None and layer_is_local
               and a.sliding_window < seq)
@@ -381,8 +422,7 @@ def multi_head_attention(
                 return ck.to(cdt), cv.to(cdt)
         q_offset, kv_valid = idx, idx + S
 
-    scale = a.query_scale if a.query_scale is not None else \
-        1.0 / math.sqrt(hd)
+    scale = query_scale(cfg)
     if flash_route(cfg, q_offset=q_offset, seq=S,
                    layer_is_local=layer_is_local):
         ctx = ops.flash_attention(
@@ -399,31 +439,49 @@ def multi_head_attention(
     return attention_out(p, ctx, cfg, B, S, x.dtype), cache
 
 
+def _projection(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+                positions, channels, rope: bool) -> torch.Tensor:
+    """(B, S, D) ``x`` through ``w`` (D, n, hd) into (B, n, S, hd) in the
+    compute dtype, rotated by ``positions`` where ``rope``."""
+    a = cfg.attention
+    cdt = _dtype(cfg.compute_dtype)
+    B, S, d = x.shape
+    n, hd = w.shape[1], w.shape[2]
+    out = (x.to(cdt) @ w.to(cdt).reshape(d, n * hd)).reshape(
+        B, S, n, hd).transpose(1, 2)
+    if rope and a.rope is not None:
+        out = apply_rope(out, positions, a.rope.theta, a.rope.partial_pct,
+                         a.rope.mrope_sections, channels)
+    return out
+
+
+def attention_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, channels=None) -> torch.Tensor:
+    """q (B, H, S, hd) of (B, S, D) ``x``, rotated by ``positions``
+    (``channels``: a head_dim shard's, :func:`apply_rope`)."""
+    return shard(_projection(x, p["wq"], cfg, positions, channels, True),
+                 ("batch", "heads", "q_seq", "head_dim"))
+
+
+def attention_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, channels=None,
+                 seq: Optional[str] = "kv_seq"):
+    """k, v (B, G, S, hd) of (B, S, D) ``x``, k rotated by
+    ``positions``; ``seq`` the logical name of their sequence dimension
+    (None for a context-parallel part's keys, which are no even cut of
+    the rules' ``kv_seq``)."""
+    k = _projection(x, p["wk"], cfg, positions, channels, True)
+    v = _projection(x, p["wv"], cfg, positions, channels, False)
+    spec = ("batch", "kv_heads", seq, "head_dim")
+    return shard(k, spec), shard(v, spec)
+
+
 def attention_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, channels=None):
     """q (B, H, S, hd) and k, v (B, G, S, hd) of (B, S, D) ``x`` in the
     compute dtype, q and k rotated by ``positions``."""
-    a = cfg.attention
-    B, S, _ = x.shape
-    G, hd = a.n_kv_heads, a.head_dim
-    cdt = _dtype(cfg.compute_dtype)
-    xc = x.to(cdt)
-    d = xc.shape[-1]
-
-    def proj(w, n):
-        return (xc @ w.to(cdt).reshape(d, n * hd)).reshape(
-            B, S, n, hd).transpose(1, 2)
-
-    q, k, v = proj(p["wq"], a.n_heads), proj(p["wk"], G), proj(p["wv"], G)
-    if a.rope is not None:
-        q = apply_rope(q, positions, a.rope.theta, a.rope.partial_pct,
-                       a.rope.mrope_sections)
-        k = apply_rope(k, positions, a.rope.theta, a.rope.partial_pct,
-                       a.rope.mrope_sections)
-    q = shard(q, ("batch", "heads", "q_seq", "head_dim"))
-    k = shard(k, ("batch", "kv_heads", "kv_seq", "head_dim"))
-    v = shard(v, ("batch", "kv_heads", "kv_seq", "head_dim"))
-    return q, k, v
+    return (attention_q(p, x, cfg, positions, channels),
+            *attention_kv(p, x, cfg, positions, channels))
 
 
 def attention_out(p: Params, ctx: torch.Tensor, cfg: ModelConfig, B: int,

@@ -75,17 +75,21 @@ unless given ``device="cpu"``.
 
 A model split over a mesh's model axis
 (``distributed.tensor_parallel.SplitLM``: one module a mesh position) of
-the dense, moe, ssm or hybrid family runs through the same
-:func:`forward`, :func:`prefill`, :func:`decode_step` and
-:func:`loss_fn`: the global batch split over the data positions (or run
-whole by each, where it does not split), and each block looped over the
-model positions from one controller, the partial outputs of the
-attention, the MLP, the moe block and the Mamba2 mixer joined by
-``distributed.collectives`` (:func:`_split_group` for the transformer
-stack, :func:`_split_recurrent` for the Mamba2 and hybrid stacks, which
-run the data indices in lockstep so that a decode step's attention can
-combine a K/V sequence that lies over the data positions); its cache
-holds each position's K/V and SSM state (``SplitLM.init_cache``).
+any family runs through the same :func:`forward`, :func:`prefill`,
+:func:`decode_step` and :func:`loss_fn`: the global batch split over the
+data positions (or run whole by each, where it does not split), and each
+block looped over the model positions from one controller, the partial
+outputs of the attention, the MLP, the moe block and the Mamba2 mixer
+joined by ``distributed.collectives`` (:func:`_split_group` for the
+transformer stack, :func:`_split_encdec` for the encdec stack,
+:func:`_split_recurrent` for the Mamba2 and hybrid stacks, which run the
+data indices in lockstep so that a decode step's attention can combine a
+K/V sequence that lies over the data positions).  The attention takes
+the rules' layout (:func:`_split_attention`): each shard's heads, or
+where the heads do not divide the model axis context parallelism
+(``kv_seq``) or the ``head_dim`` split
+(``models/parallel_attention.py``).  Its cache holds each position's K/V
+(and cross K/V) and SSM state (``SplitLM.init_cache``).
 """
 from __future__ import annotations
 
@@ -110,6 +114,7 @@ from repro_torch.distributed.sharding import sharding_context
 from repro_torch.launch import cost_analysis as CA
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import parallel_attention as PA
 from repro_torch.models import ssm as SSM
 
 Cache = Dict[str, Any]
@@ -750,8 +755,7 @@ def _cross_attention(p: L.Params, x, k, v, cfg: ModelConfig, *,
     B, S, d = x.shape
     G, hd = a.n_kv_heads, a.head_dim
     rep = a.n_heads // G
-    q = (x.to(cdt) @ p["wq"].to(cdt).reshape(d, a.n_heads * hd)).reshape(
-        B, S, a.n_heads, hd).transpose(1, 2)
+    q = _cross_q(p, x, cfg)
     k, v = k.to(cdt), v.to(cdt)
     T = k.shape[2]
     if flash:
@@ -763,9 +767,28 @@ def _cross_attention(p: L.Params, x, k, v, cfg: ModelConfig, *,
                          k).float()
         probs = torch.softmax(div(s, math.sqrt(hd)), dim=-1).to(cdt)
         ctx = torch.einsum("bgrst,bgtk->bgrsk", probs, v)
-    ctx = ctx.reshape(B, a.n_heads, S, hd)
-    out = torch.einsum("bhsk,hkd->bsd", ctx, p["wo"].to(cdt))
-    return out.to(x.dtype)
+    return _cross_out(p, ctx, cfg, B, x.dtype)
+
+
+def _cross_q(p: L.Params, x, cfg: ModelConfig):
+    """The cross-attention's q (B, H, S, hd) of the decoder's (B, S, D)
+    ``x``, in the compute dtype (no RoPE)."""
+    a = cfg.attention
+    cdt = L._dtype(cfg.compute_dtype)
+    B, S, d = x.shape
+    return (x.to(cdt) @ p["wq"].to(cdt).reshape(
+        d, a.n_heads * a.head_dim)).reshape(B, S, a.n_heads,
+                                            a.head_dim).transpose(1, 2)
+
+
+def _cross_out(p: L.Params, ctx, cfg: ModelConfig, B: int, dtype):
+    """The heads' cross context (any shape holding (B, H, S, hd)) through
+    ``wo``, in ``dtype``."""
+    a = cfg.attention
+    ctx = ctx.reshape(B, a.n_heads, ctx.shape[-2], a.head_dim)
+    out = torch.einsum("bhsk,hkd->bsd", ctx,
+                       p["wo"].to(L._dtype(cfg.compute_dtype)))
+    return out.to(dtype)
 
 
 def _decoder_layer(bp: DenseBlock, cp: CrossBlock, x, cfg: ModelConfig, *,
@@ -830,21 +853,40 @@ def _decoder_stack(params: EncDecLM, x, cfg: ModelConfig, *, positions,
 
 def _split_attention(split, d: int, blocks, cfg: ModelConfig, positions,
                      caches, cache_index, layer_index: int, local_flag: bool,
-                     xs):
-    """Each shard's attention (its heads) of data index ``d``'s residuals
-    ``xs`` through ``blocks`` (one a model position), all-reduced where
-    the rules split the heads."""
+                     xs, causal: bool = True):
+    """The attention of data index ``d``'s residuals ``xs`` through
+    ``blocks`` (one a model position), by the split's layout
+    (``SplitLM.attn_layout``): each shard's heads, all-reduced
+    (``"heads"``); every head on every position (``"whole"``); the keys
+    in parts over the model positions, combined
+    (``"kv_seq"``: ``parallel_attention.context_parallel``); each shard's
+    channels of every head, the partial scores and outputs all-reduced
+    (``"head_dim"``: ``parallel_attention.head_dim_split``)."""
     lcfg, m = split.local_cfg, split.extent
+    layout, origin = split.attn_layout, d == 0
+    hs = [L.apply_norm(bp.attn_norm, x, cfg) for bp, x in zip(blocks, xs)]
+    if layout in ("kv_seq", "head_dim"):
+        js = [j for j, _ in split.group(d)]
+        kw = dict(cache_index=cache_index, layer_index=layer_index,
+                  local_flag=local_flag, causal=causal, origin=origin)
+        kvs = [None if c is None else c["kv"] for c in caches]
+        ps = [bp.attn for bp in blocks]
+        if layout == "kv_seq":
+            return PA.context_parallel(js, m, ps, hs, cfg, positions, kvs,
+                                       **kw)
+        attn = PA.head_dim_split(js, m, ps, hs, cfg, lcfg, positions, kvs,
+                                 **kw)
+        return C.all_reduce(attn, extent=m, origin=origin)
     attn = []
-    for bp, x, pos, c in zip(blocks, xs, positions, caches):
-        h = L.apply_norm(bp.attn_norm, x, cfg)
+    for bp, h, pos, c in zip(blocks, hs, positions, caches):
         a, _ = L.multi_head_attention(
             bp.attn, h, lcfg, positions=pos, layer_is_local=local_flag,
-            cache=None if c is None else c["kv"], cache_index=cache_index,
+            causal=causal, cache=None if c is None else c["kv"],
+            cache_index=cache_index,
             layer_index=None if c is None else layer_index)
         attn.append(a)
-    if split.on_model("heads"):
-        attn = C.all_reduce(attn, extent=m, origin=d == 0)
+    if layout == "heads":
+        attn = C.all_reduce(attn, extent=m, origin=origin)
     return attn
 
 
@@ -1031,65 +1073,149 @@ def _split_group(split, d: int, batch: Mapping[str, torch.Tensor],
     return _split_logits(split, d, xs, cfg, last_only), aux_tot
 
 
-# -- the KV sequence over the data positions (the hybrid family) ------------
-
-def _seq_part_write(buf: torch.Tensor, new: torch.Tensor, e: int,
-                    index: int) -> None:
-    """Write ``new`` (B, G, S, hd), the K or V of positions ``index`` ...
-    ``index + S``, into ``buf`` (B, G, T, hd), sequence part ``e`` (its
-    positions ``e·T`` ... ``(e + 1)·T``), in place: the slots of those
-    positions the part holds.  A step of one token writes one slot,
-    masked, on every part (the part that holds the position takes the
-    token, the others rewrite their own value), so every part runs the
-    same operations; a longer step rewrites the part's every slot, each
-    from the prompt or from itself."""
-    T, S = buf.shape[2], new.shape[2]
-    new = new.to(buf.dtype)
-    if S == 1:
-        at = index - e * T
-        li = min(max(at, 0), T - 1)
-        mine = torch.tensor(0 <= at < T, device=buf.device)
-        buf[:, :, li:li + 1] = torch.where(mine, new, buf[:, :, li:li + 1])
-        return
-    slot = torch.arange(T, device=buf.device) + (e * T - index)
-    valid = (slot >= 0) & (slot < S)
-    src = new.index_select(2, slot.clamp(0, S - 1))
-    buf.copy_(torch.where(valid[None, None, :, None], src, buf))
+def _split_stack(split, d: int, batch: Mapping[str, torch.Tensor],
+                 cfg: ModelConfig, **kw):
+    """:func:`_split_group` (dense, moe) or :func:`_split_encdec` on data
+    index ``d``'s part of the batch: (each position's logits, each
+    position's aux)."""
+    if cfg.family == "encdec":
+        return _split_encdec(split, d, batch, cfg, **kw)
+    return _split_group(split, d, batch, cfg, **kw)
 
 
-def _seq_part_scores(q, ck, cv, cfg: ModelConfig, e: int, index: int,
-                     scale: float):
-    """One sequence part's share of a decode step's attention: q (B, H, 1,
-    hd) over the part's keys ``ck``, ``cv`` (B, G, T, hd), those past
-    ``index`` masked.  Returns (the unnormalised output (B, G, R, 1, hd)
-    float32, the row maxima and the row sums (B, G, R, 1, 1)) of the
-    scores ``_attention_core`` computes, in float32."""
-    a = cfg.attention
+# -- the encdec family ------------------------------------------------------
+
+def _split_enc_layer(split, d: int, i: int, cfg: ModelConfig, positions,
+                     *xs):
+    """Encoder block ``i`` at every model position of data index ``d``:
+    the unmasked self-attention by the split's layout, then the MLP."""
+    blocks = [p.enc_blocks[i] for _, p in split.group(d)]
+    attn = _split_attention(split, d, blocks, cfg, positions,
+                            [None] * len(blocks), 0, None, False, xs,
+                            causal=False)
+    return _split_ffn(split, d, blocks, cfg, xs, attn)[0]
+
+
+def _split_encoder(split, d: int, frames, cfg: ModelConfig, remat: str):
+    """Whisper's encoder at every model position of data index ``d``: the
+    frames whole on each, each block by the split's layout (recomputed in
+    the backward as ``remat`` says), then ``enc_norm``.  Returns each
+    position's encoder output."""
+    group = split.group(d)
     cdt = L._dtype(cfg.compute_dtype)
-    B, G, T, hd = ck.shape
-    qg = q.reshape(B, G, a.n_heads // G, 1, hd)
-    s = torch.einsum("bgrsk,bgtk->bgrst", qg, ck.to(cdt)).float() * scale
-    if a.softcap is not None:
-        s = torch.tanh(s / a.softcap) * a.softcap
-    k_pos = torch.arange(T, device=q.device) + e * T
-    s = torch.where(k_pos <= index, s, L.NEG_INF)
-    mx = s.amax(dim=-1, keepdim=True)
-    ex = torch.exp(s - mx)
-    o = torch.einsum("bgrst,bgtk->bgrsk", ex.to(cdt), cv.to(cdt)).float()
-    return o, mx, ex.sum(dim=-1, keepdim=True)
+    xs = tuple(frames.to(next(p.parameters()).device).to(cdt)
+               for _, p in group)
+    positions = [torch.arange(x.shape[1], device=x.device)[None, :]
+                 for x in xs]
+    enc_cfg = _encoder_cfg(cfg)
+    for i in range(cfg.n_enc_layers):
+        args = (split, d, i, enc_cfg, positions, *xs)
+        xs = (_checkpointed(remat, _split_enc_layer, *args)
+              if remat != "none" else _split_enc_layer(*args))
+    return [L.apply_norm(p.enc_norm, x, cfg) for (_, p), x in zip(group, xs)]
 
+
+def _split_cross(split, d: int, cps, cfg: ModelConfig, xs, enc, caches,
+                 i: int):
+    """Decoder layer ``i``'s cross-attention at every model position of
+    data index ``d`` (``cps`` its :class:`CrossBlock` pieces): K and V
+    projected from each position's encoder output ``enc`` (and copied
+    into the cache's ``cross_k`` / ``cross_v``), or read from the cache
+    in decode.  By the split's layout: each shard's heads (``wq``, ``wk``,
+    ``wv`` column-parallel, ``wo`` row-parallel, all-reduced); each
+    shard's channels of every head (``head_dim``: the partial scores and
+    outputs all-reduced, ``parallel_attention.head_dim_core``); or every
+    head on every position (``kv_seq`` and ``whole``: the cross K/V's
+    spec leaves their sequence unsplit)."""
+    lcfg, m, layout, origin = (split.local_cfg, split.extent,
+                               split.attn_layout, d == 0)
+    hs = [L.apply_norm(cp.norm, x, cfg) for cp, x in zip(cps, xs)]
+    kvs = []
+    for cp, e, c in zip(cps, enc or [None] * len(cps), caches):
+        if e is None:
+            kvs.append((c["cross_k"][i], c["cross_v"][i]))
+            continue
+        ck, cv = _cross_kv(cp.attn, e, lcfg)
+        if c is not None:
+            c["cross_k"][i].copy_(ck)
+            c["cross_v"][i].copy_(cv)
+        kvs.append((ck, cv))
+    if layout == "head_dim":
+        a, cdt = lcfg.attention, L._dtype(cfg.compute_dtype)
+        B, S = xs[0].shape[:2]
+        G, hd = a.n_kv_heads, a.head_dim
+        qs = [_cross_q(cp.attn, h, lcfg).reshape(B, G, a.n_heads // G, S, hd)
+              for cp, h in zip(cps, hs)]
+        ctx = PA.head_dim_core(
+            qs, [k.to(cdt) for k, _ in kvs], [v for _, v in kvs], extent=m,
+            origin=origin, scale=1.0 / math.sqrt(cfg.attention.head_dim),
+            softcap=None, causal=False, window=None, q_offset=0,
+            kv_valid=None, cdt=cdt)
+        out = [_cross_out(cp.attn, c, lcfg, B, h.dtype)
+               for cp, c, h in zip(cps, ctx, hs)]
+        return C.all_reduce(out, extent=m, origin=origin)
+    flash = enc is not None and L.flash_route(
+        lcfg, q_offset=0, seq=xs[0].shape[1], layer_is_local=False)
+    out = [_cross_attention(cp.attn, h, k, v, lcfg, flash=flash)
+           for cp, h, (k, v) in zip(cps, hs, kvs)]
+    if layout == "heads":
+        out = C.all_reduce(out, extent=m, origin=origin)
+    return out
+
+
+def _split_decoder_layer(split, d: int, i: int, cfg: ModelConfig, positions,
+                         caches, cache_index, enc, *xs):
+    """Decoder layer ``i`` at every model position of data index ``d``:
+    the causal self-attention by the split's layout over each position's
+    K/V cache, the cross-attention (:func:`_split_cross`) and the MLP."""
+    group = split.group(d)
+    blocks = [p.blocks[i] for _, p in group]
+    attn = _split_attention(split, d, blocks, cfg, positions, caches,
+                            cache_index, i, False, xs)
+    xs = tuple(x + a for x, a in zip(xs, attn))
+    cross = _split_cross(split, d, [p.cross[i] for _, p in group], cfg, xs,
+                         enc, caches, i)
+    return _split_ffn(split, d, blocks, cfg, xs, cross)[0]
+
+
+def _split_encdec(split, d: int, batch: Mapping[str, torch.Tensor],
+                  cfg: ModelConfig, *, caches=None, cache_index: int = 0,
+                  last_only: bool = False):
+    """Data index ``d``'s part of the batch through its model positions of
+    an encdec model, as :func:`_split_group` runs a dense one: the
+    embedding, the encoder over ``batch['frames']`` where they are given
+    (a prefill or a forward; a decode step reads the cached cross K/V),
+    the decoder layers (recomputed in the backward as ``cfg.remat`` says
+    when there is no cache) and the logits.  Returns (each position's
+    whole logits, each position's empty aux)."""
+    group = split.group(d)
+    xs, positions = _split_embed(split, d, batch, cfg, cache_index)
+    caches = caches or [None] * len(group)
+    frames = batch.get("frames")
+    if frames is None and caches[0] is None:
+        raise ValueError("an encdec forward without a cache needs "
+                         "batch['frames'] (B, enc_seq, d_model)")
+    remat = _remat(cfg) if caches[0] is None else "none"
+    enc = None if frames is None else _split_encoder(split, d, frames, cfg,
+                                                     remat)
+    for i in range(cfg.n_layers):
+        args = (split, d, i, cfg, positions, caches, cache_index, enc, *xs)
+        xs = (_checkpointed(remat, _split_decoder_layer, *args)
+              if remat != "none" else _split_decoder_layer(*args))
+    return _split_logits(split, d, xs, cfg, last_only), [{} for _ in group]
+
+# -- the KV sequence over the data positions (the hybrid family) ------------
 
 def _seq_split_attention(split, ds, g: int, cfg: ModelConfig, positions,
                          caches, cache_index: int, parts: int, xs):
     """The shared block's attention (use ``g``) where the K/V lie along the
     sequence over the data axis, for the data indices ``ds`` in lockstep
     (every data index runs the whole batch).  Each position writes its
-    sequence part's slots (:func:`_seq_part_write`).  A prefill (from
-    position 0) attends over the prompt's own K/V, read back through the
-    cache's dtype, as the unsplit prefill does; a decode step combines
-    the parts: each its scores' row maxima, sums and unnormalised output
-    (:func:`_seq_part_scores`), the maxima all-gathered over the data
-    positions and the rescaled outputs and sums all-reduced.  Then ``wo``
+    sequence part's slots (``parallel_attention.seq_part_write``).  A
+    prefill (from position 0) attends over the prompt's own K/V, read back
+    through the cache's dtype, as the unsplit prefill does; a decode step
+    combines the parts (``parallel_attention.part_attention`` a part, and
+    ``parallel_attention.combine`` over the data positions).  Then ``wo``
     and the all-reduce over the heads as :func:`_split_attention`.
     Returns {d: each position's attention output}."""
     from repro_torch.kernels import ops
@@ -1097,11 +1223,12 @@ def _seq_split_attention(split, ds, g: int, cfg: ModelConfig, positions,
     lcfg, m = split.local_cfg, split.extent
     a = lcfg.attention
     cdt = L._dtype(cfg.compute_dtype)
-    if lcfg.kv_cache_quant or a.sliding_window is not None:
+    if lcfg.kv_cache_quant or a.sliding_window is not None or \
+            split.attn_layout not in ("heads", "whole"):
         raise ValueError("a K/V sequence over the data positions takes a "
-                         "plain cache and no sliding window")
-    scale = a.query_scale if a.query_scale is not None else \
-        1.0 / math.sqrt(a.head_dim)
+                         "plain cache, no sliding window, and heads whole "
+                         "or split over the model axis")
+    scale = L.query_scale(lcfg)
     state, ctx = {}, {}
     for d in ds:
         e = d % parts
@@ -1111,8 +1238,8 @@ def _seq_split_attention(split, ds, g: int, cfg: ModelConfig, positions,
             h = L.apply_norm(bp.attn_norm, x, cfg)
             q, k, v = L.attention_qkv(bp.attn, h, lcfg, pos)
             ck, cv = c["kv"]["k"][g], c["kv"]["v"][g]
-            _seq_part_write(ck, k, e, cache_index)
-            _seq_part_write(cv, v, e, cache_index)
+            PA.seq_part_write(ck, k, e, cache_index)
+            PA.seq_part_write(cv, v, e, cache_index)
             B, S = x.shape[:2]
             if S > 1:
                 if cache_index:
@@ -1136,26 +1263,24 @@ def _seq_split_attention(split, ds, g: int, cfg: ModelConfig, positions,
                         q_chunk=512, cdt=cdt)
                 ctx[(d, j)] = out
             else:
-                state[(d, j)] = _seq_part_scores(q, ck, cv, lcfg, e,
-                                                 cache_index, scale)
+                G, T = a.n_kv_heads, ck.shape[2]
+                state[(d, j)] = PA.part_attention(
+                    q.reshape(B, G, a.n_heads // G, 1, a.head_dim),
+                    ck.to(cdt), cv.to(cdt), scale=scale, softcap=a.softcap,
+                    causal=True, window=None,
+                    q_pos=torch.full((1,), cache_index, device=q.device),
+                    k_pos=torch.arange(T, device=q.device) + e * T,
+                    kv_valid=None, cdt=cdt)
     if state:
         # each pod's data positions combine, one model index at a time
         n_pod = split.data_extent // parts
         for pod in range(n_pod):
             members = [d for d in ds if d // parts == pod]
             for j in sorted({j for d in members for j, _ in split.group(d)}):
-                got = [state[(d, j)] for d in members]
-                origin = pod == 0 and j == 0
-                mxs = C.all_gather([mx for _, mx, _ in got], -1,
-                                   extent=parts, origin=origin)
-                scaled = []
-                for (o, mx, l), every in zip(got, mxs):
-                    w = torch.exp(mx - every.amax(dim=-1, keepdim=True))
-                    scaled.append(torch.cat([o * w, l * w], dim=-1))
-                tot = C.all_reduce(scaled, extent=parts, origin=origin)
+                tot = PA.combine([state[(d, j)] for d in members],
+                                 extent=parts, origin=pod == 0 and j == 0)
                 for d, t in zip(members, tot):
-                    hd = a.head_dim
-                    ctx[(d, j)] = (t[..., :hd] / t[..., hd:]).to(cdt)
+                    ctx[(d, j)] = t.to(cdt)
     out = {}
     for d in ds:
         attn = []
@@ -1253,9 +1378,9 @@ def _split_forward(split, batch: Mapping[str, torch.Tensor],
             cache["pieces"][(d, j)] for j, _ in split.group(d)]
 
     with sharding_context(split.mesh, split.rules):
-        if cfg.family in ATTENTION_FAMILIES:
+        if cfg.family in ATTENTION_FAMILIES + ("encdec",):
             for d in ds:
-                logits, aux = _split_group(
+                logits, aux = _split_stack(
                     split, d, _data_part(split, batch, d), cfg,
                     caches=caches_of(d), cache_index=index,
                     last_only=last_only)
@@ -1295,8 +1420,8 @@ def _split_loss_terms(split, batch: Mapping[str, torch.Tensor],
     losses, one a position, to run the backward from; position 0's
     metrics)."""
     with sharding_context(split.mesh, split.rules):
-        if cfg.family in ATTENTION_FAMILIES:
-            logits, auxes = _split_group(split, d, batch, cfg)
+        if cfg.family in ATTENTION_FAMILIES + ("encdec",):
+            logits, auxes = _split_stack(split, d, batch, cfg)
         else:
             logits = _split_recurrent(split, [d], {d: batch}, cfg)[d]
             auxes = [{} for _ in logits]

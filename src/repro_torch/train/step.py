@@ -67,7 +67,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.mesh import (DATA_AXIS, MODEL_AXIS, POD_AXIS,
                                           Mesh, axis_size, data_axes)
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import resolve_rules
+from repro_torch.distributed.sharding import ShardingRules, resolve_rules
 from repro_torch.distributed.tensor_parallel import split_model
 from repro_torch.launch import cost_analysis as CA
 from repro_torch.models import model as M
@@ -157,11 +157,13 @@ class TrainState(NamedTuple):
                           tuple(copies[id(m)] for m in self.replicas))
 
 
-def zero1_specs(cfg: ModelConfig, mesh: Mesh) -> AdamWState:
+def zero1_specs(cfg: ModelConfig, mesh: Mesh,
+                rules: Optional[ShardingRules] = None) -> AdamWState:
     """The ZeRO-1 specs of ``cfg``'s AdamW state on ``mesh``: the
     parameters' logical specs (``models.model.param_logical_specs``)
-    resolved by the mesh's rules, widened by ``zero1_spec``."""
-    rules = resolve_rules(mesh, M.sharding_dims(cfg, 0))
+    resolved by ``rules`` (default: the mesh's rules with no sequence),
+    widened by ``zero1_spec``."""
+    rules = rules or resolve_rules(mesh, M.sharding_dims(cfg, 0))
     shapes = {k: tuple(p.shape) for k, p
               in M.model_class(cfg)(cfg).named_parameters()}
     return zero1_state_shardings(
@@ -176,7 +178,8 @@ def batch_devices(mesh: Mesh) -> list:
     return mesh.devices_along(data_axes(mesh))
 
 
-def shard_train_state(state: TrainState, mesh: Mesh, *, positions=None
+def shard_train_state(state: TrainState, mesh: Mesh, *, positions=None,
+                      rules: Optional[ShardingRules] = None
                       ) -> Union[TrainState, "SplitTrainState"]:
     """``state`` with its AdamW state split ZeRO-1-style over ``mesh``'s
     data axis (:func:`~repro_torch.train.optimizer.shard_state`: by copy,
@@ -188,9 +191,12 @@ def shard_train_state(state: TrainState, mesh: Mesh, *, positions=None
     :class:`SplitTrainState` -- the parameters split by position, each
     model piece's AdamW state over the data positions of its model index
     -- of every position, or of ``positions`` (``(d, j)``; the dry run's
-    state on the meta device holds ``[(0, 0)]``)."""
+    state on the meta device holds ``[(0, 0)]``), laid out by ``rules``
+    (default ``tensor_parallel.split_rules``; a train cell of a model
+    whose heads do not divide the model axis resolves ``kv_seq``
+    there)."""
     if axis_size(mesh, MODEL_AXIS) > 1 or positions is not None:
-        return _split_train_state(state, mesh, positions)
+        return _split_train_state(state, mesh, positions, rules)
     cfg = state.params.cfg
     constraint = zero1_grad_constraint(mesh, zero1_specs(cfg, mesh).master)
     opt = shard_state(state.opt, constraint)
@@ -279,25 +285,28 @@ def _data_layout(mesh: Mesh) -> Tuple[int, int]:
     return axis_size(mesh, POD_AXIS), axis_size(mesh, DATA_AXIS)
 
 
-def split_zero_dims(cfg: ModelConfig, mesh: Mesh) -> Dict[str, Optional[int]]:
+def split_zero_dims(cfg: ModelConfig, mesh: Mesh,
+                    rules: Optional[ShardingRules] = None
+                    ) -> Dict[str, Optional[int]]:
     """The dimension ZeRO-1 splits each leaf's model piece along over the
-    data axis (``zero1_spec`` of the leaf's spec on ``mesh``), None where
-    nothing divides."""
-    specs = zero1_specs(cfg, mesh).master
+    data axis (``zero1_spec`` of the leaf's spec on ``mesh`` by
+    ``rules``), None where nothing divides."""
+    specs = zero1_specs(cfg, mesh, rules).master
     return {k: _split_dim(spec, DATA_AXIS) for k, spec in specs.items()}
 
 
-def _split_train_state(state: TrainState, mesh: Mesh,
-                       positions=None) -> SplitTrainState:
+def _split_train_state(state: TrainState, mesh: Mesh, positions=None,
+                       rules: Optional[ShardingRules] = None
+                       ) -> SplitTrainState:
     """``state`` split over ``mesh``: its parameters by position
     (``split_model``), each model piece's AdamW state over the data
     positions of its model index (pod 0), by copy, each whole leaf of
     ``state`` dropped once its pieces exist."""
     cfg = state.params.cfg
-    split = split_model(state.params, mesh, positions=positions)
+    split = split_model(state.params, mesh, rules, positions=positions)
     m = split.extent
     n_pod, n_data = _data_layout(mesh)
-    zdims = split_zero_dims(cfg, mesh)
+    zdims = split_zero_dims(cfg, mesh, split.rules)
     # the data positions of pod 0 present, for each model index
     owners = {j: [e for e in range(n_data) if (e, j) in split.pieces]
               for j in range(m)}

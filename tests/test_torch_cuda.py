@@ -607,6 +607,53 @@ def test_flash_kernel_zero_rows_and_strided_operands():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bg,r,sq,skv,d,causal,off,softcap", [
+    (2, 2, 300, 94, 64, True, -200, None),    # whole q blocks see no key
+    (2, 2, 300, 93, 128, True, -150, 50.0),   # a part of 93, softcap
+    (1, 3, 256, 94, 64, False, None, None),   # an unmasked part of 94
+    (1, 2, 1024, 264, 128, True, -264, None),  # a starcoder2-3b part
+    (2, 1, 100, 93, 16, True, -7, None),      # the SIMT kernel at D 16
+    (1, 2, 128, 130, 64, True, 40, None),     # a positive offset
+])
+def test_flash_kernel_offset_and_statistics_on_card(bg, r, sq, skv, d,
+                                                    causal, off, softcap,
+                                                    dtype):
+    """A key part's call (``off``, ``stats``) against the plain version,
+    by the bound of ``test_flash_kernel_matches_plain_version_on_card``
+    on o and on the row statistics m and l; a row that sees no key gives
+    exactly o = 0, m = -1e30 and l = 0.  The default offset gives the
+    bits of an explicit ``Skv - Sq``, with or without statistics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card; see README)")
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(bg, r, sq, skv, d, dtype, 47)
+    kw = dict(scale=d ** -0.5, causal=causal, softcap=softcap, off=off)
+    modes = dict(FA.LAUNCHES_BY_MODE)
+    o, m, l = FA.flash_attention(q, k, v, stats=True, **kw)
+    wo, wm, wl = FA.flash_attention_plain(q, k, v, stats=True, **kw)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES_BY_MODE["stats"] == modes["stats"] + 1
+    assert FA.LAUNCHES_BY_MODE["offset"] == modes["offset"] + (off
+                                                               is not None)
+    assert m.dtype == l.dtype == torch.float32 and m.shape == q.shape[:3]
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(o.float(), wo.float(), rtol=tol, atol=tol)
+    empty = wl == 0
+    if causal and off < 0:
+        assert bool(empty[:, :, :-off].all())
+    assert bool((o[empty] == 0).all()) and bool((l[empty] == 0).all())
+    assert bool((m[empty] == FA.NEG_INF).all())
+    torch.testing.assert_close(m, wm, rtol=tol, atol=tol)
+    torch.testing.assert_close(l, wl, rtol=tol, atol=tol)
+    base = dict(scale=d ** -0.5, causal=causal, softcap=softcap)
+    plain = FA.flash_attention(q, k, v, **base)
+    explicit = FA.flash_attention(q, k, v, off=skv - sq, stats=True, **base)
+    assert torch.equal(plain, explicit[0])
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_autograd_and_bad_operands():
     """The kernel has no backward: under autograd the wrapper raises rather
     than return an output no gradient flows through; under no_grad it

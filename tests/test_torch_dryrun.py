@@ -15,11 +15,14 @@
 * mesh position 0's numbers (the dry run runs that position alone)
   against running every position of a (2, 2) abstract mesh at SMOKE (the
   dense, moe, ssm and hybrid stacks; zamba2's decode with its K/V along
-  the sequence over the data positions):
-  the whole mesh's FLOPs and bytes are four times position 0's, and the
-  collective bytes (counted once, for the group of position 0) equal;
+  the sequence over the data positions), and of a (2, 4) one (starcoder2
+  by its kv_seq and head_dim rules, whisper by its heads): the whole
+  mesh's FLOPs and bytes are the positions' count times position 0's,
+  and the collective bytes (counted once, for the group of position 0)
+  equal;
 * records: one production cell on meta (``olmo-1b`` ``decode_32k``,
-  single pod), a skipped and an unsupported cell, and the CLI.
+  single pod), a skipped cell and the unsupported layout (``kv_seq`` on
+  the data axis of a dense and an encdec model), and the CLI.
 """
 import json
 
@@ -210,25 +213,40 @@ def test_ssd_wrapper_reports_ssd_chunkeds_work(s, chunk):
 
 
 # ------------------------------------ position 0 against every position
-@pytest.mark.parametrize("arch,kind,batch", [
-    ("olmo-1b", "prefill", 8), ("olmo-1b", "decode", 8),
-    ("olmo-1b", "train", 8), ("olmoe-1b-7b", "train", 8),
-    ("deepseek-moe-16b", "prefill", 8), ("zamba2-7b", "train", 8),
-    ("zamba2-7b", "decode", 1), ("mamba2-130m", "prefill", 8)])
-def test_position_zero_equals_every_position(arch, kind, batch):
+POSITION_CASES = [
+    ("olmo-1b", "prefill", 8, (2, 2)), ("olmo-1b", "decode", 8, (2, 2)),
+    ("olmo-1b", "train", 8, (2, 2)), ("olmoe-1b-7b", "train", 8, (2, 2)),
+    ("deepseek-moe-16b", "prefill", 8, (2, 2)),
+    ("zamba2-7b", "train", 8, (2, 2)), ("zamba2-7b", "decode", 1, (2, 2)),
+    ("mamba2-130m", "prefill", 8, (2, 2)),
+    ("starcoder2-3b", "train", 8, (2, 4)),
+    ("starcoder2-3b", "prefill", 8, (2, 4)),
+    ("starcoder2-3b", "decode", 8, (2, 4)),
+    ("whisper-large-v3", "prefill", 8, (2, 4)),
+    ("whisper-large-v3", "decode", 8, (2, 4))]
+
+
+@pytest.mark.parametrize("arch,kind,batch,mesh", POSITION_CASES, ids=[
+    f"{a}-{k}-{b}" + ("" if m == (2, 2) else f"-{m[0]}x{m[1]}")
+    for a, k, b, m in POSITION_CASES])
+def test_position_zero_equals_every_position(arch, kind, batch, mesh):
     """zamba2's decode at batch 1: every data position runs the whole
     batch and holds half the K/V sequence (a masked write of the new
-    token's K/V on each)."""
+    token's K/V on each).  starcoder2 over (2, 4): its train and prefill
+    cells resolve ``kv_seq`` on the model axis (every position its part
+    of the keys), its decode cell ``head_dim``; whisper's 4 heads split
+    over 4 (the encdec Megatron split)."""
     cfg = T_cfg.get_smoke_config(arch)
-    mesh = T_mesh.Mesh((2, 2), ("data", "model"))
+    mesh = T_mesh.Mesh(mesh, ("data", "model"))
+    n = mesh.size
     shape = ShapeConfig("small", 16, batch, kind)
     kw = dict(cfg_override=cfg, mesh=mesh, shape=shape, n_microbatches=2)
     one = D.run_cell(arch, None, **kw)
     every = D.run_cell(arch, None, every_position=True, **kw)
     assert one["status"] == every["status"] == "ok"
     a, b = one["cost"], every["cost"]
-    assert b["dot_flops"] == 4 * a["dot_flops"] > 0
-    assert b["bytes_accessed"] == 4 * a["bytes_accessed"]
+    assert b["dot_flops"] == n * a["dot_flops"] > 0
+    assert b["bytes_accessed"] == n * a["bytes_accessed"]
     assert b["collective_bytes"] == a["collective_bytes"]
     assert b["collective_counts"] == a["collective_counts"]
     assert a["total_collective_bytes"] > 0
@@ -254,13 +272,18 @@ def test_production_cell_on_meta():
 
 
 def test_skipped_and_unsupported_records():
+    """The one layout still refused: ``kv_seq`` on the data axis of a
+    dense (or encdec) model, a batch of 1 over (2, 2), on the model axis
+    nothing the port does not split."""
     rec = D.run_cell("olmo-1b", "long_500k", True)
     assert rec["status"] == "skipped" and rec["reason"] == D.SKIP_REASON
-    rec = D.run_cell("starcoder2-3b", "train_4k", False)
-    assert rec["status"] == "unsupported" and rec["axes"] == ["kv_seq"]
-    rec = D.run_cell("whisper-large-v3", "decode_32k", True)
-    assert rec["status"] == "unsupported"
-    assert rec["axes"] == ["head_dim", "mlp"]
+    mesh = T_mesh.Mesh((2, 2), ("data", "model"))
+    for arch, kind in (("olmo-1b", "decode"), ("whisper-large-v3",
+                                               "prefill")):
+        rec = D.run_cell(arch, None,
+                         cfg_override=T_cfg.get_smoke_config(arch),
+                         mesh=mesh, shape=ShapeConfig("small", 32, 1, kind))
+        assert rec["status"] == "unsupported" and rec["axes"] == ["kv_seq"]
 
 
 def test_cli_writes_one_record_a_cell(tmp_path):

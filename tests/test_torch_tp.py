@@ -8,10 +8,14 @@ against the port's unsplit model, at SMOKE size, from the JAX package's
 inputs):
 
 * olmo, gemma2, stablelm, olmoe and deepseek split over (1, 2), (1, 4)
-  (where the heads divide) and (2, 2) meshes of the CPU: ``forward``,
-  ``prefill`` and two teacher-forced ``decode_step``s against the JAX
-  functions at float32 1e-4, and against the unsplit port at 1e-5
-  relative (logits and the gathered KV cache);
+  and (2, 2) meshes of the CPU (gemma2's 2 KV heads at a model extent of
+  4: the default rules' ``head_dim`` split, with its softcap, its local
+  windows and its ``query_scale``), and over (2, 4) the layouts once
+  refused: starcoder2 by a prefill cell's rules (``kv_seq``) and a decode
+  cell's (``head_dim``), whisper by its heads (the encdec Megatron
+  split): ``forward``, ``prefill`` and two teacher-forced
+  ``decode_step``s against the JAX functions at float32 1e-4, and against
+  the unsplit port at 1e-5 relative (logits and the gathered KV cache);
 * moe routes bitwise equal on every shard and to the unsplit model's;
 * one train step over (data 2, model 2) and (1, 2) against the unsplit
   step with as many microbatches, by T2's rule: the loss and grad_norm
@@ -26,10 +30,11 @@ inputs):
   the split state's checkpoint image is the unsplit image and loads back;
 * ``logically_sharded`` raises on a whole tensor inside a sharding
   context and is a no-op outside one;
-* the layouts the port does not split (``kv_seq`` and ``head_dim`` on
-  the model axis, and every axis of the encdec family) are refused,
-  naming the axes (the ssm and hybrid families' splits:
-  ``tests/test_torch_tp_ssm.py``);
+* the layout the port does not split (``kv_seq`` on the data axis of a
+  dense model: batch 1 over (2, 2)) is refused, naming the axis (the ssm
+  and hybrid families' splits: ``tests/test_torch_tp_ssm.py``; the
+  context-parallel, head_dim and encdec splits in depth:
+  ``tests/test_torch_tp_attn.py``);
 * pieces keyed by position on a mesh that repeats one device, and the
   collectives' values and gradients.
 """
@@ -58,11 +63,14 @@ from repro_torch.train import step as T_step
 ARCHS = ("olmo-1b", "gemma2-27b", "stablelm-1.6b", "olmoe-1b-7b",
          "deepseek-moe-16b")
 MESHES = ((1, 2), (1, 4), (2, 2))
-# gemma2's SMOKE config has 2 KV heads: at a model extent of 4 the rules
-# put head_dim on the model axis, which the port does not split yet
-CASES = [(a, m) for a in ARCHS for m in MESHES
-         if not (a == "gemma2-27b" and m[1] == 4)]
+# (arch, mesh, the cell whose rules the split takes: None for the default
+# split_rules); gemma2's SMOKE config has 2 KV heads, so at a model extent
+# of 4 the default rules put head_dim on the model axis
+CASES = [(a, m, None) for a in ARCHS for m in MESHES] + [
+    ("starcoder2-3b", (2, 4), "prefill"), ("starcoder2-3b", (2, 4), "decode"),
+    ("whisper-large-v3", (2, 4), "prefill")]
 BATCH, PROMPT, N_DECODE = 4, 12, 2
+MAX_SEQ = 16            # a multiple of the model extents (the kv_seq rules)
 JAX_TOL, SPLIT_RTOL = 1e-4, 1e-5
 
 R_prefill = jax.jit(R_models.prefill, static_argnums=(2, 3),
@@ -93,6 +101,14 @@ def _tokens(vocab, n, seed):
                                                 dtype=np.int32)
 
 
+def _frames(cfg):
+    """whisper's frames, None for a model without an encoder."""
+    if cfg.family != "encdec":
+        return None
+    return np.random.default_rng(3).standard_normal(
+        (BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _reference_run(arch: str):
     """The JAX forward, prefill and N_DECODE decode steps' logits and the
@@ -101,10 +117,12 @@ def _reference_run(arch: str):
     params = jax.tree.map(jnp.asarray, _reference(arch))
     prompt = _tokens(rcfg.vocab, PROMPT, 1)
     forced = _tokens(rcfg.vocab, N_DECODE, 2)
-    fwd, _, _ = R_models.forward(params, {"tokens": jnp.asarray(prompt)},
-                                 rcfg)
+    frames = _frames(rcfg)
+    enc = {} if frames is None else {"frames": jnp.asarray(frames)}
+    fwd, _, _ = R_models.forward(params, {"tokens": jnp.asarray(prompt),
+                                          **enc}, rcfg)
     logits, cache = R_prefill(params, jnp.asarray(prompt), rcfg,
-                              PROMPT + N_DECODE, cache_dtype=jnp.float32)
+                              MAX_SEQ, cache_dtype=jnp.float32, **enc)
     out = [np.asarray(logits[:, -1])]
     for k in range(N_DECODE):
         logits, cache = R_decode(params, cache,
@@ -115,11 +133,14 @@ def _reference_run(arch: str):
 
 
 def _port_run(model, cfg, prompt, forced):
+    frames = _frames(cfg)
+    enc = {} if frames is None else {"frames": torch.from_numpy(frames)}
     fwd, _, _ = T_model.forward(model, {"tokens": torch.from_numpy(
-        prompt).long()}, cfg)
-    pre = T_serve.make_prefill_step(cfg, PROMPT + N_DECODE, torch.float32)
+        prompt).long(), **enc}, cfg)
+    pre = T_serve.make_prefill_step(cfg, MAX_SEQ, torch.float32)
     srv = T_serve.make_serve_step(cfg)
-    logits, cache = pre(model, {"tokens": torch.from_numpy(prompt).long()})
+    logits, cache = pre(model, {"tokens": torch.from_numpy(prompt).long(),
+                                **enc})
     out = [logits[:, -1]]
     for k in range(N_DECODE):
         logits, cache = srv(model, cache, {"tokens": torch.from_numpy(
@@ -136,13 +157,24 @@ def _rel_close(got, want):
                                atol=SPLIT_RTOL * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("arch,shape", CASES,
-                         ids=[f"{a}-{m[0]}x{m[1]}" for a, m in CASES])
-def test_split_model_matches_jax_and_unsplit(arch, shape):
+@pytest.mark.parametrize("arch,shape,kind", CASES, ids=[
+    f"{a}-{m[0]}x{m[1]}{'' if k is None else '-' + k}" for a, m, k in CASES])
+def test_split_model_matches_jax_and_unsplit(arch, shape, kind):
     _, cfg = _cfgs(arch)
     whole = T_model.from_reference(_reference(arch), cfg, device="cpu")
-    split = TP.split_model(whole, _mesh(shape))
+    mesh = _mesh(shape)
+    rules = None if kind is None else T_shard.resolve_rules(
+        mesh, T_model.sharding_dims(cfg, BATCH, kv_seq=MAX_SEQ,
+                                    q_seq=PROMPT if kind == "prefill" else 1))
+    split = TP.split_model(whole, mesh, rules)
     assert len(split.pieces) == shape[0] * shape[1]
+    layout = {"prefill": "kv_seq", "decode": "head_dim"}.get(kind)
+    if arch == "whisper-large-v3":
+        layout = "heads"
+    elif arch == "gemma2-27b" and shape[1] == 4:
+        layout = "head_dim"
+    if layout is not None:
+        assert split.attn_layout == layout
     r_fwd, r_logits, r_k, prompt, forced = _reference_run(arch)
     fwd, logits, k = _port_run(split, cfg, prompt, forced)
     for got, want in ((fwd, r_fwd), (logits, r_logits), (k, r_k)):
@@ -335,24 +367,27 @@ def test_logically_sharded_inside_a_context_only():
 
 
 @pytest.mark.parametrize("arch,kind,axis", [
-    ("starcoder2-3b", "prefill", "kv_seq"),
-    ("starcoder2-3b", "decode", "head_dim"),
-    ("whisper-large-v3", "prefill", "heads")])
+    ("olmo-1b", "decode", "kv_seq")])
 def test_unsplit_layouts_are_refused(arch, kind, axis):
+    """A dense model at batch 1 over (2, 2): the rules put ``kv_seq`` on
+    the data axis, which the port splits for the hybrid family only (the
+    layouts this test refused before -- ``kv_seq`` and ``head_dim`` on
+    the model axis, the encdec family -- split now:
+    ``test_split_model_matches_jax_and_unsplit``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun as D
 
     cfg = T_cfg.get_smoke_config(arch)
-    mesh = T_mesh.Mesh((2, 4), ("data", "model"))
+    mesh = T_mesh.Mesh((2, 2), ("data", "model"))
     s = 32
     rules = T_shard.resolve_rules(mesh, T_model.sharding_dims(
-        cfg, 8, kv_seq=s, q_seq=1 if kind == "decode" else s))
-    assert axis in TP.unsupported_axes(cfg, rules)
+        cfg, 1, kv_seq=s, q_seq=1 if kind == "decode" else s))
+    assert TP.unsupported_axes(cfg, rules) == [axis]
     with pytest.raises(NotImplementedError, match=axis):
         TP.split_model(T_model.model_class(cfg)(cfg), mesh, rules)
     rec = D.run_cell(arch, None, cfg_override=cfg, mesh=mesh,
-                     shape=ShapeConfig("small", s, 8, kind))
-    assert rec["status"] == "unsupported" and axis in rec["axes"]
+                     shape=ShapeConfig("small", s, 1, kind))
+    assert rec["status"] == "unsupported" and rec["axes"] == [axis]
 
 
 def test_collectives_values_and_gradients():
