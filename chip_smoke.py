@@ -19,6 +19,11 @@ Drives only ``repro_torch`` (never jax, never the JAX package ``repro``):
    variants the paths run (0000: Fig. 4, 0001: the fleet grid, 1000 and
    0010: the sweeps, 1100, 1010 and 1110: the workflow DAGs) must not
    spill;
+L1. the port's static-contracts linter (``repro_torch.analysis``, the
+   rules of ``python -m repro_torch.launch.reprolint``) over its default
+   paths in this checkout: ``src/repro_torch``, ``tests/test_torch_*.py``,
+   this script and ``tp_noise_probe.py``.  It prints a ``lint:`` line (files,
+   gating findings, suppressions), and any gating finding fails the run;
 3. sim_step against its plain torch version on the card: the kernel's own
    Philox generator against ``PhiloxDraws.at`` (every row, step0 0, 256
    and 2**32 - 3, seeds >= 2**32 and negative), then a mixed batch of
@@ -682,6 +687,26 @@ def _lap(name) -> None:
     print(f"[t] {name}: {now - _LAP['last']:.1f} s (script "
           f"{now - _LAP['t0']:.1f} s)", flush=True)
     _LAP["last"] = now
+
+
+def phase_lint() -> None:
+    """L1: the port's linter over its default paths; nothing may gate."""
+    from repro_torch.analysis import default_paths, lint_paths
+
+    t = time.monotonic()
+    report = lint_paths(default_paths(ROOT), ROOT)
+    seconds = time.monotonic() - t
+    gating = report.gating
+    n_sup = sum(f.suppressed for f in report.findings)
+    REPORT["lint"] = dict(files=report.files_scanned, gating=len(gating),
+                          suppressed=n_sup, seconds=seconds,
+                          gating_findings=[str(f) for f in gating])
+    print(f"lint: {report.files_scanned} files, {len(gating)} gating, "
+          f"{n_sup} suppressed", flush=True)
+    print(f"[L1] reprolint over the port's default paths: {seconds:.2f} s",
+          flush=True)
+    if gating:
+        fail("lint: " + "; ".join(str(f) for f in gating))
 
 
 def mixed_cells(n: int):
@@ -8516,6 +8541,8 @@ def main() -> int:
     phase_env()
     phase_build()
     _lap("1-2")
+    phase_lint()
+    _lap("L1")
     from repro_torch.kernels import (ckpt_quant, flash_attention, sim_step,
                                      ssd_scan)
 

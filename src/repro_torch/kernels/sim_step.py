@@ -73,6 +73,7 @@ LAUNCHES = 0
 LAUNCHES_BY_ROUTE = {"philox": 0, "pregenerated": 0}
 LAUNCHES_BY_VARIANT: dict = {}  # flag variant (see ``variant``) -> launches
 WARP = 32
+PLAIN_SPAN = 8    # plain steps between host reads of completion
 
 
 def variant(any_store: bool, any_het: bool, any_shock: bool,
@@ -165,6 +166,12 @@ def fused_chunk_ref(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
     warp whose 32 cells are all finished at the start of a step keeps its
     state).  Returns the new state and the steps taken per warp.
 
+    The steps run ``PLAIN_SPAN`` at a time through :func:`_masked_steps`,
+    which reads no tensor's value on the host; between spans one host read
+    of ``finished`` ends the chunk once every cell is finished (the
+    kernel's warps leave their loop on the card).  A step after that would
+    change nothing, so the result is the same as running every step.
+
     It also steps batches the kernel does not take: with the state's peer
     axis ``peer_axis`` > 1 (the per-peer form), ``obs`` holds the per-peer
     observation rows ``[chunk, 2, B, peer_axis]`` (``next_obs`` of the
@@ -178,13 +185,31 @@ def fused_chunk_ref(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
                          f"expected {peer_axis}")
     if peer_axis > 1 and (obs is None or obs.shape[0] != draws.shape[0]):
         raise ValueError("a per-peer batch needs obs rows for every step")
-    live_w = _warp_live(s.finished)
-    taken = torch.zeros(live_w.shape[0], dtype=torch.int32,
-                        device=live_w.device)
+    kw = dict(macro_threshold=macro_threshold, any_store=any_store,
+              any_het=any_het, any_shock=any_shock, any_pm=any_pm,
+              peer_axis=peer_axis)
+    taken = torch.zeros(-(-s.t.shape[0] // WARP), dtype=torch.int32,
+                        device=s.t.device)
+    for i in range(0, draws.shape[0], PLAIN_SPAN):
+        if bool(s.finished.all()):
+            break
+        j = i + PLAIN_SPAN
+        s = _masked_steps(s, p, draws[i:j],
+                          None if obs is None else obs[i:j], taken,
+                          cell_steps, **kw)
+    return s, taken
+
+
+def _masked_steps(s: _eng._State, p: _eng._Params, draws: torch.Tensor,
+                  obs, taken: torch.Tensor, cell_steps, *,
+                  macro_threshold: float, any_store: bool, any_het: bool,
+                  any_shock: bool, any_pm: bool, peer_axis: int):
+    """The step body of :func:`fused_chunk_ref`: ``draws.shape[0]`` steps,
+    each applied only to the warps that hold an unfinished cell at its
+    start; adds each warp's steps to ``taken`` (and each unfinished cell's
+    to ``cell_steps``).  It reads no tensor's value on the host."""
     for i in range(draws.shape[0]):
         live_w = _warp_live(s.finished)
-        if not bool(live_w.any()):
-            break
         live = live_w.repeat_interleave(WARP)[:s.t.shape[0]]
         if cell_steps is not None:
             cell_steps += ~s.finished
@@ -197,7 +222,7 @@ def fused_chunk_ref(s: _eng._State, p: _eng._Params, draws: torch.Tensor, *,
         s = _eng._State(*(torch.where(live if x.dim() == 1 else live[:, None],
                                       n, x) for n, x in zip(new, s)))
         taken += live_w.to(torch.int32)
-    return s, taken
+    return s
 
 
 def _check_state(s: _eng._State, p: _eng._Params, dev: torch.device) -> None:

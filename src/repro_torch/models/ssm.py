@@ -58,18 +58,23 @@ def mamba2_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...],
     }
 
 
+def _dt_bias_init(gen: torch.Generator, nheads: int, dt_min: float,
+                  dt_max: float) -> torch.Tensor:
+    """dt bias initialised so softplus(dt_bias) spans [dt_min, dt_max]."""
+    u = torch.rand(nheads, generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    dt_init = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
+                        + math.log(dt_min))
+    return dt_init + torch.log(-torch.expm1(-dt_init))  # inverse softplus
+
+
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     s = cfg.ssm
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
     d_inner, nheads, _ = ssm_dims(cfg)
     conv_dim = d_inner + 2 * s.d_state
-    # dt bias initialised so softplus(dt_bias) spans [dt_min, dt_max]
-    u = torch.rand(nheads, generator=gen, dtype=torch.float32,
-                   device=gen.device)
-    dt_init = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min))
-                        + math.log(s.dt_min))
-    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))  # inverse softplus
+    dt_bias = _dt_bias_init(gen, nheads, s.dt_min, s.dt_max)
     return {
         # fused input projection: [z (gate), x, B, C, dt]
         "in_proj": truncated_normal_init(

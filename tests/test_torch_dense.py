@@ -367,7 +367,8 @@ def test_embedding_scaling_follows_the_norm():
     for arch, scaled in ((ARCH, False), ("mamba2-130m", True)):
         cfg = T_cfg.get_smoke_config(arch).replace(param_dtype="float32",
                                                    compute_dtype="float32")
-        tok = torch.randn(cfg.vocab, cfg.d_model)
+        tok = torch.randn(cfg.vocab, cfg.d_model,
+                          generator=torch.Generator().manual_seed(0))
         got = T_layers.embed_tokens({"tok": tok}, toks, cfg)
         want = tok[toks] * (cfg.d_model ** 0.5 if scaled else 1.0)
         torch.testing.assert_close(got, want)

@@ -216,8 +216,9 @@ def test_remat_dots_gradients_match_reference(arch):
 def test_remat_dots_policy_reads_the_operands():
     """A product with a parameter operand (or a view or cast of one) is
     saved whatever its aten name; a product of two activations is not."""
-    w = torch.nn.Parameter(torch.randn(4, 6))
-    x = torch.randn(3, 4, requires_grad=True)
+    g = torch.Generator().manual_seed(0)
+    w = torch.nn.Parameter(torch.randn(4, 6, generator=g))
+    x = torch.randn(3, 4, generator=g, requires_grad=True)
     mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
     save, redo = CheckpointPolicy.MUST_SAVE, CheckpointPolicy.PREFER_RECOMPUTE
     pol = functools.partial(T_model.remat_dots_policy, None)

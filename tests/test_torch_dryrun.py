@@ -140,7 +140,8 @@ def test_nested_loops_multiply():
 
 
 def test_collective_bytes_by_kind():
-    pieces = [torch.randn(128, 64) for _ in range(4)]
+    g = torch.Generator().manual_seed(0)
+    pieces = [torch.randn(128, 64, generator=g) for _ in range(4)]
 
     def run():
         C.all_reduce(pieces)
@@ -187,8 +188,9 @@ def test_high_water_follows_frees():
 # ---------------------------------------------------- kernels' reports
 def test_flash_wrapper_reports_its_plain_versions_work():
     shape = dict(bg=4, r=2, sq=16, skv=24, d=32)
-    q, k, v = (torch.randn(s) for s in ((4, 2, 16, 32), (4, 24, 32),
-                                         (4, 24, 32)))
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g)
+               for s in ((4, 2, 16, 32), (4, 24, 32), (4, 24, 32)))
     plain = _count(FA.flash_attention_plain, q, k, v, scale=0.1)
     meta = _count(FA.flash_attention, *(t.to("meta") for t in (q, k, v)),
                   scale=0.1)
@@ -201,9 +203,11 @@ def test_flash_wrapper_reports_its_plain_versions_work():
 @pytest.mark.parametrize("s,chunk", [(64, 32), (40, 32)])
 def test_ssd_wrapper_reports_ssd_chunkeds_work(s, chunk):
     b, h, p, n = 2, 3, 8, 16
-    x = torch.randn(b, s, h, p)
-    dt, A = torch.rand(b, s, h), -torch.rand(h)
-    B, Cc = torch.randn(b, s, n), torch.randn(b, s, n)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(b, s, h, p, generator=g)
+    dt, A = torch.rand(b, s, h, generator=g), -torch.rand(h, generator=g)
+    B, Cc = (torch.randn(b, s, n, generator=g),
+             torch.randn(b, s, n, generator=g))
     plain = _count(T_ssm.ssd_chunked, x, dt, A, B, Cc, chunk)
     assert plain.dot_flops == SSD.chunked_work(b, s, h, p, n, chunk)
     if s % chunk == 0:

@@ -722,8 +722,9 @@ def test_remat_dots_recomputes_the_expert_products(arch):
 def test_remat_dots_policy_recomputes_batched_weights():
     """A weight operand with a batch dimension above 1 (the stacked
     experts) is recomputed; a batch of 1 (wo's einsum) is saved."""
-    w = torch.nn.Parameter(torch.randn(3, 4, 6))
-    x = torch.randn(3, 5, 4, requires_grad=True)
+    g = torch.Generator().manual_seed(0)
+    w = torch.nn.Parameter(torch.randn(3, 4, 6, generator=g))
+    x = torch.randn(3, 5, 4, generator=g, requires_grad=True)
     bmm = torch.ops.aten.bmm.default
     pol = functools.partial(T_model.remat_dots_policy, None)
     assert pol(bmm, x * 2, w) == CheckpointPolicy.PREFER_RECOMPUTE

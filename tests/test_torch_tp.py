@@ -391,20 +391,24 @@ def test_unsplit_layouts_are_refused(arch, kind, axis):
 
 
 def test_collectives_values_and_gradients():
-    xs = [torch.randn(3, 4, requires_grad=True) for _ in range(3)]
+    gen = torch.Generator().manual_seed(0)
+    xs = [torch.randn(3, 4, generator=gen, requires_grad=True)
+          for _ in range(3)]
     out = C.all_reduce(xs)
     want = (xs[0] + xs[1] + xs[2]).detach()
     assert all(torch.equal(o, want) for o in out)
     (out[0].sum() * 1 + out[2].sum() * 2).backward()
     assert all(torch.equal(x.grad, torch.full((3, 4), 3.0)) for x in xs)
-    ys = [torch.randn(2, 3, requires_grad=True) for _ in range(2)]
+    ys = [torch.randn(2, 3, generator=gen, requires_grad=True)
+          for _ in range(2)]
     g = C.all_gather(ys, 1)
     assert all(torch.equal(t, torch.cat([y.detach() for y in ys], 1))
                for t in g)
-    w = torch.randn(2, 6)
+    w = torch.randn(2, 6, generator=gen)
     (g[0] * w).sum().backward()
     assert torch.equal(ys[1].grad, w[:, 3:])
-    zs = [torch.randn(4, 2, requires_grad=True) for _ in range(2)]
+    zs = [torch.randn(4, 2, generator=gen, requires_grad=True)
+          for _ in range(2)]
     r = C.reduce_scatter(zs, 0)
     tot = (zs[0] + zs[1]).detach()
     assert torch.equal(r[0], tot[:2]) and torch.equal(r[1], tot[2:])
