@@ -1,0 +1,6 @@
+"""Model operations of the window's prefills over the bf16 peak, in %."""
+from harness import readers
+
+
+def read(run):
+    return readers.mfu(run)

@@ -1,0 +1,6 @@
+"""The SSD kernel's calls' bound time over their device time, in %."""
+from harness import readers
+
+
+def read(run):
+    return readers.roofline(run, "ssd_scan")
